@@ -15,21 +15,33 @@ Phases, each printing one line (the last line is the result object):
              case and a batch that is not a multiple of the block; then
              CUDA-event times of the kernel, the plain version and
              torch.linalg.solve at the main-path shape.
-4. slice   - the three packed demo designs through sweep_heterogeneous
-             in float64: first the golden rows alone (warm-up, held
-             against tests/fixtures/torch_port/golden_*.npz), then
-             --rows-per-design seeded sea states per design with the
+4. builder - the port's host builder: the three demo designs from
+             tests/fixtures/torch_port/design_*.json to Models, bucket
+             signatures and packed leaves, held against the JAX builder's
+             packed_*.npz (signatures equal, float leaves within 1e-12 x
+             max, integer and boolean leaves exact); build time per design.
+5. slice   - the three port-built packed designs through
+             sweep_heterogeneous in float64: first the golden rows alone
+             (warm-up, held against tests/fixtures/torch_port/golden_*.npz),
+             then --rows-per-design seeded sea states per design with the
              golden rows inside, timed per stage with CUDA events, with
              the kernel's launch count checked against the trips run.
-5. catenary - per design at 512 rows: the statics Newton's iterations
+6. design  - the design-axis DoE: make_design_evaluator of each Model
+             over --rows-per-design seeded rows of (Hs, Tp, beta,
+             Cd_scale, Ca_scale, L_moor_scale) in chunks of
+             RAFT_TPU_BUCKET_ROWS, the golden design rows first (held
+             against golden_design_*.npz), timed per stage with CUDA
+             events, the kernel's launches checked against the trips run.
+7. catenary - per design at 512 rows: the statics Newton's iterations
              and mooring evaluations per chunk, and the wall time of one
              mooring force + stiffness evaluation by the bucket path's
              hand-carried tangents and by torch.func.jacfwd, the two
              held against each other.
-6. profile - torch.profiler over one 512-row chunk: device busy time,
+8. profile - torch.profiler over one 512-row chunk: device busy time,
              idle share, kernel launches (top kernels to
              <out>/profile_top.txt).
-7. kernels - one JSON object listing every kernel the slice launched.
+9. kernels - one JSON object listing every kernel the slice and design
+             paths launched, with its launches on both.
 
 Exits non-zero, before printing any result, without CUDA, outside the
 repository, or when any phase misses its tolerance.  Measurements go to
@@ -52,12 +64,18 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "tests", "fixtures", "torch_port")
 DESIGNS = ("spar", "semi", "mhk")
+#: the design DoE's box: each parameter uniform over its range
+DOE_BOX = dict(Hs=(1.0, 12.0), Tp=(4.0, 20.0), beta=(0.0, math.pi),
+               Cd_scale=(0.5, 2.0), Ca_scale=(0.5, 1.5),
+               L_moor_scale=(0.98, 1.02))
 MEM_BPS = 3.35e12                      # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {torch.float64: 34e12,    # FP64 outside the tensor cores
               torch.float32: 67e12}    # FP32 outside the tensor cores
 F64_TOL = 1e-12                        # x max|x|, kernel vs plain
 F32_TOL = 1e-5                         # x max|x|, kernel vs plain
 SLICE_TOL = 1e-10                      # x each key's max |golden|
+BUILD_TOL = 1e-12                      # x each packed leaf's max
+EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
 
 
@@ -264,7 +282,111 @@ def expected_launches(n_iter_rows, chunk_rows, cap, scan_chunk, fused):
     return total
 
 
-def phase_slice(rows_per_design, card, seed=20261016):
+def hold_goldens(out, where, gold, pfx, tag):
+    """Rows ``where[name]`` of ``out`` against ``gold[name]``'s keys with
+    prefix ``pfx``: floats within SLICE_TOL x each key's max, the status
+    word, iteration counts and convergence flags exactly.  Returns the
+    worst relative error per design.key."""
+    from raft_tpu_torch.structure import bucketing as bk
+
+    worst = {}
+    for n, idx in where.items():
+        g = gold[n]
+        for k in bk.OUT_KEYS:
+            a, b = out[k][idx], g[pfx + k]
+            if k in EXACT:
+                check(np.array_equal(a, b),
+                      f"{tag} {n} {k}: {a.tolist()} != {b.tolist()}")
+                continue
+            scale = float(np.max(np.abs(b)))
+            err = float(np.max(np.abs(a - b)))
+            check(err <= SLICE_TOL * scale,
+                  f"{tag} {n} {k}: {err:.3e} > {SLICE_TOL:g} x {scale:.3e}")
+            worst[f"{n}.{k}"] = err / scale
+    return worst
+
+
+def phase_builder():
+    """The three demo designs from their JSON through the port's builder
+    (host work), held against the JAX builder's packed fixtures."""
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.structure import bucketing as bk
+
+    models, packed, times, worst = {}, {}, {}, 0.0
+    for n in DESIGNS:
+        with open(os.path.join(FIX, f"design_{n}.json")) as f:
+            d = json.load(f)
+        t0 = time.time()
+        m = Model(d)
+        sig = bk.bucket_signature(m)
+        leaves = bk.pack_design(m, sig)
+        times[n] = time.time() - t0
+        ref = bk.load_packed(os.path.join(FIX, f"packed_{n}.npz"))
+        check(sig == ref.sig, f"builder {n}: signature {sig[:5]} != "
+              f"{ref.sig[:5]}")
+        check(sorted(leaves) == sorted(ref.leaves),
+              f"builder {n}: leaves {sorted(leaves)}")
+        for k, b in ref.leaves.items():
+            a = np.asarray(leaves[k])
+            check(a.shape == b.shape and a.dtype == b.dtype,
+                  f"builder {n} {k}: {a.dtype}{a.shape} != {b.dtype}{b.shape}")
+            if b.dtype.kind in "biu":
+                check(np.array_equal(a, b), f"builder {n} {k}: not equal")
+                continue
+            scale = float(np.max(np.abs(b)))
+            err = float(np.max(np.abs(a - b)))
+            check(err <= BUILD_TOL * scale, f"builder {n} {k}: {err:.3e} > "
+                  f"{BUILD_TOL:g} x {scale:.3e}")
+            worst = max(worst, err / scale if scale else 0.0)
+        models[n] = m
+        packed[n] = bk.PackedDesign(sig=sig, leaves=leaves)
+    print("builder: design_*.json -> Model -> pack_design on the host, "
+          f"signatures equal, leaves within {worst:.2e} x max (gate "
+          f"{BUILD_TOL:g}), integer and boolean leaves exact; build s "
+          + ", ".join(f"{n} {t:.3f}" for n, t in times.items()))
+    return dict(build_s=times, worst_rel=worst), models, packed
+
+
+def path_launches(n_iter_drag, sigs, rows_per_design):
+    """Solve-kernel launches a run over DESIGNS (rows_per_design rows
+    each, in design order) must make, from each row's trip count."""
+    from raft_tpu_torch.structure import bucketing as bk
+    from raft_tpu_torch.utils import config
+
+    rows_chunk = int(config.get("BUCKET_ROWS")) or rows_per_design
+    fused = config.get("FUSED") == "on"
+    exp = 0
+    for j, n in enumerate(DESIGNS):
+        meta = bk.signature_meta(sigs[n])
+        cap = meta["nIter"] * max(int(config.get("ITER_SCALE")), 1) + 1 \
+            + max(int(meta["nIterExtra"]), 0)
+        i0 = j * rows_per_design
+        exp += expected_launches(
+            n_iter_drag[i0:i0 + rows_per_design],
+            min(rows_chunk, rows_per_design), cap,
+            min(max(1, config.get("SCAN_CHUNK")), cap), fused)
+    return exp
+
+
+def per_design_stats(out, chunks, rows_per_design):
+    """Per design (rows and chunks in design order): stage ms summed over
+    its chunks, evaluations per second of device time, non-zero status
+    rows and the largest trip count."""
+    per = len(chunks) // len(DESIGNS)
+    res = {}
+    for j, n in enumerate(DESIGNS):
+        cs = chunks[j * per:(j + 1) * per]
+        st = {s: sum(c.get(s, 0.0) for c in cs)
+              for s in ("statics", "excitation", "fixed_point", "response")}
+        rows = slice(j * rows_per_design, (j + 1) * rows_per_design)
+        res[n] = dict(stage_ms=st, chunks=len(cs),
+                      evals_per_s=rows_per_design / (sum(st.values()) / 1e3),
+                      status_nonzero=int(np.count_nonzero(out["status"][rows])),
+                      n_iter_drag_max=int(np.max(out["n_iter_drag"][rows])))
+    return res
+
+
+def phase_slice(packed, rows_per_design, card, seed=20261016):
     from raft_tpu_torch.ops import linsolve
     from raft_tpu_torch.parallel.sweep import sweep_heterogeneous
     from raft_tpu_torch.structure import bucketing as bk
@@ -272,31 +394,13 @@ def phase_slice(rows_per_design, card, seed=20261016):
 
     dev = torch.device(DEVICE)
     keys = bk.OUT_KEYS
-    packed = {n: bk.load_packed(os.path.join(FIX, f"packed_{n}.npz"))
-              for n in DESIGNS}
     gold = {n: dict(np.load(os.path.join(FIX, f"golden_{n}.npz")))
             for n in DESIGNS}
     fused = config.get("FUSED") == "on"
     pfx = "on_" if fused else "off_"
 
     def hold(out, where):
-        """Golden rows of each design against the goldens."""
-        worst = {}
-        for n, idx in where.items():
-            g = gold[n]
-            for k in keys:
-                a, b = out[k][idx], g[pfx + k]
-                if k in ("status", "n_iter_drag", "drag_converged"):
-                    check(np.array_equal(a, b),
-                          f"slice {n} {k}: {a.tolist()} != {b.tolist()}")
-                    continue
-                scale = float(np.max(np.abs(b)))
-                err = float(np.max(np.abs(a - b)))
-                check(err <= SLICE_TOL * scale,
-                      f"slice {n} {k}: {err:.3e} > {SLICE_TOL:g} x "
-                      f"{scale:.3e}")
-                worst[f"{n}.{k}"] = err / scale
-        return worst
+        return hold_goldens(out, where, gold, pfx, "slice")
 
     # warm-up: the golden rows alone
     designs, Hs, Tp, beta, where = [], [], [], [], {}
@@ -340,38 +444,11 @@ def phase_slice(rows_per_design, card, seed=20261016):
         v = out[k]
         check(np.all(np.isfinite(v)), f"slice main run: non-finite {k}")
 
-    rows_chunk = int(config.get("BUCKET_ROWS")) or rows_per_design
-    cap = None
-    exp = 0
-    for n in DESIGNS:
-        meta = bk.signature_meta(packed[n].sig)
-        cap = meta["nIter"] * max(int(config.get("ITER_SCALE")), 1) + 1 \
-            + max(int(meta["nIterExtra"]), 0)
-        i0 = DESIGNS.index(n) * rows_per_design
-        exp += expected_launches(
-            out["n_iter_drag"][i0:i0 + rows_per_design],
-            min(rows_chunk, rows_per_design), cap,
-            min(max(1, config.get("SCAN_CHUNK")), cap), fused)
+    exp = path_launches(out["n_iter_drag"],
+                        {n: packed[n].sig for n in DESIGNS}, rows_per_design)
     check(launches == exp,
           f"slice: solve kernel launched {launches} times, expected {exp}")
-
-    chunks = timer.chunks()
-    per_design = {}
-    n_chunks = len(chunks) // len(DESIGNS)
-    for j, n in enumerate(DESIGNS):
-        cs = chunks[j * n_chunks:(j + 1) * n_chunks]
-        st = {s: sum(c.get(s, 0.0) for c in cs)
-              for s in ("statics", "excitation", "fixed_point", "response")}
-        gpu_s = sum(st.values()) / 1e3
-        per_design[n] = dict(stage_ms=st, chunks=len(cs),
-                             evals_per_s=rows_per_design / gpu_s,
-                             status_nonzero=int(np.count_nonzero(
-                                 out["status"][j * rows_per_design:
-                                               (j + 1) * rows_per_design])),
-                             n_iter_drag_max=int(np.max(
-                                 out["n_iter_drag"][j * rows_per_design:
-                                                    (j + 1) *
-                                                    rows_per_design])))
+    per_design = per_design_stats(out, timer.chunks(), rows_per_design)
     total_rows = rows_per_design * len(DESIGNS)
     res = dict(rows=total_rows, wall_s=wall, evals_per_s=total_rows / wall,
                warm_s=warm_s, launches=launches, expected_launches=exp,
@@ -379,7 +456,7 @@ def phase_slice(rows_per_design, card, seed=20261016):
                worst_rel=max(list(worst_warm.values())
                              + list(worst_main.values())))
     print(f"slice on {card}: {total_rows} rows ({rows_per_design}/design, "
-          f"{len(chunks)} chunks) in {wall:.2f} s = "
+          f"{len(timer.chunks())} chunks) in {wall:.2f} s = "
           f"{res['evals_per_s']:.1f} case-evals/s; goldens within "
           f"{res['worst_rel']:.2e} x max (gate {SLICE_TOL:g}), status and "
           f"n_iter_drag equal; solve kernel launches {launches} "
@@ -389,6 +466,100 @@ def phase_slice(rows_per_design, card, seed=20261016):
         print(f"  {n}: {p['evals_per_s']:.1f} case-evals/s; stage ms "
               + ", ".join(f"{s} {v:.1f}" for s, v in st.items())
               + f"; status!=0 rows {p['status_nonzero']}")
+    return res
+
+
+def phase_design(models, rows_per_design, card, seed=20261017):
+    """The design-axis DoE on the card: per design, rows_per_design rows
+    of DOE_BOX from a fixed seed, the golden design rows first."""
+    from raft_tpu_torch.api import make_design_evaluator
+    from raft_tpu_torch.models import statics_solve
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    keys = list(DOE_BOX)
+    gold = {n: dict(np.load(os.path.join(FIX, f"golden_design_{n}.npz")))
+            for n in DESIGNS}
+    pfx = "on_" if config.get("FUSED") == "on" else "off_"
+    evs = {n: make_design_evaluator(models[n], DEVICE) for n in DESIGNS}
+
+    def run(params, timer=None):
+        out = {}
+        for n in DESIGNS:
+            res = evs[n](**params[n], timer=timer)
+            for k, v in res.items():
+                out.setdefault(k, []).append(v.cpu().numpy())
+        return {k: np.concatenate(v) for k, v in out.items()}
+
+    # warm-up: the golden rows alone
+    n_gold = len(gold[DESIGNS[0]]["Hs"])
+    t0 = time.time()
+    out = run({n: {k: gold[n][k] for k in keys} for n in DESIGNS})
+    warm_s = time.time() - t0
+    where = {n: np.arange(j * n_gold, (j + 1) * n_gold)
+             for j, n in enumerate(DESIGNS)}
+    worst = hold_goldens(out, where, gold, pfx, "design")
+
+    rng = np.random.default_rng(seed)
+    params = {}
+    for n in DESIGNS:
+        m = rows_per_design - n_gold
+        params[n] = {k: np.concatenate([gold[n][k], rng.uniform(*DOE_BOX[k],
+                                                                m)])
+                     for k in keys}
+    # count the statics' mooring force+stiffness evaluations (Newton
+    # iterations + 1 per chunk: the per-row mooring lengths set them)
+    evals = []
+    mooring_fs = statics_solve.mooring_force_and_stiffness
+
+    def counted(ms, X):
+        evals.append(1)
+        return mooring_fs(ms, X)
+
+    timer = StageTimer()
+    statics_solve.mooring_force_and_stiffness = counted
+    linsolve.reset_launches()
+    torch.cuda.synchronize()
+    try:
+        t0 = time.time()
+        out = run(params, timer)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    finally:
+        statics_solve.mooring_force_and_stiffness = mooring_fs
+    launches = linsolve.KERNEL_LAUNCHES
+    where = {n: np.arange(j * rows_per_design, j * rows_per_design + n_gold)
+             for j, n in enumerate(DESIGNS)}
+    worst.update(hold_goldens(out, where, gold, pfx, "design"))
+    for k in ("X0", "Xi", "PSD"):
+        check(np.all(np.isfinite(out[k])), f"design run: non-finite {k}")
+    exp = path_launches(out["n_iter_drag"],
+                        {n: evs[n].body.sig for n in DESIGNS},
+                        rows_per_design)
+    check(launches == exp,
+          f"design: solve kernel launched {launches} times, expected {exp}")
+    per_design = per_design_stats(out, timer.chunks(), rows_per_design)
+    total = rows_per_design * len(DESIGNS)
+    n_chunks = len(timer.chunks())
+    res = dict(rows=total, wall_s=wall, evals_per_s=total / wall,
+               warm_s=warm_s, launches=launches, expected_launches=exp,
+               mooring_evals=len(evals), chunks=n_chunks,
+               per_design=per_design, worst_rel=max(worst.values()),
+               box=DOE_BOX)
+    print(f"design on {card}: {total} rows ({rows_per_design}/design, "
+          f"{n_chunks} chunks) in {wall:.2f} s = "
+          f"{res['evals_per_s']:.1f} design-evals/s; goldens within "
+          f"{res['worst_rel']:.2e} x max (gate {SLICE_TOL:g}), status and "
+          f"n_iter_drag equal; solve kernel launches {launches} "
+          f"(expected {exp}); statics mooring evaluations {len(evals)} "
+          f"({len(evals) / n_chunks:.2f} per chunk)")
+    for n, p in per_design.items():
+        st = p["stage_ms"]
+        print(f"  {n}: {p['evals_per_s']:.1f} design-evals/s; stage ms "
+              f"statics {st['statics']:.1f}, hydro constants + excitation "
+              f"{st['excitation']:.1f}, fixed_point {st['fixed_point']:.1f}, "
+              f"response {st['response']:.1f}; status!=0 rows "
+              f"{p['status_nonzero']}")
     return res
 
 
@@ -528,7 +699,10 @@ def main():
         rec["card"] = phase_device()
         rec["build"] = phase_build(args.out)
         rec["kernel"] = phase_kernel()
-        rec["slice"] = phase_slice(args.rows_per_design, rec["card"])
+        rec["builder"], models, packed = phase_builder()
+        rec["slice"] = phase_slice(packed, args.rows_per_design, rec["card"])
+        rec["design"] = phase_design(models, args.rows_per_design,
+                                     rec["card"])
         rec["catenary"] = phase_catenary()
         rec["profile"] = phase_profile(args.out)
     except PhaseError as e:
@@ -539,7 +713,8 @@ def main():
         name="ge_solve", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
         replaces="raft_tpu/ops/linsolve.py:277",
-        launches=rec["slice"]["launches"], max_abs_err=k["max_abs_err"],
+        launches=rec["slice"]["launches"] + rec["design"]["launches"],
+        max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"])]
     rec["build"].pop("ptxas")

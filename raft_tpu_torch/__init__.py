@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of raft_tpu's bucketed rigid-6-DOF sea-state path.
+"""PyTorch/CUDA port of raft_tpu's rigid single-FOWT evaluators.
 
 The JAX package :mod:`raft_tpu` is the reference; this package mirrors
 its module paths (``raft_tpu_torch/ops/linsolve.py`` is the counterpart
@@ -7,11 +7,22 @@ anything of :mod:`raft_tpu`.
 
 Entry points:
 
+* :class:`raft_tpu_torch.models.model.Model` — one design (a dict or a
+  ``.json``/``.yaml`` path) built on the host: structure, mooring,
+  statics, strips and zero-pose hydro constants;
+* :func:`raft_tpu_torch.structure.bucketing.bucket_signature` /
+  :func:`~raft_tpu_torch.structure.bucketing.pack_design` — a model's
+  bucket and its padded numpy leaves;
+* :func:`raft_tpu_torch.api.make_case_evaluator` /
+  :func:`~raft_tpu_torch.api.make_design_evaluator` — one design's
+  batched sea-state and design-axis (drag / added-mass / mooring-length
+  scales) evaluators, forward only;
 * :class:`raft_tpu_torch.structure.bucketing.BucketEvaluator` — one
   bucket signature's batched evaluator (statics, excitation, drag
   fixed point, response);
 * :func:`raft_tpu_torch.parallel.sweep.sweep_heterogeneous` — mixed
-  designs x sea states, grouped by signature and chunked;
+  models or packed designs x sea states, grouped by signature and
+  chunked;
 * :func:`raft_tpu_torch.structure.bucketing.load_packed` /
   :func:`~raft_tpu_torch.structure.bucketing.packed_from_numpy` — the
   packed-design seam between the two packages.

@@ -1,0 +1,60 @@
+"""Per-FOWT Morison hydro build (counterpart of the build half of
+``raft_tpu/models/hydro.py``): the flattened strips and the hydro
+constants at the zero pose.
+
+The constants are host work, as in the reference (which pins them to
+the CPU): :func:`raft_tpu_torch.physics.morison.hydro_constants` on one
+row of float64 tensors on the CPU, returned as numpy.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.physics import morison
+from raft_tpu_torch.physics.statics import node_T, platform_kinematics
+
+_CPU = torch.device("cpu")
+
+
+def add_rotor_added_mass(A, fs):
+    """Add the blade added mass of submerged rotors about their nodes: the
+    identity here, since the port builds no rotor with blade hydro (such
+    a rotor raises at build time, ROADMAP A10)."""
+    if any(rot.hydro is not None for rot in fs.rotors):
+        raise NotImplementedError("submerged-rotor blade hydro is not "
+                                  "ported (ROADMAP A10)")
+    return A
+
+
+def site_rows(fs, device, rows=1):
+    """The FOWT's site scalars as (rows,) float64 tensors on ``device``."""
+    def col(x):
+        return torch.full((rows,), float(x), dtype=torch.float64,
+                          device=device)
+
+    return morison.SiteRows(rho_water=col(fs.rho_water), depth=col(fs.depth),
+                            g=col(fs.g), n_nodes=fs.n_nodes)
+
+
+class FOWTHydro:
+    """Strips of one FOWT plus its hydro constants ``hc0`` (numpy) at the
+    zero pose: ``A_hydro`` (6, 6), ``Imat`` (S, 3, 3, nw) complex,
+    ``Amat``, ``a_i`` and the strip frames."""
+
+    def __init__(self, fs, w, k):
+        self.fs = fs
+        self.w = np.asarray(w)
+        self.k = np.asarray(k)
+        self.nw = len(self.w)
+        self.strips = morison.build_strips(fs, k_array=self.k)
+        f64 = dict(dtype=torch.float64, device=_CPU)
+        r_nodes, R_ptfm, r_root = platform_kinematics(
+            torch.as_tensor(fs.node_r0, **f64)[None],
+            torch.tensor([fs.root_id]), torch.zeros((1, fs.nDOF), **f64))
+        hc = morison.hydro_constants(
+            site_rows(fs, _CPU), morison.strips_to_rows(self.strips, _CPU),
+            R_ptfm, r_nodes, node_T(r_nodes, r_root))
+        self.hc0 = {k2: v[0].numpy() for k2, v in hc.items()}
+        self.hc0["A_hydro"] = add_rotor_added_mass(self.hc0["A_hydro"], fs)

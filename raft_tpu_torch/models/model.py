@@ -1,0 +1,81 @@
+"""Top-level Model of one design (counterpart of the build half of
+``raft_tpu/models/model.py``): frequency grid, wave numbers, the FOWT
+structure, its mooring, strips and statics.
+
+All of it is host work in numpy or float64 CPU tensors; the evaluators
+(:mod:`raft_tpu_torch.api`) and the bucket packer
+(:func:`raft_tpu_torch.structure.bucketing.pack_design`) move what they
+need to the card.  One rigid FOWT with an inline catenary mooring (or
+none); arrays, MoorDyn-file moorings and line dynamics raise
+``NotImplementedError`` naming their ROADMAP item.
+"""
+
+from __future__ import annotations
+
+from raft_tpu_torch.models.fowt import FOWTStructure
+from raft_tpu_torch.models.hydro import FOWTHydro
+from raft_tpu_torch.ops.waves import wave_number_ref
+from raft_tpu_torch.physics.mooring import build_mooring
+from raft_tpu_torch.physics.statics import calc_statics
+from raft_tpu_torch.structure.schema import (coerce, frequency_grid,
+                                             load_design, parse_cases)
+
+
+class Model:
+    """One design: ``Model(design)`` with a design dict or a ``.json`` /
+    ``.yaml`` path."""
+
+    def __init__(self, design):
+        design = load_design(design)
+        self.design = design
+        if "array" in design:
+            raise NotImplementedError(
+                "array (multi-FOWT) designs are not ported (ROADMAP A11)")
+
+        settings = design.get("settings", {}) or {}
+        self.XiStart = coerce(settings, "XiStart", default=0.1)
+        self.nIter = int(coerce(settings, "nIter", default=15, dtype=int))
+        self.nIterExtra = int(coerce(settings, "nIterExtra", default=0,
+                                     dtype=int))
+        self.w = frequency_grid(design)
+        self.nw = len(self.w)
+        self.depth = float(coerce(design["site"], "water_depth"))
+        # the reference's loose 1e-3 dispersion solve, so every stage
+        # downstream sees its wave numbers
+        self.k = wave_number_ref(self.w, self.depth)
+        self.cases = parse_cases(design)
+
+        mo = design.get("mooring")
+        if isinstance(mo, dict) and "file" in mo and "lines" not in mo:
+            raise NotImplementedError(
+                "MoorDyn-file moorings are not ported (ROADMAP A11); give "
+                "the mooring inline as points / lines / line_types")
+        fs = FOWTStructure(design, depth=self.depth)
+        self.fowtList = [fs]
+        self.ms = (build_mooring(mo, rho_water=fs.rho_water, g=fs.g)
+                   if isinstance(mo, dict) else None)
+        self.nFOWT = 1
+        self.nDOF = fs.nDOF
+        self._hydro = None
+        self._statics = None
+
+    @property
+    def hydro(self):
+        """``[FOWTHydro]``: strips and zero-pose hydro constants (built on
+        first use)."""
+        if self._hydro is None:
+            self._hydro = [FOWTHydro(self.fowtList[0], self.w, self.k)]
+        return self._hydro
+
+    def statics(self, ifowt=0, Xi0=None):
+        """FOWT statics as numpy (cached at the zero pose; host work)."""
+        if Xi0 is not None:
+            return _host(calc_statics(self.fowtList[ifowt], Xi0))
+        if self._statics is None:
+            self._statics = [_host(calc_statics(f)) for f in self.fowtList]
+        return self._statics[ifowt]
+
+
+def _host(stat):
+    return {k: (v.numpy() if hasattr(v, "numpy") else v)
+            for k, v in stat.items()}

@@ -1,6 +1,7 @@
 """Mean-offset (static equilibrium) Newton solve, batched over rows
-(forward-only counterpart of ``solve_equilibrium_general`` in
-``raft_tpu/models/statics_solve.py``).
+(forward-only counterpart of ``raft_tpu/models/statics_solve.py``:
+``make_tolerances``, ``single_ms_closures``, ``solve_equilibrium`` and
+``solve_equilibrium_general``).
 
 The reference's vmapped ``lax.while_loop`` keeps running while any row
 is active and freezes each finished row's carry; here that is a Python
@@ -19,7 +20,39 @@ from __future__ import annotations
 
 import torch
 
+from raft_tpu_torch.physics.mooring import mooring_force_and_stiffness
 from raft_tpu_torch.utils import config, health
+
+
+def make_tolerances(fowtList):
+    """Per-DOF tolerances, step caps and reference positions, as the
+    reference's (0.05 m / 0.005 rad; 30 m / 5 m / 0.1 rad caps):
+    three lists of floats."""
+    tols, caps, refs = [], [], []
+    for fs in fowtList:
+        for dof in fs.reducedDOF:
+            tols.append(0.05 if dof[1] < 3 else 0.005)
+            caps.append(30.0 if dof[1] < 2 else 5.0 if dof[1] == 2 else 0.1)
+            refs.append(
+                fs.x_ref if dof[1] == 0 else fs.y_ref if dof[1] == 1 else 0.0
+            )
+    return tols, caps, refs
+
+
+def single_ms_closures(ms, nDOF):
+    """``mooring_fn(X) -> (F, C)`` of one FOWT's own catenary system
+    (``ms`` None: zero force and stiffness) on the first six DOFs of
+    X (R, nDOF)."""
+    def mooring_fn(X):
+        F = torch.zeros_like(X)
+        C = torch.zeros(X.shape + (nDOF,), dtype=X.dtype, device=X.device)
+        if ms is not None:
+            Fm, Cm = mooring_force_and_stiffness(ms, X[:, :6])
+            F[:, :6] += Fm
+            C[:, :6, :6] += Cm
+        return F, C
+
+    return mooring_fn
 
 
 def solve_equilibrium_general(
@@ -82,3 +115,18 @@ def solve_equilibrium_general(
     status = health.set_bit(status, health.STATICS_STEP_CAPPED,
                             (capped > 0).to(torch.int32))
     return X, net_force(X, F_moor), it, done, status, C_moor
+
+
+def solve_equilibrium(fs, ms, K_hydrostatic, F_undisplaced, F_env,
+                      X0=None, max_iter=30):
+    """Single-FOWT wrapper: the reference's tolerances and caps for
+    ``fs`` and the closures of its mooring system ``ms`` (whose ``L``
+    may carry a row axis).  Same arguments and returns as
+    :func:`solve_equilibrium_general`, batched over rows."""
+    tols, caps, refs = make_tolerances([fs])
+    kw = dict(dtype=F_undisplaced.dtype, device=F_undisplaced.device)
+    return solve_equilibrium_general(
+        K_hydrostatic, F_undisplaced, F_env,
+        single_ms_closures(ms, fs.nDOF), torch.tensor(tols, **kw),
+        torch.tensor(caps, **kw), torch.tensor(refs, **kw), X0=X0,
+        max_iter=max_iter)

@@ -63,3 +63,61 @@ def translate_force_3to6(F, r):
 def vec_vec_trans(v):
     """Outer product ``v v^T``; (..., 3) -> (..., 3, 3)."""
     return v[..., :, None] * v[..., None, :]
+
+
+def translate_matrix_3to6(M3, r):
+    """3x3 mass-like matrix at point ``r`` -> 6x6 about the origin;
+    (..., 3, 3), (..., 3) -> (..., 6, 6)."""
+    H = skew(r)
+    MH = M3 @ H
+    top = torch.cat([M3, MH], dim=-1)
+    bot = torch.cat([MH.transpose(-1, -2), H @ M3 @ H.transpose(-1, -2)],
+                    dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def translate_matrix_6to6(M6, r):
+    """Translate a 6x6 matrix to a new reference point; ``r`` points from
+    the new reference point to the old one."""
+    H = skew(r)
+    Ht = H.transpose(-1, -2)
+    m = M6[..., :3, :3]
+    J = M6[..., :3, 3:]
+    Jt = M6[..., 3:, :3]
+    I = M6[..., 3:, 3:]
+    J2 = m @ H + J
+    I2 = H @ m @ Ht + Jt @ H + Ht @ J + I
+    top = torch.cat([m, J2], dim=-1)
+    bot = torch.cat([J2.transpose(-1, -2), I2], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def rotate_matrix_6(M6, R):
+    """Rotate a 6x6 mass/inertia tensor block-wise: ``R @ block @ R^T``."""
+    Rt = R.transpose(-1, -2)
+    m = R @ M6[..., :3, :3] @ Rt
+    J = R @ M6[..., :3, 3:] @ Rt
+    I = R @ M6[..., 3:, 3:] @ Rt
+    top = torch.cat([m, J], dim=-1)
+    bot = torch.cat([J.transpose(-1, -2), I], dim=-1)
+    return torch.cat([top, bot], dim=-2)
+
+
+def transform_force_6(f6, offset):
+    """Shift a 6-component force/moment by ``offset`` (adds r x F to the
+    moment)."""
+    return torch.cat([f6[..., :3], f6[..., 3:] + cross(offset, f6[..., :3])],
+                     dim=-1)
+
+
+def weight_of_point_mass(mass, dR, g=9.81):
+    """6-DOF weight load and 6x6 weight stiffness of a point mass whose CG
+    sits at ``dR`` from the reference point: (W (..., 6), C (..., 6, 6))."""
+    mass = torch.as_tensor(mass, dtype=dR.dtype, device=dR.device)
+    Fz = -g * mass
+    zeros = torch.zeros_like(Fz)
+    W = translate_force_3to6(torch.stack([zeros, zeros, Fz], dim=-1), dR)
+    C = torch.zeros(mass.shape + (6, 6), dtype=W.dtype, device=W.device)
+    C[..., 3, 3] = -mass * g * dR[..., 2]
+    C[..., 4, 4] = -mass * g * dR[..., 2]
+    return W, C

@@ -1,5 +1,5 @@
-"""Linear (Airy) wave ops: JONSWAP spectrum, kinematics, RAO
-(batch-first torch counterparts of ``raft_tpu/ops/waves.py``).
+"""Linear (Airy) wave ops: dispersion, JONSWAP spectrum, kinematics,
+RAO (batch-first torch counterparts of ``raft_tpu/ops/waves.py``).
 
 The guards of the reference are kept exactly: ``_kh_ratios`` clamps
 the ``sinh``/``cosh`` arguments before evaluating them, so the untaken
@@ -10,7 +10,28 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+
+
+def wave_number_ref(w, h, g=9.81, e=0.001):
+    """Build-time (numpy) dispersion iteration with the reference's loose
+    1e-3 stopping rule (RAFT ``helpers.py:377-392``), op for op: the
+    model's wave numbers, which every later stage reads, match the
+    reference's bit for bit."""
+    w = np.atleast_1d(np.asarray(w, dtype=float))
+    k = np.zeros_like(w)
+    for i, wi in enumerate(w):
+        k1 = wi * wi / g
+        if k1 == 0.0:
+            k[i] = 0.0
+            continue
+        k2 = wi * wi / (np.tanh(k1 * h) * g)
+        while abs(k2 - k1) / k1 > e:
+            k1 = k2
+            k2 = wi * wi / (np.tanh(k1 * h) * g)
+        k[i] = k2
+    return k
 
 
 def jonswap(ws, Hs, Tp):

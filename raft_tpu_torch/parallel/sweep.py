@@ -1,14 +1,15 @@
-"""Mixed-design sea-state sweep over packed designs (counterpart of
-``sweep_heterogeneous`` in ``raft_tpu/parallel/sweep.py``).
+"""Mixed-design sea-state sweep (counterpart of ``sweep_heterogeneous``
+in ``raft_tpu/parallel/sweep.py``).
 
-The port cannot pack a design from YAML yet, so the sweep takes packed
-designs (:class:`raft_tpu_torch.structure.bucketing.PackedDesign`, e.g.
-from :func:`~raft_tpu_torch.structure.bucketing.load_packed`) rather
-than models.  The semantics are the reference's: rows are grouped by bucket
-signature, each group runs through one :class:`BucketEvaluator` in
-chunks of ``RAFT_TPU_BUCKET_ROWS`` rows (the last chunk of a multi-chunk
-group padded with masked repeat rows), and the results come back as
-host numpy arrays in input order.
+The sweep takes the port's models (:class:`raft_tpu_torch.models.model.
+Model`, each packed once into its bucket) or packed designs
+(:class:`raft_tpu_torch.structure.bucketing.PackedDesign`, e.g. from
+:func:`~raft_tpu_torch.structure.bucketing.load_packed`).  The
+semantics are the reference's: rows are grouped by bucket signature,
+each group runs through one :class:`BucketEvaluator` in chunks of
+``RAFT_TPU_BUCKET_ROWS`` rows (the last chunk of a multi-chunk group
+padded with masked repeat rows), and the results come back as host
+numpy arrays in input order.
 """
 
 from __future__ import annotations
@@ -21,13 +22,20 @@ from raft_tpu_torch.utils import config
 from raft_tpu_torch.utils.dtypes import resolve_device
 
 
+def _pack(model):
+    sig = bucketing.bucket_signature(model)
+    return bucketing.PackedDesign(sig=sig,
+                                  leaves=bucketing.pack_design(model, sig))
+
+
 def sweep_heterogeneous(designs, Hs, Tp, beta, device=None,
                         out_keys=("PSD", "X0", "status"), timer=None):
     """Evaluate row i = (designs[i], Hs[i], Tp[i], beta[i]) for all rows.
 
-    designs : sequence of PackedDesign, one per row (repeat an object to
-        evaluate it under several sea states; each distinct design is
-        moved to the device once).
+    designs : sequence of Model or PackedDesign, one per row (repeat an
+        object to evaluate it under several sea states; each distinct
+        model is packed once, and each distinct design is moved to the
+        device once).
     Hs, Tp, beta : (n,) sea-state arrays.
     timer : optional ``timer(stage)`` callback passed to every chunk's
         evaluator (see :meth:`BucketEvaluator.forward`).
@@ -44,8 +52,14 @@ def sweep_heterogeneous(designs, Hs, Tp, beta, device=None,
     if not (len(Tp) == len(beta) == n):
         raise ValueError("Hs/Tp/beta must have equal length")
     if len(designs) != n:
-        raise ValueError(f"need one packed design per case row: "
+        raise ValueError(f"need one model or packed design per case row: "
                          f"{len(designs)} designs for {n} rows")
+    packed = {}
+    for d in designs:
+        if id(d) not in packed:
+            packed[id(d)] = d if isinstance(d, bucketing.PackedDesign) \
+                else _pack(d)
+    designs = [packed[id(d)] for d in designs]
     w_grids = {tuple(bucketing.signature_meta(d.sig)["w"]) for d in designs}
     if len(w_grids) > 1:
         raise ValueError("mixed frequency grids in one heterogeneous sweep: "

@@ -1,5 +1,6 @@
 """Quasi-static catenary mooring (torch counterpart of the main-path
-subset of ``raft_tpu/physics/mooring.py``).
+subset of ``raft_tpu/physics/mooring.py``): the inline-schema builder,
+the catenary solve and the body force and stiffness.
 
 Every function is elementwise over any batch of lines (rows x lines on
 the bucket path), so one call solves every line of every row.  The
@@ -27,9 +28,91 @@ Jacobian of the profile is written out analytically in both.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
+import numpy as np
 import torch
 
 from raft_tpu_torch.ops import transforms as tf
+from raft_tpu_torch.structure.schema import coerce
+
+
+@dataclass(frozen=True)
+class MooringSystem:
+    """One body's quasi-static catenary mooring: numpy arrays from
+    :func:`build_mooring`, or tensors on the evaluating device (``L``
+    may then carry a leading row axis, one line-length set per row)."""
+
+    r_anchor: object        # (nL, 3) fixed anchor coordinates
+    r_fair0: object         # (nL, 3) fairlead coordinates at zero pose
+    L: object               # (nL,) or (R, nL) unstretched lengths
+    w: object               # (nL,) submerged weight per length [N/m]
+    EA: object              # (nL,) axial stiffness [N]
+    depth: float
+    moorMod: int = 0
+
+    @property
+    def n_lines(self):
+        return self.r_anchor.shape[0]
+
+    def to(self, device, dtype=torch.float64):
+        """The same system with every line array a tensor on ``device``."""
+        kw = dict(dtype=dtype, device=device)
+        return MooringSystem(
+            **{k: torch.as_tensor(np.asarray(getattr(self, k)), **kw)
+               for k in ("r_anchor", "r_fair0", "L", "w", "EA")},
+            depth=self.depth, moorMod=self.moorMod)
+
+
+def build_mooring(mooring, rho_water=1025.0, g=9.81, x_ref=0.0, y_ref=0.0,
+                  heading_adjust=0.0):
+    """Parse the design's inline ``mooring`` section (points / lines /
+    line_types) into a :class:`MooringSystem` (counterpart of
+    ``raft_tpu/physics/mooring.py:65-133``).
+
+    Submerged weight per length w = (m' - rho pi/4 d^2) g with d the
+    volume-equivalent diameter (MoorPy convention).  ``x_ref/y_ref`` and
+    ``heading_adjust`` move the anchors to the FOWT's array position.
+    Line dynamics (``moorMod`` 1 or 2) are not ported and raise."""
+    moorMod = int(coerce(mooring, "moorMod", default=0, dtype=int))
+    if moorMod != 0:
+        raise NotImplementedError(
+            f"moorMod {moorMod}: mooring line dynamics are not ported "
+            "(ROADMAP A10); only the quasi-static catenary (moorMod 0) is")
+    depth = float(coerce(mooring, "water_depth", default=600.0))
+    types = {lt["name"]: lt for lt in mooring["line_types"]}
+    points = {p["name"]: p for p in mooring["points"]}
+
+    r_anchor, r_fair, L, w, EA = [], [], [], [], []
+    for line in mooring["lines"]:
+        pA = points[line["endA"]]
+        pB = points[line["endB"]]
+        # orient so end A is the fixed anchor
+        if pA["type"] == "fixed":
+            anchor, fair = pA, pB
+        else:
+            anchor, fair = pB, pA
+        lt = types[line["type"]]
+        d = float(lt["diameter"])
+        m_lin = float(lt["mass_density"])
+        r_anchor.append(np.array(anchor["location"], dtype=float))
+        r_fair.append(np.array(fair["location"], dtype=float))
+        L.append(float(line["length"]))
+        w.append((m_lin - rho_water * np.pi / 4 * d**2) * g)
+        EA.append(float(lt["stiffness"]))
+
+    r_anchor = np.array(r_anchor)
+    r_fair = np.array(r_fair)
+    if heading_adjust != 0.0:
+        c, s = np.cos(np.deg2rad(heading_adjust)), np.sin(np.deg2rad(heading_adjust))
+        Rz = np.array([[c, -s, 0.0], [s, c, 0.0], [0.0, 0.0, 1.0]])
+        r_anchor = r_anchor @ Rz.T
+        r_fair = r_fair @ Rz.T
+    r_anchor = r_anchor + np.array([x_ref, y_ref, 0.0])
+    # fairleads stay body-local (the body pose carries x_ref/y_ref)
+    return MooringSystem(r_anchor=np.array(r_anchor), r_fair0=np.array(r_fair),
+                         L=np.array(L), w=np.array(w), EA=np.array(EA),
+                         depth=depth, moorMod=moorMod)
 
 
 class Dual:
@@ -309,3 +392,31 @@ def stiffness_jacfwd(r_fair0, r_anchor, L, w, EA, mask, X):
                                               has_aux=True))(
         r_fair0, r_anchor, L, w, EA, mask, X)
     return F, -dF
+
+
+def mooring_force_and_stiffness(ms, X):
+    """(F (R, 6), C (R, 6, 6)) of every line of ``ms`` at poses X (R, 6),
+    through :func:`line_forces_and_stiffness` with every line counted."""
+    R = X.shape[0]
+    kw = dict(dtype=X.dtype, device=X.device)
+
+    def rows(a, tail):
+        t = torch.as_tensor(a, **kw)
+        return t if t.dim() > tail else t.expand((R,) + t.shape)
+
+    L = rows(ms.L, 1)
+    mask = torch.ones(L.shape, dtype=torch.bool, device=X.device)
+    return line_forces_and_stiffness(rows(ms.r_fair0, 2), rows(ms.r_anchor, 2),
+                                     L, rows(ms.w, 1), rows(ms.EA, 1), mask, X)
+
+
+def mooring_force(ms, r6):
+    """Net 6-DOF line force on the body at poses r6 (R, 6) about the body
+    origin -> (R, 6)."""
+    return mooring_force_and_stiffness(ms, r6)[0]
+
+
+def mooring_stiffness(ms, r6):
+    """Coupled mooring stiffness ``C = -dF/dr6`` at poses r6 (R, 6) ->
+    (R, 6, 6): forward mode through the catenary Newton loop."""
+    return mooring_force_and_stiffness(ms, r6)[1]

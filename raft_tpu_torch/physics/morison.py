@@ -1,11 +1,17 @@
-"""Morison strip-theory hydrodynamics, bucket-path subset (batch-first
+"""Morison strip-theory hydrodynamics, rigid-body subset (batch-first
 torch counterpart of ``raft_tpu/physics/morison.py``).
 
-Every tensor carries a leading row axis R (one design x sea state per
-row).  The strip -> node map is per-row data, so the reference's
-``segment_sum`` over it becomes one ``index_add_`` over flattened
-``row * N + node`` offsets, and its gathers become index gathers with
-the same offsets.
+Two kinds of function live here:
+
+* build time (numpy, one design): :func:`build_strips` flattens every
+  member's strips into one :class:`StripSet` and bakes the MacCamy-Fuchs
+  Cm(k) factors (:func:`mcf_blend`, scipy's Hankel functions);
+* evaluation (torch, every tensor with a leading row axis R, one design
+  x sea state per row): hydro constants, excitation and the drag
+  linearisation.  The strip -> node map is per-row data, so the
+  reference's ``segment_sum`` over it becomes one ``index_add_`` over
+  flattened ``row * N + node`` offsets, and its gathers become index
+  gathers with the same offsets.
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from raft_tpu_torch.ops import transforms as tf
@@ -21,26 +28,173 @@ from raft_tpu_torch.ops import waves as wv
 
 @dataclass
 class StripSet:
-    """Flattened strip arrays of one batch of padded designs, (R, S, ...).
+    """Flattened strip arrays: (S, ...) numpy leaves of one design from
+    :func:`build_strips`, or (R, S, ...) tensors of a batch of rows.
 
-    Only the fields the bucket path reads; the reference's added-mass
-    and MacCamy-Fuchs coefficients enter through the host-built
-    ``Imat``/``A_hydro`` instead."""
+    The bucket path reads only the fields up to ``Cd_End`` (its added
+    mass and inertial excitation come from the packed zero-pose
+    constants); the design path also reads the added-mass and
+    MacCamy-Fuchs coefficients to recompute them per row."""
 
-    node: torch.Tensor      # (R, S) int — structural node of each strip
-    ls: torch.Tensor        # (R, S) axial position along the member
-    dls: torch.Tensor       # (R, S)
-    ds: torch.Tensor        # (R, S, 2)
-    drs: torch.Tensor       # (R, S, 2)
-    circ: torch.Tensor      # (R, S) bool
-    active: torch.Tensor    # (R, S) bool
-    q0: torch.Tensor        # (R, S, 3) member axes at the reference pose
-    p10: torch.Tensor
-    p20: torch.Tensor
-    Cd_q: torch.Tensor      # (R, S)
-    Cd_p1: torch.Tensor
-    Cd_p2: torch.Tensor
-    Cd_End: torch.Tensor
+    node: object            # (S,) int — structural node of each strip
+    ls: object              # (S,) axial position along the member
+    dls: object             # (S,)
+    ds: object              # (S, 2)
+    drs: object             # (S, 2)
+    circ: object            # (S,) bool
+    active: object          # (S,) bool — False for potMod strips
+    q0: object              # (S, 3) member axes at the reference pose
+    p10: object
+    p20: object
+    Cd_q: object            # (S,)
+    Cd_p1: object
+    Cd_p2: object
+    Cd_End: object
+    Ca_q: object = None
+    Ca_p1: object = None
+    Ca_p2: object = None
+    Ca_End: object = None
+    Cm_p1_w: object = None  # (S, nw) complex — (1 + Ca_p1) or MCF-corrected
+    Cm_p2_w: object = None
+    mcf: object = None      # (S,) bool — MacCamy-Fuchs members
+    mnode0: object = None   # (S,) the strip's member's first node
+
+    @property
+    def S(self):
+        return self.ls.shape[-1]
+
+
+@dataclass
+class SiteRows:
+    """The site scalars of a batch of rows, (R,) each, and the (padded)
+    node count: what the strip physics reads of a FOWT."""
+
+    rho_water: torch.Tensor
+    depth: torch.Tensor
+    g: torch.Tensor
+    n_nodes: int
+
+
+# ------------------------------------------------------------------ build
+
+_MCF_TABLE = None
+_MCF_KR_MAX = 80.0
+_MCF_N = 1 << 15
+
+
+def _mcf_table():
+    """Cm(x) and its exact derivative on the table grid, for cubic-Hermite
+    interpolation: dCm/dx = (4i/pi) (-2 x^-3 / H1' - x^-2 H1'' / H1'^2)
+    with H1''(x) = H2(x)/x - H1(x)."""
+    global _MCF_TABLE
+    if _MCF_TABLE is None:
+        from scipy.special import hankel1
+
+        x = np.linspace(0.0, _MCF_KR_MAX, _MCF_N)
+        with np.errstate(all="ignore"):
+            H1 = hankel1(1, x)
+            H2 = hankel1(2, x)
+            Hp1 = 0.5 * (hankel1(0, x) - H2)
+            Cm = 4j / (np.pi * x**2 * Hp1)
+            dCm = (4j / np.pi) * (-2.0 / (x**3 * Hp1)
+                                  - (H2 / x - H1) / (x**2 * Hp1**2))
+        # analytic x -> 0 limits (Cm -> 2, dCm -> 0)
+        Cm[0] = 2.0
+        dCm[0] = 0.0
+        _MCF_TABLE = (np.nan_to_num(Cm), np.nan_to_num(dCm))
+    return _MCF_TABLE
+
+
+def mcf_cm(kR):
+    """MacCamy-Fuchs complex inertia coefficient Cm(kR) =
+    4i/(pi (kR)^2 H1'(kR)) through the reference's cubic-Hermite table
+    (clamped beyond kR = 80); numpy in, numpy out."""
+    Cm_t, dCm_t = _mcf_table()
+    h = _MCF_KR_MAX / (_MCF_N - 1)
+    xq = np.clip(np.asarray(kR, dtype=float), 0.0, _MCF_KR_MAX)
+    i = np.clip((xq / h).astype(int), 0, _MCF_N - 2)
+    t = xq / h - i
+    y0, y1 = Cm_t[i], Cm_t[i + 1]
+    d0, d1 = dCm_t[i], dCm_t[i + 1]
+    t2 = t * t
+    t3 = t2 * t
+    return ((2 * t3 - 3 * t2 + 1) * y0 + (t3 - 2 * t2 + t) * (h * d0)
+            + (-2 * t3 + 3 * t2) * y1 + (t3 - t2) * (h * d1))
+
+
+def mcf_blend(kR, Cm0_p1, Cm0_p2):
+    """Blend the MCF Cm(kR) with the baseline (1 + Ca) coefficients by
+    the reference's long-wave ramp (k < pi/(5R), i.e. kR < pi/5)."""
+    Cm = mcf_cm(kR)
+    ramp = np.where(kR < np.pi / 5, 0.5 * (1 - np.cos(5 * kR)), 1.0)
+    ramp = np.where(kR <= 0, 0.0, ramp)
+    return Cm * ramp + Cm0_p1 * (1 - ramp), Cm * ramp + Cm0_p2 * (1 - ramp)
+
+
+def build_strips(fs, k_array=None):
+    """Flatten all members' strips of one FOWT (numpy); with ``k_array``
+    (nw,) also bake the per-frequency Cm of MacCamy-Fuchs members."""
+    cols = {f: [] for f in (
+        "node mnode0 ls dls ds drs circ active mcf q0 p10 p20 "
+        "Cd_q Cd_p1 Cd_p2 Cd_End Ca_q Ca_p1 Ca_p2 Ca_End".split()
+    )}
+    mcf_rows = []
+    nw = len(k_array) if k_array is not None else 1
+    for im, mem in enumerate(fs.members):
+        ns = mem.ns
+        cols["node"] += [int(fs.member_node[im])] * ns
+        cols["ls"] += list(mem.ls)  # axial offset from the member node
+        cols["mnode0"] += [int(fs.member_node[im])] * ns
+        cols["dls"] += list(mem.dls)
+        cols["ds"] += list(mem.ds)
+        cols["drs"] += list(mem.drs)
+        cols["circ"] += [mem.circular] * ns
+        cols["active"] += [not mem.potMod] * ns
+        cols["mcf"] += [bool(mem.MCF) and k_array is not None] * ns
+        cols["q0"] += [mem.q0] * ns
+        cols["p10"] += [mem.p10] * ns
+        cols["p20"] += [mem.p20] * ns
+        for cname in "Cd_q Cd_p1 Cd_p2 Cd_End Ca_q Ca_p1 Ca_p2 Ca_End".split():
+            cols[cname] += list(getattr(mem, cname))
+        for il in range(ns):
+            Cm0_p1 = 1.0 + mem.Ca_p1[il]
+            Cm0_p2 = 1.0 + mem.Ca_p2[il]
+            if mem.MCF and k_array is not None:
+                R = mem.ds[il, 0] / 2.0
+                Cm_p1, Cm_p2 = mcf_blend(np.asarray(k_array) * R, Cm0_p1,
+                                         Cm0_p2)
+                mcf_rows.append((np.nan_to_num(Cm_p1), np.nan_to_num(Cm_p2)))
+            else:
+                mcf_rows.append((np.full(nw, Cm0_p1, dtype=np.complex128),
+                                 np.full(nw, Cm0_p2, dtype=np.complex128)))
+
+    out = {k2: np.asarray(v) for k2, v in cols.items()}
+    out["Cm_p1_w"] = np.stack([r[0] for r in mcf_rows])
+    out["Cm_p2_w"] = np.stack([r[1] for r in mcf_rows])
+    return StripSet(**out)
+
+
+# ------------------------------------------------------------- evaluation
+
+def strips_to_rows(ss, device, rows=1):
+    """A numpy :class:`StripSet` as tensors on ``device`` with a leading
+    row axis of ``rows`` (a broadcast view, not a copy): ints stay int64,
+    masks bool, reals float64, the Cm tables complex128."""
+    def conv(a):
+        a = np.asarray(a)
+        t = torch.from_numpy(a.copy())
+        if a.dtype.kind == "f":
+            t = t.to(torch.float64)
+        elif a.dtype.kind == "c":
+            t = t.to(torch.complex128)
+        elif a.dtype.kind in "iu":
+            t = t.to(torch.int64)
+        t = t.to(device)
+        return t.expand((rows,) + t.shape)
+
+    return StripSet(**{k: None if v is None else conv(v)
+                       for k, v in vars(ss).items()})
+
 
 
 def _row_offsets(node, n_nodes):
@@ -105,6 +259,72 @@ def _areas(ss):
     return v_side, v_end, a_end, a_q, a_p1, a_p2
 
 
+def _submerged_scale(ss, r, v_side):
+    """Submergence mask and partial-emergence volume scaling of each
+    strip: (sub (R, S) bool, v (R, S))."""
+    dls = ss.dls
+    z = r[..., 2]
+    sub = z < 0
+    dls_safe = torch.where(dls == 0, 1.0, dls)
+    scale = torch.where(z + 0.5 * dls > 0, (0.5 * dls - z) / dls_safe, 1.0)
+    return sub, v_side * scale
+
+
+def _reduce_force(Tn, node, F6, n_nodes):
+    """Sum per-strip 6-forces at their nodes and T-reduce:
+    F6 (R, S, 6, nw) -> (R, n, nw)."""
+    Fn = segment_sum_nodes(F6, node, n_nodes)                # (R, N, 6, nw)
+    return torch.einsum("rnia,rniw->raw", Tn.to(Fn.dtype), Fn)
+
+
+def _reduce_matrix(Tn, node, M3, r_off, n_nodes):
+    """Sum per-strip 3x3 matrices translated to their nodes and
+    T-reduce: M3 (R, S, 3, 3), r_off (R, S, 3) -> (R, n, n)."""
+    M6 = tf.translate_matrix_3to6(M3, r_off)                 # (R, S, 6, 6)
+    Mn = segment_sum_nodes(M6, node, n_nodes)
+    return torch.einsum("rnia,rnij,rnjb->rab", Tn, Mn, Tn)
+
+
+def hydro_constants(fs, ss, R_ptfm, r_nodes, Tn):
+    """Added-mass matrix and per-strip inertial-excitation tensors at the
+    pose (R_ptfm (R, 3, 3), r_nodes (R, N, 3), Tn (R, N, 6, n)): the
+    reference's ``hydro_constants`` batched over rows, from the strips'
+    added-mass and (complex, per-frequency) inertia coefficients.
+
+    Returns dict with A_hydro (R, n, n), Amat (R, S, 3, 3), Imat
+    (R, S, 3, 3, nw) complex, a_i (R, S), and the strip frames r, q, p1,
+    p2, sub, active.
+    """
+    rho = fs.rho_water[:, None, None, None]
+    r, q, p1, p2 = strip_frames(ss, R_ptfm, r_nodes)
+    v_side, v_end, a_end, *_ = _areas(ss)
+    sub, v_i = _submerged_scale(ss, r, v_side)
+    active = sub & ss.active
+
+    qq = tf.vec_vec_trans(q)
+    p1p1 = tf.vec_vec_trans(p1)
+    p2p2 = tf.vec_vec_trans(p2)
+
+    Amat = (rho * v_i[..., None, None] * (
+        ss.Ca_p1[..., None, None] * p1p1 + ss.Ca_p2[..., None, None] * p2p2)
+        + rho * v_end[..., None, None] * ss.Ca_End[..., None, None] * qq)
+    Amat = torch.where(active[..., None, None], Amat, 0.0)
+
+    # inertial excitation with (possibly frequency-dependent) Cm
+    Imat = (rho[..., None] * v_i[..., None, None, None] * (
+        ss.Cm_p1_w[:, :, None, None, :] * p1p1[..., None]
+        + ss.Cm_p2_w[:, :, None, None, :] * p2p2[..., None])
+        + (rho[..., 0, 0] * v_end * ss.Ca_End)[..., None, None, None]
+        * qq[..., None])
+    Imat = torch.where(active[..., None, None, None], Imat, 0.0)
+
+    a_i = torch.where(active, a_end, 0.0)
+    r_off = r - gather_nodes(r_nodes, ss.node)
+    A_hydro = _reduce_matrix(Tn, ss.node, Amat, r_off, Tn.shape[1])
+    return dict(A_hydro=A_hydro, Amat=Amat, Imat=Imat, a_i=a_i,
+                r=r, q=q, p1=p1, p2=p2, sub=sub, active=active)
+
+
 def hydro_excitation(fs, ss, hc, zeta, beta, w, k, Tn, r_nodes):
     """Linear strip-theory wave excitation for one heading per row.
 
@@ -123,8 +343,7 @@ def hydro_excitation(fs, ss, hc, zeta, beta, w, k, Tn, r_nodes):
     mom = tf.cross(r_off[..., None].to(F3.dtype).expand(F3.shape), F3,
                    dim=2)
     F6 = torch.cat([F3, mom], dim=2)                        # (R, S, 6, nw)
-    Fn = segment_sum_nodes(F6, ss.node, fs.n_nodes)          # (R, N, 6, nw)
-    F_red = torch.einsum("rnia,rniw->raw", Tn.to(Fn.dtype), Fn)
+    F_red = _reduce_force(Tn, ss.node, F6, fs.n_nodes)
     return dict(F_hydro_iner=F_red, u=u, ud=ud, pDyn=pDyn)
 
 
@@ -253,6 +472,5 @@ def drag_excitation(fs, ss, hc, Bmat, u_ih, Tn, r_nodes):
     r_off = hc["r"] - gather_nodes(r_nodes, ss.node)
     mom = tf.cross(r_off[..., None].to(F3.dtype).expand(F3.shape), F3,
                    dim=2)
-    F6 = torch.cat([F3, mom], dim=2)
-    Fn = segment_sum_nodes(F6, ss.node, fs.n_nodes)
-    return torch.einsum("rnia,rniw->raw", Tn.to(Fn.dtype), Fn)
+    return _reduce_force(Tn, ss.node, torch.cat([F3, mom], dim=2),
+                         fs.n_nodes)

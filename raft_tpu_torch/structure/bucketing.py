@@ -10,8 +10,11 @@ strip excitation, the drag-linearised impedance solve and the
 response, exactly the chain of the reference's
 ``make_bucket_evaluator``.
 
-The seam between the packages is the reference's ``pack_design``
-output, a dict of numpy leaves.  :func:`load_packed` reads one from a
+A design enters as a port :class:`~raft_tpu_torch.models.model.Model`:
+:func:`bucket_signature` names its bucket (padded sizes from the
+``RAFT_TPU_BUCKET_STEPS`` ladders) and :func:`pack_design` writes its
+padded leaves, a dict of numpy arrays, the same leaves the reference's
+``pack_design`` writes.  :func:`load_packed` reads such leaves from a
 checked-in ``.npz`` (leaves plus ``sig_*`` signature entries) and
 :func:`packed_from_numpy` turns leaves into tensors on a device.
 """
@@ -29,14 +32,19 @@ from raft_tpu_torch.models.dynamics import (fused_response_enabled,
                                             solve_dynamics_fowt,
                                             system_response)
 from raft_tpu_torch.models.statics_solve import solve_equilibrium_general
-from raft_tpu_torch.ops import transforms as tf
 from raft_tpu_torch.ops import waves as wv
 from raft_tpu_torch.physics import morison
-from raft_tpu_torch.physics.mooring import line_forces_and_stiffness
-from raft_tpu_torch.physics.statics import node_T
+from raft_tpu_torch.physics.mooring import (MooringSystem,
+                                            line_forces_and_stiffness)
+from raft_tpu_torch.physics.statics import node_T, platform_kinematics
+from raft_tpu_torch.utils import config
 from raft_tpu_torch.utils.dtypes import compute_dtypes, resolve_device
 
 BUCKET_VERSION = 1
+
+#: per-axis floor of the 'pow2' ladder policy (and of any explicit
+#: ladder's doubling continuation)
+AXIS_FLOORS = {"strips": 16, "nodes": 2, "lines": 2}
 
 OUT_KEYS = ("X0", "Xi", "RAO", "PSD", "S", "drag_resid", "drag_converged",
             "n_iter_drag", "status")
@@ -49,6 +57,219 @@ def signature_meta(sig):
         raise ValueError(f"unknown bucket signature {kind!r} v{ver}")
     return dict(S=S, N=N, L=L, w=np.asarray(w, dtype=float), nw=len(w),
                 nIter=nIter, XiStart=XiStart, nIterExtra=nIterExtra)
+
+
+class UnbucketableDesignError(ValueError):
+    """The design needs physics the bucketed chain does not evaluate."""
+
+
+def _ceil_pow2(n, floor=1):
+    n = max(int(n), int(floor))
+    return 1 << (n - 1).bit_length()
+
+
+def pad_ladder(spec=None):
+    """Parse a ``RAFT_TPU_BUCKET_STEPS`` spec (default: the flag) into
+    ``{axis: tuple(rungs) | None}`` (``None`` = pow2 at the axis floor).
+
+    ``spec`` is ``';'``-separated ``axis=rungs`` entries (axes
+    ``strips``/``nodes``/``lines``); ``rungs`` is ``pow2`` or an
+    ascending comma list, continued by doubling past its last rung."""
+    spec = config.get("BUCKET_STEPS") if spec is None else spec
+    ladders = dict.fromkeys(AXIS_FLOORS)
+    if not spec or spec.strip().lower() == "pow2":
+        return ladders
+    for part in spec.split(";"):
+        part = part.strip()
+        if not part:
+            continue
+        axis, sep, rungs = part.partition("=")
+        axis = axis.strip().lower()
+        if not sep or axis not in AXIS_FLOORS:
+            raise ValueError(
+                f"RAFT_TPU_BUCKET_STEPS entry {part!r}: expected "
+                f"axis=rungs with axis one of {sorted(AXIS_FLOORS)}")
+        rungs = rungs.strip().lower()
+        if rungs == "pow2":
+            ladders[axis] = None
+            continue
+        try:
+            sizes = tuple(int(r) for r in rungs.split(",") if r.strip())
+        except ValueError:
+            raise ValueError(
+                f"RAFT_TPU_BUCKET_STEPS {axis} rungs {rungs!r}: expected "
+                "'pow2' or a comma list of integers")
+        if not sizes or any(s <= 0 for s in sizes) or \
+                any(b <= a for a, b in zip(sizes, sizes[1:])):
+            raise ValueError(
+                f"RAFT_TPU_BUCKET_STEPS {axis} rungs {rungs!r}: rungs "
+                "must be positive and strictly ascending")
+        ladders[axis] = sizes
+    return ladders
+
+
+def _axis_pad(n, axis, ladders=None):
+    """Padded size of ``n`` real rows on ``axis``: the smallest rung
+    holding ``n`` (doubling past the last rung; pow2 at the floor when
+    the axis has no rungs).  ``n == 0`` stays 0 (the axis is absent)."""
+    n = int(n)
+    if n <= 0:
+        return 0
+    ladders = pad_ladder() if ladders is None else ladders
+    rungs = ladders.get(axis)
+    if rungs is None:
+        return _ceil_pow2(n, AXIS_FLOORS[axis])
+    for r in rungs:
+        if r >= n:
+            return r
+    r = rungs[-1]
+    while r < n:
+        r *= 2
+    return r
+
+
+def _check_bucketable(model):
+    """The reference's refusals (most already raise when the port's
+    Model is built)."""
+    if model.nFOWT != 1:
+        raise UnbucketableDesignError("bucketing covers single-FOWT models")
+    fs = model.fowtList[0]
+    if not fs.is_single_body:
+        raise UnbucketableDesignError(
+            "bucketing covers rigid single-body (6-DOF) FOWTs")
+    if (fs.potFirstOrder == 1 and fs.hydroPath) or any(
+            m.potMod for m in fs.members):
+        raise UnbucketableDesignError(
+            "potential-flow coefficients are not bucketed")
+    if fs.potSecOrder == 2 and fs.hydroPath:
+        raise UnbucketableDesignError("external QTFs are not bucketed")
+    if fs.x_ref or fs.y_ref:
+        raise UnbucketableDesignError("array-positioned units not bucketed")
+    ms = model.ms
+    if ms is not None and not isinstance(ms, MooringSystem):
+        raise UnbucketableDesignError(
+            "network/file moorings with free points are not bucketed")
+    if ms is not None and int(getattr(ms, "moorMod", 0) or 0) != 0:
+        raise UnbucketableDesignError("moorMod 1/2 line dynamics not bucketed")
+
+
+def bucket_signature(model, ladders=None):
+    """Hashable static-shape signature of a model's bucket: padded
+    strip / node / line counts under the pad ladders (default: the
+    ``RAFT_TPU_BUCKET_STEPS`` flag), the frequency grid verbatim and the
+    fixed point's budget.  ``ladders={}`` gives the unpadded signature,
+    every axis at its real size."""
+    _check_bucketable(model)
+    fs = model.fowtList[0]
+    ms = model.ms
+    ss = model.hydro[0].strips
+    ladders = pad_ladder() if ladders is None else ladders
+
+    def size(n, axis):
+        return _axis_pad(n, axis, ladders) if ladders else int(n)
+
+    return (
+        "rigid6", BUCKET_VERSION,
+        size(ss.S, "strips"), size(fs.n_nodes, "nodes"),
+        0 if ms is None else size(ms.n_lines, "lines"),
+        tuple(float(x) for x in np.asarray(model.w)),
+        int(model.nIter), float(model.XiStart), int(model.nIterExtra),
+    )
+
+
+def _pad_rows(a, n, fill=0.0):
+    """Pad array ``a`` along axis 0 up to ``n`` rows with ``fill``."""
+    a = np.asarray(a)
+    pad = n - a.shape[0]
+    if pad < 0:
+        raise ValueError(f"array of {a.shape[0]} rows exceeds bucket {n}")
+    if pad == 0:
+        return a.copy()
+    tail = np.full((pad,) + a.shape[1:], fill, dtype=a.dtype)
+    return np.concatenate([a, tail], axis=0)
+
+
+def _pad_axis_rows(a, n, axis0_fill):
+    """Pad with a per-row fill vector (axis vectors get a unit entry, so
+    rotations of padded strips stay well-defined)."""
+    a = np.asarray(a)
+    pad = n - a.shape[0]
+    if pad < 0:
+        raise ValueError(f"array of {a.shape[0]} rows exceeds bucket {n}")
+    if pad == 0:
+        return a.copy()
+    tail = np.tile(np.asarray(axis0_fill, dtype=a.dtype), (pad, 1))
+    return np.concatenate([a, tail], axis=0)
+
+
+def pack_design(model, sig=None):
+    """One model's padded leaves in its bucket: numpy arrays of the
+    bucket's static shape, the host-built statics matrices and zero-pose
+    hydro constants included.  Padded strips carry zero areas and
+    coefficients and a False ``strip_mask``/``active``; padded nodes get
+    no strip; padded mooring lines repeat line 0 and are masked out of
+    the force sum (so of the stiffness too)."""
+    sig = sig or bucket_signature(model)
+    meta = signature_meta(sig)
+    S, N, L = meta["S"], meta["N"], meta["L"]
+    fs = model.fowtList[0]
+    fh = model.hydro[0]
+    ss = fh.strips
+    stat = model.statics()
+    ms = model.ms
+    if not np.array_equal(np.asarray(model.w, dtype=float), meta["w"]):
+        raise ValueError("model frequency grid does not match the signature")
+    if (ms is None) != (L == 0):
+        raise ValueError("mooring presence does not match the signature")
+
+    d = dict(
+        node=_pad_rows(np.asarray(ss.node, dtype=np.int32), S, 0),
+        ls=_pad_rows(np.asarray(ss.ls, dtype=float), S),
+        dls=_pad_rows(np.asarray(ss.dls, dtype=float), S),
+        ds=_pad_rows(np.asarray(ss.ds, dtype=float), S),
+        drs=_pad_rows(np.asarray(ss.drs, dtype=float), S),
+        circ=_pad_rows(np.asarray(ss.circ, dtype=bool), S, False),
+        active=_pad_rows(np.asarray(ss.active, dtype=bool), S, False),
+        q0=_pad_axis_rows(np.asarray(ss.q0, dtype=float), S, (0.0, 0.0, 1.0)),
+        p10=_pad_axis_rows(np.asarray(ss.p10, dtype=float), S,
+                           (1.0, 0.0, 0.0)),
+        p20=_pad_axis_rows(np.asarray(ss.p20, dtype=float), S,
+                           (0.0, 1.0, 0.0)),
+        Cd_q=_pad_rows(np.asarray(ss.Cd_q, dtype=float), S),
+        Cd_p1=_pad_rows(np.asarray(ss.Cd_p1, dtype=float), S),
+        Cd_p2=_pad_rows(np.asarray(ss.Cd_p2, dtype=float), S),
+        Cd_End=_pad_rows(np.asarray(ss.Cd_End, dtype=float), S),
+        strip_mask=(np.arange(S) < ss.S),
+        Imat=_pad_rows(np.asarray(fh.hc0["Imat"], dtype=np.complex128), S),
+        a_i=_pad_rows(np.asarray(fh.hc0["a_i"], dtype=float), S),
+        A_hydro=np.asarray(fh.hc0["A_hydro"], dtype=float),
+        node_r0=_pad_rows(np.asarray(fs.node_r0, dtype=float), N),
+        root=np.int32(fs.root_id),
+        K_h=np.asarray(stat["C_struc"] + stat["C_hydro"], dtype=float),
+        F_und=np.asarray(stat["W_struc"] + stat["W_hydro"]
+                         + stat["f0_additional"], dtype=float),
+        M_struc=np.asarray(stat["M_struc"], dtype=float),
+        depth=np.float64(fs.depth),
+        rho_water=np.float64(fs.rho_water),
+        g=np.float64(fs.g),
+        k=np.asarray(model.k, dtype=float),
+    )
+    if L:
+        if ms.n_lines > L:
+            raise ValueError(
+                f"mooring system of {ms.n_lines} lines exceeds bucket {L}")
+
+        def padL(a):
+            a = np.asarray(a, dtype=float)
+            reps = np.repeat(a[:1], L - a.shape[0], axis=0)
+            return np.concatenate([a, reps], axis=0)
+
+        d.update(
+            moor_anchor=padL(ms.r_anchor), moor_fair0=padL(ms.r_fair0),
+            moor_L=padL(ms.L), moor_w=padL(ms.w), moor_EA=padL(ms.EA),
+            line_mask=(np.arange(L) < ms.n_lines),
+        )
+    return d
 
 
 @dataclass(frozen=True, eq=False)
@@ -112,17 +333,6 @@ def stack_packed(packed_list, rows=None):
             for k in packed_list[0]}
 
 
-@dataclass
-class _BucketFOWT:
-    """The site scalars (per row) and padded node count the strip
-    physics reads."""
-
-    rho_water: torch.Tensor
-    depth: torch.Tensor
-    g: torch.Tensor
-    n_nodes: int
-
-
 def _masked_moor_closures(d):
     """``mooring_fn(X) -> (F, C)`` of the padded mooring system: the
     per-line catenary force summed under ``line_mask`` (padded lines
@@ -136,6 +346,16 @@ def _masked_moor_closures(d):
         return line_forces_and_stiffness(*line_args, X)
 
     return mooring_fn
+
+
+def _compute_dtype(K_h):
+    """The real compute dtype of a batch; float32 work on the card also
+    turns TF32 off, so float32 matmuls keep float32 precision."""
+    rdt, _ = compute_dtypes(K_h)
+    if rdt == torch.float32 and K_h.is_cuda:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    return rdt
 
 
 # 6-DOF rigid-body solver tolerances and step caps (reference values for
@@ -181,26 +401,9 @@ class BucketEvaluator(nn.Module):
         mark = timer if timer is not None else (lambda stage: None)
         mark("start")
         K_h = d["K_h"]
-        rdt, _ = compute_dtypes(K_h)
-        if rdt == torch.float32 and K_h.is_cuda:
-            torch.backends.cuda.matmul.allow_tf32 = False
-            torch.backends.cudnn.allow_tf32 = False
-        R = K_h.shape[0]
-        dev = K_h.device
-        N, L = self.N, self.L
-        w = self.w.to(rdt)
-        Hs, Tp, beta = (torch.as_tensor(x, device=dev).to(rdt)
-                        for x in (Hs, Tp, beta))
-        fsb = _BucketFOWT(rho_water=d["rho_water"], depth=d["depth"],
-                          g=d["g"], n_nodes=N)
-        ss = morison.StripSet(
-            node=d["node"], ls=d["ls"], dls=d["dls"], ds=d["ds"],
-            drs=d["drs"], circ=d["circ"], active=d["active"], q0=d["q0"],
-            p10=d["p10"], p20=d["p20"], Cd_q=d["Cd_q"], Cd_p1=d["Cd_p1"],
-            Cd_p2=d["Cd_p2"], Cd_End=d["Cd_End"])
-
+        rdt = _compute_dtype(K_h)
         # ---- mean-offset equilibrium (zero mean environmental load)
-        if L:
+        if self.L:
             mooring_fn = _masked_moor_closures(d)
         else:
             def mooring_fn(X):
@@ -211,22 +414,48 @@ class BucketEvaluator(nn.Module):
             K_h, d["F_und"], torch.zeros_like(d["F_und"]), mooring_fn,
             self.tol_vec.to(rdt), self.caps.to(rdt), self.refs.to(rdt))
         mark("statics")
+        return self.respond(d, X0, st_status, C_moor, Hs, Tp, beta, mark)
+
+    def respond(self, d, X0, st_status, C_moor, Hs, Tp, beta, mark,
+                hydro=None):
+        """Every stage after the statics, at the mean offsets X0 (R, 6)
+        with their statics status and mooring stiffness C_moor: rigid
+        kinematics, strip frames, excitation, the drag fixed point and
+        the response.
+
+        ``hydro(fs, ss, R_ptfm, r_nodes, Tn)``, when given, returns the
+        hydro constants at the displaced pose (A_hydro, Imat, a_i and the
+        strip frames, as :func:`morison.hydro_constants`); by default
+        they are the packed zero-pose ones with the displaced frames."""
+        K_h = d["K_h"]
+        rdt = _compute_dtype(K_h)
+        R = K_h.shape[0]
+        dev = K_h.device
+        w = self.w.to(rdt)
+        Hs, Tp, beta = (torch.as_tensor(x, device=dev).to(rdt)
+                        for x in (Hs, Tp, beta))
+        fsb = morison.SiteRows(rho_water=d["rho_water"], depth=d["depth"],
+                               g=d["g"], n_nodes=self.N)
+        ss = morison.StripSet(
+            node=d["node"], ls=d["ls"], dls=d["dls"], ds=d["ds"],
+            drs=d["drs"], circ=d["circ"], active=d["active"], q0=d["q0"],
+            p10=d["p10"], p20=d["p20"], Cd_q=d["Cd_q"], Cd_p1=d["Cd_p1"],
+            Cd_p2=d["Cd_p2"], Cd_End=d["Cd_End"])
 
         # ---- rigid kinematics about each row's own root node
-        R_ptfm = tf.rotation_matrix(X0[:, 3], X0[:, 4], X0[:, 5])
-        rows = torch.arange(R, device=dev)
-        root = d["root"].to(torch.int64)
-        r0 = d["node_r0"]
-        dvec = r0 - r0[rows, root][:, None, :]
-        r_nodes = (r0 + X0[:, None, :3]
-                   + (dvec @ R_ptfm.transpose(-1, -2) - dvec))
-        Tn = node_T(r_nodes, r_nodes[rows, root])
+        r_nodes, R_ptfm, r_root = platform_kinematics(d["node_r0"],
+                                                      d["root"], X0)
+        Tn = node_T(r_nodes, r_root)
 
         # ---- strip frames; the validity mask extends submergence
-        r, q, p1, p2 = morison.strip_frames(ss, R_ptfm, r_nodes)
-        sub = (r[..., 2] < 0) & d["strip_mask"]
-        hc = dict(Imat=d["Imat"], a_i=d["a_i"], r=r, q=q, p1=p1, p2=p2,
-                  sub=sub, active=sub & d["active"])
+        if hydro is None:
+            r, q, p1, p2 = morison.strip_frames(ss, R_ptfm, r_nodes)
+            sub = (r[..., 2] < 0) & d["strip_mask"]
+            hc = dict(Imat=d["Imat"], a_i=d["a_i"], A_hydro=d["A_hydro"],
+                      r=r, q=q, p1=p1, p2=p2, sub=sub,
+                      active=sub & d["active"])
+        else:
+            hc = hydro(fsb, ss, R_ptfm, r_nodes, Tn)
 
         # ---- sea state + excitation
         S_spec = wv.jonswap(w, Hs, Tp)                        # (R, nw)
@@ -236,7 +465,7 @@ class BucketEvaluator(nn.Module):
         mark("excitation")
 
         # ---- drag-linearised impedance solve
-        M_lin = (d["M_struc"] + d["A_hydro"])[..., None].expand(
+        M_lin = (d["M_struc"] + hc["A_hydro"])[..., None].expand(
             R, 6, 6, self.nw)
         B_lin = torch.zeros((R, 6, 6, self.nw), dtype=rdt, device=dev)
         C_lin = K_h + C_moor

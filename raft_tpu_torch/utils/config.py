@@ -100,5 +100,11 @@ _register(
          help="kappa_1(Z) estimate above which ILL_CONDITIONED_Z is set"),
     Flag("BUCKET_ROWS", "int", 512,
          help="rows per dispatched bucket chunk in sweep_heterogeneous "
-              "(0 = unlimited)"),
+              "and the design/case evaluators (0 = unlimited)"),
+    Flag("BUCKET_STEPS", "str",
+         "strips=16,24,32,48,64,96,128;nodes=pow2;lines=pow2",
+         help="per-axis shape-bucket pad ladders: ';'-separated "
+              "axis=rungs entries where rungs is an ascending comma list "
+              "(doubling continues past the last rung) or 'pow2' "
+              "(power-of-two ceiling at the axis floor)"),
 )

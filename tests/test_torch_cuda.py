@@ -7,16 +7,20 @@ it there without the repository's conftest (which imports JAX)::
     PYTHONPATH=. python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances are the kernel-vs-plain ones of ``chip_smoke.py``: float64
-within 1e-12 x max|x|, float32 within 1e-5 x max|x|; the slice within
-1e-10 x max of the JAX goldens with ``status`` and ``n_iter_drag`` equal.
+within 1e-12 x max|x|, float32 within 1e-5 x max|x|; the slice and the
+design evaluator within 1e-10 x max of the JAX goldens with ``status``
+and ``n_iter_drag`` equal.
 """
 
+import json
 import os
 
 import numpy as np
 import pytest
 import torch
 
+from raft_tpu_torch.api import make_design_evaluator
+from raft_tpu_torch.models.model import Model
 from raft_tpu_torch.ops import linsolve
 from raft_tpu_torch.structure import bucketing as tb
 
@@ -104,6 +108,26 @@ def test_bucket_on_card_matches_goldens(cuda):
         out = tb.BucketEvaluator(p.sig, cuda)(
             d, torch.as_tensor(g["Hs"]), torch.as_tensor(g["Tp"]),
             torch.as_tensor(g["beta"]))
+    assert linsolve.KERNEL_LAUNCHES > before
+    for k in tb.OUT_KEYS:
+        a, b = out[k].cpu().numpy(), g["on_" + k]
+        if k in ("status", "n_iter_drag", "drag_converged"):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spar", "semi", "mhk"])
+def test_design_on_card_matches_goldens(cuda, name):
+    """The design evaluator's golden rows on the card, FUSED on, float64,
+    the model built by the port from its JSON."""
+    with open(os.path.join(FIX, f"design_{name}.json")) as f:
+        model = Model(json.load(f))
+    g = np.load(os.path.join(FIX, f"golden_design_{name}.npz"))
+    keys = ("Hs", "Tp", "beta", "Cd_scale", "Ca_scale", "L_moor_scale")
+    before = linsolve.KERNEL_LAUNCHES
+    out = make_design_evaluator(model, cuda)(**{k: g[k] for k in keys})
     assert linsolve.KERNEL_LAUNCHES > before
     for k in tb.OUT_KEYS:
         a, b = out[k].cpu().numpy(), g["on_" + k]

@@ -71,8 +71,8 @@ def case():
     Tp = torch.as_tensor(g["Tp"][list(ROWS)])
     beta = torch.as_tensor(g["beta"][list(ROWS)])
     zeta = torch.sqrt(2.0 * twv.jonswap(w, Hs, Tp) * dw).to(torch.complex128)
-    fs = tb._BucketFOWT(rho_water=d["rho_water"], depth=d["depth"],
-                        g=d["g"], n_nodes=meta["N"])
+    fs = tmor.SiteRows(rho_water=d["rho_water"], depth=d["depth"],
+                       g=d["g"], n_nodes=meta["N"])
     return dict(p=p, meta=meta, d=d, X0=X0, w=w, r_nodes=r_nodes, Tn=Tn,
                 ss=ss, hc=hc, zeta=zeta, beta=beta, fs=fs)
 

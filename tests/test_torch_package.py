@@ -44,20 +44,34 @@ def test_no_jax_or_reference_imports(path):
 
 
 def test_import_with_jax_blocked():
-    """Import every port module in a fresh interpreter where ``jax``
-    cannot be imported, and check no ``raft_tpu`` module was loaded."""
+    """Import every port module in a fresh interpreter where ``jax`` and
+    ``yaml`` cannot be imported, build and pack the mhk design from its
+    JSON there, and check no ``raft_tpu`` module was loaded."""
     code = r"""
-import importlib, pkgutil, sys
+import importlib, json, pkgutil, sys
 sys.modules["jax"] = None
 sys.modules["jaxlib"] = None
+sys.modules["yaml"] = None
 import raft_tpu_torch
 for m in pkgutil.walk_packages(raft_tpu_torch.__path__, "raft_tpu_torch."):
     importlib.import_module(m.name)
 import chip_smoke
+from raft_tpu_torch.models.model import Model
+from raft_tpu_torch.structure import bucketing
+with open("tests/fixtures/torch_port/design_mhk.json") as f:
+    model = Model(json.load(f))
+leaves = bucketing.pack_design(model)
+assert leaves["Imat"].shape == (16, 3, 3, 40), leaves["Imat"].shape
+try:
+    Model("raft_tpu/designs/mhk_demo.yaml")
+except ImportError as e:
+    assert "PyYAML" in str(e), e
+else:
+    raise AssertionError("a YAML design read without PyYAML")
 loaded = sorted(n for n in sys.modules
                 if n == "raft_tpu" or n.startswith("raft_tpu."))
 assert not loaded, loaded
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["yaml"] is None
 print("ok")
 """
     env = dict(os.environ, PYTHONPATH=ROOT)
@@ -72,7 +86,8 @@ def test_flags_mirror_the_jax_registry(monkeypatch):
     from raft_tpu_torch.utils import config as tcfg
 
     for name in ("SOLVER", "FUSED", "DTYPE", "SCAN_CHUNK", "ITER_SCALE",
-                 "COND_CHECK", "COND_THRESHOLD", "BUCKET_ROWS"):
+                 "COND_CHECK", "COND_THRESHOLD", "BUCKET_ROWS",
+                 "BUCKET_STEPS"):
         monkeypatch.delenv("RAFT_TPU_" + name, raising=False)
         assert tcfg.FLAGS[name].env == jcfg.FLAGS[name].env
         assert tcfg.get(name) == jcfg.get(name), name
@@ -100,15 +115,24 @@ def test_compute_dtypes_policy(monkeypatch):
 def test_entry_points_raise_without_cuda_and_device(monkeypatch):
     """Without a card and without ``device=``, every entry point raises
     an error naming device="cpu" instead of running on the CPU."""
+    import json
+
+    from raft_tpu_torch.api import make_case_evaluator, make_design_evaluator
+    from raft_tpu_torch.models.model import Model
     from raft_tpu_torch.parallel.sweep import sweep_heterogeneous
     from raft_tpu_torch.structure import bucketing as tb
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    p = tb.load_packed(os.path.join(ROOT, "tests", "fixtures", "torch_port",
-                                    "packed_mhk.npz"))
+    fix = os.path.join(ROOT, "tests", "fixtures", "torch_port")
+    p = tb.load_packed(os.path.join(fix, "packed_mhk.npz"))
+    with open(os.path.join(fix, "design_mhk.json")) as f:
+        m = Model(json.load(f))
     for call in (lambda: tb.BucketEvaluator(p.sig),
                  lambda: tb.packed_from_numpy(p.leaves),
-                 lambda: sweep_heterogeneous([p], [2.0], [8.0], [0.0])):
+                 lambda: sweep_heterogeneous([p], [2.0], [8.0], [0.0]),
+                 lambda: sweep_heterogeneous([m], [2.0], [8.0], [0.0]),
+                 lambda: make_case_evaluator(m),
+                 lambda: make_design_evaluator(m)):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     # an explicit device is honoured
