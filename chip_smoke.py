@@ -1,6 +1,7 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--rows-per-design 4096] [--out DIR]
+    python3 chip_smoke.py [--rows-per-design 4096] [--full-rows 4096]
+                          [--out DIR]
 
 Phases, each printing one line (the last line is the result object):
 
@@ -40,8 +41,26 @@ Phases, each printing one line (the last line is the result object):
 8. profile - torch.profiler over one 512-row chunk: device busy time,
              idle share, kernel launches (top kernels to
              <out>/profile_top.txt).
-9. kernels - one JSON object listing every kernel the slice and design
-             paths launched, with its launches on both.
+9. full    - the full-physics evaluator (make_full_evaluator, float64,
+             default flags) on the two rotor designs: semi_wind (one wave
+             heading) and mhk_tidal (two), --full-rows rows each from a
+             fixed seed with the golden rows first (held against
+             tests/fixtures/torch_port/golden_full_*.npz, warm-up on the
+             golden rows alone); full-evals/s, stage ms (aero, statics,
+             excitation, fixed_point, response), statics Newton
+             iterations per chunk, the solve kernel's launches against
+             the trips run.
+10. bemt   - the blade-element load derivatives at 512 semi_wind
+             operating points by the hand-carried tangents and by the
+             torch.func.jacfwd oracle, held against each other and timed;
+    staged_solve - the staged response's solve at its shape (512 rows x
+             2 headings x 40 frequencies against one Z per row): times
+             of the SoA repack, the kernel and the wrapper.
+11. profile_full - torch.profiler over one 512-row semi_wind chunk of
+             the full path: kernel launches and device busy time of the
+             aero stage alone and of the whole chunk, idle share.
+12. kernels - one JSON object listing every kernel the slice, design and
+             full paths launched, with its launches on all of them.
 
 Exits non-zero, before printing any result, without CUDA, outside the
 repository, or when any phase misses its tolerance.  Measurements go to
@@ -74,6 +93,11 @@ PEAK_FLOPS = {torch.float64: 34e12,    # FP64 outside the tensor cores
 F64_TOL = 1e-12                        # x max|x|, kernel vs plain
 F32_TOL = 1e-5                         # x max|x|, kernel vs plain
 SLICE_TOL = 1e-10                      # x each key's max |golden|
+BEMT_TOL = 1e-12                       # x max, hand tangents vs jacfwd
+#: the full path's configurations: wave headings per row and the seed of
+#: their rows
+FULL_CONFIGS = {"semi_wind": dict(nWaves=1, seed=20261018),
+                "mhk_tidal": dict(nWaves=2, seed=20261019)}
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -282,17 +306,18 @@ def expected_launches(n_iter_rows, chunk_rows, cap, scan_chunk, fused):
     return total
 
 
-def hold_goldens(out, where, gold, pfx, tag):
+def hold_goldens(out, where, gold, pfx, tag, keys=None):
     """Rows ``where[name]`` of ``out`` against ``gold[name]``'s keys with
-    prefix ``pfx``: floats within SLICE_TOL x each key's max, the status
-    word, iteration counts and convergence flags exactly.  Returns the
-    worst relative error per design.key."""
+    prefix ``pfx`` (``keys``, default the bucket path's): floats within
+    SLICE_TOL x each key's max, the status word, iteration counts and
+    convergence flags exactly.  Returns the worst relative error per
+    design.key."""
     from raft_tpu_torch.structure import bucketing as bk
 
     worst = {}
     for n, idx in where.items():
         g = gold[n]
-        for k in bk.OUT_KEYS:
+        for k in keys or bk.OUT_KEYS:
             a, b = out[k][idx], g[pfx + k]
             if k in EXACT:
                 check(np.array_equal(a, b),
@@ -302,7 +327,7 @@ def hold_goldens(out, where, gold, pfx, tag):
             err = float(np.max(np.abs(a - b)))
             check(err <= SLICE_TOL * scale,
                   f"{tag} {n} {k}: {err:.3e} > {SLICE_TOL:g} x {scale:.3e}")
-            worst[f"{n}.{k}"] = err / scale
+            worst[f"{n}.{k}"] = err / scale if scale else 0.0
     return worst
 
 
@@ -679,45 +704,361 @@ def phase_profile(out_dir, name="mhk", rows=512):
     return res
 
 
+def full_rows(name, gold, n, seed):
+    """``n`` rows of one full-path configuration: the golden rows first,
+    then draws from a fixed numpy seed over the configuration's box."""
+    from raft_tpu_torch.api import ENV_KEYS, SEA_KEYS
+
+    rng = np.random.default_rng(seed)
+    m = n - len(gold["Hs"])
+    nW = FULL_CONFIGS[name]["nWaves"]
+    u = rng.uniform
+    if name == "semi_wind":
+        wind = u(3.0, 25.0, m)
+        wind[rng.random(m) < 0.05] = 0.0
+        new = dict(wind_speed=wind, wind_heading_deg=u(-30.0, 30.0, m),
+                   TI=u(0.05, 0.20, m), yaw_misalign_deg=u(-8.0, 8.0, m),
+                   current_speed=u(0.0, 1.0, m),
+                   current_heading_deg=u(0.0, 360.0, m),
+                   Hs=u(1.0, 12.0, (m, nW)), Tp=u(4.0, 20.0, (m, nW)),
+                   gamma=np.zeros((m, nW)), beta_deg=u(0.0, 180.0, (m, nW)))
+    else:
+        gamma = np.where(rng.random((m, nW)) < 0.5, 0.0, u(1.0, 5.0, (m, nW)))
+        new = dict(wind_speed=np.zeros(m), wind_heading_deg=np.zeros(m),
+                   TI=u(0.05, 0.15, m), yaw_misalign_deg=np.zeros(m),
+                   current_speed=u(0.5, 3.0, m),
+                   current_heading_deg=u(-30.0, 30.0, m),
+                   Hs=u(0.5, 4.0, (m, nW)), Tp=u(4.0, 12.0, (m, nW)),
+                   gamma=gamma, beta_deg=u(0.0, 360.0, (m, nW)))
+    return {k: np.concatenate([gold[k], new[k]]) for k in ENV_KEYS + SEA_KEYS}
+
+
+class MooringCounter:
+    """Counts the statics' mooring force + stiffness evaluations (one per
+    Newton iteration plus one at the returned pose) while installed, and
+    splits them per chunk at the timer's "start" and "statics" marks."""
+
+    def __init__(self):
+        from raft_tpu_torch.models import statics_solve
+
+        self.mod = statics_solve
+        self.fn = statics_solve.mooring_force_and_stiffness
+        self.n = 0
+        self.per_chunk = []
+
+    def __enter__(self):
+        def counted(ms, X):
+            self.n += 1
+            return self.fn(ms, X)
+
+        self.mod.mooring_force_and_stiffness = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.mooring_force_and_stiffness = self.fn
+
+    def mark(self, stage):
+        if stage == "start":
+            self._n0 = self.n
+        elif stage == "statics":
+            self.per_chunk.append(self.n - self._n0)
+
+
+def phase_full(models, rows, card):
+    """The full-physics evaluator on each rotor design: warm-up on the
+    golden rows (held), then ``rows`` rows with the golden rows first,
+    timed per stage, the solve kernel's launches checked against the
+    trips run, the statics Newton iterations counted per chunk."""
+    from raft_tpu_torch.api import FULL_OUT_KEYS, make_full_evaluator
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    fused = config.get("FUSED") == "on"
+    pfx = "on_" if fused else "off_"
+    res, evs = {}, {}
+    for name, cfg in FULL_CONFIGS.items():
+        nW = cfg["nWaves"]
+        gold = dict(np.load(os.path.join(FIX, f"golden_full_{name}.npz")))
+        ev = make_full_evaluator(models[name], nWaves=nW, device=DEVICE)
+        evs[name] = ev
+        n_gold = len(gold["Hs"])
+
+        def run(p, timer=None):
+            out = ev(**p, timer=timer)
+            return {k: v.cpu().numpy() for k, v in out.items()}
+
+        t0 = time.time()
+        out = run(full_rows(name, gold, n_gold, cfg["seed"]))
+        warm_s = time.time() - t0
+        worst = hold_goldens(out, {name: np.arange(n_gold)}, {name: gold},
+                             pfx, "full", keys=FULL_OUT_KEYS)
+
+        p = full_rows(name, gold, rows, cfg["seed"])
+        timer = StageTimer()
+        with MooringCounter() as moor:
+            def mark(stage):
+                moor.mark(stage)
+                timer(stage)
+
+            linsolve.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.time()
+            out = run(p, mark)
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        launches = linsolve.KERNEL_LAUNCHES
+        main = hold_goldens(out, {name: np.arange(n_gold)}, {name: gold},
+                            pfx, "full", keys=FULL_OUT_KEYS)
+        for k, v in main.items():
+            worst[k] = max(worst[k], v)
+        for k in ("X0", "Xi", "PSD", "f_aero"):
+            check(np.all(np.isfinite(out[k])), f"full {name}: non-finite {k}")
+        cap = ev.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
+            + max(int(ev.n_iter_extra), 0)
+        chunk_rows = int(config.get("BUCKET_ROWS")) or rows
+        exp = expected_launches(out["n_iter_drag"], chunk_rows, cap,
+                                min(max(1, config.get("SCAN_CHUNK")), cap),
+                                fused and nW == 1)
+        check(launches == exp, f"full {name}: solve kernel launched "
+              f"{launches} times, expected {exp}")
+        chunks = timer.chunks()
+        stage_ms = {s: sum(c.get(s, 0.0) for c in chunks)
+                    for s in ("aero", "statics", "excitation", "fixed_point",
+                              "response")}
+        newton = [e - 1 for e in moor.per_chunk]
+        st = out["status"]
+        res[name] = dict(
+            rows=rows, nWaves=nW, wall_s=wall, evals_per_s=rows / wall,
+            device_evals_per_s=rows / (sum(stage_ms.values()) / 1e3),
+            warm_s=warm_s, chunks=len(chunks), stage_ms=stage_ms,
+            newton_per_chunk=newton, launches=launches,
+            expected_launches=exp, staged=not (fused and nW == 1),
+            n_iter_drag_max=int(out["n_iter_drag"].max()),
+            status_counts={int(v): int(c) for v, c in
+                           zip(*np.unique(st, return_counts=True))},
+            worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()})
+        r = res[name]
+        print(f"full {name} on {card}: {rows} rows, nWaves {nW}, "
+              f"{r['chunks']} chunks in {wall:.2f} s = "
+              f"{r['evals_per_s']:.1f} full-evals/s; stage ms "
+              + ", ".join(f"{s} {v:.1f}" for s, v in stage_ms.items())
+              + f"; statics Newton iterations per chunk {newton}; solve "
+              f"kernel launches {launches} (expected {exp}: trips + "
+              f"{2 if r['staged'] else 1} per chunk); status counts "
+              f"{r['status_counts']}")
+        print(f"  {name} goldens (gate {SLICE_TOL:g} x max; status, "
+              "n_iter_drag, drag_converged equal): " + ", ".join(
+                  f"{k} {v:.1e}" for k, v in r["worst_rel"].items()))
+    return res, evs
+
+
+def _bemt_points(ev, rows, seed=20261020):
+    """``rows`` semi_wind operating points on the card: U over 3-25 m/s,
+    the schedule's rotor speed and pitch, tilt and yaw around zero."""
+    from raft_tpu_torch.physics import aero
+
+    rt = ev.rotors[0][2]
+    rng = np.random.default_rng(seed)
+    kw = dict(dtype=torch.float64, device=DEVICE)
+    U = torch.as_tensor(rng.uniform(3.0, 25.0, rows), **kw)
+    Om, pit = aero.operating_point(rt, U)
+    tilt = torch.as_tensor(rng.uniform(0.0, 0.2, rows), **kw)
+    yaw = torch.as_tensor(rng.uniform(-0.3, 0.3, rows), **kw)
+    return rt, (U, Om, pit, tilt, yaw)
+
+
+def phase_bemt(ev, rows=512, reps=3):
+    """The load derivatives by hand-carried tangents and by the
+    torch.func.jacfwd oracle at ``rows`` operating points on the card:
+    held against each other, wall ms per call (synchronised)."""
+    from raft_tpu_torch.physics import aero
+
+    rt, args = _bemt_points(ev, rows)
+
+    def wall_ms(fn, n):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        for _ in range(n):
+            out = fn(rt, *args)
+        torch.cuda.synchronize()
+        return (time.time() - t0) / n * 1e3, out
+
+    wall_ms(aero.rotor_loads_and_derivs, 1)
+    wall_ms(aero.rotor_loads_and_derivs_jacfwd, 1)
+    hand_ms, hand = wall_ms(aero.rotor_loads_and_derivs, reps)
+    jac_ms, jac = wall_ms(aero.rotor_loads_and_derivs_jacfwd, reps)
+    err = {}
+    for k, a, b in zip(("loads", "dT", "dQ"), hand, jac):
+        err[k] = float(torch.max(torch.abs(a - b)) / torch.max(torch.abs(a)))
+        check(err[k] <= BEMT_TOL, f"bemt: hand vs jacfwd {k} {err[k]:.3e} > "
+              f"{BEMT_TOL:g} x max")
+    res = dict(rows=rows, hand_ms=hand_ms, jacfwd_ms=jac_ms, rel_err=err,
+               residual_evals=aero.RESIDUAL_EVALS)
+    print(f"bemt: loads + dT, dQ at {rows} operating points x "
+          f"{rt.azimuths.numel()} azimuths x {rt.theta_deg.numel()} elements: "
+          f"hand tangents {hand_ms:.1f} ms, torch.func.jacfwd {jac_ms:.1f} ms "
+          f"(wall, per call); within " + ", ".join(
+              f"{k} {v:.1e}" for k, v in err.items())
+          + f" x max of each other (gate {BEMT_TOL:g})")
+    return res
+
+
+def phase_staged_solve(rows=512, nWaves=2, nw=40):
+    """The staged multi-heading response's solve at the full path's
+    shape: Z (rows, 1, nw, 6, 6) against F (rows, nWaves, nw, 6), as
+    ``system_response`` broadcasts it.  CUDA-event times of the SoA
+    repack (which copies Z once per heading), of the raw kernel on the
+    repacked planes and of the whole wrapper."""
+    from raft_tpu_torch.ops import linsolve
+
+    rng = np.random.default_rng(3)
+    Z = impedance_systems(rng, 6, (rows, 1), nw, torch.complex128).to(DEVICE)
+    F = torch.as_tensor(rng.normal(size=(rows, nWaves, nw, 6))
+                        + 1j * rng.normal(size=(rows, nWaves, nw, 6))
+                        ).to(DEVICE)
+    planes, _ = linsolve.soa_planes(Z, F)
+    xr, xi = torch.empty_like(planes[2]), torch.empty_like(planes[2])
+
+    def raw():
+        check(linsolve.launch(planes, xr, xi) == 0, "staged: launch failed")
+
+    res = dict(rows=rows, nWaves=nWaves, systems=rows * nWaves * nw,
+               repack_ms=cuda_time(lambda: linsolve.soa_planes(Z, F),
+                                   reps=20),
+               kernel_ms=cuda_time(raw, reps=50, queue_ahead=True),
+               wrapper_ms=cuda_time(lambda: linsolve._cuda_solve(Z, F),
+                                    reps=20))
+    err = float(torch.max(torch.abs(linsolve._cuda_solve(Z, F)
+                                    - linsolve._native_solve(Z, F))))
+    check(err <= F64_TOL * float(torch.max(torch.abs(
+        linsolve._native_solve(Z, F)))), f"staged: kernel vs plain {err:.3e}")
+    print(f"staged solve: {res['systems']:,} systems ({rows} rows x "
+          f"{nWaves} headings x {nw} frequencies, Z shared by the "
+          f"headings): SoA repack {res['repack_ms']:.4f} ms, kernel "
+          f"{res['kernel_ms']:.4f} ms, wrapper {res['wrapper_ms']:.4f} ms")
+    return res
+
+
+def _profiled(fn):
+    """(wall ms, device busy ms, kernel launches, key_averages) of one
+    call of ``fn`` under torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    avg = prof.key_averages()
+    kernels = [e for e in avg
+               if getattr(e, "device_type", None) == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    launches = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
+    return wall_ms, busy_ms, launches, avg
+
+
+def phase_profile_full(out_dir, ev, rows=512):
+    """torch.profiler over the aero stage alone and over one whole
+    ``rows``-row semi_wind chunk of the full path."""
+    gold = dict(np.load(os.path.join(FIX, "golden_full_semi_wind.npz")))
+    p = full_rows("semi_wind", gold, rows, FULL_CONFIGS["semi_wind"]["seed"])
+    kw = dict(dtype=torch.float64, device=DEVICE)
+    pt = {k: torch.as_tensor(v, **kw) for k, v in p.items()}
+    with torch.no_grad():
+        ev(**p)
+        aero = _profiled(lambda: ev._aero(pt, rows))
+        whole = _profiled(lambda: ev(**p))
+    with open(os.path.join(out_dir, "profile_full_top.txt"), "w") as f:
+        f.write(whole[3].table(sort_by="self_device_time_total",
+                               row_limit=25))
+    res = {}
+    for tag, (wall, busy, launches, _) in (("aero", aero), ("chunk", whole)):
+        res[tag] = dict(wall_ms=wall, busy_ms=busy, kernel_launches=launches,
+                        idle_share=(1.0 - busy / wall) if wall else None)
+    if whole[1] > 0:
+        print(f"profile_full: one {rows}-row semi_wind chunk: aero stage "
+              f"alone {res['aero']['kernel_launches']} kernel launches, "
+              f"device busy {res['aero']['busy_ms']:.1f} ms of "
+              f"{res['aero']['wall_ms']:.1f} ms; whole chunk "
+              f"{res['chunk']['kernel_launches']} launches, device busy "
+              f"{res['chunk']['busy_ms']:.1f} ms of "
+              f"{res['chunk']['wall_ms']:.1f} ms (under the profiler), idle "
+              f"share {res['chunk']['idle_share']:.3f}")
+    else:
+        print("profile_full: the profiler recorded no device time "
+              "(not measured)")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
+    ap.add_argument("--full-rows", type=int, default=4096)
     ap.add_argument("--out", default=os.path.join(HERE, "chip_smoke_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
     try:
-        import raft_tpu_torch  # noqa: F401
+        from raft_tpu_torch.models.model import Model
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here ({e})",
               file=sys.stderr)
         return 2
     os.makedirs(args.out, exist_ok=True)
-    rec = {}
+    rec = {"phase_s": {}}
+    t_start = time.time()
+
+    def timed(name, fn, *a):
+        t0 = time.time()
+        out = fn(*a)
+        rec["phase_s"][name] = time.time() - t0
+        return out
+
     try:
-        rec["card"] = phase_device()
-        rec["build"] = phase_build(args.out)
-        rec["kernel"] = phase_kernel()
-        rec["builder"], models, packed = phase_builder()
-        rec["slice"] = phase_slice(packed, args.rows_per_design, rec["card"])
-        rec["design"] = phase_design(models, args.rows_per_design,
-                                     rec["card"])
-        rec["catenary"] = phase_catenary()
-        rec["profile"] = phase_profile(args.out)
+        rec["card"] = timed("device", phase_device)
+        rec["build"] = timed("build", phase_build, args.out)
+        rec["kernel"] = timed("kernel", phase_kernel)
+        rec["builder"], models, packed = timed("builder", phase_builder)
+        rec["slice"] = timed("slice", phase_slice, packed,
+                             args.rows_per_design, rec["card"])
+        rec["design"] = timed("design", phase_design, models,
+                              args.rows_per_design, rec["card"])
+        rec["catenary"] = timed("catenary", phase_catenary)
+        rec["profile"] = timed("profile", phase_profile, args.out)
+        rotor_models = {}
+        for n in FULL_CONFIGS:
+            with open(os.path.join(FIX, f"design_{n}.json")) as f:
+                rotor_models[n] = Model(json.load(f))
+        rec["full"], evs = timed("full", phase_full, rotor_models,
+                                 args.full_rows, rec["card"])
+        rec["bemt"] = timed("bemt", phase_bemt, evs["semi_wind"])
+        rec["staged_solve"] = timed("staged_solve", phase_staged_solve)
+        rec["profile_full"] = timed("profile_full", phase_profile_full,
+                                    args.out, evs["semi_wind"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     k = rec["kernel"]
+    rec["launches_by_path"] = dict(
+        slice=rec["slice"]["launches"], design=rec["design"]["launches"],
+        **{f"full_{n}": r["launches"] for n, r in rec["full"].items()})
     kernels = [dict(
         name="ge_solve", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
         replaces="raft_tpu/ops/linsolve.py:277",
-        launches=rec["slice"]["launches"] + rec["design"]["launches"],
+        launches=(rec["slice"]["launches"] + rec["design"]["launches"]
+                  + sum(r["launches"] for r in rec["full"].values())),
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"])]
     rec["build"].pop("ptxas")
+    rec["total_s"] = time.time() - t_start
+    print(f"phases: {rec['total_s']:.1f} s in all; " + ", ".join(
+        f"{n} {t:.1f}" for n, t in rec["phase_s"].items()))
     with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
         json.dump(rec, f, indent=1, default=float)
     print(json.dumps({"kernels": kernels}))

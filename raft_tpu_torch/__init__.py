@@ -17,6 +17,12 @@ Entry points:
   :func:`~raft_tpu_torch.api.make_design_evaluator` — one design's
   batched sea-state and design-axis (drag / added-mass / mooring-length
   scales) evaluators, forward only;
+* :func:`raft_tpu_torch.api.make_full_evaluator` — one design's batched
+  full-physics evaluator (rotor aero-servo with load derivatives,
+  submerged-rotor blade hydro, current loads, several wave headings)
+  over rows of wind, current and seas, forward only, with
+  :func:`~raft_tpu_torch.api.cases_to_rows` turning a case table into
+  its rows;
 * :class:`raft_tpu_torch.structure.bucketing.BucketEvaluator` — one
   bucket signature's batched evaluator (statics, excitation, drag
   fixed point, response);

@@ -1,11 +1,17 @@
 """Evaluation API of one design (counterpart of ``raft_tpu/api.py``):
-the batched case and design-axis evaluators, and the case-level helpers
-every evaluator shares (``_policy_cdt``, ``_case_status``)."""
+the batched case, design-axis and full-physics evaluators
+(:func:`make_case_evaluator`, :func:`make_design_evaluator`,
+:func:`make_full_evaluator`), the case-table helpers of the full
+evaluator (:func:`case_to_traced`, :func:`cases_to_rows`,
+:func:`case_in_traced_domain`), and the case-level helpers every
+evaluator shares (``_policy_cdt``, ``_case_status``)."""
 
 from __future__ import annotations
 
 import dataclasses
+import math
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -21,16 +27,20 @@ def _policy_cdt(*tensors):
     return compute_dtypes(*tensors)[1]
 
 
-def _case_status(st_status, dyn_diag, X0, Xi):
+def _case_status(st_status, dyn_diag, X0, Xi, input_clipped=None):
     """One int32 health word per row: the statics bits OR the dynamics
-    bits OR the evaluator guard on non-finite outputs (the bucket path
-    clamps no input, so INPUT_CLIPPED stays clear)."""
+    bits OR the evaluator guards on non-finite outputs and on clamped
+    inputs (``input_clipped`` (R,) bool, or None: no input clamped, as
+    on the bucket path)."""
     status = st_status | dyn_diag["status"]
     finite = (torch.all(torch.isfinite(X0), dim=-1)
               & torch.all(torch.isfinite(torch.view_as_real(Xi)).flatten(1),
                           dim=1))
     status = health.set_bit(status, health.NONFINITE_INTERMEDIATE,
                             (~finite).to(torch.int32))
+    if input_clipped is not None:
+        status = health.set_bit(status, health.INPUT_CLIPPED,
+                                input_clipped.to(torch.int32))
     return status.to(torch.int32)
 
 
@@ -159,3 +169,368 @@ def make_design_evaluator(model, device=None):
     """The batched :class:`DesignEvaluator` of ``model`` on ``device``
     (default: the current CUDA device; raises without one)."""
     return DesignEvaluator(model, device)
+
+
+# ------------------------------------------------------ full physics
+
+#: the row parameters of :class:`FullEvaluator`: per-row environment
+#: scalars, and sea-state parameters per row and wave heading
+ENV_KEYS = ("wind_speed", "wind_heading_deg", "TI", "yaw_misalign_deg",
+            "current_speed", "current_heading_deg")
+SEA_KEYS = ("Hs", "Tp", "gamma", "beta_deg")
+
+#: the output keys of :class:`FullEvaluator`, as the reference's
+FULL_OUT_KEYS = ("X0", "Xi", "RAO", "PSD", "S", "zeta", "f_aero", "A00",
+                 "B00", "f_aero0", "Omega_rpm", "pitch_deg", "F_2nd_mean",
+                 "Z", "drag_resid", "drag_converged", "n_iter_drag",
+                 "status")
+
+#: the stages a :class:`FullEvaluator` timer is called with, in order
+FULL_STAGES = ("aero", "statics", "excitation", "fixed_point", "response")
+
+
+def case_to_traced(case, nWaves=1):
+    """One parsed case-table row (the reference's key names) as the row
+    parameters of :class:`FullEvaluator`: the six environment scalars
+    and (nWaves,) numpy arrays of Hs, Tp, gamma and beta_deg.  A
+    turbulence given as an IEC class string gives TI 0 (such a case is
+    outside :func:`case_in_traced_domain`)."""
+    from raft_tpu_torch.structure.schema import coerce
+
+    turb = case.get("turbulence", 0.0)
+    TI = float(turb) if not isinstance(turb, str) else 0.0
+    return dict(
+        wind_speed=float(coerce(case, "wind_speed", shape=0, default=0.0)),
+        wind_heading_deg=float(coerce(case, "wind_heading", shape=0,
+                                      default=0.0)),
+        TI=TI,
+        yaw_misalign_deg=float(coerce(case, "yaw_misalign", shape=0,
+                                      default=0.0)),
+        current_speed=float(coerce(case, "current_speed", shape=0,
+                                   default=0.0)),
+        current_heading_deg=float(coerce(case, "current_heading", shape=0,
+                                         default=0.0)),
+        Hs=np.asarray(coerce(case, "wave_height", shape=nWaves), dtype=float),
+        Tp=np.asarray(coerce(case, "wave_period", shape=nWaves), dtype=float),
+        gamma=np.asarray(coerce(case, "wave_gamma", shape=nWaves,
+                                default=0.0), dtype=float),
+        beta_deg=np.asarray(coerce(case, "wave_heading", shape=nWaves),
+                            dtype=float),
+    )
+
+
+def cases_to_rows(cases, nWaves=1):
+    """A list of parsed cases as row arrays for :class:`FullEvaluator`:
+    (R,) environment scalars and (R, nWaves) sea-state parameters."""
+    rows = [case_to_traced(c, nWaves) for c in cases]
+    if not rows:
+        raise ValueError("no cases to turn into rows")
+    return {k: np.stack([np.asarray(r[k], dtype=float) for r in rows])
+            for k in ENV_KEYS + SEA_KEYS}
+
+
+def case_in_traced_domain(case):
+    """True when a parsed case row is inside the full evaluator's static
+    assumptions: operating turbine, JONSWAP seas, numeric turbulence
+    intensity, one wave heading.  IEC turbulence-class strings, parked
+    or idle rotors and other spectra need the per-case branching the
+    evaluator bakes in."""
+    if isinstance(case.get("turbulence", 0.0), str):
+        return False
+    if str(case.get("turbine_status", "operating")) != "operating":
+        return False
+    spec = case.get("wave_spectrum", "JONSWAP")
+    specs = [spec] if isinstance(spec, str) else list(np.atleast_1d(spec))
+    if any(str(s).upper() not in ("JONSWAP",) for s in specs):
+        return False
+    return np.ndim(case.get("wave_heading", 0.0)) == 0
+
+
+class FullEvaluator(nn.Module):
+    """Batched full-physics evaluator of one rigid single-FOWT design
+    (the reference's ``make_full_evaluator``), forward only.
+
+    ``forward(**rows, timer=None)`` takes R rows of the environment
+    (:data:`ENV_KEYS`, each a scalar or (R,)) and of the sea states
+    (:data:`SEA_KEYS`, each a scalar, (R,) or (R, nWaves); gamma 0 is
+    the IEC default) and returns :data:`FULL_OUT_KEYS` per row.  Per
+    chunk of ``RAFT_TPU_BUCKET_ROWS`` rows, in the reference's order:
+
+    1. ``aero``: for each rotor with ``aeroServoMod > 0``, the
+       blade-element solve with its load derivatives and the aero-servo
+       coefficients about the rotor node (a submerged rotor sees the
+       current, others the wind).  A rotor is on where its speed is
+       > 0 and is evaluated at ``max(speed, 0.1)``; INPUT_CLIPPED marks
+       the rows where ``0 < speed < 0.1``;
+    2. ``statics``: current loads at the zero pose, then the mean-offset
+       equilibrium under the environmental mean load;
+    3. ``excitation``: strip frames at the displaced pose, one JONSWAP
+       spectrum and strip excitation per wave heading;
+    4. ``fixed_point``: the drag-linearised impedance solve with the
+       aerodynamic added mass, damping and gyroscopic damping, driven
+       by the first heading;
+    5. ``response``: with one heading and ``RAFT_TPU_FUSED=on`` the
+       fixed point's final solve; otherwise every heading's inertial
+       plus drag excitation against the one impedance, in one solve.
+
+    ``F_2nd_mean`` is zero: the builder refuses every second-order
+    source.  ``timer(stage)``, when given, is called with "start" and
+    then with each of :data:`FULL_STAGES` per chunk.
+    """
+
+    def __init__(self, model, nWaves=1, turb_static=None, device=None):
+        super().__init__()
+        from raft_tpu_torch.models.hydro import site_rows
+        from raft_tpu_torch.models.statics_solve import make_tolerances
+        from raft_tpu_torch.physics.aero import rotor_tensors
+        from raft_tpu_torch.physics.statics import node_T
+
+        device = resolve_device(device)
+        self.device = device
+        fs = model.fowtList[0]
+        self.fs = fs
+        self.nWaves = int(nWaves)
+        if self.nWaves < 1:
+            raise ValueError(f"nWaves={nWaves}: need at least one heading")
+        self.turb_static = tuple(turb_static or ("NTM", 50.0))
+        self.rdt, self.cdt = compute_dtypes()
+        self.nw = int(model.nw)
+        self.dw = float(model.w[1] - model.w[0])
+        self.n_iter, self.Xi_start = model.nIter, model.XiStart
+        self.n_iter_extra = model.nIterExtra
+        rdt = self.rdt
+        kw = dict(dtype=rdt, device=device)
+
+        def t(a):
+            return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(**kw)
+
+        stat = model.statics()
+        fh = model.hydro[0]
+        self.K_h = t(stat["C_struc"] + stat["C_hydro"])
+        self.C_elast = t(stat["C_elast"])
+        self.F_und = t(stat["W_struc"] + stat["W_hydro"]
+                       + stat["f0_additional"])
+        self.M_struc = t(stat["M_struc"])
+        self.A_hydro = t(fh.hc0["A_hydro"])
+        self.w = t(model.w)
+        self.k = t(model.k)
+        self.Imat = torch.as_tensor(fh.hc0["Imat"]).to(device=device,
+                                                       dtype=self.cdt)
+        self.a_i = t(fh.hc0["a_i"])
+        # the zero-pose strip frames the current loads are taken at
+        self.hc0 = {k2: (t(fh.hc0[k2]) if k2 in ("r", "q", "p1", "p2")
+                         else torch.as_tensor(fh.hc0[k2]).to(device))
+                    for k2 in ("r", "q", "p1", "p2", "sub")}
+        self.ss = morison.strips_to_rows(fh.strips, device)
+        self.ss = dataclasses.replace(self.ss, **{
+            f.name: getattr(self.ss, f.name).to(rdt)
+            for f in dataclasses.fields(self.ss)
+            if getattr(self.ss, f.name) is not None
+            and getattr(self.ss, f.name).is_floating_point()})
+        self.site = site_rows(fs, device)
+        self.node_r0 = t(fs.node_r0)
+        self.root = torch.tensor([fs.root_id], dtype=torch.int32,
+                                 device=device)
+        self.Tn0 = node_T(self.node_r0, self.node_r0[fs.root_id])
+        self.ms = None if model.ms is None else model.ms.to(device, rdt)
+        tols, caps, refs = make_tolerances([fs])
+        self.tol_vec, self.caps, self.refs = t(tols), t(caps), t(refs)
+        self.Zref = min([r.Zhub for r in fs.rotors if r.Zhub < 0],
+                        default=0.0)
+        self.n_rot_out = max(fs.nrotors, 1)
+        # (rotor index, its properties, its tensors, its node) of every
+        # rotor with aero-servo physics
+        self.rotors = [
+            (ir, fs.rotors[ir], rotor_tensors(rot, device, rdt),
+             int(fs.rotor_node[ir]))
+            for ir, rot in enumerate(model.rotor_aero if fs.nrotors else [])
+            if fs.rotors[ir].aeroServoMod > 0]
+
+    def forward(self, timer=None, **rows):
+        unknown = set(rows) - set(ENV_KEYS + SEA_KEYS)
+        if unknown:
+            raise TypeError(f"unknown row parameters {sorted(unknown)}")
+        if not {"Hs", "Tp"} <= set(rows):
+            raise TypeError("rows need Hs and Tp")
+        kw = dict(dtype=self.rdt, device=self.device)
+        vals = {k: torch.as_tensor(rows.get(k, 0.0), **kw)
+                for k in ENV_KEYS + SEA_KEYS}
+        for k, v in vals.items():
+            if v.dim() > (2 if k in SEA_KEYS else 1):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} has too many "
+                                 "axes")
+            if k in SEA_KEYS and v.dim() == 2 and v.shape[1] != self.nWaves:
+                raise ValueError(f"{k}: shape {tuple(v.shape)}, expected "
+                                 f"(R, {self.nWaves})")
+        n = torch.broadcast_shapes(*(v.shape[:1] for v in vals.values()))
+        n = n[0] if n else 1
+        if n == 0:
+            raise ValueError("empty batch: no rows to evaluate")
+        p = {}
+        for k, v in vals.items():
+            if k in SEA_KEYS:
+                v = v[:, None] if v.dim() == 1 else v
+                p[k] = v.expand(n, self.nWaves)
+            else:
+                p[k] = v.expand(n)
+        cap = int(config.get("BUCKET_ROWS")) or n
+        mark = timer if timer is not None else (lambda stage: None)
+        outs = []
+        with torch.no_grad():
+            for a in range(0, n, cap):
+                outs.append(self._chunk({k: v[a:a + cap]
+                                         for k, v in p.items()}, mark))
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    def _aero(self, p, R):
+        """Every active rotor's aero-servo terms, reduced to the body."""
+        from raft_tpu_torch.physics.aero import calc_aero_traced
+
+        rdt, dev, nw = self.rdt, self.device, self.nw
+        out = dict(
+            f_aero0=torch.zeros((R, 6), dtype=rdt, device=dev),
+            f_aero=torch.zeros((R, 6, nw), dtype=self.cdt, device=dev),
+            A_aero=torch.zeros((R, 6, 6, nw), dtype=rdt, device=dev),
+            B_aero=torch.zeros((R, 6, 6, nw), dtype=rdt, device=dev),
+            B_gyro=torch.zeros((R, 6, 6), dtype=rdt, device=dev),
+            A00=torch.zeros((R, nw, self.n_rot_out), dtype=rdt, device=dev),
+            B00=torch.zeros((R, nw, self.n_rot_out), dtype=rdt, device=dev),
+            Omega_rpm=torch.zeros((R, self.n_rot_out), dtype=rdt,
+                                  device=dev),
+            pitch_deg=torch.zeros((R, self.n_rot_out), dtype=rdt,
+                                  device=dev),
+            input_clipped=torch.zeros(R, dtype=torch.bool, device=dev),
+        )
+        deg = math.pi / 180
+        yaw_cmd = p["yaw_misalign_deg"] * deg
+        for ir, rprops, rt, node in self.rotors:
+            current = rprops.Zhub < 0
+            speed = p["current_speed"] if current else p["wind_speed"]
+            heading = (p["current_heading_deg"] if current
+                       else p["wind_heading_deg"]) * deg
+            on = speed > 0
+            speed_safe = torch.clamp(speed, min=0.1)
+            out["input_clipped"] |= on & (speed < 0.1)
+            f0, f6, a6, b6, Bg, _, Om, pit = calc_aero_traced(
+                rt, rprops, self.w, speed_safe, heading, p["TI"],
+                yaw_command_rad=yaw_cmd, turb_static=self.turb_static)
+            Tn = self.Tn0[node]                                  # (6, 6)
+            onr = on.to(rdt)
+            out["f_aero0"] += onr[:, None] * (f0 @ Tn)
+            out["f_aero"] += onr[:, None, None] * torch.einsum(
+                "ia,riw->raw", Tn.to(f6.dtype), f6)
+            out["A_aero"] += onr[:, None, None, None] * torch.einsum(
+                "ia,rijw,jb->rabw", Tn, a6, Tn)
+            out["B_aero"] += onr[:, None, None, None] * torch.einsum(
+                "ia,rijw,jb->rabw", Tn, b6, Tn)
+            out["B_gyro"] += onr[:, None, None] * (Tn.T @ Bg @ Tn)
+            out["A00"][:, :, ir] = onr[:, None] * a6[:, 0, 0, :]
+            out["B00"][:, :, ir] = onr[:, None] * b6[:, 0, 0, :]
+            out["Omega_rpm"][:, ir] = onr * Om
+            out["pitch_deg"][:, ir] = onr * pit
+        return out
+
+    def _chunk(self, p, mark):
+        from raft_tpu_torch.models.dynamics import (fused_response_enabled,
+                                                    solve_dynamics_fowt,
+                                                    system_response)
+        from raft_tpu_torch.models.statics_solve import (
+            single_ms_closures, solve_equilibrium_general)
+        from raft_tpu_torch.ops import waves as wv
+        from raft_tpu_torch.physics.statics import (node_T,
+                                                    platform_kinematics)
+
+        R = p["Hs"].shape[0]
+        nW, nw, rdt = self.nWaves, self.nw, self.rdt
+        mark("start")
+        aero = self._aero(p, R)
+        mark("aero")
+
+        site = dataclasses.replace(self.site, **{
+            k: getattr(self.site, k).expand(R).to(rdt)
+            for k in ("rho_water", "depth", "g")})
+        ss = dataclasses.replace(self.ss, **{
+            f.name: getattr(self.ss, f.name).expand(
+                (R,) + getattr(self.ss, f.name).shape[1:])
+            for f in dataclasses.fields(self.ss)
+            if getattr(self.ss, f.name) is not None})
+        node_r0 = self.node_r0.expand(R, -1, -1)
+        Tn0 = self.Tn0.expand(R, -1, -1, -1)
+        hc0 = {k: v.expand((R,) + v.shape) for k, v in self.hc0.items()}
+        F_current = morison.current_loads(
+            site, ss, hc0, p["current_speed"], p["current_heading_deg"],
+            self.Zref, Tn0, node_r0)
+        F_env = F_current + aero["f_aero0"]
+        X0, _, _, _, st_status, C_moor = solve_equilibrium_general(
+            self.K_h.expand(R, 6, 6), self.F_und.expand(R, 6), F_env,
+            single_ms_closures(self.ms, 6), self.tol_vec, self.caps,
+            self.refs, C_elast=self.C_elast)
+        mark("statics")
+
+        r_nodes, R_ptfm, r_root = platform_kinematics(
+            node_r0, self.root.expand(R), X0)
+        Tn = node_T(r_nodes, r_root)
+        r, q, p1, p2 = morison.strip_frames(ss, R_ptfm, r_nodes)
+        sub = r[..., 2] < 0
+        hc = dict(Imat=self.Imat.expand((R,) + self.Imat.shape),
+                  a_i=self.a_i.expand((R,) + self.a_i.shape),
+                  r=r, q=q, p1=p1, p2=p2, sub=sub, active=sub & ss.active)
+        S = wv.jonswap(self.w, p["Hs"], p["Tp"], gamma=p["gamma"])
+        zeta = torch.sqrt(2.0 * S * self.dw).to(_policy_cdt(self.K_h))
+        beta = p["beta_deg"] * (math.pi / 180)
+        k = self.k.expand(R, nw)
+        exc = [morison.hydro_excitation(site, ss, hc, zeta[:, ih],
+                                        beta[:, ih], self.w, k, Tn, r_nodes)
+               for ih in range(nW)]
+        mark("excitation")
+
+        M_lin = aero["A_aero"] + (self.M_struc + self.A_hydro)[..., None]
+        B_lin = aero["B_aero"] + aero["B_gyro"][..., None]
+        C_lin = self.K_h + C_moor + self.C_elast
+        F_lin = exc[0]["F_hydro_iner"]
+        Z, Xi_fused, Bmat, dyn = solve_dynamics_fowt(
+            site, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin, F_lin, self.w,
+            Tn, r_nodes, n_iter=self.n_iter, Xi_start=self.Xi_start,
+            n_iter_extra=self.n_iter_extra, timer=mark)
+
+        if nW == 1 and fused_response_enabled():
+            Xi = Xi_fused[:, None]
+        else:
+            F_waves = torch.stack([
+                exc[ih]["F_hydro_iner"] + morison.drag_excitation(
+                    site, ss, hc, Bmat, exc[ih]["u"], Tn, r_nodes)
+                for ih in range(nW)], dim=1)
+            Xi = system_response(Z[:, None], F_waves)
+        Xi = torch.cat([Xi, torch.zeros((R, 1, 6, nw), dtype=Xi.dtype,
+                                        device=Xi.device)], dim=1)
+        out = dict(
+            X0=X0, Xi=Xi, RAO=wv.get_rao(Xi[:, 0], zeta[:, 0, None, :]),
+            PSD=torch.sum(0.5 * torch.abs(Xi) ** 2 / self.dw, dim=1),
+            S=S, zeta=zeta, f_aero=aero["f_aero"], A00=aero["A00"],
+            B00=aero["B00"], f_aero0=aero["f_aero0"],
+            Omega_rpm=aero["Omega_rpm"], pitch_deg=aero["pitch_deg"],
+            F_2nd_mean=torch.zeros((R, nW, 6), dtype=rdt, device=X0.device),
+            Z=Z, drag_resid=dyn["drag_resid"],
+            drag_converged=dyn["drag_converged"],
+            n_iter_drag=dyn["n_iter_drag"],
+            status=_case_status(st_status, dyn, X0, Xi,
+                                input_clipped=aero["input_clipped"]),
+        )
+        mark("response")
+        return out
+
+
+def make_full_evaluator(model, nWaves=1, turb_static=None, device=None,
+                        geometry=False):
+    """The batched :class:`FullEvaluator` of ``model`` with ``nWaves``
+    wave headings per row, on ``device`` (default: the current CUDA
+    device; raises without one).  ``turb_static`` is the turbulence
+    model and class reference speed (default ``("NTM", 50.0)``).
+    ``geometry=True`` (the traced geometry design axis) is not ported
+    and raises."""
+    if geometry:
+        raise NotImplementedError(
+            "the geometry design axis of the full evaluator is not ported "
+            "(ROADMAP A9)")
+    return FullEvaluator(model, nWaves=nWaves, turb_static=turb_static,
+                         device=device)

@@ -7,11 +7,12 @@ loads and the joint topology, as the reference RAFT ``FOWT.__init__``
 (``raft_fowt.py`` :36-437, joints :439-551) does, minus all runtime
 state: the object is immutable after construction.
 
-What the port does not build raises ``NotImplementedError`` naming its
+A submerged rotor with blades gets its blades' hydro summary
+(:func:`raft_tpu_torch.physics.aero.blade_hydro`) at build time.  What
+the port does not build raises ``NotImplementedError`` naming its
 ROADMAP item, before anything is half-built: potential-flow members and
-coefficient files (A11), a submerged rotor with blades (its blade hydro
-belongs to the aero port, A10), and structures that do not reduce to one
-rigid 6-DOF body (A11).
+coefficient files (A11), external QTF files (A13) and structures that do
+not reduce to one rigid 6-DOF body (A11).
 """
 
 from __future__ import annotations
@@ -62,8 +63,8 @@ class RotorProps:
     I_drivetrain: float = 0.0
     aeroServoMod: int = 1
     yaw_mode: int = 0
-    # submerged rotor blade hydro (raft_rotor.py:604-656): not ported,
-    # always None (a submerged rotor with blades raises)
+    # submerged (MHK) rotor blade hydro summary about the rotor node:
+    # dict(A_hydro, I_hydro, Fvec, Cmat, V, r_hub) or None
     hydro: dict | None = None
 
 
@@ -129,12 +130,15 @@ class FOWTStructure:
 
         self.nplatmems = sum(1 for m in self.members if m.part_of == "platform")
         pot = [m.name for m in self.members if m.potMod]
-        if pot or (self.hydroPath and (self.potFirstOrder == 1
-                                       or self.potSecOrder == 2)):
+        if pot or (self.hydroPath and self.potFirstOrder == 1):
             raise NotImplementedError(
-                "potential-flow hydrodynamics (potMod members "
+                "potential-flow (BEM/WAMIT) hydrodynamics (potMod members "
                 f"{sorted(set(pot))}, hydroPath {self.hydroPath!r}) are not "
                 "ported (ROADMAP A11)")
+        if self.hydroPath and self.potSecOrder == 2:
+            raise NotImplementedError(
+                "second-order forces from an external QTF (hydroPath "
+                f"{self.hydroPath!r}) are not ported (ROADMAP A13)")
 
         # ---- rotors ----
         self.rotors: list[RotorProps] = []
@@ -189,11 +193,18 @@ class FOWTStructure:
             r_rel[2] = hHub - q_rel[2] * overhang
         R_q0 = _rotmat_np(0.0, -shaft_tilt, shaft_toe)  # yaw = 0 at build
         Zhub = r_rel[2] + q_rel[2] * overhang
+        rotor_hydro = None
         if Zhub < 0 and "blade" in turbine and "airfoils" in turbine:
-            raise NotImplementedError(
-                "a submerged rotor with blades needs its blade hydro "
-                "(raft_tpu/physics/aero.py blade_hydro), which is not "
-                "ported (ROADMAP A10)")
+            from raft_tpu_torch.physics.aero import blade_hydro
+
+            props = RotorProps(
+                mRNA=0, IxRNA=0, IrRNA=0, xCG_RNA=0, overhang=overhang,
+                shaft_tilt=shaft_tilt, shaft_toe=shaft_toe, precone=precone,
+                nBlades=int(coerce(turbine, "nBlades", shape=nrotors,
+                                   dtype=int, default=3)[ir]),
+                r_rel=r_rel, q_rel=q_rel, R_q0=R_q0, Zhub=Zhub)
+            rotor_hydro = blade_hydro(
+                turbine, ir, props, rho_water=self.rho_water, g=self.g)
         return RotorProps(
             mRNA=coerce(turbine, "mRNA", shape=nrotors)[ir],
             IxRNA=coerce(turbine, "IxRNA", shape=nrotors)[ir],
@@ -211,6 +222,7 @@ class FOWTStructure:
             I_drivetrain=float(coerce(turbine, "I_drivetrain", shape=nrotors, default=0.0)[ir]),
             aeroServoMod=int(coerce(turbine, "aeroServoMod", shape=nrotors, dtype=int, default=1)[ir]),
             yaw_mode=int(coerce(turbine, "yaw_mode", shape=nrotors, dtype=int, default=0)[ir]),
+            hydro=rotor_hydro,
         )
 
     # ------------------------------------------------------------------

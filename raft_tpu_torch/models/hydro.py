@@ -18,13 +18,14 @@ from raft_tpu_torch.physics.statics import node_T, platform_kinematics
 _CPU = torch.device("cpu")
 
 
-def add_rotor_added_mass(A, fs):
-    """Add the blade added mass of submerged rotors about their nodes: the
-    identity here, since the port builds no rotor with blade hydro (such
-    a rotor raises at build time, ROADMAP A10)."""
-    if any(rot.hydro is not None for rot in fs.rotors):
-        raise NotImplementedError("submerged-rotor blade hydro is not "
-                                  "ported (ROADMAP A10)")
+def add_rotor_added_mass(A, fs, Tn):
+    """Add the blade added mass of submerged (MHK) rotors about their
+    nodes: A (nDOF, nDOF), Tn (N, 6, nDOF) the node reduction rows
+    (numpy)."""
+    for ir, rot in enumerate(fs.rotors):
+        if rot.hydro is not None:
+            Tn_n = np.asarray(Tn[int(fs.rotor_node[ir])])
+            A = A + Tn_n.T @ np.asarray(rot.hydro["A_hydro"]) @ Tn_n
     return A
 
 
@@ -35,7 +36,8 @@ def site_rows(fs, device, rows=1):
                           device=device)
 
     return morison.SiteRows(rho_water=col(fs.rho_water), depth=col(fs.depth),
-                            g=col(fs.g), n_nodes=fs.n_nodes)
+                            g=col(fs.g), n_nodes=fs.n_nodes,
+                            shearExp_water=fs.shearExp_water)
 
 
 class FOWTHydro:
@@ -53,8 +55,10 @@ class FOWTHydro:
         r_nodes, R_ptfm, r_root = platform_kinematics(
             torch.as_tensor(fs.node_r0, **f64)[None],
             torch.tensor([fs.root_id]), torch.zeros((1, fs.nDOF), **f64))
+        Tn = node_T(r_nodes, r_root)
         hc = morison.hydro_constants(
             site_rows(fs, _CPU), morison.strips_to_rows(self.strips, _CPU),
-            R_ptfm, r_nodes, node_T(r_nodes, r_root))
+            R_ptfm, r_nodes, Tn)
         self.hc0 = {k2: v[0].numpy() for k2, v in hc.items()}
-        self.hc0["A_hydro"] = add_rotor_added_mass(self.hc0["A_hydro"], fs)
+        self.hc0["A_hydro"] = add_rotor_added_mass(self.hc0["A_hydro"], fs,
+                                                   Tn[0].numpy())

@@ -6,8 +6,9 @@ All of it is host work in numpy or float64 CPU tensors; the evaluators
 (:mod:`raft_tpu_torch.api`) and the bucket packer
 (:func:`raft_tpu_torch.structure.bucketing.pack_design`) move what they
 need to the card.  One rigid FOWT with an inline catenary mooring (or
-none); arrays, MoorDyn-file moorings and line dynamics raise
-``NotImplementedError`` naming their ROADMAP item.
+none), and its rotors' blade-element models (:attr:`Model.rotor_aero`);
+arrays and MoorDyn-file moorings (ROADMAP A11) and line dynamics (A10)
+raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ class Model:
         self.nDOF = fs.nDOF
         self._hydro = None
         self._statics = None
+        self._rotor_aero = None
 
     @property
     def hydro(self):
@@ -66,6 +68,33 @@ class Model:
         if self._hydro is None:
             self._hydro = [FOWTHydro(self.fowtList[0], self.w, self.k)]
         return self._hydro
+
+    @property
+    def rotor_aero(self):
+        """Per-rotor :class:`~raft_tpu_torch.physics.aero.RotorAeroModel`
+        (built on first use; empty without a turbine ``wt_ops``
+        schedule).  A submerged rotor takes the water's properties."""
+        if self._rotor_aero is None:
+            from raft_tpu_torch.physics.aero import build_rotor_aero
+
+            self._rotor_aero = []
+            turbine = self.design.get("turbine")
+            if turbine is not None and "wt_ops" in turbine:
+                t = dict(turbine)
+                site = self.design.get("site", {})
+                t.setdefault("nrotors", self.fowtList[0].nrotors)
+                t.setdefault("rho_air", coerce(site, "rho_air", default=1.225))
+                t.setdefault("mu_air", coerce(site, "mu_air", default=1.81e-5))
+                t.setdefault(
+                    "shearExp_air",
+                    coerce(site, "shearExp_air",
+                           default=coerce(site, "shearExp", default=0.12)),
+                )
+                for ir in range(self.fowtList[0].nrotors):
+                    submerged = self.fowtList[0].rotors[ir].Zhub < 0
+                    self._rotor_aero.append(
+                        build_rotor_aero(t, ir, submerged=submerged))
+        return self._rotor_aero
 
     def statics(self, ifowt=0, Xi0=None):
         """FOWT statics as numpy (cached at the zero pose; host work)."""

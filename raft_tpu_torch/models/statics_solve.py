@@ -9,11 +9,12 @@ loop with a per-row ``active`` mask.  Each row stops at its own
 ``done``, the final sub-tolerance step is discarded, and the applied
 steps that saturated the per-DOF cap are counted per row.
 
-Forward only, with no elastic stiffness term (rigid bodies).  One
-difference of form: the mooring enters as a single closure
-``mooring_fn(X) -> (F_moor, C_moor)`` returning the force and the
-stiffness ``-dF/dX`` at the same pose, since one forward-mode pass
-yields both (the reference takes two closures).
+Forward only; the elastic stiffness ``C_elast`` enters as in the
+reference (zero for a rigid body).  One difference of form: the mooring
+enters as a single closure ``mooring_fn(X) -> (F_moor, C_moor)``
+returning the force and the stiffness ``-dF/dX`` at the same pose,
+since one forward-mode pass yields both (the reference takes two
+closures).
 """
 
 from __future__ import annotations
@@ -65,12 +66,15 @@ def solve_equilibrium_general(
     X_ref,
     X0=None,
     max_iter=30,
+    C_elast=None,
 ):
     """Damped Newton equilibrium with the reference's stopping rule.
 
     K_hydrostatic : (R, n, n); F_undisplaced, F_env : (R, n);
     tol_vec, step_cap, X_ref : (n,) or (R, n);
-    mooring_fn : X (R, n) -> (F (R, n), C (R, n, n)).
+    mooring_fn : X (R, n) -> (F (R, n), C (R, n, n));
+    C_elast : (n, n) or (R, n, n) elastic stiffness acting on X - X_ref,
+    or None (no term).
 
     Returns ``(X, F_resid, n_iter, converged, status, C_moor)``: the
     pose, the net force at it, the per-row Newton count (int32), the
@@ -83,10 +87,12 @@ def solve_equilibrium_general(
     X = X_ref.expand(R, n).clone() if X0 is None else X0.clone()
     max_iter_eff = max_iter * max(int(config.get("ITER_SCALE")), 1)
 
+    # the hydrostatic and elastic stiffness act alike on X - X_ref
+    K_lin = K_hydrostatic if C_elast is None else K_hydrostatic + C_elast
+
     def net_force(X, F_moor):
         dx = (X - X_ref)[..., None]
-        return (F_undisplaced - (K_hydrostatic @ dx)[..., 0] + F_env
-                + F_moor)
+        return F_undisplaced - (K_lin @ dx)[..., 0] + F_env + F_moor
 
     it = torch.zeros(R, dtype=torch.int32, device=dev)
     capped = torch.zeros(R, dtype=torch.int32, device=dev)
@@ -95,7 +101,7 @@ def solve_equilibrium_general(
     for _ in range(max_iter_eff):
         F_moor, C_moor = mooring_fn(X)
         F = net_force(X, F_moor)
-        K = K_hydrostatic + C_moor
+        K = K_lin + C_moor
         dX_raw = torch.linalg.solve(K, F[..., None])[..., 0]
         dX = torch.clamp(dX_raw, -step_cap, step_cap)
         step_done = torch.all(torch.abs(dX) < tol_vec, dim=-1)

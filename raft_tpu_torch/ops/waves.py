@@ -34,18 +34,27 @@ def wave_number_ref(w, h, g=9.81, e=0.001):
     return k
 
 
-def jonswap(ws, Hs, Tp):
-    """One-sided JONSWAP spectrum with the IEC 61400-3 default gamma.
+def jonswap(ws, Hs, Tp, gamma=None):
+    """One-sided JONSWAP spectrum.
 
-    ws : (nw,) [rad/s]; Hs, Tp : (...) -> S : (..., nw) [m^2/(rad/s)].
+    ws : (nw,) [rad/s]; Hs, Tp : (...); gamma : (...) or None ->
+    S : (..., nw) [m^2/(rad/s)].  ``gamma`` None or 0 (per element)
+    takes the IEC 61400-3 default as a function of Tp/sqrt(Hs); 1 gives
+    Pierson-Moskowitz.
     """
     Hs = Hs[..., None]
     Tp = Tp[..., None]
     TpOvrSqrtHs = Tp / torch.sqrt(Hs)
-    gamma = torch.where(
+    gamma_iec = torch.where(
         TpOvrSqrtHs <= 3.6, 5.0,
         torch.where(TpOvrSqrtHs >= 5.0, 1.0,
                     torch.exp(5.75 - 1.15 * TpOvrSqrtHs)))
+    if gamma is None:
+        gamma = gamma_iec
+    else:
+        gamma = torch.as_tensor(gamma, dtype=ws.dtype,
+                                device=ws.device)[..., None]
+        gamma = torch.where(gamma == 0, gamma_iec, gamma)
     f = 0.5 / math.pi * ws
     fpOvrf4 = (Tp * f) ** -4.0
     C = 1.0 - 0.287 * torch.log(gamma)

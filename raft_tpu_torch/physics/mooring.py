@@ -34,6 +34,15 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.ops import transforms as tf
+from raft_tpu_torch.ops.dual import Dual
+from raft_tpu_torch.ops.dual import abs_ as _abs
+from raft_tpu_torch.ops.dual import asinh as _asinh
+from raft_tpu_torch.ops.dual import clamp_min as _clamp_min
+from raft_tpu_torch.ops.dual import maximum as _maximum
+from raft_tpu_torch.ops.dual import sqrt as _sqrt
+from raft_tpu_torch.ops.dual import tanh as _tanh
+from raft_tpu_torch.ops.dual import value as _v
+from raft_tpu_torch.ops.dual import where as _where
 from raft_tpu_torch.structure.schema import coerce
 
 
@@ -113,99 +122,6 @@ def build_mooring(mooring, rho_water=1025.0, g=9.81, x_ref=0.0, y_ref=0.0,
     return MooringSystem(r_anchor=np.array(r_anchor), r_fair0=np.array(r_fair),
                          L=np.array(L), w=np.array(w), EA=np.array(EA),
                          depth=depth, moorMod=moorMod)
-
-
-class Dual:
-    """A value ``v`` with forward-mode tangents ``t`` along a leading
-    axis of k directions (``t.shape == (k,) + v.shape``)."""
-
-    __slots__ = ("v", "t")
-
-    def __init__(self, v, t):
-        self.v = v
-        self.t = t
-
-    def __neg__(self):
-        return Dual(-self.v, -self.t)
-
-    def __add__(self, o):
-        if isinstance(o, Dual):
-            return Dual(self.v + o.v, self.t + o.t)
-        return Dual(self.v + o, self.t)
-
-    __radd__ = __add__
-
-    def __sub__(self, o):
-        if isinstance(o, Dual):
-            return Dual(self.v - o.v, self.t - o.t)
-        return Dual(self.v - o, self.t)
-
-    def __rsub__(self, o):
-        return Dual(o - self.v, -self.t)
-
-    def __mul__(self, o):
-        if isinstance(o, Dual):
-            return Dual(self.v * o.v, self.t * o.v + self.v * o.t)
-        return Dual(self.v * o, self.t * o)
-
-    __rmul__ = __mul__
-
-    def __truediv__(self, o):
-        if isinstance(o, Dual):
-            q = self.v / o.v
-            return Dual(q, (self.t - q * o.t) / o.v)
-        return Dual(self.v / o, self.t / o)
-
-    def __rtruediv__(self, o):
-        q = o / self.v
-        return Dual(q, -q * self.t / self.v)
-
-
-def _v(x):
-    return x.v if isinstance(x, Dual) else x
-
-
-def _unary(x, f, df):
-    """f(x) with its tangent df(x, f(x)) * t."""
-    if isinstance(x, Dual):
-        y = f(x.v)
-        return Dual(y, df(x.v, y) * x.t)
-    return f(x)
-
-
-def _sqrt(x):
-    return _unary(x, torch.sqrt, lambda v, y: 0.5 / y)
-
-
-def _asinh(x):
-    return _unary(x, torch.asinh, lambda v, y: 1.0 / torch.sqrt(1.0 + v * v))
-
-
-def _tanh(x):
-    return _unary(x, torch.tanh, lambda v, y: 1.0 - y * y)
-
-
-def _abs(x):
-    return _unary(x, torch.abs, lambda v, y: torch.sgn(v))
-
-
-def _clamp_min(x, lo):
-    """``max(x, lo)`` for a constant ``lo``: tangent passes where x > lo."""
-    return _unary(x, lambda v: torch.clamp(v, min=lo),
-                  lambda v, y: (v > lo).to(v.dtype))
-
-
-def _where(cond, a, b):
-    if not isinstance(a, Dual) and not isinstance(b, Dual):
-        return torch.where(cond, a, b)
-    av, bv = _v(a), _v(b)
-    at = a.t if isinstance(a, Dual) else torch.zeros_like(b.t)
-    bt = b.t if isinstance(b, Dual) else torch.zeros_like(a.t)
-    return Dual(torch.where(cond, av, bv), torch.where(cond, at, bt))
-
-
-def _maximum(a, b):
-    return _where(_v(a) >= _v(b), a, b)
 
 
 def _profile(HF, VF, L, w, EA):

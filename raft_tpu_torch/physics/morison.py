@@ -66,13 +66,15 @@ class StripSet:
 
 @dataclass
 class SiteRows:
-    """The site scalars of a batch of rows, (R,) each, and the (padded)
-    node count: what the strip physics reads of a FOWT."""
+    """The site scalars of a batch of rows, (R,) each, the (padded)
+    node count and the current's shear exponent: what the strip physics
+    reads of a FOWT."""
 
     rho_water: torch.Tensor
     depth: torch.Tensor
     g: torch.Tensor
     n_nodes: int
+    shearExp_water: float = 0.12
 
 
 # ------------------------------------------------------------------ build
@@ -474,3 +476,53 @@ def drag_excitation(fs, ss, hc, Bmat, u_ih, Tn, r_nodes):
                    dim=2)
     return _reduce_force(Tn, ss.node, torch.cat([F3, mom], dim=2),
                          fs.n_nodes)
+
+
+# -------------------------------------------------------------- current
+
+def current_loads(fs, ss, hc, speed, heading_deg, Zref, Tn, r_nodes):
+    """Mean current drag loads at the pose of ``hc``'s strip frames:
+    a power-law current profile referenced to the depth ``Zref`` (0, or
+    the hub depth of a submerged rotor), quadratic drag on the submerged
+    strips in their axial and transverse directions, translated to the
+    nodes and T-reduced.  speed, heading_deg (R,) -> (R, n)."""
+    rho = fs.rho_water[:, None, None]
+    r, q, p1, p2 = hc["r"], hc["q"], hc["p1"], hc["p2"]
+    _, _, a_end, a_q, a_p1, a_p2 = _areas(ss)
+    a_end_abs = torch.abs(a_end)
+    circ = ss.circ
+    sub = hc["sub"]
+
+    z = r[..., 2]
+    depth = fs.depth[:, None]
+    v = speed[:, None] * ((depth - torch.abs(z)) / (depth + Zref)) \
+        ** fs.shearExp_water
+    hd = (heading_deg * (math.pi / 180))[:, None]
+    vcur = torch.stack([v * torch.cos(hd), v * torch.sin(hd),
+                        torch.zeros_like(v)], dim=-1)        # (R, S, 3)
+
+    vq_c = torch.sum(vcur * q, dim=-1)
+    vp1_c = torch.sum(vcur * p1, dim=-1)
+    vp2_c = torch.sum(vcur * p2, dim=-1)
+    vrel_q = vq_c[..., None] * q
+    vrel_p = vcur - vrel_q
+    vrel_p1 = vp1_c[..., None] * p1
+    vrel_p2 = vp2_c[..., None] * p2
+
+    nq = torch.abs(vq_c)
+    np_tot = torch.linalg.vector_norm(vrel_p, dim=-1)
+    np1 = torch.where(circ, np_tot, torch.linalg.vector_norm(vrel_p1, dim=-1))
+    np2 = torch.where(circ, np_tot, torch.linalg.vector_norm(vrel_p2, dim=-1))
+
+    D = (
+        0.5 * rho * (a_q * ss.Cd_q * nq)[..., None] * vrel_q
+        + 0.5 * rho * (a_p1 * ss.Cd_p1 * np1)[..., None] * vrel_p1
+        + 0.5 * rho * (a_p2 * ss.Cd_p2 * np2)[..., None] * vrel_p2
+        + 0.5 * rho * (a_end_abs * ss.Cd_End * nq)[..., None] * vrel_q
+    )
+    D = torch.where(sub[..., None], D, 0.0)
+
+    r_off = r - gather_nodes(r_nodes, ss.node)
+    F6 = torch.cat([D, tf.cross(r_off, D)], dim=-1)          # (R, S, 6)
+    Fn = segment_sum_nodes(F6, ss.node, fs.n_nodes)
+    return torch.einsum("rnia,rni->ra", Tn, Fn)

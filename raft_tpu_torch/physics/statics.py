@@ -313,7 +313,7 @@ def calc_statics(fs, Xi0=None):
             torch.zeros(3, **_HOST))
         Sum_V_rCB = Sum_V_rCB + (rCB_m + h(fs.node_r0[node])) * V
 
-    # ---- RNA inertia (rotors carry no blade hydro in the port)
+    # ---- RNA inertia, and the blade buoyancy of submerged rotors
     for ir, rot in enumerate(fs.rotors):
         node = int(fs.rotor_node[ir])
         q_rot = R_ptfm @ h(rot.q_rel)
@@ -328,6 +328,12 @@ def calc_statics(fs, Xi0=None):
         Cs_blocks[node] += C6
         r_CG_rel = R_ptfm @ h(rot.r_rel) + dCG
         m_center_sum = m_center_sum + r_CG_rel * rot.mRNA
+        if rot.hydro is not None:
+            Wh_blocks[node] += h(rot.hydro["Fvec"])
+            Ch_blocks[node] += h(rot.hydro["Cmat"])
+            V_rot = float(rot.hydro["V"])
+            VTOT = VTOT + V_rot
+            Sum_V_rCB = Sum_V_rCB + h(fs.node_r0[node]) * V_rot
 
     # ---- point inertias
     for pi in fs.pointInertias:

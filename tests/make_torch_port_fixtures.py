@@ -17,6 +17,48 @@ For each of the three bundled demo designs this script writes:
 
 the goldens under ``RAFT_TPU_FUSED=on`` and ``off``.
 
+For the full-physics evaluator it also writes two rotor designs, built
+here from formulas (no published blade or airfoil file is in the
+repository):
+
+* ``design_semi_wind.json``: the semi demo carrying a 3-bladed,
+  15 MW-class rotor in air, ``aeroServoMod: 2``, sized after the
+  published IEA-15-240-RWT (Gaertner et al. 2020, NREL/TP-5000-75698):
+  Rtip 120 m, Rhub 4 m, hub at 150 m, nr 20, nSector 4; chord and twist
+  at 10 stations (:data:`SEMI_BLADE`), chord scaled by
+  :data:`SEMI_CHORD_SCALE` so that the thrust at rated is about 2.1 MN;
+  the schedule Omega = clip(0.716 U, 5, 7.56) rpm (tip-speed ratio 9,
+  rated 10.59 m/s at 7.56 rpm) and pitch = 23 ((U - 10.59)+ / 14.41)^0.75
+  deg from 3 to 25 m/s; ROSCO-like gain schedules and
+  ``I_drivetrain`` 3.2e8 kg m^2;
+* ``design_mhk_tidal.json``: the MHK demo carrying a 2-bladed submerged
+  rotor, ``aeroServoMod: 1``: Rtip 5 m, Rhub 0.6 m, hub at -15 m, 12 m
+  upstream of the hull on a horizontal strut ``tower``; Omega =
+  min(9.55 U, 19.1) rpm (tip-speed ratio 5, rated 2 m/s) and pitch =
+  14 ((U - 2)+ / 1)^0.7 deg over a current of 0.5 to 3 m/s.
+
+Both use four analytic airfoils (:func:`analytic_polar`) over -180 to
+180 deg: a cylinder (cl 0, cd 0.5) and relative thicknesses 0.40, 0.30
+and 0.21 with
+
+    f  = 1 / (1 + exp(-(|a| - a_s) / 2 deg))          (stall blend)
+    cl = (1 - f) (cl0 + cla sin a cos^2 a) + f 1.1 sin 2a
+    cd = cd0 + (1 - f) 0.6 sin^2 a + f 1.3 sin^2 a
+
+(cla, cl0, a_s, cd0) = (5.0, 0.20, 9 deg, 0.016), (5.6, 0.32, 11 deg,
+0.011), (6.1, 0.42, 12.5 deg, 0.0075).  And it writes:
+
+* ``golden_full_<name>.npz`` for semi_wind (1 wave heading), mhk_tidal
+  and the three demos (2 headings, current on): the JAX full evaluator's
+  outputs (float64, CPU, vmapped) over 8 fixed rows, FUSED on and off;
+* ``golden_aero_<rotor>.npz``: the JAX ``rotor_loads_and_derivs`` over
+  a grid of (U, Omega, pitch, tilt, yaw) and ``kaimal_rot_psd_traced``
+  over a grid of (V, TI) for each turbulence model;
+* ``rotor_<rotor>.npz``: the JAX builder's ``RotorAeroModel`` fields
+  and the submerged rotor's ``blade_hydro`` arrays;
+* ``packed_<rotor>.npz``: the JAX builder's packed leaves of each rotor
+  design (blade added mass and buoyancy included).
+
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
@@ -24,9 +66,10 @@ Run from the repository root::
 It writes ``tests/fixtures/torch_port/*``.
 The checked-in files came from ``raft_tpu`` as of commit d384195 (its
 sources are unchanged since c7d9048).  Not collected by pytest (the
-file name does not start with ``test_``); the slow test
-``tests/test_torch_bucket.py::test_fixtures_regenerate`` re-runs
-:func:`build_fixtures` and compares with the files.
+file name does not start with ``test_``); the slow tests
+``tests/test_torch_bucket.py::test_fixtures_regenerate`` and
+``tests/test_torch_full.py::test_full_fixtures_regenerate`` re-run the
+builders here and compare with the files.
 """
 
 from __future__ import annotations
@@ -171,11 +214,10 @@ def build_design_golden(name):
     return gd
 
 
-def build_fixtures(name):
-    """``(packed_npz, golden_npz)`` dicts of one design, as written."""
+def packed_npz(packed, sig):
+    """A packed design and its signature as the ``packed_*.npz`` dict."""
     import numpy as np
 
-    packed, sig = pack(name)
     from raft_tpu.structure import bucketing
 
     meta = bucketing.signature_meta(sig)
@@ -184,6 +226,15 @@ def build_fixtures(name):
         pk["sig_" + k] = np.int64(meta[k])
     pk["sig_XiStart"] = np.float64(meta["XiStart"])
     pk["sig_w"] = np.asarray(meta["w"], dtype=np.float64)
+    return pk
+
+
+def build_fixtures(name):
+    """``(packed_npz, golden_npz)`` dicts of one design, as written."""
+    import numpy as np
+
+    packed, sig = pack(name)
+    pk = packed_npz(packed, sig)
     gd = {"Hs": np.asarray([c[0] for c in GOLDEN_CASES]),
           "Tp": np.asarray([c[1] for c in GOLDEN_CASES]),
           "beta": np.asarray([c[2] for c in GOLDEN_CASES])}
@@ -191,6 +242,361 @@ def build_fixtures(name):
         for k, v in golden(packed, sig, fused).items():
             gd[f"{fused}_{k}"] = v
     return pk, gd
+
+
+# ------------------------------------------------------- rotor fixtures
+
+#: airfoil parameters (cla [1/rad], cl0, stall angle [deg], cd0) per
+#: relative thickness
+AIRFOIL_PARAMS = {0.40: (5.0, 0.20, 9.0, 0.016),
+                  0.30: (5.6, 0.32, 11.0, 0.011),
+                  0.21: (6.1, 0.42, 12.5, 0.0075)}
+
+#: semi_wind blade: span fraction, chord [m], twist [deg] per station
+SEMI_BLADE = (
+    (0.00, 5.2, 15.0), (0.05, 5.3, 14.0), (0.15, 5.7, 11.0),
+    (0.25, 5.8, 8.0), (0.40, 5.0, 5.0), (0.55, 4.2, 3.0),
+    (0.70, 3.4, 1.5), (0.85, 2.6, 0.4), (0.95, 1.8, -0.2),
+    (1.00, 1.0, -0.5),
+)
+SEMI_CHORD_SCALE = 1.15
+
+#: mhk_tidal blade: span fraction, chord [m], twist [deg] per station
+MHK_BLADE = (
+    (0.00, 0.55, 22.0), (0.10, 0.75, 18.0), (0.25, 0.80, 12.0),
+    (0.45, 0.68, 7.0), (0.65, 0.56, 4.0), (0.85, 0.44, 2.0),
+    (1.00, 0.30, 1.0),
+)
+
+
+def analytic_polar(t_rel):
+    """[[aoa deg, cl, cd, cm]] at 2.5 deg steps over -180..180 deg of an
+    airfoil of relative thickness ``t_rel`` (1.0: a cylinder); the
+    formulas are in the module docstring."""
+    import numpy as np
+
+    aoa = np.linspace(-180.0, 180.0, 145)
+    a = np.deg2rad(aoa)
+    if t_rel >= 1.0:
+        return [[float(x), 0.0, 0.5, 0.0] for x in aoa]
+    cla, cl0, a_s, cd0 = AIRFOIL_PARAMS[t_rel]
+    f = 1.0 / (1.0 + np.exp(-(np.abs(a) - np.deg2rad(a_s)) / np.deg2rad(2.0)))
+    cl = (1 - f) * (cl0 + cla * np.sin(a) * np.cos(a) ** 2) \
+        + f * 1.1 * np.sin(2 * a)
+    cd = cd0 + (1 - f) * 0.6 * np.sin(a) ** 2 + f * 1.3 * np.sin(a) ** 2
+    return [[float(x), float(y), float(z), 0.0]
+            for x, y, z in zip(aoa, cl, cd)]
+
+
+def _airfoils():
+    out = [dict(name="cylinder", relative_thickness=1.0,
+                data=analytic_polar(1.0))]
+    for t in (0.40, 0.30, 0.21):
+        out.append(dict(name=f"af{int(round(t * 100))}",
+                        relative_thickness=t, data=analytic_polar(t)))
+    return out
+
+
+def _blade(stations, Rhub, Rtip, chord_scale, airfoils):
+    return dict(
+        Rtip=Rtip, nr=20, nSector=4, precurveTip=0.0, presweepTip=0.0,
+        geometry=[[Rhub + x * (Rtip - Rhub), c * chord_scale, tw, 0.0, 0.0]
+                  for x, c, tw in stations],
+        airfoils=airfoils)
+
+
+def semi_wind_design():
+    """The semi demo with a 15 MW-class rotor in air (module docstring)."""
+    import numpy as np
+
+    d = design_dict("semi")
+    d["name"] = "raft_tpu_torch fixture: semi demo with a 15 MW-class rotor"
+    t = d["turbine"]
+    U = np.array([3.0, 4, 5, 6, 7, 8, 9, 10, 10.59, 11, 12, 14, 16, 18, 20,
+                  22, 25])
+    t.update(
+        aeroServoMod=2, nBlades=3, Rhub=4.0, I_drivetrain=3.2e8,
+        gear_ratio=1.0,
+        blade=_blade(SEMI_BLADE, 4.0, 120.0, SEMI_CHORD_SCALE,
+                     [[0.0, "cylinder"], [0.12, "af40"], [0.35, "af30"],
+                      [0.65, "af21"], [1.0, "af21"]]),
+        airfoils=_airfoils(),
+        wt_ops=dict(
+            v=U.tolist(),
+            omega_op=np.minimum(np.maximum(0.716 * U, 5.0), 7.56).tolist(),
+            pitch_op=(23.0 * (np.clip(U - 10.59, 0.0, None) / 14.41) ** 0.75
+                      ).tolist()),
+        pitch_control=dict(
+            GS_Angles=np.deg2rad([2.0, 5.0, 10.0, 15.0, 20.0, 25.0]).tolist(),
+            GS_Kp=[-1.0, -0.8, -0.6, -0.48, -0.40, -0.34],
+            GS_Ki=[-0.16, -0.13, -0.10, -0.08, -0.067, -0.057], Fl_Kp=-9.0),
+        torque_control=dict(VS_KP=-3.8e7, VS_KI=-4.6e6),
+    )
+    return d
+
+
+def mhk_tidal_design():
+    """The MHK demo with a submerged 2-bladed rotor (module docstring)."""
+    import numpy as np
+
+    d = design_dict("mhk")
+    d["name"] = ("raft_tpu_torch fixture: MHK demo with a submerged "
+                 "2-bladed rotor")
+    U = np.array([0.5, 0.75, 1.0, 1.25, 1.5, 1.75, 2.0, 2.25, 2.5, 2.75, 3.0])
+    d["turbine"] = dict(
+        mRNA=6000.0, IxRNA=2.0e4, IrRNA=1.5e4, xCG_RNA=0.0,
+        nBlades=2, Rhub=0.6, hHub=-15.0, overhang=-1.0, shaft_tilt=0.0,
+        precone=0.0, rRNA=[-12.0, 0.0, -15.0], aeroServoMod=1,
+        I_drivetrain=4.0e3, gear_ratio=1.0,
+        tower=dict(name="strut", type="rigid", rA=[-2.5, 0.0, -15.0],
+                   rB=[-11.0, 0.0, -15.0], shape="circ", stations=[0, 1],
+                   d=[1.0, 0.8], t=0.03, Cd=0.8, Ca=1.0, CdEnd=0.6,
+                   CaEnd=0.6, rho_shell=7850),
+        blade=_blade(MHK_BLADE, 0.6, 5.0, 1.0,
+                     [[0.0, "cylinder"], [0.15, "af40"], [0.4, "af30"],
+                      [0.7, "af21"], [1.0, "af21"]]),
+        airfoils=_airfoils(),
+        wt_ops=dict(
+            v=U.tolist(), omega_op=np.minimum(9.55 * U, 19.1).tolist(),
+            pitch_op=(14.0 * np.clip(U - 2.0, 0.0, None) ** 0.7).tolist()),
+    )
+    return d
+
+
+#: rotor designs: name -> (design builder, wave headings of its goldens)
+ROTOR_DESIGNS = {"semi_wind": semi_wind_design, "mhk_tidal": mhk_tidal_design}
+
+#: every full-evaluator golden set: name -> wave headings
+FULL_SETS = {"semi_wind": 1, "mhk_tidal": 2, "spar": 2, "semi": 2, "mhk": 2}
+
+FULL_ENV_KEYS = ("wind_speed", "wind_heading_deg", "TI", "yaw_misalign_deg",
+                 "current_speed", "current_heading_deg")
+FULL_SEA_KEYS = ("Hs", "Tp", "gamma", "beta_deg")
+
+#: semi_wind golden rows: wind 0 (rotor off), 0.05 (INPUT_CLIPPED),
+#: below rated, rated, above rated, 24 m/s; current on
+SEMI_WIND_ROWS = dict(
+    wind_speed=[0.0, 0.05, 7.0, 10.59, 14.0, 24.0, 4.0, 18.0],
+    wind_heading_deg=[0.0, 10.0, -20.0, 0.0, 15.0, 30.0, -5.0, 25.0],
+    TI=[0.10, 0.12, 0.14, 0.10, 0.08, 0.16, 0.20, 0.05],
+    yaw_misalign_deg=[0.0, 3.0, -5.0, 0.0, 8.0, -2.0, 6.0, -8.0],
+    current_speed=[0.5, 0.0, 0.3, 1.0, 0.2, 0.8, 0.6, 0.9],
+    current_heading_deg=[0.0, 90.0, 200.0, 10.0, 300.0, 45.0, 120.0, 270.0],
+    Hs=[[6.0], [2.0], [4.0], [8.0], [10.0], [12.0], [1.5], [9.0]],
+    Tp=[[12.0], [7.0], [9.0], [13.0], [15.0], [18.0], [5.0], [11.0]],
+    gamma=[[0.0], [3.3], [0.0], [1.0], [2.0], [0.0], [5.0], [0.0]],
+    beta_deg=[[0.0], [30.0], [90.0], [150.0], [10.0], [180.0], [60.0],
+              [120.0]],
+)
+
+#: mhk_tidal golden rows: current 0 (rotor off), 0.05 (INPUT_CLIPPED),
+#: 0.5 to 3 m/s, two headings each
+MHK_TIDAL_ROWS = dict(
+    wind_speed=[0.0, 5.0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
+    wind_heading_deg=[0.0] * 8,
+    TI=[0.10, 0.05, 0.08, 0.12, 0.15, 0.10, 0.06, 0.13],
+    yaw_misalign_deg=[0.0, 0.0, 2.0, 0.0, -3.0, 0.0, 0.0, 4.0],
+    current_speed=[0.0, 0.05, 0.5, 1.5, 2.0, 2.6, 3.0, 1.1],
+    current_heading_deg=[0.0, -20.0, 0.0, 10.0, 0.0, 30.0, -30.0, 15.0],
+    Hs=[[1.0, 0.5], [2.0, 1.0], [1.0, 0.5], [3.0, 2.0], [4.0, 1.0],
+        [2.0, 3.0], [0.5, 4.0], [2.5, 2.5]],
+    Tp=[[6.0, 4.0], [8.0, 5.0], [6.0, 4.0], [10.0, 7.0], [12.0, 9.0],
+        [7.0, 11.0], [4.0, 12.0], [9.0, 6.0]],
+    gamma=[[0.0, 1.0], [3.3, 0.0], [0.0, 1.0], [0.0, 0.0], [5.0, 2.0],
+           [1.0, 1.0], [0.0, 4.0], [2.0, 0.0]],
+    beta_deg=[[0.0, 90.0], [180.0, 30.0], [0.0, 90.0], [270.0, 0.0],
+              [45.0, 300.0], [120.0, 200.0], [360.0, 10.0], [15.0, 345.0]],
+)
+
+#: demo golden rows: no active rotor; two headings, current on (0.05 m/s
+#: in one row: no rotor, so no INPUT_CLIPPED)
+DEMO_ROWS = dict(
+    wind_speed=[0.0, 8.0, 12.0, 0.0, 20.0, 0.05, 5.0, 0.0],
+    wind_heading_deg=[0.0] * 8,
+    TI=[0.1] * 8,
+    yaw_misalign_deg=[0.0] * 8,
+    current_speed=[0.5, 1.0, 0.0, 1.5, 0.3, 0.05, 0.8, 1.2],
+    current_heading_deg=[0.0, 45.0, 0.0, 180.0, 270.0, 30.0, 90.0, 330.0],
+    Hs=[[6.0, 2.0], [2.5, 1.0], [1.0, 1.0], [12.0, 3.0], [9.0, 4.0],
+        [4.0, 2.0], [11.0, 1.5], [3.0, 3.0]],
+    Tp=[[12.0, 6.0], [7.5, 5.0], [4.0, 9.0], [20.0, 8.0], [14.0, 10.0],
+        [9.0, 5.0], [6.0, 12.0], [17.0, 7.0]],
+    gamma=[[0.0, 1.0], [3.3, 0.0], [0.0, 0.0], [1.0, 2.0], [0.0, 5.0],
+           [2.0, 0.0], [0.0, 1.0], [4.0, 0.0]],
+    beta_deg=[[0.0, 90.0], [20.0, 200.0], [178.0, 0.0], [69.0, 300.0],
+              [138.0, 45.0], [46.0, 10.0], [109.0, 250.0], [6.0, 180.0]],
+)
+
+FULL_ROWS = {"semi_wind": SEMI_WIND_ROWS, "mhk_tidal": MHK_TIDAL_ROWS,
+             "spar": DEMO_ROWS, "semi": DEMO_ROWS, "mhk": DEMO_ROWS}
+
+FULL_OUT_KEYS = ("X0", "Xi", "RAO", "PSD", "S", "zeta", "f_aero", "A00",
+                 "B00", "f_aero0", "Omega_rpm", "pitch_deg", "F_2nd_mean",
+                 "Z", "drag_resid", "drag_converged", "n_iter_drag",
+                 "status")
+
+
+def full_design(name):
+    """The design dict of a full-evaluator golden set."""
+    if name in ROTOR_DESIGNS:
+        return ROTOR_DESIGNS[name]()
+    return design_dict(name)
+
+
+def full_rows(name):
+    """The golden rows of a set as float64 numpy arrays."""
+    import numpy as np
+
+    return {k: np.asarray(v, dtype=float) for k, v in FULL_ROWS[name].items()}
+
+
+def golden_full(name, fused):
+    """JAX full-evaluator outputs over the set's golden rows."""
+    jax = _jax()
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.api import make_full_evaluator
+
+    prev = os.environ.get("RAFT_TPU_FUSED")
+    os.environ["RAFT_TPU_FUSED"] = fused
+    try:
+        model = raft_tpu.Model(full_design(name))
+        ev = make_full_evaluator(model, nWaves=FULL_SETS[name])
+        out = jax.jit(jax.vmap(ev))(full_rows(name))
+        return {k: np.asarray(out[k]) for k in FULL_OUT_KEYS}
+    finally:
+        if prev is None:
+            os.environ.pop("RAFT_TPU_FUSED", None)
+        else:
+            os.environ["RAFT_TPU_FUSED"] = prev
+
+
+def build_full_golden(name):
+    """The ``golden_full_<name>.npz`` dict, as written."""
+    gd = dict(full_rows(name))
+    for fused in ("on", "off"):
+        for k, v in golden_full(name, fused).items():
+            gd[f"{fused}_{k}"] = v
+    return gd
+
+
+#: aero grids: per rotor, (U, Omega [rpm], pitch [deg]) operating points
+#: around the schedule, with tilt and yaw [rad]
+AERO_GRID = {
+    "semi_wind": dict(U=[0.1, 3.0, 5.5, 8.0, 10.59, 12.0, 16.0, 24.0],
+                      dOm=[0.0, 0.3, -0.2, 0.0, 0.5, -0.4, 0.0, 0.2],
+                      dpitch=[0.0, 1.0, 0.0, -1.0, 2.0, 0.0, -3.0, 1.5],
+                      tilt=[0.1047, 0.08, 0.12, 0.0, 0.15, -0.05, 0.1, 0.2],
+                      yaw=[0.0, 0.2, -0.3, 0.1, 0.0, -0.1, 0.4, -0.2]),
+    "mhk_tidal": dict(U=[0.1, 0.5, 1.0, 1.5, 2.0, 2.3, 2.7, 3.0],
+                      dOm=[0.0, 1.0, -0.5, 0.0, 2.0, 0.0, -1.0, 0.5],
+                      dpitch=[0.0, 0.0, 1.0, -1.0, 0.0, 2.0, -2.0, 1.0],
+                      tilt=[0.0, 0.05, -0.05, 0.0, 0.1, 0.0, -0.1, 0.02],
+                      yaw=[0.0, 0.1, -0.2, 0.3, 0.0, -0.1, 0.2, 0.5]),
+}
+#: Kaimal grid: (V [m/s], TI) rows, every turbulence model
+KAIMAL_V = [0.1, 3.0, 8.0, 11.0, 15.0, 25.0]
+KAIMAL_TI = [0.05, 0.10, 0.14, 0.16, 0.20, 0.12]
+KAIMAL_MODELS = ("NTM", "ETM", "EWM")
+
+ROTOR_FIELDS = ("B", "Rhub", "Rtip", "precone", "shaft_tilt", "rho", "mu",
+                "shearExp", "hubHt", "nSector", "r", "chord", "theta_deg",
+                "precurve", "presweep", "precurveTip", "presweepTip",
+                "aoa_deg", "cl", "cd", "U_sched", "Omega_sched",
+                "pitch_sched", "kp_0", "ki_0", "k_float", "kp_tau",
+                "ki_tau", "Ng", "I_drivetrain")
+
+
+def build_rotor_packed(name):
+    """The ``packed_<name>.npz`` dict of a rotor design: the JAX
+    builder's packed leaves, blade added mass and buoyancy included."""
+    _jax()
+    import raft_tpu
+    from raft_tpu.structure import bucketing
+
+    model = raft_tpu.Model(full_design(name))
+    sig = bucketing.bucket_signature(model)
+    return packed_npz(bucketing.pack_design(model, sig), sig)
+
+
+def build_rotor_fixture(name):
+    """The ``rotor_<name>.npz`` dict: the JAX builder's RotorAeroModel
+    fields (absent optional ones left out) and, for a submerged rotor,
+    its blade hydro arrays as ``hydro_<key>``."""
+    _jax()
+    import numpy as np
+
+    import raft_tpu
+
+    model = raft_tpu.Model(full_design(name))
+    rot = model.rotor_aero[0]
+    out = {k: np.asarray(getattr(rot, k)) for k in ROTOR_FIELDS
+           if getattr(rot, k) is not None}
+    hyd = model.fowtList[0].rotors[0].hydro
+    if hyd is not None:
+        out.update({f"hydro_{k}": np.asarray(v) for k, v in hyd.items()})
+    return out
+
+
+def build_aero_golden(name):
+    """The ``golden_aero_<name>.npz`` dict: rotor_loads_and_derivs over
+    the rotor's grid, and kaimal_rot_psd_traced over the Kaimal grid
+    with the rotor's hub height and radius for each turbulence model."""
+    jax = _jax()
+    import jax.numpy as jnp
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.physics import aero
+
+    model = raft_tpu.Model(full_design(name))
+    rot = model.rotor_aero[0]
+    g = {k: np.asarray(v, dtype=float) for k, v in AERO_GRID[name].items()}
+    Om0, pit0 = (np.asarray(a) for a in jax.vmap(
+        lambda u: aero.operating_point(rot, u))(g["U"]))
+    Om = Om0 + g["dOm"]
+    pitch = pit0 + g["dpitch"]
+    f = jax.jit(jax.vmap(lambda u, o, p, t, y: aero.rotor_loads_and_derivs(
+        rot, u, o, p, t, y)))
+    loads, dT, dQ = f(g["U"], Om, pitch, g["tilt"], g["yaw"])
+    out = dict(U=g["U"], Omega_rpm=Om, pitch_deg=pitch, tilt=g["tilt"],
+               yaw=g["yaw"], Omega_sched=Om0, pitch_sched=pit0,
+               loads=np.asarray(loads), dT=np.asarray(dT),
+               dQ=np.asarray(dQ),
+               kaimal_V=np.asarray(KAIMAL_V), kaimal_TI=np.asarray(KAIMAL_TI),
+               w=np.asarray(model.w))
+    hub = model.fowtList[0].rotors[0].Zhub
+    for tm in KAIMAL_MODELS:
+        S = jax.vmap(lambda v, i: aero.kaimal_rot_psd_traced(
+            jnp.asarray(model.w), v, i, hub, rot.Rtip, TurbMod=tm,
+            V_ref_cls=50.0))(out["kaimal_V"], out["kaimal_TI"])
+        out[f"kaimal_{tm}"] = np.asarray(S)
+    return out
+
+
+def write_full_fixtures():
+    """Write the rotor designs, rotor arrays and every full/aero golden."""
+    import json
+
+    import numpy as np
+
+    for name, fn in ROTOR_DESIGNS.items():
+        with open(os.path.join(OUT_DIR, f"design_{name}.json"), "w") as f:
+            f.write(json.dumps(fn(), indent=1) + "\n")
+        np.savez_compressed(os.path.join(OUT_DIR, f"rotor_{name}.npz"),
+                            **build_rotor_fixture(name))
+        np.savez_compressed(os.path.join(OUT_DIR, f"packed_{name}.npz"),
+                            **build_rotor_packed(name))
+        np.savez_compressed(os.path.join(OUT_DIR, f"golden_aero_{name}.npz"),
+                            **build_aero_golden(name))
+    for name in FULL_SETS:
+        gd = build_full_golden(name)
+        np.savez_compressed(os.path.join(OUT_DIR, f"golden_full_{name}.npz"),
+                            **gd)
+        print(f"full {name}: status_on={gd['on_status'].tolist()} "
+              f"n_iter_on={gd['on_n_iter_drag'].tolist()} "
+              f"status_off={gd['off_status'].tolist()}")
 
 
 def main():
@@ -211,6 +617,7 @@ def main():
         print(f"{name}: S={int(pk['sig_S'])} N={int(pk['sig_N'])} "
               f"L={int(pk['sig_L'])} status_on={gd['on_status'].tolist()} "
               f"n_iter_on={gd['on_n_iter_drag'].tolist()}")
+    write_full_fixtures()
 
 
 if __name__ == "__main__":

@@ -7,7 +7,12 @@ held against the JAX builder's ``packed_*.npz``; the JSON and YAML give
 the same dict; the refusals; the MacCamy-Fuchs strip coefficients, the
 frustum ops and the pad ladders against JAX; one live JAX comparison of
 the statics and zero-pose hydro constants (the smallest design, mhk).
-Slow tier: the live comparison for spar and semi.
+The two rotor designs of the full path (``design_semi_wind.json``,
+``design_mhk_tidal.json``) are held against the JAX builder's
+``packed_semi_wind.npz`` and ``packed_mhk_tidal.npz`` the same way: the
+submerged rotor's blade added mass enters ``A_hydro`` and its blade
+buoyancy ``K_h`` and ``F_und``.  Slow tier: the live comparison for spar
+and semi.
 
 Tolerances: packed float leaves within 1e-12 x each leaf's max
 magnitude, integer and boolean leaves exact; the signature, ``w`` and
@@ -66,6 +71,25 @@ def test_pack_matches_jax_builder(name):
     np.testing.assert_array_equal(leaves["k"], ref.leaves["k"])
 
 
+@pytest.mark.parametrize("name", ("semi_wind", "mhk_tidal"))
+def test_rotor_design_pack_matches_jax_builder(name):
+    """The rotor designs' packed leaves, with the submerged rotor's blade
+    added mass and buoyancy, against the JAX builder's."""
+    model = Model(design(name))
+    ref = tb.load_packed(os.path.join(FIX, f"packed_{name}.npz"))
+    sig = tb.bucket_signature(model)
+    assert sig == ref.sig
+    hold_leaves(tb.pack_design(model, sig), ref.leaves)
+    rot = model.fowtList[0].rotors[0]
+    assert (rot.hydro is not None) == (name == "mhk_tidal")
+    if rot.hydro is not None:
+        # the blade added mass is in A_hydro, on top of the strips'
+        strips_only = model.hydro[0].hc0["A_hydro"] - ref.leaves["A_hydro"]
+        assert np.max(np.abs(strips_only)) <= TOL * np.max(
+            np.abs(ref.leaves["A_hydro"]))
+        assert np.max(np.abs(rot.hydro["A_hydro"])) > 0
+
+
 @pytest.mark.parametrize("name", DESIGNS)
 def test_json_and_yaml_give_the_same_dict(name):
     yml = os.path.join(ROOT, "raft_tpu", "designs", f"{name}_demo.yaml")
@@ -111,14 +135,12 @@ def _refusals():
                                "x_location", "y_location"],
                       "data": [[1, 1, 1, 1, 0, 0], [2, 1, 1, 1, 900, 0]]}
 
-    def submerged_rotor(d):
-        d["turbine"]["hHub"] = -20.0
-        d["turbine"]["blade"] = {"r": [2.0, 10.0]}
-        d["turbine"]["airfoils"] = [{"name": "foil"}]
+    def qtf(d):
+        d["platform"]["potSecOrder"] = 2
+        d["platform"]["hydroPath"] = "spar_bem"
 
     return {f.__name__: f for f in (beam, pot_mod, pot_master, hydro_path,
-                                    file_mooring, moor_mod, array,
-                                    submerged_rotor)}
+                                    file_mooring, moor_mod, array, qtf)}
 
 
 @pytest.mark.parametrize("variant", sorted(_refusals()))
@@ -127,7 +149,7 @@ def test_unsupported_designs_raise(variant):
     its ROADMAP item, before any Model exists."""
     d = copy.deepcopy(design("spar"))
     _refusals()[variant](d)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A1[01]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A1[013]"):
         Model(d)
 
 

@@ -7,9 +7,9 @@ it there without the repository's conftest (which imports JAX)::
     PYTHONPATH=. python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances are the kernel-vs-plain ones of ``chip_smoke.py``: float64
-within 1e-12 x max|x|, float32 within 1e-5 x max|x|; the slice and the
-design evaluator within 1e-10 x max of the JAX goldens with ``status``
-and ``n_iter_drag`` equal.
+within 1e-12 x max|x|, float32 within 1e-5 x max|x|; the slice, the
+design and the full evaluator within 1e-10 x max of the JAX goldens with
+``status`` and ``n_iter_drag`` equal.
 """
 
 import json
@@ -19,7 +19,9 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch.api import make_design_evaluator
+from raft_tpu_torch.api import (ENV_KEYS, FULL_OUT_KEYS, SEA_KEYS,
+                                make_design_evaluator,
+                                make_full_evaluator)
 from raft_tpu_torch.models.model import Model
 from raft_tpu_torch.ops import linsolve
 from raft_tpu_torch.structure import bucketing as tb
@@ -130,6 +132,26 @@ def test_design_on_card_matches_goldens(cuda, name):
     out = make_design_evaluator(model, cuda)(**{k: g[k] for k in keys})
     assert linsolve.KERNEL_LAUNCHES > before
     for k in tb.OUT_KEYS:
+        a, b = out[k].cpu().numpy(), g["on_" + k]
+        if k in ("status", "n_iter_drag", "drag_converged"):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,nWaves", [("semi_wind", 1), ("mhk_tidal", 2)])
+def test_full_on_card_matches_goldens(cuda, name, nWaves):
+    """The full evaluator's golden rows on the card, FUSED on, float64,
+    the rotor design built by the port from its JSON."""
+    with open(os.path.join(FIX, f"design_{name}.json")) as f:
+        model = Model(json.load(f))
+    g = np.load(os.path.join(FIX, f"golden_full_{name}.npz"))
+    before = linsolve.KERNEL_LAUNCHES
+    out = make_full_evaluator(model, nWaves=nWaves, device=cuda)(
+        **{k: g[k] for k in ENV_KEYS + SEA_KEYS})
+    assert linsolve.KERNEL_LAUNCHES > before
+    for k in FULL_OUT_KEYS:
         a, b = out[k].cpu().numpy(), g["on_" + k]
         if k in ("status", "n_iter_drag", "drag_converged"):
             np.testing.assert_array_equal(a, b, err_msg=k)
