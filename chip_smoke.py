@@ -1,7 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--rows-per-design 4096] [--full-rows 4096]
-                          [--out DIR]
+    python3 chip_smoke.py [--rows-per-design 4096] [--out DIR]
 
 Phases, each printing one line (the last line is the result object):
 
@@ -43,8 +42,8 @@ Phases, each printing one line (the last line is the result object):
              <out>/profile_top.txt).
 9. full    - the full-physics evaluator (make_full_evaluator, float64,
              default flags) on the two rotor designs: semi_wind (one wave
-             heading) and mhk_tidal (two), --full-rows rows each from a
-             fixed seed with the golden rows first (held against
+             heading) and mhk_tidal (two), FULL_ROWS (4096) rows each
+             from a fixed seed with the golden rows first (held against
              tests/fixtures/torch_port/golden_full_*.npz, warm-up on the
              golden rows alone); full-evals/s, stage ms (aero, statics,
              excitation, fixed_point, response), statics Newton
@@ -98,6 +97,7 @@ BEMT_TOL = 1e-12                       # x max, hand tangents vs jacfwd
 #: their rows
 FULL_CONFIGS = {"semi_wind": dict(nWaves=1, seed=20261018),
                 "mhk_tidal": dict(nWaves=2, seed=20261019)}
+FULL_ROWS = 4096                       # rows per rotor design, full phase
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -771,7 +771,7 @@ def phase_full(models, rows, card):
     trips run, the statics Newton iterations counted per chunk."""
     from raft_tpu_torch.api import FULL_OUT_KEYS, make_full_evaluator
     from raft_tpu_torch.ops import linsolve
-    from raft_tpu_torch.utils import config
+    from raft_tpu_torch.utils import config, health
 
     fused = config.get("FUSED") == "on"
     pfx = "on_" if fused else "off_"
@@ -813,8 +813,8 @@ def phase_full(models, rows, card):
             worst[k] = max(worst[k], v)
         for k in ("X0", "Xi", "PSD", "f_aero"):
             check(np.all(np.isfinite(out[k])), f"full {name}: non-finite {k}")
-        cap = ev.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
-            + max(int(ev.n_iter_extra), 0)
+        cap = ev.body.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
+            + max(int(ev.body.n_iter_extra), 0)
         chunk_rows = int(config.get("BUCKET_ROWS")) or rows
         exp = expected_launches(out["n_iter_drag"], chunk_rows, cap,
                                 min(max(1, config.get("SCAN_CHUNK")), cap),
@@ -836,6 +836,13 @@ def phase_full(models, rows, card):
             n_iter_drag_max=int(out["n_iter_drag"].max()),
             status_counts={int(v): int(c) for v, c in
                            zip(*np.unique(st, return_counts=True))},
+            rows_with_bit={b: int(np.count_nonzero(st & m))
+                           for b, m in health.MASKS.items()
+                           if np.any(st & m)},
+            # where the step-capped rows' Newton ended: |X0| per DOF
+            capped_X0_absmax=np.abs(out["X0"][
+                (st & health.STATICS_STEP_CAPPED) > 0]).max(
+                    axis=0, initial=0.0).tolist(),
             worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()})
         r = res[name]
         print(f"full {name} on {card}: {rows} rows, nWaves {nW}, "
@@ -844,8 +851,9 @@ def phase_full(models, rows, card):
               + ", ".join(f"{s} {v:.1f}" for s, v in stage_ms.items())
               + f"; statics Newton iterations per chunk {newton}; solve "
               f"kernel launches {launches} (expected {exp}: trips + "
-              f"{2 if r['staged'] else 1} per chunk); status counts "
-              f"{r['status_counts']}")
+              f"{2 if r['staged'] else 1} per chunk); rows per status "
+              f"bit {r['rows_with_bit']}, step-capped rows end within "
+              f"|X0| {np.round(r['capped_X0_absmax'], 3).tolist()}")
         print(f"  {name} goldens (gate {SLICE_TOL:g} x max; status, "
               "n_iter_drag, drag_converged equal): " + ", ".join(
                   f"{k} {v:.1e}" for k, v in r["worst_rel"].items()))
@@ -996,7 +1004,6 @@ def phase_profile_full(out_dir, ev, rows=512):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
-    ap.add_argument("--full-rows", type=int, default=4096)
     ap.add_argument("--out", default=os.path.join(HERE, "chip_smoke_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -1034,7 +1041,7 @@ def main():
             with open(os.path.join(FIX, f"design_{n}.json")) as f:
                 rotor_models[n] = Model(json.load(f))
         rec["full"], evs = timed("full", phase_full, rotor_models,
-                                 args.full_rows, rec["card"])
+                                 FULL_ROWS, rec["card"])
         rec["bemt"] = timed("bemt", phase_bemt, evs["semi_wind"])
         rec["staged_solve"] = timed("staged_solve", phase_staged_solve)
         rec["profile_full"] = timed("profile_full", phase_profile_full,

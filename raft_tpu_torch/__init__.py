@@ -21,8 +21,8 @@ Entry points:
   full-physics evaluator (rotor aero-servo with load derivatives,
   submerged-rotor blade hydro, current loads, several wave headings)
   over rows of wind, current and seas, forward only, with
-  :func:`~raft_tpu_torch.api.cases_to_rows` turning a case table into
-  its rows;
+  :func:`~raft_tpu_torch.api.case_to_traced` turning a case-table row
+  into its row parameters;
 * :class:`raft_tpu_torch.structure.bucketing.BucketEvaluator` — one
   bucket signature's batched evaluator (statics, excitation, drag
   fixed point, response);

@@ -2,8 +2,8 @@
 the batched case, design-axis and full-physics evaluators
 (:func:`make_case_evaluator`, :func:`make_design_evaluator`,
 :func:`make_full_evaluator`), the case-table helpers of the full
-evaluator (:func:`case_to_traced`, :func:`cases_to_rows`,
-:func:`case_in_traced_domain`), and the case-level helpers every
+evaluator (:func:`case_to_traced`, :func:`case_in_traced_domain`),
+and the case-level helpers every
 evaluator shares (``_policy_cdt``, ``_case_status``)."""
 
 from __future__ import annotations
@@ -83,7 +83,11 @@ class CaseEvaluator(nn.Module):
         p = {k: v.reshape(-1) for k, v in zip(params, torch.broadcast_tensors(
             *(torch.as_tensor(v, dtype=self.rdt, device=self.device)
               for v in params.values())))}
-        n = p["Hs"].shape[0]
+        return self._chunks(p, p["Hs"].shape[0], timer)
+
+    def _chunks(self, p, n, timer):
+        """Run the n rows of ``p`` in chunks of ``RAFT_TPU_BUCKET_ROWS``
+        and concatenate the chunks' outputs."""
         if n == 0:
             raise ValueError("empty batch: no rows to evaluate")
         cap = int(config.get("BUCKET_ROWS")) or n
@@ -101,14 +105,17 @@ class CaseEvaluator(nn.Module):
         return d, self.ms, None
 
     def _chunk(self, p, mark):
+        from raft_tpu_torch.structure import bucketing
+
         R = p["Hs"].shape[0]
         mark("start")
         d, ms, hydro = self._design_rows(p, R)
         X0, _, _, _, st_status, C_moor = solve_equilibrium(
             self.fs, ms, d["K_h"], d["F_und"], torch.zeros_like(d["F_und"]))
         mark("statics")
-        return self.body.respond(d, X0, st_status, C_moor, p["Hs"],
-                                 p["Tp"], p["beta"], mark, hydro=hydro)
+        return bucketing.one_heading(self.body.respond(
+            d, X0, st_status, C_moor, p["Hs"][:, None], p["Tp"][:, None],
+            p["beta"][:, None], mark, hydro=hydro))
 
 
 class DesignEvaluator(CaseEvaluator):
@@ -219,16 +226,6 @@ def case_to_traced(case, nWaves=1):
     )
 
 
-def cases_to_rows(cases, nWaves=1):
-    """A list of parsed cases as row arrays for :class:`FullEvaluator`:
-    (R,) environment scalars and (R, nWaves) sea-state parameters."""
-    rows = [case_to_traced(c, nWaves) for c in cases]
-    if not rows:
-        raise ValueError("no cases to turn into rows")
-    return {k: np.stack([np.asarray(r[k], dtype=float) for r in rows])
-            for k in ENV_KEYS + SEA_KEYS}
-
-
 def case_in_traced_domain(case):
     """True when a parsed case row is inside the full evaluator's static
     assumptions: operating turbine, JONSWAP seas, numeric turbulence
@@ -246,7 +243,7 @@ def case_in_traced_domain(case):
     return np.ndim(case.get("wave_heading", 0.0)) == 0
 
 
-class FullEvaluator(nn.Module):
+class FullEvaluator(CaseEvaluator):
     """Batched full-physics evaluator of one rigid single-FOWT design
     (the reference's ``make_full_evaluator``), forward only.
 
@@ -264,14 +261,11 @@ class FullEvaluator(nn.Module):
        the rows where ``0 < speed < 0.1``;
     2. ``statics``: current loads at the zero pose, then the mean-offset
        equilibrium under the environmental mean load;
-    3. ``excitation``: strip frames at the displaced pose, one JONSWAP
-       spectrum and strip excitation per wave heading;
-    4. ``fixed_point``: the drag-linearised impedance solve with the
-       aerodynamic added mass, damping and gyroscopic damping, driven
-       by the first heading;
-    5. ``response``: with one heading and ``RAFT_TPU_FUSED=on`` the
-       fixed point's final solve; otherwise every heading's inertial
-       plus drag excitation against the one impedance, in one solve.
+    3. - 5. ``excitation``, ``fixed_point``, ``response``: the case
+       evaluator's stages (:meth:`BucketEvaluator.respond` of the
+       design's unpadded bucket) with one sea state per wave heading and
+       the aerodynamic added mass, damping and gyroscopic damping added
+       to the linear system.
 
     ``F_2nd_mean`` is zero: the builder refuses every second-order
     source.  ``timer(stage)``, when given, is called with "start" and
@@ -279,62 +273,28 @@ class FullEvaluator(nn.Module):
     """
 
     def __init__(self, model, nWaves=1, turb_static=None, device=None):
-        super().__init__()
-        from raft_tpu_torch.models.hydro import site_rows
-        from raft_tpu_torch.models.statics_solve import make_tolerances
+        super().__init__(model, device)
         from raft_tpu_torch.physics.aero import rotor_tensors
         from raft_tpu_torch.physics.statics import node_T
 
-        device = resolve_device(device)
-        self.device = device
-        fs = model.fowtList[0]
-        self.fs = fs
+        fs, device, rdt = self.fs, self.device, self.rdt
         self.nWaves = int(nWaves)
         if self.nWaves < 1:
             raise ValueError(f"nWaves={nWaves}: need at least one heading")
         self.turb_static = tuple(turb_static or ("NTM", 50.0))
-        self.rdt, self.cdt = compute_dtypes()
-        self.nw = int(model.nw)
-        self.dw = float(model.w[1] - model.w[0])
-        self.n_iter, self.Xi_start = model.nIter, model.XiStart
-        self.n_iter_extra = model.nIterExtra
-        rdt = self.rdt
-        kw = dict(dtype=rdt, device=device)
-
-        def t(a):
-            return torch.as_tensor(np.asarray(a, dtype=np.float64)).to(**kw)
-
-        stat = model.statics()
-        fh = model.hydro[0]
-        self.K_h = t(stat["C_struc"] + stat["C_hydro"])
-        self.C_elast = t(stat["C_elast"])
-        self.F_und = t(stat["W_struc"] + stat["W_hydro"]
-                       + stat["f0_additional"])
-        self.M_struc = t(stat["M_struc"])
-        self.A_hydro = t(fh.hc0["A_hydro"])
-        self.w = t(model.w)
-        self.k = t(model.k)
-        self.Imat = torch.as_tensor(fh.hc0["Imat"]).to(device=device,
-                                                       dtype=self.cdt)
-        self.a_i = t(fh.hc0["a_i"])
-        # the zero-pose strip frames the current loads are taken at
-        self.hc0 = {k2: (t(fh.hc0[k2]) if k2 in ("r", "q", "p1", "p2")
-                         else torch.as_tensor(fh.hc0[k2]).to(device))
-                    for k2 in ("r", "q", "p1", "p2", "sub")}
-        self.ss = morison.strips_to_rows(fh.strips, device)
-        self.ss = dataclasses.replace(self.ss, **{
-            f.name: getattr(self.ss, f.name).to(rdt)
-            for f in dataclasses.fields(self.ss)
-            if getattr(self.ss, f.name) is not None
-            and getattr(self.ss, f.name).is_floating_point()})
-        self.site = site_rows(fs, device)
-        self.node_r0 = t(fs.node_r0)
-        self.root = torch.tensor([fs.root_id], dtype=torch.int32,
-                                 device=device)
-        self.Tn0 = node_T(self.node_r0, self.node_r0[fs.root_id])
-        self.ms = None if model.ms is None else model.ms.to(device, rdt)
-        tols, caps, refs = make_tolerances([fs])
-        self.tol_vec, self.caps, self.refs = t(tols), t(caps), t(refs)
+        self.nw = self.body.nw
+        self.w = self.body.w.to(rdt)
+        self.C_elast = torch.as_tensor(
+            np.asarray(model.statics()["C_elast"], dtype=np.float64)).to(
+                dtype=rdt, device=device)
+        # the zero-pose strip frames and node reductions the current
+        # loads are taken at
+        hc0 = model.hydro[0].hc0
+        self.hc0 = {k: torch.as_tensor(hc0[k]).to(
+            device=device, dtype=rdt if k != "sub" else torch.bool)
+            for k in ("r", "q", "p1", "p2", "sub")}
+        node_r0 = self.design["node_r0"][0]
+        self.Tn0 = node_T(node_r0, node_r0[fs.root_id])
         self.Zref = min([r.Zhub for r in fs.rotors if r.Zhub < 0],
                         default=0.0)
         self.n_rot_out = max(fs.nrotors, 1)
@@ -364,8 +324,6 @@ class FullEvaluator(nn.Module):
                                  f"(R, {self.nWaves})")
         n = torch.broadcast_shapes(*(v.shape[:1] for v in vals.values()))
         n = n[0] if n else 1
-        if n == 0:
-            raise ValueError("empty batch: no rows to evaluate")
         p = {}
         for k, v in vals.items():
             if k in SEA_KEYS:
@@ -373,14 +331,7 @@ class FullEvaluator(nn.Module):
                 p[k] = v.expand(n, self.nWaves)
             else:
                 p[k] = v.expand(n)
-        cap = int(config.get("BUCKET_ROWS")) or n
-        mark = timer if timer is not None else (lambda stage: None)
-        outs = []
-        with torch.no_grad():
-            for a in range(0, n, cap):
-                outs.append(self._chunk({k: v[a:a + cap]
-                                         for k, v in p.items()}, mark))
-        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+        return self._chunks(p, n, timer)
 
     def _aero(self, p, R):
         """Every active rotor's aero-servo terms, reduced to the body."""
@@ -431,93 +382,42 @@ class FullEvaluator(nn.Module):
         return out
 
     def _chunk(self, p, mark):
-        from raft_tpu_torch.models.dynamics import (fused_response_enabled,
-                                                    solve_dynamics_fowt,
-                                                    system_response)
-        from raft_tpu_torch.models.statics_solve import (
-            single_ms_closures, solve_equilibrium_general)
-        from raft_tpu_torch.ops import waves as wv
-        from raft_tpu_torch.physics.statics import (node_T,
-                                                    platform_kinematics)
+        from raft_tpu_torch.structure import bucketing
 
         R = p["Hs"].shape[0]
-        nW, nw, rdt = self.nWaves, self.nw, self.rdt
         mark("start")
         aero = self._aero(p, R)
         mark("aero")
 
-        site = dataclasses.replace(self.site, **{
-            k: getattr(self.site, k).expand(R).to(rdt)
-            for k in ("rho_water", "depth", "g")})
-        ss = dataclasses.replace(self.ss, **{
-            f.name: getattr(self.ss, f.name).expand(
-                (R,) + getattr(self.ss, f.name).shape[1:])
-            for f in dataclasses.fields(self.ss)
-            if getattr(self.ss, f.name) is not None})
-        node_r0 = self.node_r0.expand(R, -1, -1)
-        Tn0 = self.Tn0.expand(R, -1, -1, -1)
-        hc0 = {k: v.expand((R,) + v.shape) for k, v in self.hc0.items()}
+        d, ms, _ = self._design_rows(p, R)
         F_current = morison.current_loads(
-            site, ss, hc0, p["current_speed"], p["current_heading_deg"],
-            self.Zref, Tn0, node_r0)
-        F_env = F_current + aero["f_aero0"]
-        X0, _, _, _, st_status, C_moor = solve_equilibrium_general(
-            self.K_h.expand(R, 6, 6), self.F_und.expand(R, 6), F_env,
-            single_ms_closures(self.ms, 6), self.tol_vec, self.caps,
-            self.refs, C_elast=self.C_elast)
+            bucketing.site_of(d, self.body.N), bucketing.strips_of(d),
+            {k: v.expand((R,) + v.shape) for k, v in self.hc0.items()},
+            p["current_speed"], p["current_heading_deg"], self.Zref,
+            self.fs.shearExp_water, self.Tn0.expand(R, -1, -1, -1),
+            d["node_r0"])
+        X0, _, _, _, st_status, C_moor = solve_equilibrium(
+            self.fs, ms, d["K_h"], d["F_und"], F_current + aero["f_aero0"],
+            C_elast=self.C_elast)
         mark("statics")
 
-        r_nodes, R_ptfm, r_root = platform_kinematics(
-            node_r0, self.root.expand(R), X0)
-        Tn = node_T(r_nodes, r_root)
-        r, q, p1, p2 = morison.strip_frames(ss, R_ptfm, r_nodes)
-        sub = r[..., 2] < 0
-        hc = dict(Imat=self.Imat.expand((R,) + self.Imat.shape),
-                  a_i=self.a_i.expand((R,) + self.a_i.shape),
-                  r=r, q=q, p1=p1, p2=p2, sub=sub, active=sub & ss.active)
-        S = wv.jonswap(self.w, p["Hs"], p["Tp"], gamma=p["gamma"])
-        zeta = torch.sqrt(2.0 * S * self.dw).to(_policy_cdt(self.K_h))
-        beta = p["beta_deg"] * (math.pi / 180)
-        k = self.k.expand(R, nw)
-        exc = [morison.hydro_excitation(site, ss, hc, zeta[:, ih],
-                                        beta[:, ih], self.w, k, Tn, r_nodes)
-               for ih in range(nW)]
-        mark("excitation")
-
-        M_lin = aero["A_aero"] + (self.M_struc + self.A_hydro)[..., None]
-        B_lin = aero["B_aero"] + aero["B_gyro"][..., None]
-        C_lin = self.K_h + C_moor + self.C_elast
-        F_lin = exc[0]["F_hydro_iner"]
-        Z, Xi_fused, Bmat, dyn = solve_dynamics_fowt(
-            site, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin, F_lin, self.w,
-            Tn, r_nodes, n_iter=self.n_iter, Xi_start=self.Xi_start,
-            n_iter_extra=self.n_iter_extra, timer=mark)
-
-        if nW == 1 and fused_response_enabled():
-            Xi = Xi_fused[:, None]
-        else:
-            F_waves = torch.stack([
-                exc[ih]["F_hydro_iner"] + morison.drag_excitation(
-                    site, ss, hc, Bmat, exc[ih]["u"], Tn, r_nodes)
-                for ih in range(nW)], dim=1)
-            Xi = system_response(Z[:, None], F_waves)
-        Xi = torch.cat([Xi, torch.zeros((R, 1, 6, nw), dtype=Xi.dtype,
-                                        device=Xi.device)], dim=1)
-        out = dict(
-            X0=X0, Xi=Xi, RAO=wv.get_rao(Xi[:, 0], zeta[:, 0, None, :]),
-            PSD=torch.sum(0.5 * torch.abs(Xi) ** 2 / self.dw, dim=1),
-            S=S, zeta=zeta, f_aero=aero["f_aero"], A00=aero["A00"],
-            B00=aero["B00"], f_aero0=aero["f_aero0"],
-            Omega_rpm=aero["Omega_rpm"], pitch_deg=aero["pitch_deg"],
-            F_2nd_mean=torch.zeros((R, nW, 6), dtype=rdt, device=X0.device),
-            Z=Z, drag_resid=dyn["drag_resid"],
-            drag_converged=dyn["drag_converged"],
-            n_iter_drag=dyn["n_iter_drag"],
-            status=_case_status(st_status, dyn, X0, Xi,
-                                input_clipped=aero["input_clipped"]),
-        )
-        mark("response")
-        return out
+        out = self.body.respond(
+            d, X0, st_status, C_moor, p["Hs"], p["Tp"],
+            p["beta_deg"] * (math.pi / 180), mark, gamma=p["gamma"],
+            lin=dict(M=aero["A_aero"],
+                     B=aero["B_aero"] + aero["B_gyro"][..., None],
+                     C=self.C_elast),
+            input_clipped=aero["input_clipped"])
+        Xi = out["Xi"]
+        out.update(
+            Xi=torch.cat([Xi, torch.zeros((R, 1) + Xi.shape[2:],
+                                          dtype=Xi.dtype,
+                                          device=Xi.device)], dim=1),
+            F_2nd_mean=torch.zeros((R, self.nWaves, 6), dtype=self.rdt,
+                                   device=X0.device),
+            **{k: aero[k] for k in ("f_aero", "A00", "B00", "f_aero0",
+                                    "Omega_rpm", "pitch_deg")})
+        return {k: out[k] for k in FULL_OUT_KEYS}
 
 
 def make_full_evaluator(model, nWaves=1, turb_static=None, device=None,

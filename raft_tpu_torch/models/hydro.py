@@ -36,8 +36,7 @@ def site_rows(fs, device, rows=1):
                           device=device)
 
     return morison.SiteRows(rho_water=col(fs.rho_water), depth=col(fs.depth),
-                            g=col(fs.g), n_nodes=fs.n_nodes,
-                            shearExp_water=fs.shearExp_water)
+                            g=col(fs.g), n_nodes=fs.n_nodes)
 
 
 class FOWTHydro:

@@ -124,7 +124,7 @@ def solve_equilibrium_general(
 
 
 def solve_equilibrium(fs, ms, K_hydrostatic, F_undisplaced, F_env,
-                      X0=None, max_iter=30):
+                      X0=None, max_iter=30, C_elast=None):
     """Single-FOWT wrapper: the reference's tolerances and caps for
     ``fs`` and the closures of its mooring system ``ms`` (whose ``L``
     may carry a row axis).  Same arguments and returns as
@@ -135,4 +135,4 @@ def solve_equilibrium(fs, ms, K_hydrostatic, F_undisplaced, F_env,
         K_hydrostatic, F_undisplaced, F_env,
         single_ms_closures(ms, fs.nDOF), torch.tensor(tols, **kw),
         torch.tensor(caps, **kw), torch.tensor(refs, **kw), X0=X0,
-        max_iter=max_iter)
+        max_iter=max_iter, C_elast=C_elast)

@@ -66,15 +66,13 @@ class StripSet:
 
 @dataclass
 class SiteRows:
-    """The site scalars of a batch of rows, (R,) each, the (padded)
-    node count and the current's shear exponent: what the strip physics
-    reads of a FOWT."""
+    """The site scalars of a batch of rows, (R,) each, and the (padded)
+    node count: what the strip physics reads of a FOWT."""
 
     rho_water: torch.Tensor
     depth: torch.Tensor
     g: torch.Tensor
     n_nodes: int
-    shearExp_water: float = 0.12
 
 
 # ------------------------------------------------------------------ build
@@ -480,10 +478,12 @@ def drag_excitation(fs, ss, hc, Bmat, u_ih, Tn, r_nodes):
 
 # -------------------------------------------------------------- current
 
-def current_loads(fs, ss, hc, speed, heading_deg, Zref, Tn, r_nodes):
+def current_loads(fs, ss, hc, speed, heading_deg, Zref, shear_exp, Tn,
+                  r_nodes):
     """Mean current drag loads at the pose of ``hc``'s strip frames:
-    a power-law current profile referenced to the depth ``Zref`` (0, or
-    the hub depth of a submerged rotor), quadratic drag on the submerged
+    a power-law current profile of exponent ``shear_exp`` (the FOWT's
+    ``shearExp_water``) referenced to the depth ``Zref`` (0, or the hub
+    depth of a submerged rotor), quadratic drag on the submerged
     strips in their axial and transverse directions, translated to the
     nodes and T-reduced.  speed, heading_deg (R,) -> (R, n)."""
     rho = fs.rho_water[:, None, None]
@@ -496,7 +496,7 @@ def current_loads(fs, ss, hc, speed, heading_deg, Zref, Tn, r_nodes):
     z = r[..., 2]
     depth = fs.depth[:, None]
     v = speed[:, None] * ((depth - torch.abs(z)) / (depth + Zref)) \
-        ** fs.shearExp_water
+        ** shear_exp
     hd = (heading_deg * (math.pi / 180))[:, None]
     vcur = torch.stack([v * torch.cos(hd), v * torch.sin(hd),
                         torch.zeros_like(v)], dim=-1)        # (R, S, 3)

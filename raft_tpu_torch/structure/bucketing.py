@@ -414,33 +414,43 @@ class BucketEvaluator(nn.Module):
             K_h, d["F_und"], torch.zeros_like(d["F_und"]), mooring_fn,
             self.tol_vec.to(rdt), self.caps.to(rdt), self.refs.to(rdt))
         mark("statics")
-        return self.respond(d, X0, st_status, C_moor, Hs, Tp, beta, mark)
+        return one_heading(self.respond(d, X0, st_status, C_moor,
+                                        *_heading_axis(Hs, Tp, beta, K_h),
+                                        mark))
 
     def respond(self, d, X0, st_status, C_moor, Hs, Tp, beta, mark,
-                hydro=None):
+                hydro=None, gamma=None, lin=None, input_clipped=None):
         """Every stage after the statics, at the mean offsets X0 (R, 6)
         with their statics status and mooring stiffness C_moor: rigid
-        kinematics, strip frames, excitation, the drag fixed point and
-        the response.
+        kinematics, strip frames, excitation per wave heading, the drag
+        fixed point and the response.
+
+        Hs, Tp, beta [rad] and ``gamma`` (None or 0: the IEC default)
+        are (R, nH) for nH wave headings; the first heading drives the
+        fixed point.  With one heading and ``RAFT_TPU_FUSED=on`` the
+        response is the fixed point's final solve; otherwise every
+        heading's inertial plus drag excitation is solved against the
+        one impedance in one solve.  Returns X0, Xi (R, nH, 6, nw), S
+        and zeta (R, nH, nw), RAO of the first heading, PSD summed over
+        the headings, Z, the fixed point's diagnostics and status
+        (:func:`one_heading` makes :data:`OUT_KEYS` of it).
 
         ``hydro(fs, ss, R_ptfm, r_nodes, Tn)``, when given, returns the
         hydro constants at the displaced pose (A_hydro, Imat, a_i and the
         strip frames, as :func:`morison.hydro_constants`); by default
-        they are the packed zero-pose ones with the displaced frames."""
+        they are the packed zero-pose ones with the displaced frames.
+        ``lin``, when given, holds M, B (R, 6, 6, nw) and C (R, 6, 6)
+        added to the linear system (the full path's aero-servo terms
+        and elastic stiffness); ``input_clipped`` (R,) bool sets
+        INPUT_CLIPPED in the status."""
         K_h = d["K_h"]
         rdt = _compute_dtype(K_h)
         R = K_h.shape[0]
         dev = K_h.device
         w = self.w.to(rdt)
-        Hs, Tp, beta = (torch.as_tensor(x, device=dev).to(rdt)
-                        for x in (Hs, Tp, beta))
-        fsb = morison.SiteRows(rho_water=d["rho_water"], depth=d["depth"],
-                               g=d["g"], n_nodes=self.N)
-        ss = morison.StripSet(
-            node=d["node"], ls=d["ls"], dls=d["dls"], ds=d["ds"],
-            drs=d["drs"], circ=d["circ"], active=d["active"], q0=d["q0"],
-            p10=d["p10"], p20=d["p20"], Cd_q=d["Cd_q"], Cd_p1=d["Cd_p1"],
-            Cd_p2=d["Cd_p2"], Cd_End=d["Cd_End"])
+        nH = Hs.shape[1]
+        fsb = site_of(d, self.N)
+        ss = strips_of(d)
 
         # ---- rigid kinematics about each row's own root node
         r_nodes, R_ptfm, r_root = platform_kinematics(d["node_r0"],
@@ -457,37 +467,75 @@ class BucketEvaluator(nn.Module):
         else:
             hc = hydro(fsb, ss, R_ptfm, r_nodes, Tn)
 
-        # ---- sea state + excitation
-        S_spec = wv.jonswap(w, Hs, Tp)                        # (R, nw)
+        # ---- sea states + excitation, one per heading
+        S_spec = wv.jonswap(w, Hs, Tp, gamma=gamma)           # (R, nH, nw)
         zeta = torch.sqrt(2.0 * S_spec * self.dw).to(_policy_cdt(K_h))
-        exc = morison.hydro_excitation(fsb, ss, hc, zeta, beta, w, d["k"],
-                                       Tn, r_nodes)
+        exc = [morison.hydro_excitation(fsb, ss, hc, zeta[:, ih],
+                                        beta[:, ih], w, d["k"], Tn, r_nodes)
+               for ih in range(nH)]
         mark("excitation")
 
-        # ---- drag-linearised impedance solve
+        # ---- drag-linearised impedance solve, driven by the first heading
         M_lin = (d["M_struc"] + hc["A_hydro"])[..., None].expand(
             R, 6, 6, self.nw)
         B_lin = torch.zeros((R, 6, 6, self.nw), dtype=rdt, device=dev)
         C_lin = K_h + C_moor
-        F_lin = exc["F_hydro_iner"]
+        if lin is not None:
+            M_lin = lin["M"] + M_lin
+            B_lin = B_lin + lin["B"]
+            C_lin = C_lin + lin["C"]
+        F_lin = exc[0]["F_hydro_iner"]
         Z, Xi_fused, Bmat, dyn_diag = solve_dynamics_fowt(
-            fsb, ss, hc, exc["u"], M_lin, B_lin, C_lin, F_lin, w, Tn,
+            fsb, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin, F_lin, w, Tn,
             r_nodes, n_iter=self.n_iter, Xi_start=self.Xi_start,
             n_iter_extra=self.n_iter_extra, timer=mark)
-        if fused_response_enabled():
-            Xi = Xi_fused
+        if nH == 1 and fused_response_enabled():
+            Xi = Xi_fused[:, None]
         else:
-            F_wave = F_lin + morison.drag_excitation(
-                fsb, ss, hc, Bmat, exc["u"], Tn, r_nodes)
-            Xi = system_response(Z, F_wave)
+            F_waves = torch.stack([
+                exc[ih]["F_hydro_iner"] + morison.drag_excitation(
+                    fsb, ss, hc, Bmat, exc[ih]["u"], Tn, r_nodes)
+                for ih in range(nH)], dim=1)
+            Xi = system_response(Z[:, None], F_waves)
 
         out = dict(
-            X0=X0, Xi=Xi, RAO=wv.get_rao(Xi, zeta[:, None, :]),
-            PSD=0.5 * torch.abs(Xi) ** 2 / self.dw, S=S_spec,
-            drag_resid=dyn_diag["drag_resid"],
+            X0=X0, Xi=Xi, RAO=wv.get_rao(Xi[:, 0], zeta[:, 0, None, :]),
+            PSD=torch.sum(0.5 * torch.abs(Xi) ** 2 / self.dw, dim=1),
+            S=S_spec, zeta=zeta, Z=Z, drag_resid=dyn_diag["drag_resid"],
             drag_converged=dyn_diag["drag_converged"],
             n_iter_drag=dyn_diag["n_iter_drag"],
-            status=_case_status(st_status, dyn_diag, X0, Xi),
+            status=_case_status(st_status, dyn_diag, X0, Xi,
+                                input_clipped=input_clipped),
         )
         mark("response")
         return out
+
+
+def _heading_axis(Hs, Tp, beta, like):
+    """(R,) sea states as (R, 1) tensors of ``like``'s device and real
+    compute dtype: one wave heading per row."""
+    rdt = _compute_dtype(like)
+    return tuple(torch.as_tensor(x, device=like.device).to(rdt)[:, None]
+                 for x in (Hs, Tp, beta))
+
+
+def one_heading(out):
+    """:meth:`BucketEvaluator.respond`'s output of a one-heading sea as
+    :data:`OUT_KEYS`: Xi (R, 6, nw) and S (R, nw)."""
+    out = dict(out, Xi=out["Xi"][:, 0], S=out["S"][:, 0])
+    return {k: out[k] for k in OUT_KEYS}
+
+
+def site_of(d, n_nodes):
+    """The site scalars of packed rows ``d`` with ``n_nodes`` nodes."""
+    return morison.SiteRows(rho_water=d["rho_water"], depth=d["depth"],
+                            g=d["g"], n_nodes=n_nodes)
+
+
+def strips_of(d):
+    """The strips of packed rows ``d`` (their leaves of the strip axis)."""
+    return morison.StripSet(
+        node=d["node"], ls=d["ls"], dls=d["dls"], ds=d["ds"], drs=d["drs"],
+        circ=d["circ"], active=d["active"], q0=d["q0"], p10=d["p10"],
+        p20=d["p20"], Cd_q=d["Cd_q"], Cd_p1=d["Cd_p1"], Cd_p2=d["Cd_p2"],
+        Cd_End=d["Cd_End"])

@@ -58,6 +58,14 @@ def golden(name):
     return dict(np.load(os.path.join(FIX, f"golden_full_{name}.npz")))
 
 
+def case_rows(cases, nWaves=1):
+    """Parsed cases as evaluator rows through ``case_to_traced``: (R,)
+    environment scalars and (R, nWaves) sea-state parameters."""
+    rows = [tapi.case_to_traced(c, nWaves) for c in cases]
+    return {k: np.stack([np.asarray(r[k], dtype=float) for r in rows])
+            for k in ROW_KEYS}
+
+
 def rows(g):
     return {k: g[k] for k in ROW_KEYS}
 
@@ -150,8 +158,7 @@ def test_scalars_and_single_heading_rows_broadcast():
 
 
 def test_case_table_helpers_match_jax():
-    """``case_to_traced``, ``cases_to_rows`` and ``case_in_traced_domain``
-    against the JAX package's on the demo case tables."""
+    """``case_to_traced`` and ``case_in_traced_domain`` against the JAX package's on the demo case tables."""
     from raft_tpu.api import case_in_traced_domain as jdomain
     from raft_tpu.api import case_to_traced as jtraced
 
@@ -168,15 +175,15 @@ def test_case_table_helpers_match_jax():
         assert sorted(a) == sorted(b)
         for k in a:
             np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
-    r = tapi.cases_to_rows([extra, extra], nWaves=2)
+    r = case_rows([extra, extra], nWaves=2)
     assert r["Hs"].shape == (2, 2) and r["wind_speed"].shape == (2,)
 
 
 def test_design_case_rows_evaluate():
-    """A design's own case table through cases_to_rows into the
+    """A design's own case table through case_to_traced into the
     evaluator."""
     m = model("semi_wind")
-    r = tapi.cases_to_rows(m.cases)
+    r = case_rows(m.cases)
     out = evaluator("semi_wind")(**r)
     assert out["X0"].shape == (len(m.cases), 6)
     assert np.all(np.isfinite(out["Xi"].numpy()))
