@@ -58,8 +58,33 @@ Phases, each printing one line (the last line is the result object):
 11. profile_full - torch.profiler over one 512-row semi_wind chunk of
              the full path: kernel launches and device busy time of the
              aero stage alone and of the whole chunk, idle share.
-12. kernels - one JSON object listing every kernel the slice, design and
-             full paths launched, with its launches on all of them.
+12. geometry - the geometry design axis: make_full_evaluator(...,
+             geometry=True) on design_semi_wind.json over GEOMETRY_ROWS
+             (4096) rows in 512-row chunks, the full phase's operating rows
+             with per-member diameter, thickness, fill and fill-density
+             scales and per-row drag, added-mass, mooring-length and
+             mooring-stiffness scales drawn over GEOM_BOX; the golden
+             geometry rows first (held against golden_geometry_semi_wind.npz,
+             warm-up on them alone); geometry-evals/s, stage ms (geometry,
+             aero, statics, excitation, fixed_point, response), Newton
+             iterations per chunk, status-bit shares, the solve kernel's
+             launches against the trips run; the pivots of the adjoint
+             systems Z^H of every row against the forward's.
+13. grad    - reverse-mode gradients of sum |Xi[0]|^2 + sum X0^2 with
+             respect to every geometry key on GRAD_ROWS (512) semi_wind
+             rows (the golden gradient rows first, held against
+             golden_grad_semi_wind.npz within 1e-9 x max|g|), and with
+             respect to the six design-evaluator inputs on the demos'
+             golden rows (golden_grad_design_*.npz); gradient rows/s,
+             backward/forward time, peak memory per chunk, the adjoint
+             entry's launches per chunk against NEUMANN_STEPS + 2; then
+             the adjoint entry against its plain version
+             _native_solve(Z.mH, G) at 20,480 systems (bit-equal), its
+             time beside the byte bound, the plain version's and
+             torch.linalg.solve's on the same adjoint systems.
+14. kernels - one JSON object listing both entries of the solve kernel,
+             the forward with its launches on every path and the adjoint
+             with its launches on the grad path.
 
 Exits non-zero, before printing any result, without CUDA, outside the
 repository, or when any phase misses its tolerance.  Measurements go to
@@ -98,6 +123,16 @@ BEMT_TOL = 1e-12                       # x max, hand tangents vs jacfwd
 FULL_CONFIGS = {"semi_wind": dict(nWaves=1, seed=20261018),
                 "mhk_tidal": dict(nWaves=2, seed=20261019)}
 FULL_ROWS = 4096                       # rows per rotor design, full phase
+#: the geometry phase's design, rows and seed; its box of geometry scales
+GEOMETRY_DESIGN = "semi_wind"
+GEOMETRY_ROWS = 4096
+GEOMETRY_SEED = 20261022
+GEOM_BOX = dict(d_scale=(0.9, 1.1), t_scale=(0.9, 1.1),
+                fill_scale=(0.8, 1.2), rho_fill_scale=(0.9, 1.1),
+                Cd_scale=(0.5, 2.0), Ca_scale=(0.5, 1.5),
+                L_moor_scale=(0.98, 1.02), EA_moor_scale=(0.8, 1.2))
+GRAD_ROWS = 512                        # rows of the grad phase (one chunk)
+GRAD_TOL = 1e-9                        # x each key's max |golden gradient|
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -498,7 +533,6 @@ def phase_design(models, rows_per_design, card, seed=20261017):
     """The design-axis DoE on the card: per design, rows_per_design rows
     of DOE_BOX from a fixed seed, the golden design rows first."""
     from raft_tpu_torch.api import make_design_evaluator
-    from raft_tpu_torch.models import statics_solve
     from raft_tpu_torch.ops import linsolve
     from raft_tpu_torch.utils import config
 
@@ -534,24 +568,15 @@ def phase_design(models, rows_per_design, card, seed=20261017):
                      for k in keys}
     # count the statics' mooring force+stiffness evaluations (Newton
     # iterations + 1 per chunk: the per-row mooring lengths set them)
-    evals = []
-    mooring_fs = statics_solve.mooring_force_and_stiffness
-
-    def counted(ms, X):
-        evals.append(1)
-        return mooring_fs(ms, X)
-
     timer = StageTimer()
-    statics_solve.mooring_force_and_stiffness = counted
-    linsolve.reset_launches()
-    torch.cuda.synchronize()
-    try:
+    with MooringCounter() as moor:
+        linsolve.reset_launches()
+        torch.cuda.synchronize()
         t0 = time.time()
         out = run(params, timer)
         torch.cuda.synchronize()
         wall = time.time() - t0
-    finally:
-        statics_solve.mooring_force_and_stiffness = mooring_fs
+    evals = [1] * moor.n
     launches = linsolve.KERNEL_LAUNCHES
     where = {n: np.arange(j * rows_per_design, j * rows_per_design + n_gold)
              for j, n in enumerate(DESIGNS)}
@@ -739,23 +764,23 @@ class MooringCounter:
     splits them per chunk at the timer's "start" and "statics" marks."""
 
     def __init__(self):
-        from raft_tpu_torch.models import statics_solve
+        from raft_tpu_torch.physics import mooring
 
-        self.mod = statics_solve
-        self.fn = statics_solve.mooring_force_and_stiffness
+        self.mod = mooring
+        self.fn = mooring.line_forces_and_stiffness
         self.n = 0
         self.per_chunk = []
 
     def __enter__(self):
-        def counted(ms, X):
+        def counted(*a, **kw):
             self.n += 1
-            return self.fn(ms, X)
+            return self.fn(*a, **kw)
 
-        self.mod.mooring_force_and_stiffness = counted
+        self.mod.line_forces_and_stiffness = counted
         return self
 
     def __exit__(self, *exc):
-        self.mod.mooring_force_and_stiffness = self.fn
+        self.mod.line_forces_and_stiffness = self.fn
 
     def mark(self, stage):
         if stage == "start":
@@ -1001,6 +1026,280 @@ def phase_profile_full(out_dir, ev, rows=512):
     return res
 
 
+def geometry_rows(n_members, n, seed, gold=None):
+    """``n`` rows of geometry scales over GEOM_BOX from a fixed numpy
+    seed, the golden rows (``geom_*`` of ``gold``) first."""
+    rng = np.random.default_rng(seed)
+    m = n - (0 if gold is None else len(gold["Hs"]))
+    out = {}
+    for k, box in GEOM_BOX.items():
+        shape = (m, n_members) if k in ("d_scale", "t_scale", "fill_scale",
+                                        "rho_fill_scale") else (m,)
+        new = rng.uniform(*box, shape)
+        out[k] = new if gold is None else np.concatenate(
+            [gold["geom_" + k], new])
+    return out
+
+
+def _status_shares(st):
+    from raft_tpu_torch.utils import health
+
+    return {b: int(np.count_nonzero(st & mk)) / len(st)
+            for b, mk in health.MASKS.items() if np.any(st & mk)}
+
+
+def _adjoint_pivots(Z):
+    """Per system, the smallest pivot modulus of the pivot-free
+    elimination of Z^H over that of Z: how many systems the adjoint's
+    elimination takes nearer a zero pivot, and the worst ratio."""
+    from raft_tpu_torch.ops import linsolve
+
+    fwd = torch.amin(linsolve.pivot_moduli(Z), dim=-1)
+    adj = torch.amin(linsolve.pivot_moduli(Z.mH), dim=-1)
+    ratio = (adj / fwd).flatten()
+    return dict(systems=int(ratio.numel()),
+                adjoint_smaller=int(torch.count_nonzero(ratio < 1.0)),
+                min_ratio=float(ratio.min()),
+                min_adjoint_pivot_rel=float(torch.min(
+                    adj.flatten() / torch.amax(torch.abs(Z), dim=(-2, -1))
+                    .flatten())))
+
+
+def phase_geometry(model, card):
+    """The geometry design axis on GEOMETRY_DESIGN: warm-up on the golden
+    geometry rows (held), then GEOMETRY_ROWS rows with them first, timed
+    per stage, the solve kernel's launches against the trips run."""
+    from raft_tpu_torch.api import (FULL_OUT_KEYS, GEOMETRY_STAGES,
+                                    make_full_evaluator)
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    name = GEOMETRY_DESIGN
+    nW = FULL_CONFIGS[name]["nWaves"]
+    fused = config.get("FUSED") == "on"
+    pfx = "on_" if fused else "off_"
+    gold = dict(np.load(os.path.join(FIX, f"golden_geometry_{name}.npz")))
+    ev = make_full_evaluator(model, nWaves=nW, device=DEVICE, geometry=True)
+    n_gold = len(gold["Hs"])
+    nm = ev.n_members
+
+    def run(p, geom, timer=None):
+        out = ev(geom=geom, timer=timer, **p)
+        return {k: v.cpu().numpy() for k, v in out.items()}, out["Z"]
+
+    t0 = time.time()
+    out, _ = run(full_rows(name, gold, n_gold, GEOMETRY_SEED),
+                 geometry_rows(nm, n_gold, GEOMETRY_SEED, gold))
+    warm_s = time.time() - t0
+    worst = hold_goldens(out, {name: np.arange(n_gold)}, {name: gold}, pfx,
+                         "geometry", keys=FULL_OUT_KEYS)
+
+    p = full_rows(name, gold, GEOMETRY_ROWS, GEOMETRY_SEED)
+    geom = geometry_rows(nm, GEOMETRY_ROWS, GEOMETRY_SEED, gold)
+    timer = StageTimer()
+    with MooringCounter() as moor:
+        def mark(stage):
+            moor.mark(stage)
+            timer(stage)
+
+        linsolve.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out, Z = run(p, geom, mark)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = linsolve.KERNEL_LAUNCHES
+    main = hold_goldens(out, {name: np.arange(n_gold)}, {name: gold}, pfx,
+                        "geometry", keys=FULL_OUT_KEYS)
+    for k, v in main.items():
+        worst[k] = max(worst[k], v)
+    for k in ("X0", "Xi", "PSD"):
+        check(np.all(np.isfinite(out[k])), f"geometry: non-finite {k}")
+    cap = ev.body.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
+        + max(int(ev.body.n_iter_extra), 0)
+    chunk_rows = int(config.get("BUCKET_ROWS")) or GEOMETRY_ROWS
+    exp = expected_launches(out["n_iter_drag"], chunk_rows, cap,
+                            min(max(1, config.get("SCAN_CHUNK")), cap),
+                            fused and nW == 1)
+    check(launches == exp, f"geometry: solve kernel launched {launches} "
+          f"times, expected {exp}")
+    chunks = timer.chunks()
+    stage_ms = {s: sum(c.get(s, 0.0) for c in chunks)
+                for s in GEOMETRY_STAGES}
+    newton = [e - 1 for e in moor.per_chunk]
+    pivots = _adjoint_pivots(Z)
+    res = dict(design=name, rows=GEOMETRY_ROWS, nWaves=nW, wall_s=wall,
+               evals_per_s=GEOMETRY_ROWS / wall,
+               device_evals_per_s=GEOMETRY_ROWS / (sum(stage_ms.values())
+                                                   / 1e3),
+               warm_s=warm_s, chunks=len(chunks), stage_ms=stage_ms,
+               newton_per_chunk=newton, launches=launches,
+               expected_launches=exp, status_shares=_status_shares(
+                   out["status"]), pivots=pivots,
+               n_iter_drag_max=int(out["n_iter_drag"].max()),
+               worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()},
+               box=GEOM_BOX)
+    print(f"geometry {name} on {card}: {GEOMETRY_ROWS} rows, nWaves {nW}, "
+          f"{len(chunks)} chunks in {wall:.2f} s = {res['evals_per_s']:.1f} "
+          "geometry-evals/s; stage ms " + ", ".join(
+              f"{s} {v:.1f}" for s, v in stage_ms.items())
+          + f"; statics Newton iterations per chunk {newton}; solve kernel "
+          f"launches {launches} (expected {exp}: trips + 1 per chunk); "
+          f"status-bit shares {res['status_shares']}")
+    print(f"  {name} geometry goldens (gate {SLICE_TOL:g} x max; status, "
+          "n_iter_drag, drag_converged equal): worst "
+          f"{max(res['worst_rel'].values()):.1e}; adjoint pivots: "
+          f"{pivots['adjoint_smaller']} of {pivots['systems']:,} systems "
+          f"take a smaller smallest pivot in Z^H than in Z, worst ratio "
+          f"{pivots['min_ratio']:.4f}, smallest adjoint pivot "
+          f"{pivots['min_adjoint_pivot_rel']:.3e} x max|Z|")
+    return res, ev
+
+
+def _metric(out):
+    return (out["Xi"][:, 0].abs() ** 2).flatten(1).sum(-1) \
+        + (out["X0"] ** 2).sum(-1)
+
+
+def _hold_grads(val, grads, gold, pfx, tag, n):
+    """The first ``n`` rows' metric and gradients against the golden's:
+    the metric within 1e-12, each key within GRAD_TOL x its max|g|."""
+    b = gold[pfx + "metric"]
+    a = val[:n].detach().cpu().numpy()
+    check(np.max(np.abs(a - b)) <= 1e-12 * np.max(np.abs(b)),
+          f"{tag}: metric {a} != {b}")
+    worst = {}
+    for k, g in grads.items():
+        b = gold[f"{pfx}g_{k}"]
+        a = g[:n].cpu().numpy()
+        scale = float(np.max(np.abs(b)))
+        err = float(np.max(np.abs(a - b)))
+        check(err <= GRAD_TOL * scale, f"{tag} {k}: {err:.3e} > "
+              f"{GRAD_TOL:g} x {scale:.3e}")
+        worst[k] = err / scale
+    return worst
+
+
+def phase_grad(geo_ev, demo_models, card):
+    """Reverse-mode gradients on the card: every geometry key on
+    GRAD_ROWS semi_wind rows, the six design-evaluator inputs on the
+    demos' golden rows; then the adjoint entry against its plain version
+    and torch.linalg.solve at the main-path shape."""
+    from raft_tpu_torch.api import make_design_evaluator
+    from raft_tpu_torch.models import dynamics
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    name = GEOMETRY_DESIGN
+    pfx = "on_" if config.get("FUSED") == "on" else "off_"
+    gold = dict(np.load(os.path.join(FIX, f"golden_grad_{name}.npz")))
+    n_gold = len(gold["Hs"])
+    p = full_rows(name, gold, GRAD_ROWS, GEOMETRY_SEED + 1)
+    geom_np = geometry_rows(geo_ev.n_members, GRAD_ROWS, GEOMETRY_SEED + 1,
+                            gold)
+    kw = dict(dtype=torch.float64, device=DEVICE)
+
+    def run():
+        geom = {k: torch.tensor(v, **kw, requires_grad=True)
+                for k, v in geom_np.items()}
+        torch.cuda.synchronize()
+        t0 = time.time()
+        val = _metric(geo_ev(geom=geom, **p))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        g = torch.autograd.grad(val.sum(), list(geom.values()))
+        torch.cuda.synchronize()
+        return val, dict(zip(geom, g)), t1 - t0, time.time() - t1
+
+    run()                                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    linsolve.reset_launches()
+    val, grads, fwd_s, bwd_s = run()
+    fwd_launches = linsolve.KERNEL_LAUNCHES
+    adj_launches = linsolve.ADJ_KERNEL_LAUNCHES
+    peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
+    chunks = math.ceil(GRAD_ROWS / (int(config.get("BUCKET_ROWS"))
+                                    or GRAD_ROWS))
+    exp_adj = chunks * (dynamics.NEUMANN_STEPS + 2)
+    check(adj_launches == exp_adj, f"grad: adjoint entry launched "
+          f"{adj_launches} times, expected {exp_adj}")
+    worst = _hold_grads(val, grads, gold, pfx, "grad geometry", n_gold)
+    for k, g in grads.items():
+        check(bool(torch.isfinite(g).all()), f"grad: non-finite d/d{k}")
+
+    # the design-evaluator gradients on the demos' golden rows
+    keys = ("Hs", "Tp", "beta", "Cd_scale", "Ca_scale", "L_moor_scale")
+    worst_design = {}
+    for n in DESIGNS:
+        gd = dict(np.load(os.path.join(FIX, f"golden_grad_design_{n}.npz")))
+        ev = make_design_evaluator(demo_models[n], DEVICE)
+        prm = {k: torch.tensor(gd[k], **kw, requires_grad=True) for k in keys}
+        v = _metric(ev(**prm))
+        g = dict(zip(prm, torch.autograd.grad(v.sum(), list(prm.values()))))
+        for k, e in _hold_grads(v, g, gd, pfx, f"grad design {n}",
+                                len(gd["Hs"])).items():
+            worst_design[f"{n}.{k}"] = e
+
+    # the adjoint entry at the main-path shape: 512 rows x 40 frequencies
+    rng = np.random.default_rng(5)
+    Z = impedance_systems(rng, 6, (512,), 40, torch.complex128).to(DEVICE)
+    G = torch.as_tensor(rng.normal(size=(512, 40, 6))
+                        + 1j * rng.normal(size=(512, 40, 6))).to(DEVICE)
+    B, N = 512 * 40, 6
+    _, planes = linsolve._cuda_solve(Z, G, keep_planes=True)
+    Gb = torch.view_as_real(G.reshape(B, N))
+    adj_planes = (planes[0], planes[1], Gb[..., 0].T.contiguous(),
+                  Gb[..., 1].T.contiguous())
+    xr, xi = torch.empty_like(adj_planes[2]), torch.empty_like(adj_planes[2])
+
+    def raw():
+        err = linsolve.launch(adj_planes, xr, xi, adjoint=True)
+        check(err == 0, f"raw adjoint launch failed: cudaError {err}")
+
+    Zh = Z.mH
+    t = dict(
+        ms=cuda_time(raw, reps=100, queue_ahead=True),
+        wrapper_ms=cuda_time(lambda: linsolve._cuda_solve_adj(planes, G),
+                             reps=50),
+        plain_ms=cuda_time(lambda: linsolve._native_solve(Zh, G), reps=10),
+        library_ms=cuda_time(lambda: torch.linalg.solve(Zh, G[..., None]),
+                             reps=10))
+    lam = linsolve._cuda_solve_adj(planes, G)
+    ref = linsolve._native_solve(Zh, G)
+    torch.cuda.synchronize()
+    max_abs_err = float(torch.max(torch.abs(lam - ref)))
+    check(max_abs_err == 0.0, f"adjoint entry vs _native_solve(Z.mH, G): "
+          f"not bit-equal, max abs err {max_abs_err:.3e}")
+    nbytes = B * (2 * N * N + 2 * N + 2 * N) * 8
+    bound_bytes = nbytes / MEM_BPS * 1e3
+    bound_ops = B * ge_flops(N) / PEAK_FLOPS[torch.float64] * 1e3
+    t.update(max_abs_err=max_abs_err, bound_ms=max(bound_bytes, bound_ops),
+             bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+    res = dict(rows=GRAD_ROWS, fwd_s=fwd_s, bwd_s=bwd_s,
+               rows_per_s=GRAD_ROWS / (fwd_s + bwd_s),
+               bwd_over_fwd=bwd_s / fwd_s, peak_mb_per_chunk=peak_mb / chunks,
+               chunks=chunks, fwd_launches=fwd_launches,
+               adj_launches=adj_launches, expected_adj_launches=exp_adj,
+               worst_rel=worst, worst_rel_design=worst_design, adjoint=t)
+    print(f"grad {name} on {card}: {GRAD_ROWS} rows, d/d{{{', '.join(grads)}}}"
+          f" of sum |Xi[0]|^2 + sum X0^2: forward {fwd_s:.2f} s, backward "
+          f"{bwd_s:.2f} s ({res['bwd_over_fwd']:.2f}x) = "
+          f"{res['rows_per_s']:.1f} gradient rows/s; peak memory "
+          f"{res['peak_mb_per_chunk']:.0f} MiB per chunk; adjoint launches "
+          f"{adj_launches} (expected {exp_adj}: {dynamics.NEUMANN_STEPS} "
+          f"Neumann + 2 per chunk), forward launches {fwd_launches}; golden "
+          f"rows within {max(worst.values()):.1e} x max|g| (gate "
+          f"{GRAD_TOL:g}); design gradients on the demos within "
+          f"{max(worst_design.values()):.1e}")
+    print(f"  adjoint entry, 20,480 systems N=6 f64: kernel {t['ms']:.4f} ms,"
+          f" wrapper {t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+          f"torch.linalg.solve {t['library_ms']:.3f} ms, bound "
+          f"{t['bound_ms']:.4f} ms ({t['bound_by']}), bit-equal to "
+          "_native_solve(Z.mH, G)")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
@@ -1046,22 +1345,39 @@ def main():
         rec["staged_solve"] = timed("staged_solve", phase_staged_solve)
         rec["profile_full"] = timed("profile_full", phase_profile_full,
                                     args.out, evs["semi_wind"])
+        rec["geometry"], geo_ev = timed("geometry", phase_geometry,
+                                        rotor_models[GEOMETRY_DESIGN],
+                                        rec["card"])
+        rec["grad"] = timed("grad", phase_grad, geo_ev, models, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
     k = rec["kernel"]
+    a = rec["grad"]["adjoint"]
     rec["launches_by_path"] = dict(
         slice=rec["slice"]["launches"], design=rec["design"]["launches"],
-        **{f"full_{n}": r["launches"] for n, r in rec["full"].items()})
+        **{f"full_{n}": r["launches"] for n, r in rec["full"].items()},
+        geometry=rec["geometry"]["launches"],
+        grad=rec["grad"]["fwd_launches"],
+        grad_adjoint=rec["grad"]["adj_launches"])
     kernels = [dict(
         name="ge_solve", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
         replaces="raft_tpu/ops/linsolve.py:277",
         launches=(rec["slice"]["launches"] + rec["design"]["launches"]
-                  + sum(r["launches"] for r in rec["full"].values())),
+                  + sum(r["launches"] for r in rec["full"].values())
+                  + rec["geometry"]["launches"]
+                  + rec["grad"]["fwd_launches"]),
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-        bound_by=k["bound_by"], library_ms=k["library_ms"])]
+        bound_by=k["bound_by"], library_ms=k["library_ms"]), dict(
+        name="ge_solve_adj", route="cuda",
+        source="raft_tpu_torch/csrc/linsolve.cu",
+        replaces="raft_tpu/ops/linsolve.py:277",
+        launches=rec["grad"]["adj_launches"],
+        max_abs_err=a["max_abs_err"], ms=a["ms"], plain_ms=a["plain_ms"],
+        bound_ms=a["bound_ms"], bound_by=a["bound_by"],
+        library_ms=a["library_ms"])]
     rec["build"].pop("ptxas")
     rec["total_s"] = time.time() - t_start
     print(f"phases: {rec['total_s']:.1f} s in all; " + ", ".join(

@@ -1,10 +1,19 @@
 """Evaluation API of one design (counterpart of ``raft_tpu/api.py``):
 the batched case, design-axis and full-physics evaluators
 (:func:`make_case_evaluator`, :func:`make_design_evaluator`,
-:func:`make_full_evaluator`), the case-table helpers of the full
-evaluator (:func:`case_to_traced`, :func:`case_in_traced_domain`),
-and the case-level helpers every
-evaluator shares (``_policy_cdt``, ``_case_status``)."""
+:func:`make_full_evaluator`, with its geometry design axis), the
+case-table helpers of the full evaluator (:func:`case_to_traced`,
+:func:`case_in_traced_domain`), and the case-level helpers every
+evaluator shares (``_policy_cdt``, ``_case_status``).
+
+Every evaluator is differentiable in reverse mode with respect to its
+row inputs (sea states, design scales, geometry scales): rows are
+independent, so ``torch.autograd.grad(metric(out).sum(), x)`` gives each
+row's gradient.  Without an input that requires grad the rows run
+under ``no_grad``.  The gradients pass the statics and the drag fixed
+point by their implicit backwards (:mod:`raft_tpu_torch.models.
+statics_solve`, :mod:`raft_tpu_torch.models.dynamics`) and every solve
+by its adjoint (:mod:`raft_tpu_torch.ops.linsolve`)."""
 
 from __future__ import annotations
 
@@ -17,6 +26,7 @@ from torch import nn
 
 from raft_tpu_torch.models.statics_solve import solve_equilibrium
 from raft_tpu_torch.physics import morison
+from raft_tpu_torch.structure import members_traced
 from raft_tpu_torch.utils import config, health
 from raft_tpu_torch.utils.dtypes import compute_dtypes, resolve_device
 
@@ -56,7 +66,7 @@ class CaseEvaluator(nn.Module):
     default); rows run in chunks of
     ``RAFT_TPU_BUCKET_ROWS`` through the bucket path's stages, with the
     zero-pose hydro constants and the strip frames at each row's
-    displaced pose.  Forward only.
+    displaced pose.
     """
 
     def __init__(self, model, device=None):
@@ -87,13 +97,16 @@ class CaseEvaluator(nn.Module):
 
     def _chunks(self, p, n, timer):
         """Run the n rows of ``p`` in chunks of ``RAFT_TPU_BUCKET_ROWS``
-        and concatenate the chunks' outputs."""
+        and concatenate the chunks' outputs; under ``no_grad`` unless an
+        input requires grad (then every chunk keeps its graph)."""
         if n == 0:
             raise ValueError("empty batch: no rows to evaluate")
         cap = int(config.get("BUCKET_ROWS")) or n
         mark = timer if timer is not None else (lambda stage: None)
+        grad = torch.is_grad_enabled() and any(
+            getattr(v, "requires_grad", False) for v in p.values())
         outs = []
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             for a in range(0, n, cap):
                 outs.append(self._chunk({k: v[a:a + cap]
                                          for k, v in p.items()}, mark))
@@ -127,8 +140,7 @@ class DesignEvaluator(CaseEvaluator):
     (``Cm = 1 + Ca_scale (Cm - 1)`` on the complex inertia
     coefficients), the mooring lines' unstretched lengths are scaled in
     both the force and the stiffness, the statics are re-solved, and the
-    hydro constants are recomputed at the row's displaced pose.  Forward
-    only."""
+    hydro constants are recomputed at the row's displaced pose."""
 
     def __init__(self, model, device=None):
         super().__init__(model, device)
@@ -194,6 +206,73 @@ FULL_OUT_KEYS = ("X0", "Xi", "RAO", "PSD", "S", "zeta", "f_aero", "A00",
 
 #: the stages a :class:`FullEvaluator` timer is called with, in order
 FULL_STAGES = ("aero", "statics", "excitation", "fixed_point", "response")
+#: the stages of the geometry design axis: the per-row geometry
+#: constants (member inertia elements, statics, zero-pose hydro
+#: constants) first
+GEOMETRY_STAGES = ("geometry",) + FULL_STAGES
+
+#: the geometry keys of a row's ``geom``: per member (a scalar, (R,) or
+#: (R, nMember)) and per row
+GEOM_MEMBER_KEYS = members_traced.MEMBER_KEYS
+GEOM_ROW_KEYS = members_traced.ROW_KEYS + ("L_moor_scale", "EA_moor_scale")
+
+
+@dataclasses.dataclass
+class GeometryConstants:
+    """What a row's geometry fixes before its load case (the reference's
+    ``geometry_constants``), per row: the scaled strips ``ss`` (a
+    :class:`~raft_tpu_torch.physics.morison.StripSet` of (R, S, ...)
+    tensors) and mooring ``ms`` (L and EA (R, nL)), the statics matrices
+    K_h, C_elast, M_struc (R, 6, 6) and F_und (R, 6), and the zero-pose
+    hydro constants ``hc0`` (A_hydro with the rotor added mass, Imat,
+    a_i and the strip frames).  Slicing takes rows."""
+
+    ss: object
+    ms: object
+    K_h: torch.Tensor
+    C_elast: torch.Tensor
+    F_und: torch.Tensor
+    M_struc: torch.Tensor
+    hc0: dict
+
+    @property
+    def rows(self):
+        return self.K_h.shape[0]
+
+    @property
+    def requires_grad(self):
+        return any(t.requires_grad for t in self._tensors())
+
+    def _tensors(self):
+        yield from (v for v in vars(self.ss).values()
+                    if isinstance(v, torch.Tensor))
+        if self.ms is not None:
+            yield from (self.ms.L, self.ms.EA)
+        yield from (self.K_h, self.C_elast, self.F_und, self.M_struc)
+        yield from self.hc0.values()
+
+    def _map(self, f):
+        ms = self.ms
+        if ms is not None:
+            ms = dataclasses.replace(ms, L=f(ms.L), EA=f(ms.EA))
+        return GeometryConstants(
+            ss=morison.StripSet(**{k: f(v) if isinstance(v, torch.Tensor)
+                                   else v for k, v in vars(self.ss).items()}),
+            ms=ms, K_h=f(self.K_h), C_elast=f(self.C_elast),
+            F_und=f(self.F_und), M_struc=f(self.M_struc),
+            hc0={k: f(v) for k, v in self.hc0.items()})
+
+    def __getitem__(self, sl):
+        return self._map(lambda t: t[sl])
+
+    def expand(self, n):
+        """The constants of one row repeated for ``n`` rows."""
+        if self.rows == n:
+            return self
+        if self.rows != 1:
+            raise ValueError(f"geometry constants of {self.rows} rows for "
+                             f"{n} rows")
+        return self._map(lambda t: t.expand((n,) + t.shape[1:]))
 
 
 def case_to_traced(case, nWaves=1):
@@ -245,7 +324,7 @@ def case_in_traced_domain(case):
 
 class FullEvaluator(CaseEvaluator):
     """Batched full-physics evaluator of one rigid single-FOWT design
-    (the reference's ``make_full_evaluator``), forward only.
+    (the reference's ``make_full_evaluator``).
 
     ``forward(**rows, timer=None)`` takes R rows of the environment
     (:data:`ENV_KEYS`, each a scalar or (R,)) and of the sea states
@@ -270,9 +349,26 @@ class FullEvaluator(CaseEvaluator):
     ``F_2nd_mean`` is zero: the builder refuses every second-order
     source.  ``timer(stage)``, when given, is called with "start" and
     then with each of :data:`FULL_STAGES` per chunk.
+
+    With ``geometry=True`` (the geometry design axis) each row may also
+    carry geometry scales, ``forward(geom={...}, **rows)`` with the keys
+    :data:`GEOM_MEMBER_KEYS` (per member of ``fs.members``) and
+    :data:`GEOM_ROW_KEYS`, or their precomputed
+    :meth:`geometry_constants` (``geom_const``, of R rows or one row for
+    all): a "geometry" stage first recomputes, per row, the members'
+    inertia elements (:mod:`raft_tpu_torch.structure.members_traced`),
+    the statics (:func:`~raft_tpu_torch.physics.statics.calc_statics`)
+    and the zero-pose hydro constants, with the strips' diameters and
+    coefficients and the mooring lines' lengths and stiffnesses scaled
+    (timer stages :data:`GEOMETRY_STAGES`).  Rigid members only.
+
+    The aero stage enters as constants: gradients with respect to its
+    own inputs (wind, or current for a submerged rotor, TI, yaw) are not
+    ported and raise.
     """
 
-    def __init__(self, model, nWaves=1, turb_static=None, device=None):
+    def __init__(self, model, nWaves=1, turb_static=None, device=None,
+                 geometry=False):
         super().__init__(model, device)
         from raft_tpu_torch.physics.aero import rotor_tensors
         from raft_tpu_torch.physics.statics import node_T
@@ -305,11 +401,78 @@ class FullEvaluator(CaseEvaluator):
              int(fs.rotor_node[ir]))
             for ir, rot in enumerate(model.rotor_aero if fs.nrotors else [])
             if fs.rotors[ir].aeroServoMod > 0]
+        self.geometry = bool(geometry)
+        self.strips0 = model.hydro[0].strips
+        self.k = np.asarray(model.k)
+        self.n_members = len(fs.members)
 
-    def forward(self, timer=None, **rows):
+    def geometry_constants(self, geom):
+        """The per-row geometry constants (:class:`GeometryConstants`) of
+        ``geom`` (keys :data:`GEOM_MEMBER_KEYS` and :data:`GEOM_ROW_KEYS`,
+        each a scalar, (R,) or, per member, (R, nMember)); the reference's
+        ``evaluate.geometry_constants``.  Compute it once per design to
+        reuse it over a case table (``forward(geom_const=...)``)."""
+        from raft_tpu_torch.models.hydro import add_rotor_added_mass
+        from raft_tpu_torch.physics.statics import calc_statics
+        from raft_tpu_torch.structure import bucketing
+
+        g = self._geom_rows(geom)
+        R = next(iter(g.values())).shape[0]
+        kw = dict(dtype=self.rdt, device=self.device)
+        fs2, ss = members_traced.apply_geometry(
+            self.fs, self.strips0, g, R, k=self.k, device=self.device,
+            dtype=self.rdt)
+        st = calc_statics(fs2, rows=R, **kw)
+        d = {k: v.expand((R,) + v.shape[1:]) for k, v in self.design.items()}
+        node_r0 = d["node_r0"]
+        Tn0 = self.Tn0.expand((R,) + self.Tn0.shape)
+        hc = morison.hydro_constants(
+            bucketing.site_of(d, self.body.N), ss,
+            torch.eye(3, **kw).expand(R, 3, 3), node_r0, Tn0)
+        hc["A_hydro"] = add_rotor_added_mass(hc["A_hydro"], self.fs, Tn0)
+        ms = self.ms
+        if ms is not None:
+            ms = dataclasses.replace(ms, L=ms.L * g["L_moor_scale"][:, None],
+                                     EA=ms.EA * g["EA_moor_scale"][:, None])
+        return GeometryConstants(
+            ss=ss, ms=ms, K_h=st["C_struc"] + st["C_hydro"],
+            C_elast=st["C_elast"],
+            F_und=st["W_struc"] + st["W_hydro"] + st["f0_additional"],
+            M_struc=st["M_struc"], hc0=hc)
+
+    def _geom_rows(self, geom, n=None):
+        """``geom`` as tensors: (R, nMember) per member, (R,) per row
+        (R = n, or the rows the values give)."""
+        unknown = set(geom) - set(GEOM_MEMBER_KEYS + GEOM_ROW_KEYS)
+        if unknown:
+            raise TypeError(f"unknown geometry keys {sorted(unknown)}")
+        kw = dict(dtype=self.rdt, device=self.device)
+        vals = {k: torch.as_tensor(geom.get(k, 1.0), **kw)
+                for k in GEOM_MEMBER_KEYS + GEOM_ROW_KEYS}
+        for k, v in vals.items():
+            if v.dim() > (2 if k in GEOM_MEMBER_KEYS else 1):
+                raise ValueError(f"geom {k}: shape {tuple(v.shape)} has too "
+                                 "many axes")
+            if v.dim() == 2 and v.shape[1] not in (1, self.n_members):
+                raise ValueError(f"geom {k}: shape {tuple(v.shape)}, "
+                                 f"expected (R, {self.n_members})")
+        if n is None:
+            n = max([v.shape[0] for v in vals.values() if v.dim()],
+                    default=1)
+        out = members_traced.member_scales(vals, self.n_members, n,
+                                           vals["d_scale"])
+        out.update({k: vals[k].expand(n) for k in GEOM_ROW_KEYS})
+        return out
+
+    def forward(self, timer=None, geom=None, geom_const=None, **rows):
         unknown = set(rows) - set(ENV_KEYS + SEA_KEYS)
         if unknown:
             raise TypeError(f"unknown row parameters {sorted(unknown)}")
+        if not self.geometry and (geom is not None or geom_const is not None):
+            raise TypeError("geom and geom_const need "
+                            "make_full_evaluator(..., geometry=True)")
+        if geom is not None and geom_const is not None:
+            raise TypeError("pass geom or geom_const, not both")
         if not {"Hs", "Tp"} <= set(rows):
             raise TypeError("rows need Hs and Tp")
         kw = dict(dtype=self.rdt, device=self.device)
@@ -322,7 +485,24 @@ class FullEvaluator(CaseEvaluator):
             if k in SEA_KEYS and v.dim() == 2 and v.shape[1] != self.nWaves:
                 raise ValueError(f"{k}: shape {tuple(v.shape)}, expected "
                                  f"(R, {self.nWaves})")
-        n = torch.broadcast_shapes(*(v.shape[:1] for v in vals.values()))
+        if torch.is_grad_enabled():
+            aero_in = set()
+            for _, rprops, _, _ in self.rotors:
+                aero_in |= {"TI", "yaw_misalign_deg"} | (
+                    {"current_speed", "current_heading_deg"}
+                    if rprops.Zhub < 0 else {"wind_speed", "wind_heading_deg"})
+            bad = sorted(k for k in aero_in if vals[k].requires_grad)
+            if bad:
+                raise NotImplementedError(
+                    f"gradients with respect to the aero stage's inputs {bad} "
+                    "are not ported (ROADMAP A12: the aero stage's backward); "
+                    "the aero terms enter the gradient as constants")
+        lead = [v.shape[:1] for v in vals.values()]
+        if geom is not None:
+            lead += [torch.as_tensor(v).shape[:1] for v in geom.values()]
+        if geom_const is not None:
+            lead.append((geom_const.rows,) if geom_const.rows > 1 else ())
+        n = torch.broadcast_shapes(*lead)
         n = n[0] if n else 1
         p = {}
         for k, v in vals.items():
@@ -331,6 +511,11 @@ class FullEvaluator(CaseEvaluator):
                 p[k] = v.expand(n, self.nWaves)
             else:
                 p[k] = v.expand(n)
+        if geom_const is not None:
+            p["geom_const"] = geom_const.expand(n)
+        elif self.geometry:
+            p.update({"geom." + k: v for k, v in
+                      self._geom_rows(geom or {}, n).items()})
         return self._chunks(p, n, timer)
 
     def _aero(self, p, R):
@@ -381,24 +566,47 @@ class FullEvaluator(CaseEvaluator):
             out["pitch_deg"][:, ir] = onr * pit
         return out
 
+    def _structure(self, p, R, mark):
+        """(design leaves, mooring, zero-pose strip frames, C_elast) of
+        the R rows of chunk ``p``: the design's own, or with the
+        geometry axis the rows' :class:`GeometryConstants` (computed
+        here from their ``geom`` unless given), marked "geometry"."""
+        d, ms, _ = self._design_rows(p, R)
+        if not self.geometry:
+            hc0 = {k: v.expand((R,) + v.shape) for k, v in self.hc0.items()}
+            return d, ms, hc0, self.C_elast
+        gc = p.get("geom_const")
+        if gc is None:
+            gc = self.geometry_constants({k[5:]: v for k, v in p.items()
+                                          if k.startswith("geom.")})
+        mark("geometry")
+        d = dict(d, K_h=gc.K_h, F_und=gc.F_und, M_struc=gc.M_struc,
+                 A_hydro=gc.hc0["A_hydro"], Imat=gc.hc0["Imat"],
+                 a_i=gc.hc0["a_i"],
+                 **{k: getattr(gc.ss, k) for k in ("ds", "drs", "Cd_q",
+                                                   "Cd_p1", "Cd_p2",
+                                                   "Cd_End")})
+        hc0 = {k: gc.hc0[k] for k in ("r", "q", "p1", "p2", "sub")}
+        return d, gc.ms, hc0, gc.C_elast
+
     def _chunk(self, p, mark):
         from raft_tpu_torch.structure import bucketing
 
         R = p["Hs"].shape[0]
         mark("start")
-        aero = self._aero(p, R)
+        d, ms, hc0, C_elast = self._structure(p, R, mark)
+        with torch.no_grad():
+            aero = self._aero(p, R)
         mark("aero")
 
-        d, ms, _ = self._design_rows(p, R)
         F_current = morison.current_loads(
-            bucketing.site_of(d, self.body.N), bucketing.strips_of(d),
-            {k: v.expand((R,) + v.shape) for k, v in self.hc0.items()},
+            bucketing.site_of(d, self.body.N), bucketing.strips_of(d), hc0,
             p["current_speed"], p["current_heading_deg"], self.Zref,
             self.fs.shearExp_water, self.Tn0.expand(R, -1, -1, -1),
             d["node_r0"])
         X0, _, _, _, st_status, C_moor = solve_equilibrium(
             self.fs, ms, d["K_h"], d["F_und"], F_current + aero["f_aero0"],
-            C_elast=self.C_elast)
+            C_elast=C_elast)
         mark("statics")
 
         out = self.body.respond(
@@ -406,7 +614,7 @@ class FullEvaluator(CaseEvaluator):
             p["beta_deg"] * (math.pi / 180), mark, gamma=p["gamma"],
             lin=dict(M=aero["A_aero"],
                      B=aero["B_aero"] + aero["B_gyro"][..., None],
-                     C=self.C_elast),
+                     C=C_elast),
             input_clipped=aero["input_clipped"])
         Xi = out["Xi"]
         out.update(
@@ -426,11 +634,8 @@ def make_full_evaluator(model, nWaves=1, turb_static=None, device=None,
     wave headings per row, on ``device`` (default: the current CUDA
     device; raises without one).  ``turb_static`` is the turbulence
     model and class reference speed (default ``("NTM", 50.0)``).
-    ``geometry=True`` (the traced geometry design axis) is not ported
-    and raises."""
-    if geometry:
-        raise NotImplementedError(
-            "the geometry design axis of the full evaluator is not ported "
-            "(ROADMAP A9)")
+    ``geometry=True`` adds the geometry design axis (rigid members; the
+    builder refuses the potential-flow designs whose coefficients the
+    reference interpolates in ``d_scale``, ROADMAP A11)."""
     return FullEvaluator(model, nWaves=nWaves, turb_static=turb_static,
-                         device=device)
+                         device=device, geometry=geometry)

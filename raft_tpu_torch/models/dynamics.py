@@ -9,6 +9,17 @@ loop over trips with a per-row ``done`` mask: a finished row keeps its
 linearisation point exactly, ``n_iter_drag`` counts each row's own
 trips, and the all-rows-done test, which needs the host, runs once
 every ``RAFT_TPU_SCAN_CHUNK`` trips.
+
+Reverse mode is the implicit backward of the reference's
+``lax.custom_root`` at the fixed point, the transpose of its Neumann
+``tangent_solve``: the trip loop runs without a graph, the graph of one
+``update(XiLast)`` is built, and :class:`_FixedPointRoot` turns a
+cotangent X_bar of the fixed point into ``lam`` by exactly 10 steps of
+``lam <- X_bar + vjp_Xi(update)(lam)`` on that one graph (not to
+convergence: the reference takes 10), then hands ``lam`` to the graph,
+so ``theta_bar = vjp_theta(update)(lam)``.  Each step's vjp passes the
+solve's backward, the adjoint kernel on the card.  The final
+``update`` at the fixed point stays differentiable directly.
 """
 
 from __future__ import annotations
@@ -38,6 +49,28 @@ def fused_response_enabled():
 #: the drag fixed point's relative-change stopping tolerance (the
 #: reference's)
 TOL = 0.01
+#: Neumann steps of the fixed point's backward (the reference's
+#: tangent_solve takes 10)
+NEUMANN_STEPS = 10
+
+
+class _FixedPointRoot(torch.autograd.Function):
+    """The fixed point XiLast attached to ``Xi_u = update(Xl)``, the one
+    graph of the update at ``Xl`` (a leaf of XiLast's value)."""
+
+    @staticmethod
+    def forward(ctx, XiLast, Xi_u, Xl):
+        ctx.graph = (Xi_u, Xl)
+        return XiLast.clone()
+
+    @staticmethod
+    def backward(ctx, X_bar):
+        Xi_u, Xl = ctx.graph
+        lam = X_bar
+        for _ in range(NEUMANN_STEPS):
+            lam = X_bar + torch.autograd.grad(Xi_u, Xl, lam,
+                                              retain_graph=True)[0]
+        return None, lam, None
 
 
 def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
@@ -51,7 +84,8 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
 
     Returns (Z (R, nw, n, n), Xi (R, n, nw), Bmat (R, S, 3, 3), diag)
     with diag holding drag_resid, drag_converged, n_iter_drag (int32),
-    cond_Z and the int32 status word, each per row.  ``timer``, when
+    cond_Z and the int32 status word, each per row, and the final
+    linearisation point Xi_lin (R, n, nw).  ``timer``, when
     given, is called with a stage name at the end of the fixed point.
     """
     R, nDOF, nw = F_lin.shape
@@ -82,28 +116,36 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     done_prev = torch.zeros(R, dtype=torch.bool, device=dev)
     n_real = torch.zeros(R, dtype=torch.int32, device=dev)
     it = 0
-    while it < cap:
-        for _ in range(min(chunk, cap - it)):
-            Xi, _, _ = update(XiLast)
-            tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + TOL)
-            done = torch.all((tolCheck < TOL).flatten(1), dim=1)
-            last = it + 1 >= cap
-            # a finished row keeps its point; a row stopped by the cap
-            # keeps the point of its last linearisation (no relaxation)
-            keep = done_prev | done | last
-            XiLast = torch.where(keep[:, None, None], XiLast,
-                                 0.2 * XiLast + 0.8 * Xi)
-            n_real = n_real + (~done_prev).to(torch.int32)
-            done_prev = done_prev | done
-            it += 1
-        if bool(done_prev.all()):
-            break
+    with torch.no_grad():
+        while it < cap:
+            for _ in range(min(chunk, cap - it)):
+                Xi, _, _ = update(XiLast)
+                tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + TOL)
+                done = torch.all((tolCheck < TOL).flatten(1), dim=1)
+                last = it + 1 >= cap
+                # a finished row keeps its point; a row stopped by the cap
+                # keeps the point of its last linearisation (no relaxation)
+                keep = done_prev | done | last
+                XiLast = torch.where(keep[:, None, None], XiLast,
+                                     0.2 * XiLast + 0.8 * Xi)
+                n_real = n_real + (~done_prev).to(torch.int32)
+                done_prev = done_prev | done
+                it += 1
+            if bool(done_prev.all()):
+                break
     if timer is not None:
         timer("fixed_point")
 
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (Z0, F_lin, *pre.values())
+            if isinstance(t, torch.Tensor)):
+        Xl = XiLast.detach().requires_grad_()
+        Xi_u, _, _ = update(Xl)
+        XiLast = _FixedPointRoot.apply(XiLast, Xi_u, Xl)
     Xi, Z, Bmat = update(XiLast)
     tolCheck = torch.amax((torch.abs(Xi - XiLast)
                            / (torch.abs(Xi) + TOL)).flatten(1), dim=1)
+    tolCheck = tolCheck.detach()
     drag_converged = tolCheck < TOL
     finite = torch.all(torch.isfinite(torch.view_as_real(Xi)).flatten(1),
                        dim=1)
@@ -113,7 +155,7 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     status = health.set_bit(status, health.NONFINITE_INTERMEDIATE,
                             (~finite).to(torch.int32))
     if config.get("COND_CHECK"):
-        cond_Z = torch.amax(linsolve.cond_estimate(Z), dim=-1)
+        cond_Z = torch.amax(linsolve.cond_estimate(Z.detach()), dim=-1)
         status = health.set_bit(
             status, health.ILL_CONDITIONED_Z,
             (cond_Z > config.get("COND_THRESHOLD")).to(torch.int32))
@@ -122,7 +164,7 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     return Z, Xi, Bmat, dict(drag_resid=tolCheck,
                              drag_converged=drag_converged,
                              n_iter_drag=n_real, cond_Z=cond_Z,
-                             status=status)
+                             status=status, Xi_lin=XiLast.detach())
 
 
 def system_response(Z_sys, F_waves):

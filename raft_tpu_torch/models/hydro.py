@@ -20,12 +20,20 @@ _CPU = torch.device("cpu")
 
 def add_rotor_added_mass(A, fs, Tn):
     """Add the blade added mass of submerged (MHK) rotors about their
-    nodes: A (nDOF, nDOF), Tn (N, 6, nDOF) the node reduction rows
-    (numpy)."""
+    nodes: A (..., nDOF, nDOF), Tn (..., N, 6, nDOF) the node reduction
+    rows; both numpy (the builder) or both tensors (per row, the
+    geometry axis)."""
     for ir, rot in enumerate(fs.rotors):
         if rot.hydro is not None:
-            Tn_n = np.asarray(Tn[int(fs.rotor_node[ir])])
-            A = A + Tn_n.T @ np.asarray(rot.hydro["A_hydro"]) @ Tn_n
+            Tn_n = Tn[..., int(fs.rotor_node[ir]), :, :]
+            if isinstance(A, torch.Tensor):
+                Ar = torch.as_tensor(np.asarray(rot.hydro["A_hydro"]),
+                                     dtype=A.dtype, device=A.device)
+                A = A + Tn_n.transpose(-1, -2) @ Ar @ Tn_n
+            else:
+                Tn_n = np.asarray(Tn_n)
+                A = A + np.swapaxes(Tn_n, -1, -2) @ np.asarray(
+                    rot.hydro["A_hydro"]) @ Tn_n
     return A
 
 

@@ -13,6 +13,8 @@ raise ``NotImplementedError`` naming their ROADMAP item.
 
 from __future__ import annotations
 
+import torch
+
 from raft_tpu_torch.models.fowt import FOWTStructure
 from raft_tpu_torch.models.hydro import FOWTHydro
 from raft_tpu_torch.ops.waves import wave_number_ref
@@ -106,5 +108,12 @@ class Model:
 
 
 def _host(stat):
-    return {k: (v.numpy() if hasattr(v, "numpy") else v)
-            for k, v in stat.items()}
+    """Row 0 of :func:`calc_statics`' one-row output as numpy."""
+    def one(v):
+        if isinstance(v, torch.Tensor):
+            return v[0].numpy()
+        if isinstance(v, list) and v and isinstance(v[0], torch.Tensor):
+            return [x[0].numpy() for x in v]
+        return v
+
+    return {k: one(v) for k, v in stat.items()}

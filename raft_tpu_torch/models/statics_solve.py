@@ -1,5 +1,5 @@
 """Mean-offset (static equilibrium) Newton solve, batched over rows
-(forward-only counterpart of ``raft_tpu/models/statics_solve.py``:
+(counterpart of ``raft_tpu/models/statics_solve.py``:
 ``make_tolerances``, ``single_ms_closures``, ``solve_equilibrium`` and
 ``solve_equilibrium_general``).
 
@@ -9,19 +9,27 @@ loop with a per-row ``active`` mask.  Each row stops at its own
 ``done``, the final sub-tolerance step is discarded, and the applied
 steps that saturated the per-DOF cap are counted per row.
 
-Forward only; the elastic stiffness ``C_elast`` enters as in the
-reference (zero for a rigid body).  One difference of form: the mooring
-enters as a single closure ``mooring_fn(X) -> (F_moor, C_moor)``
-returning the force and the stiffness ``-dF/dX`` at the same pose,
-since one forward-mode pass yields both (the reference takes two
-closures).
+The elastic stiffness ``C_elast`` enters as in the reference (zero for
+a rigid body).  One difference of form: the mooring enters as a single
+closure ``mooring_fn(X) -> (F_moor, C_moor)`` returning the force and
+the stiffness ``-dF/dX`` at the same pose, since one forward-mode pass
+yields both (the reference takes two closures).
+
+Reverse mode is the implicit-function backward of the reference's
+``lax.custom_root`` (its ``tangent_solve``, transposed): the Newton loop
+runs on detached values, and the pose attaches through
+:class:`_StaticsRoot`, whose backward solves ``K^T lam = X_bar`` with
+``K = K_h + C_elast + C_moor(X*)`` (the Jacobian of the net force is
+``-K``) and pulls ``lam`` back through one differentiable evaluation of
+the net force at X*.  The mooring's derivatives come from its implicit
+form at the converged catenary loads (:class:`MooringClosure`).
 """
 
 from __future__ import annotations
 
 import torch
 
-from raft_tpu_torch.physics.mooring import mooring_force_and_stiffness
+from raft_tpu_torch.physics import mooring
 from raft_tpu_torch.utils import config, health
 
 
@@ -40,20 +48,73 @@ def make_tolerances(fowtList):
     return tols, caps, refs
 
 
+class MooringClosure:
+    """``mooring_fn(X) -> (F, C)`` of a catenary system whose line
+    arguments ``args(X)`` gives (r_fair0, r_anchor, L, w, EA, mask), on
+    the first six of nDOF DOFs; :meth:`with_root` and :meth:`at_root` are
+    what the implicit backward of the statics needs."""
+
+    def __init__(self, args, nDOF=6):
+        self.args = args
+        self.nDOF = nDOF
+
+    def _pad(self, F, C):
+        p = self.nDOF - 6
+        if p:
+            F = torch.nn.functional.pad(F, (0, p))
+            C = torch.nn.functional.pad(C, (0, p, 0, p))
+        return F, C
+
+    def __call__(self, X):
+        return self._pad(*mooring.line_forces_and_stiffness(
+            *self.args(X[:, :6]), X[:, :6]))
+
+    def with_root(self, X):
+        """(F, C, converged loads) at X, forward values only."""
+        with torch.no_grad():
+            F, C, root = mooring.line_forces_and_stiffness(
+                *self.args(X[:, :6]), X[:, :6], root=True)
+        return (*self._pad(F, C), root)
+
+    def at_root(self, X, root):
+        """(F, C) at X from the converged loads ``root`` of that pose,
+        differentiable (:func:`~raft_tpu_torch.physics.mooring.
+        line_forces_at_root`)."""
+        return self._pad(*mooring.line_forces_at_root(
+            *self.args(X[:, :6]), X[:, :6], *root))
+
+    def requires_grad(self, X):
+        return any(t.requires_grad for t in self.args(X[:, :6]))
+
+
 def single_ms_closures(ms, nDOF):
     """``mooring_fn(X) -> (F, C)`` of one FOWT's own catenary system
     (``ms`` None: zero force and stiffness) on the first six DOFs of
     X (R, nDOF)."""
-    def mooring_fn(X):
-        F = torch.zeros_like(X)
-        C = torch.zeros(X.shape + (nDOF,), dtype=X.dtype, device=X.device)
-        if ms is not None:
-            Fm, Cm = mooring_force_and_stiffness(ms, X[:, :6])
-            F[:, :6] += Fm
-            C[:, :6, :6] += Cm
-        return F, C
+    if ms is None:
+        def mooring_fn(X):
+            return (torch.zeros_like(X),
+                    torch.zeros(X.shape + (nDOF,), dtype=X.dtype,
+                                device=X.device))
+        return mooring_fn
+    return MooringClosure(lambda X: mooring.line_args(ms, X), nDOF)
 
-    return mooring_fn
+
+class _StaticsRoot(torch.autograd.Function):
+    """X* (R, n) attached to the net force f (R, n) evaluated at X*
+    (its value ~0): the backward returns ``lam = K^-T X_bar`` as f's
+    cotangent, K (R, n, n) the equilibrium stiffness at X*."""
+
+    @staticmethod
+    def forward(ctx, X, f, K):
+        ctx.save_for_backward(K)
+        return X.clone()
+
+    @staticmethod
+    def backward(ctx, X_bar):
+        K, = ctx.saved_tensors
+        lam = torch.linalg.solve(K.transpose(-1, -2), X_bar[..., None])
+        return None, lam[..., 0], None
 
 
 def solve_equilibrium_general(
@@ -98,29 +159,57 @@ def solve_equilibrium_general(
     capped = torch.zeros(R, dtype=torch.int32, device=dev)
     done = torch.zeros(R, dtype=torch.bool, device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
-    for _ in range(max_iter_eff):
-        F_moor, C_moor = mooring_fn(X)
-        F = net_force(X, F_moor)
-        K = K_lin + C_moor
-        dX_raw = torch.linalg.solve(K, F[..., None])[..., 0]
-        dX = torch.clamp(dX_raw, -step_cap, step_cap)
-        step_done = torch.all(torch.abs(dX) < tol_vec, dim=-1)
-        hit = torch.any(torch.abs(dX_raw) > step_cap, dim=-1)
-        # the final sub-tolerance step is discarded (the reference's
-        # dsolve2 semantics)
-        X = torch.where((active & ~step_done)[:, None], X + dX, X)
-        capped = capped + (active & ~step_done & hit).to(torch.int32)
-        it = it + active.to(torch.int32)
-        done = torch.where(active, step_done, done)
-        active = active & ~step_done
-        if not bool(active.any()):
-            break
-    F_moor, C_moor = mooring_fn(X)
+    with torch.no_grad():
+        for _ in range(max_iter_eff):
+            F_moor, C_moor = mooring_fn(X)
+            F = net_force(X, F_moor)
+            K = K_lin + C_moor
+            dX_raw = torch.linalg.solve(K, F[..., None])[..., 0]
+            dX = torch.clamp(dX_raw, -step_cap, step_cap)
+            step_done = torch.all(torch.abs(dX) < tol_vec, dim=-1)
+            hit = torch.any(torch.abs(dX_raw) > step_cap, dim=-1)
+            # the final sub-tolerance step is discarded (the reference's
+            # dsolve2 semantics)
+            X = torch.where((active & ~step_done)[:, None], X + dX, X)
+            capped = capped + (active & ~step_done & hit).to(torch.int32)
+            it = it + active.to(torch.int32)
+            done = torch.where(active, step_done, done)
+            active = active & ~step_done
+            if not bool(active.any()):
+                break
     status = health.set_bit(torch.zeros(R, dtype=torch.int32, device=dev),
                             health.STATICS_MAX_ITER, (~done).to(torch.int32))
     status = health.set_bit(status, health.STATICS_STEP_CAPPED,
                             (capped > 0).to(torch.int32))
-    return X, net_force(X, F_moor), it, done, status, C_moor
+
+    implicit = hasattr(mooring_fn, "at_root")
+    needs_grad = torch.is_grad_enabled() and (
+        any(t is not None and t.requires_grad for t in
+            (K_hydrostatic, F_undisplaced, F_env, C_elast, X_ref))
+        or (implicit and mooring_fn.requires_grad(X)))
+    if not needs_grad:
+        with torch.no_grad():
+            F_moor, C_moor = mooring_fn(X)
+            F_resid = net_force(X, F_moor)
+        return X, F_resid, it, done, status, C_moor
+
+    # implicit-function backward: f(X*, theta) differentiable in theta at
+    # the detached X*, then X* attached to it, then the mooring
+    # stiffness at the attached pose (so its pose derivative counts)
+    if implicit:
+        F_moor, C_moor, root = mooring_fn.with_root(X)
+        F_r, _ = mooring_fn.at_root(X, root)
+        F_att = F_moor + (F_r - F_r.detach())
+    else:
+        with torch.no_grad():
+            F_moor, C_moor = mooring_fn(X)
+        F_att = F_moor
+    f = net_force(X, F_att)
+    X_att = _StaticsRoot.apply(X, f, (K_lin + C_moor).detach())
+    if implicit:
+        _, C_r = mooring_fn.at_root(X_att, root)
+        C_moor = C_moor + (C_r - C_r.detach())
+    return X_att, f.detach(), it, done, status, C_moor
 
 
 def solve_equilibrium(fs, ms, K_hydrostatic, F_undisplaced, F_env,

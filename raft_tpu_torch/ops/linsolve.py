@@ -19,6 +19,17 @@ Dispatch is by the tensors' device, never by a fallback:
   bucket path, whose systems are 6 x 6).
 
 ``RAFT_TPU_SOLVER=lapack`` sends every size to ``torch.linalg.solve``.
+
+:func:`solve` is differentiable through one ``torch.autograd.Function``
+(:class:`_Solve`): its backward solves the adjoint system ``Z^H lam =
+X_bar`` through the same dispatch (the kernel's adjoint entry on the
+card, which reads the forward's saved planes of Z transposed;
+``_native_solve(Z.mH, G)`` on the CPU; ``torch.linalg.solve`` above
+N = 12) and returns ``F_bar = lam`` and ``Z_bar = -lam X^H``, each
+summed over the broadcast dimensions: the formula of
+``torch.linalg.solve``'s own backward, in torch's complex convention.
+The reference differentiates through its elimination instead; the two
+agree up to rounding.
 """
 
 from __future__ import annotations
@@ -41,6 +52,9 @@ MAX_NATIVE_N = 12
 #: launches (and nowhere else), so a run can show the main path went
 #: through the kernel
 KERNEL_LAUNCHES = 0
+#: launches of the kernel's adjoint entry (the solve's backward), counted
+#: apart from the forward's
+ADJ_KERNEL_LAUNCHES = 0
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 PKG_DIR = os.path.dirname(_HERE)
@@ -61,7 +75,8 @@ def solver_path(n=None):
 
 def solve(Z, F, path=None):
     """Solve ``Z x = F``; Z (..., N, N) complex, F (..., N), batch dims
-    broadcast (e.g. Z (nw, N, N) against F (nH, nw, N))."""
+    broadcast (e.g. Z (nw, N, N) against F (nH, nw, N)).  Differentiable
+    in Z and F (see the module docstring)."""
     N = Z.shape[-1]
     if path is None:
         path = solver_path(N)
@@ -69,15 +84,76 @@ def solve(Z, F, path=None):
         raise ValueError(f"path={path!r}: expected 'native' or 'lapack'")
     elif N > MAX_NATIVE_N:
         path = "lapack"
-    if path == "lapack":
-        bshape = torch.broadcast_shapes(Z.shape[:-2], F.shape[:-1])
-        return torch.linalg.solve(Z.expand(bshape + (N, N)),
-                                  F.expand(bshape + (N,))[..., None])[..., 0]
-    if Z.device.type == "cuda":
-        return _cuda_solve(Z, F)
-    if Z.device.type != "cpu":
+    if Z.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"no solve for tensors on {Z.device}")
-    return _native_solve(Z, F)
+    if torch.is_grad_enabled() and any(
+            getattr(t, "requires_grad", False) for t in (Z, F)):
+        return _Solve.apply(Z, F, path)
+    return _forward(Z, F, path)[0]
+
+
+def _forward(Z, F, path, keep_planes=False):
+    """(x, the kernel's SoA planes of Z when ``keep_planes``, else None)
+    by the forward dispatch."""
+    if path == "lapack":
+        N = Z.shape[-1]
+        bshape = torch.broadcast_shapes(Z.shape[:-2], F.shape[:-1])
+        x = torch.linalg.solve(Z.expand(bshape + (N, N)),
+                               F.expand(bshape + (N,))[..., None])
+        return x[..., 0], None
+    if Z.device.type == "cuda":
+        if keep_planes:
+            return _cuda_solve(Z, F, keep_planes=True)
+        return _cuda_solve(Z, F), None
+    return _native_solve(Z, F), None
+
+
+def _adjoint(Z, planes, G, path):
+    """lam with ``Z^H lam = G`` (G of the broadcast batch shape), by the
+    forward's dispatch: the kernel's adjoint entry on the forward's
+    planes, the plain version, or ``torch.linalg.solve``."""
+    if path == "lapack":
+        N = Z.shape[-1]
+        return torch.linalg.solve(Z.mH.expand(G.shape[:-1] + (N, N)),
+                                  G[..., None])[..., 0]
+    if Z.device.type == "cuda":
+        return _cuda_solve_adj(planes, G)
+    return _native_solve(Z.mH, G)
+
+
+def _sum_to(x, shape):
+    """Sum ``x`` over the dimensions that broadcasting added to
+    ``shape``."""
+    lead = x.dim() - len(shape)
+    if lead:
+        x = x.sum(dim=tuple(range(lead)))
+    keep = tuple(i for i, n in enumerate(shape) if n == 1 and x.shape[i] != 1)
+    return x.sum(dim=keep, keepdim=True) if keep else x
+
+
+class _Solve(torch.autograd.Function):
+    """``x = Z^-1 F`` with the adjoint-solve backward."""
+
+    @staticmethod
+    def forward(ctx, Z, F, path):
+        x, planes = _forward(Z, F, path, keep_planes=True)
+        ctx.path = path
+        ctx.planes = planes
+        ctx.shapes = (Z.shape, F.shape)
+        ctx.save_for_backward(Z, x)
+        return x
+
+    @staticmethod
+    def backward(ctx, G):
+        Z, x = ctx.saved_tensors
+        lam = _adjoint(Z, ctx.planes, G.contiguous(), ctx.path)
+        gZ = gF = None
+        if ctx.needs_input_grad[0]:
+            gZ = _sum_to(-lam[..., :, None] * x.conj()[..., None, :],
+                         ctx.shapes[0])
+        if ctx.needs_input_grad[1]:
+            gF = _sum_to(lam, ctx.shapes[1])
+        return gZ, gF, None
 
 
 def cond_estimate(Z, path=None):
@@ -89,6 +165,23 @@ def cond_estimate(Z, path=None):
                    device=Z.device)
     inv_lb = torch.sum(torch.abs(solve(Z, e, path=path)), dim=-1)
     return norm1 * inv_lb
+
+
+def pivot_moduli(Z):
+    """|pivot| of each step of the pivot-free elimination (that of
+    :func:`_native_solve`, here in complex arithmetic) of Z (..., N, N)
+    -> (..., N): how close a system comes to a zero pivot (compare Z
+    with Z.mH for the adjoint solve)."""
+    N = Z.shape[-1]
+    rows = [Z[..., i, :] for i in range(N)]
+    out = []
+    for kk in range(N):
+        p = rows[kk][..., kk]
+        out.append(torch.abs(p))
+        for ii in range(kk + 1, N):
+            m = rows[ii][..., kk] / p
+            rows[ii] = rows[ii] - m[..., None] * rows[kk]
+    return torch.stack(out, dim=-1)
 
 
 def _native_solve(Z, F):
@@ -188,7 +281,8 @@ def _lib():
             lib = ctypes.CDLL(path)
             args = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
                                             ctypes.c_int, ctypes.c_void_p]
-            for name in ("raft_ge_solve_f64", "raft_ge_solve_f32"):
+            for name in ("raft_ge_solve_f64", "raft_ge_solve_f32",
+                         "raft_ge_solve_adj_f64", "raft_ge_solve_adj_f32"):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
@@ -218,27 +312,35 @@ def soa_planes(Z, F):
     return planes, bshape
 
 
-def launch(planes, xr, xi):
+def launch(planes, xr, xi, adjoint=False):
     """One launch of the kernel on :func:`soa_planes`' planes, writing
-    the solution planes xr, xi (N, B) on the current stream; returns the
-    C function's ``cudaError_t`` (0 on success).  Counts nothing:
-    :func:`_cuda_solve` counts its own launches."""
+    the solution planes xr, xi (N, B) on the current stream; with
+    ``adjoint`` the adjoint entry, which solves with Z^H from the same
+    planes of Z (fr, fi then hold the cotangent).  Returns the C
+    function's ``cudaError_t`` (0 on success).  Counts nothing: the
+    wrappers count their own launches."""
     zr, zi, fr, fi = planes
     N, B = fr.shape
-    fn = _lib().raft_ge_solve_f64 if zr.dtype == torch.float64 \
-        else _lib().raft_ge_solve_f32
+    f64 = zr.dtype == torch.float64
+    lib = _lib()
+    if adjoint:
+        fn = lib.raft_ge_solve_adj_f64 if f64 else lib.raft_ge_solve_adj_f32
+    else:
+        fn = lib.raft_ge_solve_f64 if f64 else lib.raft_ge_solve_f32
     stream = torch.cuda.current_stream(zr.device).cuda_stream
     with torch.cuda.device(zr.device):
         return fn(zr.data_ptr(), zi.data_ptr(), fr.data_ptr(), fi.data_ptr(),
                   xr.data_ptr(), xi.data_ptr(), B, N, THREADS, stream)
 
 
-def _cuda_solve(Z, F):
+def _cuda_solve(Z, F, keep_planes=False):
     """Launch the hand-written kernel on ``Z``'s CUDA device.
 
     Repacks Z and F with :func:`soa_planes` and launches one thread per
     system on the current stream.  Raises on a device, dtype, shape or
-    launch the kernel does not take; there is no fallback.
+    launch the kernel does not take; there is no fallback.  With
+    ``keep_planes`` it returns ``(x, planes)``, the planes of Z for the
+    adjoint entry.
     """
     global KERNEL_LAUNCHES
     if Z.device.type != "cuda" or F.device != Z.device:
@@ -257,7 +359,8 @@ def _cuda_solve(Z, F):
     planes, bshape = soa_planes(Z, F)
     out_shape = bshape + (N,)
     if math.prod(bshape) == 0:
-        return torch.empty(out_shape, dtype=Z.dtype, device=Z.device)
+        x = torch.empty(out_shape, dtype=Z.dtype, device=Z.device)
+        return (x, planes) if keep_planes else x
     xr = torch.empty_like(planes[2])
     xi = torch.empty_like(planes[2])
     err = launch(planes, xr, xi)
@@ -265,11 +368,43 @@ def _cuda_solve(Z, F):
         raise RuntimeError(f"linsolve kernel launch failed: cudaError {err} "
                            f"(N={N}, batch shape={tuple(bshape)}, {Z.dtype})")
     KERNEL_LAUNCHES += 1
-    return torch.complex(xr.T, xi.T).reshape(out_shape)
+    x = torch.complex(xr.T, xi.T).reshape(out_shape)
+    return (x, planes) if keep_planes else x
+
+
+def _cuda_solve_adj(planes, G):
+    """The adjoint entry: lam with ``Z^H lam = G`` from the forward's
+    planes of Z (:func:`soa_planes`) and the cotangent G (..., N) of the
+    forward's broadcast batch shape; only G is repacked.  Raises on a
+    launch it cannot make."""
+    global ADJ_KERNEL_LAUNCHES
+    zr, zi = planes[0], planes[1]
+    N = planes[2].shape[0]
+    B = zr.shape[1]
+    if G.device != zr.device or G.shape[-1] != N or \
+            math.prod(G.shape[:-1]) != B:
+        raise ValueError(f"_cuda_solve_adj: cotangent {tuple(G.shape)} on "
+                         f"{G.device} does not match planes of {B} systems "
+                         f"of size {N} on {zr.device}")
+    if B == 0:
+        return torch.empty_like(G)
+    Gb = torch.view_as_real(G.to(torch.complex128 if zr.dtype == torch.float64
+                                 else torch.complex64).reshape(B, N))
+    fr = Gb[..., 0].T.contiguous()
+    fi = Gb[..., 1].T.contiguous()
+    xr = torch.empty_like(fr)
+    xi = torch.empty_like(fr)
+    err = launch((zr, zi, fr, fi), xr, xi, adjoint=True)
+    if err != 0:
+        raise RuntimeError(f"linsolve adjoint kernel launch failed: "
+                           f"cudaError {err} (N={N}, {B} systems)")
+    ADJ_KERNEL_LAUNCHES += 1
+    return torch.complex(xr.T, xi.T).reshape(G.shape)
 
 
 def reset_launches():
-    """Set :data:`KERNEL_LAUNCHES` to 0 (returns the previous count)."""
-    global KERNEL_LAUNCHES
-    n, KERNEL_LAUNCHES = KERNEL_LAUNCHES, 0
+    """Set :data:`KERNEL_LAUNCHES` and :data:`ADJ_KERNEL_LAUNCHES` to 0
+    (returns the previous forward count)."""
+    global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES
+    n, KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES = KERNEL_LAUNCHES, 0, 0
     return n

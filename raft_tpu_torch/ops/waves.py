@@ -65,6 +65,17 @@ def jonswap(ws, Hs, Tp, gamma=None):
             * torch.exp(-1.25 * fpOvrf4) * gamma ** alpha)
 
 
+def amplitudes(S, dw):
+    """Wave component amplitudes ``sqrt(2 S dw)``.  Where the spectrum
+    underflows to 0 (the JONSWAP tail below about 0.2 / Tp) the
+    amplitude is 0 and so is its derivative, the limit of
+    ``sqrt(2 c Hs^2 e dw)`` as e -> 0; the plain sqrt would give it
+    0 * inf = NaN (as the reference's does)."""
+    pos = S > 0
+    return torch.where(pos, torch.sqrt(2.0 * torch.where(pos, S, 1.0) * dw),
+                       0.0)
+
+
 def _kh_ratios(k, h, z):
     """sinh(k(z+h))/sinh(kh), cosh(k(z+h))/sinh(kh), cosh(k(z+h))/cosh(kh)
     with the reference's guards (k == 0; kh > 89.4 deep water); all

@@ -24,6 +24,15 @@ Two parts of the loop carry no tangent and run on primal values only in
 the :class:`Dual` form: the backtracking search, whose output is a step
 length from {1, 1/2, ..., 1/16}, and the finiteness test.  The Newton
 Jacobian of the profile is written out analytically in both.
+
+Reverse mode does not tape the Newton loop.  :func:`line_forces_at_root`
+takes the converged fairlead loads (HF, VF) and attaches them to the
+pose and to L, w, EA by the implicit rule at the root, with the 2 x 2
+profile Jacobian; the force and stiffness written from them have the
+forward's values (to rounding) and exact first derivatives there.
+:func:`line_forces_and_stiffness` returns the forward's values with
+those derivatives whenever an input requires grad.  The reference tapes
+its loop, so the two gradients agree to the catenary's convergence.
 """
 
 from __future__ import annotations
@@ -258,31 +267,10 @@ def catenary_line_forces(r_fair0, r_anchor, L, w, EA, r6):
     return F6, dict(HF=HF, VF=VF, HA=HA, VA=VA)
 
 
-def line_forces_and_stiffness(r_fair0, r_anchor, L, w, EA, mask, X):
-    """Masked mooring force and stiffness of a batch of rows.
-
-    r_fair0, r_anchor : (R, nL, 3); L, w, EA : (R, nL); mask : (R, nL)
-    bool; X : (R, 6).  Returns (F (R, 6), C (R, 6, 6)) with
-    ``C = -dF/dX``: forward mode through the fairlead geometry
-    (``torch.func.jacfwd`` with respect to a perturbation shared by all
-    rows, exact because rows do not interact) and then, as
-    :class:`Dual` tangents, through the whole catenary Newton loop.
-    """
-    def geometry(delta):
-        out = _fairlead_geometry(r_fair0, r_anchor, X + delta)
-        return out, out
-
-    jac, (XF, ZF, u_h, lever) = torch.func.jacfwd(geometry, has_aux=True)(
-        torch.zeros(6, dtype=X.dtype, device=X.device))
-    # tangents along a leading axis of the 6 pose directions
-    XF, ZF, ux, uy, lx, ly, lz = (
-        Dual(v, t.movedim(-1, 0)) for v, t in (
-            (XF, jac[0]), (ZF, jac[1]),
-            (u_h[..., 0], jac[2][..., 0, :]), (u_h[..., 1], jac[2][..., 1, :]),
-            (lever[..., 0], jac[3][..., 0, :]),
-            (lever[..., 1], jac[3][..., 1, :]),
-            (lever[..., 2], jac[3][..., 2, :])))
-    HF, VF, _, _ = solve_catenary(XF, ZF, L, w, EA)
+def _force_comps(HF, VF, ux, uy, lx, ly, lz, mask):
+    """Masked 6-DOF force and ``C = -dF/dX`` from the per-line loads and
+    fairlead geometry as :class:`Dual` numbers whose tangents run along
+    the 6 pose directions: (F (R, 6), C (R, 6, 6))."""
     fx, fy, fz = -HF * ux, -HF * uy, -VF
     # translate_force_3to6: [F, lever x F], written per component
     comps = (fx, fy, fz, ly * fz - lz * fy, lz * fx - lx * fz,
@@ -292,6 +280,92 @@ def line_forces_and_stiffness(r_fair0, r_anchor, L, w, EA, mask, X):
     dF = torch.stack([torch.sum(torch.where(mask, c.t, 0.0), dim=-1)
                       for c in comps], dim=-1)          # (6 dirs, R, 6)
     return F, -dF.permute(1, 2, 0)
+
+
+def _geometry_duals(r_fair0, r_anchor, X):
+    """The fairlead geometry at poses X (R, 6) as :class:`Dual` numbers
+    with tangents along the 6 pose directions (forward mode through the
+    geometry: ``torch.func.jacfwd`` with respect to a perturbation shared
+    by all rows, exact because rows do not interact)."""
+    def geometry(delta):
+        out = _fairlead_geometry(r_fair0, r_anchor, X + delta)
+        return out, out
+
+    jac, (XF, ZF, u_h, lever) = torch.func.jacfwd(geometry, has_aux=True)(
+        torch.zeros(6, dtype=X.dtype, device=X.device))
+    return tuple(Dual(v, t.movedim(-1, 0)) for v, t in (
+        (XF, jac[0]), (ZF, jac[1]),
+        (u_h[..., 0], jac[2][..., 0, :]), (u_h[..., 1], jac[2][..., 1, :]),
+        (lever[..., 0], jac[3][..., 0, :]),
+        (lever[..., 1], jac[3][..., 1, :]),
+        (lever[..., 2], jac[3][..., 2, :])))
+
+
+def loop_forces(r_fair0, r_anchor, L, w, EA, mask, X):
+    """(F, C, HF, VF) by forward mode through the geometry and the whole
+    catenary Newton loop: :func:`line_forces_and_stiffness`' values (a
+    forward-mode transform of this function differentiates through the
+    loop, as the reference does)."""
+    XF, ZF, ux, uy, lx, ly, lz = _geometry_duals(r_fair0, r_anchor, X)
+    HF, VF, _, _ = solve_catenary(XF, ZF, L, w, EA)
+    F, C = _force_comps(HF, VF, ux, uy, lx, ly, lz, mask)
+    return F, C, HF.v, VF.v
+
+
+def line_forces_and_stiffness(r_fair0, r_anchor, L, w, EA, mask, X,
+                              root=False):
+    """Masked mooring force and stiffness of a batch of rows.
+
+    r_fair0, r_anchor : (R, nL, 3); L, w, EA : (R, nL); mask : (R, nL)
+    bool; X : (R, 6).  Returns (F (R, 6), C (R, 6, 6)) with
+    ``C = -dF/dX``: forward mode through the fairlead geometry and then,
+    as :class:`Dual` tangents, through the whole catenary Newton loop.
+    With ``root`` it also returns the converged loads (HF, VF) (R, nL).
+
+    When grad is enabled and an input requires it, F and C keep these
+    values and take their derivatives from :func:`line_forces_at_root`
+    at the converged loads (the Newton loop is not taped).
+    """
+    with torch.no_grad():
+        F, C, HF, VF = loop_forces(r_fair0, r_anchor, L, w, EA, mask, X)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (r_fair0, r_anchor, L, w, EA, X)):
+        F_r, C_r = line_forces_at_root(r_fair0, r_anchor, L, w, EA, mask, X,
+                                       HF, VF)
+        F = F + (F_r - F_r.detach())
+        C = C + (C_r - C_r.detach())
+    return (F, C, (HF, VF)) if root else (F, C)
+
+
+def line_forces_at_root(r_fair0, r_anchor, L, w, EA, mask, X, HF, VF):
+    """(F (R, 6), C (R, 6, 6)) written from the converged fairlead loads
+    HF, VF (R, nL) of the pose X, differentiable in X and in the line
+    properties by the implicit rule.
+
+    With r(H, V) = profile(H, V; L, w, EA) - (XF, ZF) and J its 2 x 2
+    Jacobian in (H, V) at the root, the loads are attached as
+    ``H* + (c - stop_grad(c))`` with ``c = -J^-1 r`` and J held
+    constant: their value is H*, their derivative ``-J^-1 dr``, the
+    implicit derivative.  The pose tangents of (H, V) are
+    ``J^-1 d(XF, ZF)/dX`` with J written from the attached loads, so the
+    stiffness is differentiable too (its derivative is the second
+    derivative of the force at the root)."""
+    XF, ZF, ux, uy, lx, ly, lz = _geometry_duals(r_fair0, r_anchor, X)
+    Hs, Vs = HF.detach(), VF.detach()
+    x, z = _profile(Hs, Vs, L, w, EA)
+    r0, r1 = x - XF.v, z - ZF.v
+    with torch.no_grad():
+        j00, j01, j10, j11 = _profile_jacobian(Hs, Vs, L, w, EA)
+        det = j00 * j11 - j01 * j10
+    cH = -(r0 * j11 - r1 * j01) / det
+    cV = -(j00 * r1 - j10 * r0) / det
+    H = Hs + (cH - cH.detach())
+    V = Vs + (cV - cV.detach())
+    j00, j01, j10, j11 = _profile_jacobian(H, V, L, w, EA)
+    det = j00 * j11 - j01 * j10
+    tH = (j11 * XF.t - j01 * ZF.t) / det
+    tV = (j00 * ZF.t - j10 * XF.t) / det
+    return _force_comps(Dual(H, tH), Dual(V, tV), ux, uy, lx, ly, lz, mask)
 
 
 def stiffness_jacfwd(r_fair0, r_anchor, L, w, EA, mask, X):
@@ -310,9 +384,10 @@ def stiffness_jacfwd(r_fair0, r_anchor, L, w, EA, mask, X):
     return F, -dF
 
 
-def mooring_force_and_stiffness(ms, X):
-    """(F (R, 6), C (R, 6, 6)) of every line of ``ms`` at poses X (R, 6),
-    through :func:`line_forces_and_stiffness` with every line counted."""
+def line_args(ms, X):
+    """(r_fair0, r_anchor, L, w, EA, mask) of every line of ``ms`` as
+    (R, nL, ...) tensors for poses X (R, 6); the arrays of ``ms`` may
+    carry a leading row axis."""
     R = X.shape[0]
     kw = dict(dtype=X.dtype, device=X.device)
 
@@ -322,8 +397,14 @@ def mooring_force_and_stiffness(ms, X):
 
     L = rows(ms.L, 1)
     mask = torch.ones(L.shape, dtype=torch.bool, device=X.device)
-    return line_forces_and_stiffness(rows(ms.r_fair0, 2), rows(ms.r_anchor, 2),
-                                     L, rows(ms.w, 1), rows(ms.EA, 1), mask, X)
+    return (rows(ms.r_fair0, 2), rows(ms.r_anchor, 2), L, rows(ms.w, 1),
+            rows(ms.EA, 1), mask)
+
+
+def mooring_force_and_stiffness(ms, X):
+    """(F (R, 6), C (R, 6, 6)) of every line of ``ms`` at poses X (R, 6),
+    through :func:`line_forces_and_stiffness` with every line counted."""
+    return line_forces_and_stiffness(*line_args(ms, X), X)
 
 
 def mooring_force(ms, r6):

@@ -108,11 +108,21 @@ def _mcf_table():
 def mcf_cm(kR):
     """MacCamy-Fuchs complex inertia coefficient Cm(kR) =
     4i/(pi (kR)^2 H1'(kR)) through the reference's cubic-Hermite table
-    (clamped beyond kR = 80); numpy in, numpy out."""
+    (clamped beyond kR = 80); numpy in, numpy out, or a real tensor in
+    and a complex tensor out (differentiable in kR, as the geometry axis
+    needs)."""
     Cm_t, dCm_t = _mcf_table()
     h = _MCF_KR_MAX / (_MCF_N - 1)
-    xq = np.clip(np.asarray(kR, dtype=float), 0.0, _MCF_KR_MAX)
-    i = np.clip((xq / h).astype(int), 0, _MCF_N - 2)
+    if isinstance(kR, torch.Tensor):
+        cdt = torch.complex128 if kR.dtype == torch.float64 \
+            else torch.complex64
+        Cm_t, dCm_t = (torch.as_tensor(a, dtype=cdt, device=kR.device)
+                       for a in (Cm_t, dCm_t))
+        xq = torch.clamp(kR, 0.0, _MCF_KR_MAX)
+        i = torch.clamp((xq / h).to(torch.int64), 0, _MCF_N - 2)
+    else:
+        xq = np.clip(np.asarray(kR, dtype=float), 0.0, _MCF_KR_MAX)
+        i = np.clip((xq / h).astype(int), 0, _MCF_N - 2)
     t = xq / h - i
     y0, y1 = Cm_t[i], Cm_t[i + 1]
     d0, d1 = dCm_t[i], dCm_t[i + 1]
@@ -124,10 +134,16 @@ def mcf_cm(kR):
 
 def mcf_blend(kR, Cm0_p1, Cm0_p2):
     """Blend the MCF Cm(kR) with the baseline (1 + Ca) coefficients by
-    the reference's long-wave ramp (k < pi/(5R), i.e. kR < pi/5)."""
+    the reference's long-wave ramp (k < pi/(5R), i.e. kR < pi/5); numpy
+    or tensors, as :func:`mcf_cm`."""
     Cm = mcf_cm(kR)
-    ramp = np.where(kR < np.pi / 5, 0.5 * (1 - np.cos(5 * kR)), 1.0)
-    ramp = np.where(kR <= 0, 0.0, ramp)
+    if isinstance(kR, torch.Tensor):
+        ramp = torch.where(kR < np.pi / 5, 0.5 * (1 - torch.cos(5 * kR)),
+                           1.0)
+        ramp = torch.where(kR <= 0, 0.0, ramp)
+    else:
+        ramp = np.where(kR < np.pi / 5, 0.5 * (1 - np.cos(5 * kR)), 1.0)
+        ramp = np.where(kR <= 0, 0.0, ramp)
     return Cm * ramp + Cm0_p1 * (1 - ramp), Cm * ramp + Cm0_p2 * (1 - ramp)
 
 
@@ -218,8 +234,8 @@ def segment_sum_nodes(x, node, n_nodes):
     R, S = x.shape[:2]
     out = torch.zeros((R * n_nodes,) + x.shape[2:], dtype=x.dtype,
                       device=x.device)
-    out.index_add_(0, _row_offsets(node, n_nodes),
-                   x.reshape((R * S,) + x.shape[2:]))
+    out = out.index_add(0, _row_offsets(node, n_nodes),
+                        x.reshape((R * S,) + x.shape[2:]))
     return out.reshape((R, n_nodes) + x.shape[2:])
 
 
@@ -431,7 +447,11 @@ def drag_lin_iter(pre, Xi):
         return z.real ** 2 + z.imag ** 2
 
     def rms(x):
-        return torch.sqrt(0.5 * torch.sum(a2(x), dim=-1))
+        # circular strips take vRMS_p_tot: their per-axis sums, which may
+        # be exactly 0, never reach the sqrt (a zero there would give
+        # the masked branch a NaN derivative)
+        s2 = torch.where(pre["circ"], 1.0, torch.sum(a2(x), dim=-1))
+        return torch.sqrt(0.5 * s2)
 
     vq2 = torch.sum(a2(vq_c), dim=-1)                        # (R, S)
     vRMS_q = torch.sqrt(0.5 * vq2)

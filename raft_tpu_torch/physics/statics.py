@@ -1,14 +1,17 @@
 """Statics of a rigid FOWT: rigid kinematics, mass/inertia, weight and
 hydrostatics (torch counterparts of ``raft_tpu/physics/statics.py``).
 
-:func:`platform_kinematics` and :func:`node_T` are batched over rows and
-run on the evaluating device.  :func:`calc_statics` is build-time host
-work, as in the reference (which pins it to the CPU): one design, float64
-tensors on the CPU, the member geometry integrals already reduced to
-per-element constants by :mod:`raft_tpu_torch.structure.members`, the
-waterplane-crossing branches as ``torch.where`` masks, and the DOF
-reduction node-block-wise with ``T_n = [[I, H(r_n - r_root)], [0, I]]``
-plus the closed-form geometric stiffness.  Rigid single-body FOWTs only.
+Every function is batched over a leading row axis R and runs on the
+device of its inputs.  :func:`calc_statics` serves two callers: the
+builder, at one row on the CPU in float64 (the member geometry reduced
+to per-element constants by :mod:`raft_tpu_torch.structure.members`),
+and the geometry design axis, at R rows on the evaluating device with
+per-row member constants from :func:`raft_tpu_torch.structure.
+members_traced.apply_geometry` (differentiable in them).  The
+waterplane-crossing branches are ``torch.where`` masks, and the DOF
+reduction is node-block-wise with ``T_n = [[I, H(r_n - r_root)], [0,
+I]]`` plus the closed-form geometric stiffness.  Rigid single-body FOWTs
+only.
 """
 
 from __future__ import annotations
@@ -20,8 +23,6 @@ import torch
 
 from raft_tpu_torch.ops import frustum as fr
 from raft_tpu_torch.ops import transforms as tf
-
-_HOST = dict(dtype=torch.float64, device="cpu")
 
 
 def platform_kinematics(node_r0, root, X):
@@ -56,168 +57,182 @@ def node_T(r_nodes, r_root):
 
 # ------------------------------------------------------------ member pieces
 
-def member_inertia(mem, R_mem, q):
-    """Member mass matrix (6x6 about its node) from the precomputed
-    inertia elements.  Returns (M6, mass, s_bar, M6_e) with s_bar the
-    axial CG offset."""
-    m_e = torch.as_tensor(mem.elem_mass, **_HOST)
-    s_e = torch.as_tensor(mem.elem_s, **_HOST)
-    ne = m_e.shape[0]
-    I_loc = torch.zeros((ne, 3, 3), **_HOST)
-    I_loc[:, 0, 0] = torch.as_tensor(mem.elem_Ixx, **_HOST)
-    I_loc[:, 1, 1] = torch.as_tensor(mem.elem_Iyy, **_HOST)
-    I_loc[:, 2, 2] = torch.as_tensor(mem.elem_Izz, **_HOST)
-    I_rot = R_mem @ I_loc @ R_mem.T
+def _rows(a, R, kw):
+    """A member constant as an (R, ...) tensor: a tensor already carries
+    its row axis (the geometry axis); numpy is shared by every row."""
+    if isinstance(a, torch.Tensor):
+        return a.to(**kw)
+    t = torch.as_tensor(np.asarray(a, dtype=float), **kw)
+    return t.expand((R,) + t.shape)
 
-    M6_e = torch.zeros((ne, 6, 6), **_HOST)
-    M6_e[:, 0, 0] = m_e
-    M6_e[:, 1, 1] = m_e
-    M6_e[:, 2, 2] = m_e
-    M6_e[:, 3:, 3:] = I_rot
 
-    r_e = q[None, :] * s_e[:, None]
-    M6 = torch.sum(tf.translate_matrix_6to6(M6_e, r_e), dim=0)
-    mass = torch.sum(m_e)
-    s_bar = torch.where(mass > 0, torch.sum(m_e * s_e)
+def _mat(entries, like):
+    """A (..., 6, 6) matrix from ``{(i, j): (...) tensor}``, zero
+    elsewhere, built without writing into a tensor."""
+    z = torch.zeros_like(like)
+    return torch.stack([torch.stack([entries.get((i, j), z)
+                                     for j in range(6)], dim=-1)
+                        for i in range(6)], dim=-2)
+
+
+def member_inertia(mem, R_mem, q, R, kw):
+    """Member mass matrix (6x6 about its node) of R rows from its inertia
+    elements.  R_mem (R, 3, 3), q (R, 3).  Returns (M6 (R, 6, 6), mass
+    (R,), s_bar (R,)) with s_bar the axial CG offset."""
+    m_e = _rows(mem.elem_mass, R, kw)                        # (R, ne)
+    s_e = _rows(mem.elem_s, R, kw)
+    I_loc = torch.diag_embed(torch.stack(
+        [_rows(mem.elem_Ixx, R, kw), _rows(mem.elem_Iyy, R, kw),
+         _rows(mem.elem_Izz, R, kw)], dim=-1))              # (R, ne, 3, 3)
+    Rm = R_mem[:, None]
+    I_rot = Rm @ I_loc @ Rm.transpose(-1, -2)
+    mI = m_e[..., None, None] * torch.eye(3, **kw)
+    Z3 = torch.zeros_like(mI)
+    M6_e = torch.cat([torch.cat([mI, Z3], dim=-1),
+                      torch.cat([Z3, I_rot], dim=-1)], dim=-2)
+    r_e = q[:, None, :] * s_e[..., None]
+    M6 = torch.sum(tf.translate_matrix_6to6(M6_e, r_e), dim=1)
+    mass = torch.sum(m_e, dim=-1)
+    s_bar = torch.where(mass > 0, torch.sum(m_e * s_e, dim=-1)
                         / torch.where(mass > 0, mass, 1.0), 0.0)
-    return M6, mass, s_bar, M6_e
+    return M6, mass, s_bar
 
 
-def member_hydrostatics(mem, q, p1, p2, R_mem, r_node, rho, g):
+def member_hydrostatics(mem, q, R_mem, r_node, rho, g, R, kw):
     """Buoyancy force/stiffness of one rigid member about its node, over
     its sections with crossing/submerged masks (the reference RAFT's
-    ``raft_member.py:838-1156``, rigid branch).
+    ``raft_member.py:838-1156``, rigid branch), for R rows: q (R, 3),
+    R_mem (R, 3, 3), r_node (R, 3).
 
-    Returns dict with Fvec (6), Cmat (6, 6), V_UW, r_centerV (3),
-    AWP, IWP, xWP, yWP (last-crossing values; positions global).
+    Returns dict with Fvec (R, 6), Cmat (R, 6, 6), V_UW (R,), r_centerV
+    (R, 3), AWP, IWP, xWP, yWP (R,) (last-crossing values; positions
+    global).
     """
-    st = torch.as_tensor(mem.stations, **_HOST)
-    n = len(mem.stations)
+    st = np.asarray(mem.stations, dtype=float)
+    n = len(st)
     circ = mem.circular
+    d = _rows(mem.d, R, kw)                                  # (R, n, 2)
 
-    beta = torch.atan2(q[1], q[0])
-    phi = torch.atan2(torch.sqrt(q[0] ** 2 + q[1] ** 2), q[2])
+    beta = torch.atan2(q[:, 1], q[:, 0])
+    phi = torch.atan2(torch.sqrt(q[:, 0] ** 2 + q[:, 1] ** 2), q[:, 2])
     cosPhi, sinPhi, tanPhi = torch.cos(phi), torch.sin(phi), torch.tan(phi)
     cosBeta, sinBeta = torch.cos(beta), torch.sin(beta)
-    zero = torch.zeros((), **_HOST)
+    zero = torch.zeros(R, **kw)
+    cosPhi_safe = torch.where(cosPhi == 0, 1.0, cosPhi)
 
-    Fvec = torch.zeros(6, **_HOST)
-    Cmat = torch.zeros((6, 6), **_HOST)
+    Fvec = torch.zeros((R, 6), **kw)
+    Cmat = torch.zeros((R, 6, 6), **kw)
     V_UW = zero
-    r_centerV = torch.zeros(3, **_HOST)
-    AWP = zero
-    IWP = zero
-    xWPr = zero
-    yWPr = zero
+    r_centerV = torch.zeros((R, 3), **kw)
+    AWP = IWP = xWPr = yWPr = zero
     rg = rho * g
 
     for i in range(1, n):
         rA = r_node + q * st[i - 1]
         rB = r_node + q * st[i]
-        crossing = rA[2] * rB[2] <= 0
-        submerged = (~crossing) & (rA[2] <= 0) & (rB[2] <= 0)
+        crossing = rA[:, 2] * rB[:, 2] <= 0
+        submerged = (~crossing) & (rA[:, 2] <= 0) & (rB[:, 2] <= 0)
 
-        dz = rB[2] - rA[2]
+        dz = rB[:, 2] - rA[:, 2]
         dz_safe = torch.where(dz == 0, 1.0, dz)
-        frac0 = (0.0 - rA[2]) / dz_safe
+        frac0 = (0.0 - rA[:, 2]) / dz_safe
 
         # waterplane geometry: the reference interpolates with the
         # diameter endpoints swapped (raft_member.py:902,908), kept
         if circ:
-            dA_o, dB_o = float(mem.d[i - 1, 0]), float(mem.d[i, 0])
+            dA_o, dB_o = d[:, i - 1, 0], d[:, i, 0]
             dWP = dB_o + frac0 * (dA_o - dB_o)
             AWP_i = 0.25 * math.pi * dWP ** 2
             IWP_i = (math.pi / 64.0) * dWP ** 4
-            IxWP_i = IWP_i
-            IyWP_i = IWP_i
+            IxWP_i = IyWP_i = IWP_i
         else:
-            slA_o = torch.as_tensor(mem.d[i - 1], **_HOST)
-            slB_o = torch.as_tensor(mem.d[i], **_HOST)
-            slWP = slB_o + frac0 * (slA_o - slB_o)
-            AWP_i = slWP[0] * slWP[1]
-            Ix_loc = (1.0 / 12.0) * slWP[0] * slWP[1] ** 3
-            Iy_loc = (1.0 / 12.0) * slWP[0] ** 3 * slWP[1]
-            I_loc = torch.diag(torch.stack([Ix_loc, Iy_loc, zero]))
-            I_rot = R_mem @ I_loc @ R_mem.T
-            IxWP_i = I_rot[0, 0]
-            IyWP_i = I_rot[1, 1]
+            slA_o, slB_o = d[:, i - 1], d[:, i]
+            slWP = slB_o + frac0[:, None] * (slA_o - slB_o)
+            AWP_i = slWP[:, 0] * slWP[:, 1]
+            Ix_loc = (1.0 / 12.0) * slWP[:, 0] * slWP[:, 1] ** 3
+            Iy_loc = (1.0 / 12.0) * slWP[:, 0] ** 3 * slWP[:, 1]
+            I_loc = torch.diag_embed(torch.stack([Ix_loc, Iy_loc, zero],
+                                                 dim=-1))
+            I_rot = R_mem @ I_loc @ R_mem.transpose(-1, -2)
+            IxWP_i = I_rot[:, 0, 0]
+            IyWP_i = I_rot[:, 1, 1]
 
-        cosPhi_safe = torch.where(cosPhi == 0, 1.0, cosPhi)
-        LWP = torch.abs(rA[2] / cosPhi_safe)
+        LWP = torch.abs(rA[:, 2] / cosPhi_safe)
 
         # ---- crossing branch (partially submerged)
         if circ:
-            V_c, hc_c = fr.frustum_vcv_circ(float(mem.d[i - 1, 0]), dWP, LWP)
+            V_c, hc_c = fr.frustum_vcv_circ(d[:, i - 1, 0], dWP, LWP)
         else:
-            V_c, hc_c = fr.frustum_vcv_rect(
-                torch.as_tensor(mem.d[i - 1], **_HOST), slWP, LWP)
-        r_center_c = rA + q * hc_c
+            V_c, hc_c = fr.frustum_vcv_rect(d[:, i - 1], slWP, LWP)
+        r_center_c = rA + q * hc_c[:, None]
 
         Fz_c = rg * V_c
         if circ:
             M_c = -rg * math.pi * (
                 dWP ** 2 / 32.0 * (2.0 + tanPhi ** 2)
-                + 0.5 * (rA[2] / cosPhi_safe) ** 2) * sinPhi
+                + 0.5 * (rA[:, 2] / cosPhi_safe) ** 2) * sinPhi
         else:
             M_c = zero
 
         F_c = tf.translate_force_3to6(
-            torch.stack([0.0 * Fz_c, 0.0 * Fz_c, Fz_c]), rA - r_node)
-        F_c[3] += M_c * (-sinBeta)
-        F_c[4] += M_c * cosBeta
+            torch.stack([0.0 * Fz_c, 0.0 * Fz_c, Fz_c], dim=-1), rA - r_node)
+        F_c = F_c + torch.stack([zero, zero, zero, M_c * (-sinBeta),
+                                 M_c * cosBeta, zero], dim=-1)
 
-        xWP_c = rA[0] + frac0 * (rB[0] - rA[0]) - r_node[0]
-        yWP_c = rA[1] + frac0 * (rB[1] - rA[1]) - r_node[1]
+        xWP_c = rA[:, 0] + frac0 * (rB[:, 0] - rA[:, 0]) - r_node[:, 0]
+        yWP_c = rA[:, 1] + frac0 * (rB[:, 1] - rA[:, 1]) - r_node[:, 1]
         r_rel_c = r_center_c - r_node
-        C_c = torch.zeros((6, 6), **_HOST)
-        C_c[2, 2] += rg * AWP_i / cosPhi_safe
-        C_c[2, 3] += rg * (-AWP_i * yWP_c)
-        C_c[2, 4] += rg * (AWP_i * xWP_c)
-        C_c[3, 2] += rg * (-AWP_i * yWP_c)
-        C_c[3, 3] += rg * (IxWP_i + AWP_i * yWP_c ** 2)
-        C_c[3, 4] += rg * (AWP_i * xWP_c * yWP_c)
-        C_c[4, 2] += rg * (AWP_i * xWP_c)
-        C_c[4, 3] += rg * (AWP_i * xWP_c * yWP_c)
-        C_c[4, 4] += rg * (IyWP_i + AWP_i * xWP_c ** 2)
-        C_c[3, 3] += rg * V_c * r_rel_c[2]
-        C_c[4, 4] += rg * V_c * r_rel_c[2]
-        C_c[3, 5] += -rg * V_c * r_rel_c[0]
-        C_c[4, 5] += -rg * V_c * r_rel_c[1]
+        C_c = _mat({
+            (2, 2): rg * AWP_i / cosPhi_safe,
+            (2, 3): rg * (-AWP_i * yWP_c),
+            (2, 4): rg * (AWP_i * xWP_c),
+            (3, 2): rg * (-AWP_i * yWP_c),
+            (3, 3): rg * (IxWP_i + AWP_i * yWP_c ** 2)
+            + rg * V_c * r_rel_c[:, 2],
+            (3, 4): rg * (AWP_i * xWP_c * yWP_c),
+            (4, 2): rg * (AWP_i * xWP_c),
+            (4, 3): rg * (AWP_i * xWP_c * yWP_c),
+            (4, 4): rg * (IyWP_i + AWP_i * xWP_c ** 2)
+            + rg * V_c * r_rel_c[:, 2],
+            (3, 5): -rg * V_c * r_rel_c[:, 0],
+            (4, 5): -rg * V_c * r_rel_c[:, 1],
+        }, zero)
 
         # ---- fully submerged branch
         if circ:
-            V_s, hc_s = fr.frustum_vcv_circ(float(mem.d[i - 1, 0]),
-                                            float(mem.d[i, 0]),
+            V_s, hc_s = fr.frustum_vcv_circ(d[:, i - 1, 0], d[:, i, 0],
                                             st[i] - st[i - 1])
         else:
-            V_s, hc_s = fr.frustum_vcv_rect(
-                torch.as_tensor(mem.d[i - 1], **_HOST),
-                torch.as_tensor(mem.d[i], **_HOST), st[i] - st[i - 1])
-        r_center_s = rA + q * hc_s
+            V_s, hc_s = fr.frustum_vcv_rect(d[:, i - 1], d[:, i],
+                                            st[i] - st[i - 1])
+        r_center_s = rA + q * hc_s[:, None]
         r_rel_s = r_center_s - r_node
         F_s = tf.translate_force_3to6(
-            torch.stack([0.0 * V_s, 0.0 * V_s, rg * V_s]), r_rel_s)
-        C_s = torch.zeros((6, 6), **_HOST)
-        C_s[3, 3] += rg * V_s * r_rel_s[2]
-        C_s[4, 4] += rg * V_s * r_rel_s[2]
-        C_s[3, 5] += -rg * V_s * r_rel_s[0]
-        C_s[4, 5] += -rg * V_s * r_rel_s[1]
+            torch.stack([0.0 * V_s, 0.0 * V_s, rg * V_s], dim=-1), r_rel_s)
+        C_s = _mat({
+            (3, 3): rg * V_s * r_rel_s[:, 2],
+            (4, 4): rg * V_s * r_rel_s[:, 2],
+            (3, 5): -rg * V_s * r_rel_s[:, 0],
+            (4, 5): -rg * V_s * r_rel_s[:, 1],
+        }, zero)
 
         # ---- select by mask and accumulate
-        c, s = crossing, submerged
-        Fvec = Fvec + torch.where(c, F_c, 0.0) + torch.where(s, F_s, 0.0)
-        Cmat = Cmat + torch.where(c, C_c, 0.0) + torch.where(s, C_s, 0.0)
-        V_i = torch.where(c, V_c, torch.where(s, V_s, 0.0))
-        r_center_i = torch.where(c, r_center_c,
-                                 torch.where(s, r_center_s, 0.0))
+        c, s_ = crossing, submerged
+        Fvec = (Fvec + torch.where(c[:, None], F_c, 0.0)
+                + torch.where(s_[:, None], F_s, 0.0))
+        Cmat = (Cmat + torch.where(c[:, None, None], C_c, 0.0)
+                + torch.where(s_[:, None, None], C_s, 0.0))
+        V_i = torch.where(c, V_c, torch.where(s_, V_s, 0.0))
+        r_center_i = torch.where(c[:, None], r_center_c,
+                                 torch.where(s_[:, None], r_center_s, 0.0))
         V_UW = V_UW + V_i
-        r_centerV = r_centerV + r_center_i * V_i
+        r_centerV = r_centerV + r_center_i * V_i[:, None]
         # member-level waterplane values keep the LAST crossing section
         AWP = torch.where(c, AWP_i, AWP)
         if circ:
             IWP = torch.where(c, IWP_i, IWP)
-        xWPr = torch.where(c, xWP_c + r_node[0], xWPr)
-        yWPr = torch.where(c, yWP_c + r_node[1], yWPr)
+        xWPr = torch.where(c, xWP_c + r_node[:, 0], xWPr)
+        yWPr = torch.where(c, yWP_c + r_node[:, 1], yWPr)
 
     return dict(Fvec=Fvec, Cmat=Cmat, V_UW=V_UW, r_centerV=r_centerV,
                 AWP=AWP, IWP=IWP, xWP=xWPr, yWP=yWPr)
@@ -225,92 +240,106 @@ def member_hydrostatics(mem, q, p1, p2, R_mem, r_node, rho, g):
 
 # ------------------------------------------------------------ FOWT assembly
 
-def calc_statics(fs, Xi0=None):
+class _NodeSum:
+    """Per-node sums of (R, ...) terms, kept as a Python list (the node
+    of every term is known when the model is built)."""
+
+    def __init__(self, N, shape, kw):
+        self.zero = torch.zeros(shape, **kw)
+        self.v = [self.zero] * N
+
+    def add(self, node, x):
+        self.v[node] = self.v[node] + x
+
+    def stacked(self):
+        return torch.stack(self.v, dim=1)                  # (R, N, ...)
+
+
+def calc_statics(fs, Xi0=None, rows=1, device="cpu", dtype=torch.float64):
     """Full FOWT statics about the root node in reduced DOFs (the
-    reference's ``calc_statics``, rigid single-body branch: the port's
-    FOWTStructure is always one rigid body), on the host in float64.  Returns a dict of tensors (and the ballast lists
-    ``pb``, ``mtower``, ``rCG_tow``)."""
+    reference's ``calc_statics``, rigid single-body branch) for ``rows``
+    rows on ``device``.
+
+    The members' constants are numpy (the builder's, shared by every
+    row) or (rows, ...) tensors (:func:`~raft_tpu_torch.structure.
+    members_traced.apply_geometry`'s).  ``Xi0`` is the pose, (nDOF,) or
+    (rows, nDOF), default zero.  Returns a dict of (rows, ...) tensors
+    and the lists ``pb`` (ballast densities), ``mtower`` and ``rCG_tow``
+    (per tower member, (rows,) and (rows, 3))."""
+    kw = dict(dtype=dtype, device=device)
+    R = int(rows)
     rho, g = fs.rho_water, fs.g
     nDOF = fs.nDOF
-    X = (torch.zeros((1, nDOF), **_HOST) if Xi0 is None
-         else torch.as_tensor(np.asarray(Xi0, dtype=float), **_HOST)[None])
-    node_r0 = torch.as_tensor(fs.node_r0, **_HOST)
+    if Xi0 is None:
+        X = torch.zeros((R, nDOF), **kw)
+    else:
+        X = torch.as_tensor(np.asarray(Xi0, dtype=float) if not isinstance(
+            Xi0, torch.Tensor) else Xi0, **kw).expand(R, nDOF)
+    node_r0 = torch.as_tensor(np.asarray(fs.node_r0, dtype=float), **kw)
     r_nodes, R_ptfm, r_root = platform_kinematics(
-        node_r0[None], torch.tensor([fs.root_id]), X)
-    r_nodes, R_ptfm, r_root = r_nodes[0], R_ptfm[0], r_root[0]
-    Tn = node_T(r_nodes, r_root)                             # (N, 6, 6)
+        node_r0.expand((R,) + node_r0.shape),
+        torch.full((R,), fs.root_id, device=device), X)
+    Tn = node_T(r_nodes, r_root)                             # (R, N, 6, 6)
 
     N = fs.n_nodes
-    M_blocks = torch.zeros((N, 6, 6), **_HOST)
-    Msub_blocks = torch.zeros((N, 6, 6), **_HOST)
-    Cs_blocks = torch.zeros((N, 6, 6), **_HOST)
-    Cssub_blocks = torch.zeros((N, 6, 6), **_HOST)
-    Ch_blocks = torch.zeros((N, 6, 6), **_HOST)
-    W_blocks = torch.zeros((N, 6), **_HOST)
-    Wsub_blocks = torch.zeros((N, 6), **_HOST)
-    Wh_blocks = torch.zeros((N, 6), **_HOST)
-    f0_blocks = torch.zeros((N, 6), **_HOST)
+    M_b, Msub_b, Cs_b, Cssub_b, Ch_b = (_NodeSum(N, (R, 6, 6), kw)
+                                        for _ in range(5))
+    W_b, Wsub_b, Wh_b, f0_b = (_NodeSum(N, (R, 6), kw) for _ in range(4))
 
-    zero = torch.zeros((), **_HOST)
-    m_center_sum = torch.zeros(3, **_HOST)
-    m_sub_sum = torch.zeros(3, **_HOST)
-    m_sub = zero
-    VTOT = zero
-    AWP_TOT = zero
-    IWPx_TOT = zero
-    IWPy_TOT = zero
-    Sum_V_rCB = torch.zeros(3, **_HOST)
+    zero = torch.zeros(R, **kw)
+    m_center_sum = torch.zeros((R, 3), **kw)
+    m_sub_sum = torch.zeros((R, 3), **kw)
+    m_sub = VTOT = AWP_TOT = IWPx_TOT = IWPy_TOT = zero
+    Sum_V_rCB = torch.zeros((R, 3), **kw)
     mtower = []
     rCG_tow = []
 
     def h(a):
-        return torch.as_tensor(np.asarray(a, dtype=float), **_HOST)
+        return torch.as_tensor(np.asarray(a, dtype=float), **kw)
 
     # ---- members (the inertia loop excludes nacelles; hydrostatics of
     # members named 'nacelle' are added separately)
     for im, mem in enumerate(fs.members):
         node = int(fs.member_node[im])
-        r_node = r_nodes[node]
+        r_node = r_nodes[:, node]
         R_mem = R_ptfm @ h(mem.R0)
         q = R_ptfm @ h(mem.q0)
-        p1 = R_ptfm @ h(mem.p10)
-        p2 = R_ptfm @ h(mem.p20)
 
         if mem.part_of != "nacelle":
-            M6, mass, s_bar, _ = member_inertia(mem, R_mem, q)
-            W6, C6 = tf.weight_of_point_mass(mass, q * s_bar, g=g)
-            M_blocks[node] += M6
-            W_blocks[node] += W6
-            Cs_blocks[node] += C6
-            center = q * s_bar + h(fs.node_r0[node])  # the reference's r0
-            m_center_sum = m_center_sum + center * mass
+            M6, mass, s_bar = member_inertia(mem, R_mem, q, R, kw)
+            W6, C6 = tf.weight_of_point_mass(mass, q * s_bar[:, None], g=g)
+            M_b.add(node, M6)
+            W_b.add(node, W6)
+            Cs_b.add(node, C6)
+            center = q * s_bar[:, None] + h(fs.node_r0[node])  # the ref's r0
+            m_center_sum = m_center_sum + center * mass[:, None]
             if mem.part_of == "tower":
                 mtower.append(mass)
                 rCG_tow.append(center)
             else:
-                Msub_blocks[node] += M6
-                Cssub_blocks[node] += C6
-                Wsub_blocks[node] += W6
+                Msub_b.add(node, M6)
+                Cssub_b.add(node, C6)
+                Wsub_b.add(node, W6)
                 m_sub = m_sub + mass
-                m_sub_sum = m_sub_sum + center * mass
-            hs = member_hydrostatics(mem, q, p1, p2, R_mem, r_node, rho, g)
+                m_sub_sum = m_sub_sum + center * mass[:, None]
+            hs = member_hydrostatics(mem, q, R_mem, r_node, rho, g, R, kw)
         elif mem.name == "nacelle":
-            hs = member_hydrostatics(mem, q, p1, p2, R_mem, r_node, rho, g)
+            hs = member_hydrostatics(mem, q, R_mem, r_node, rho, g, R, kw)
         else:
             continue
 
-        Wh_blocks[node] += hs["Fvec"]
-        Ch_blocks[node] += hs["Cmat"]
-        xWP = hs["xWP"] - r_node[0] + float(fs.node_r0[node][0])
-        yWP = hs["yWP"] - r_node[1] + float(fs.node_r0[node][1])
+        Wh_b.add(node, hs["Fvec"])
+        Ch_b.add(node, hs["Cmat"])
+        xWP = hs["xWP"] - r_node[:, 0] + float(fs.node_r0[node][0])
+        yWP = hs["yWP"] - r_node[:, 1] + float(fs.node_r0[node][1])
         VTOT = VTOT + hs["V_UW"]
         AWP_TOT = AWP_TOT + hs["AWP"]
         IWPx_TOT = IWPx_TOT + hs["IWP"] + hs["AWP"] * yWP ** 2
         IWPy_TOT = IWPy_TOT + hs["IWP"] + hs["AWP"] * xWP ** 2
-        V = hs["V_UW"]
+        V = hs["V_UW"][:, None]
         rCB_m = torch.where(
             V > 0, hs["r_centerV"] / torch.where(V > 0, V, 1.0) - r_node,
-            torch.zeros(3, **_HOST))
+            0.0)
         Sum_V_rCB = Sum_V_rCB + (rCB_m + h(fs.node_r0[node])) * V
 
     # ---- RNA inertia, and the blade buoyancy of submerged rotors
@@ -322,15 +351,16 @@ def calc_statics(fs, Xi0=None):
                              rot.IxRNA, rot.IrRNA, rot.IrRNA]))
         Mmat = tf.rotate_matrix_6(Mmat, R_q)
         dCG = q_rot * rot.xCG_RNA
-        W6, C6 = tf.weight_of_point_mass(rot.mRNA, dCG, g=g)
-        W_blocks[node] += W6
-        M_blocks[node] += tf.translate_matrix_6to6(Mmat, dCG)
-        Cs_blocks[node] += C6
+        W6, C6 = tf.weight_of_point_mass(
+            torch.full((R,), float(rot.mRNA), **kw), dCG, g=g)
+        W_b.add(node, W6)
+        M_b.add(node, tf.translate_matrix_6to6(Mmat, dCG))
+        Cs_b.add(node, C6)
         r_CG_rel = R_ptfm @ h(rot.r_rel) + dCG
         m_center_sum = m_center_sum + r_CG_rel * rot.mRNA
         if rot.hydro is not None:
-            Wh_blocks[node] += h(rot.hydro["Fvec"])
-            Ch_blocks[node] += h(rot.hydro["Cmat"])
+            Wh_b.add(node, h(rot.hydro["Fvec"]))
+            Ch_b.add(node, h(rot.hydro["Cmat"]))
             V_rot = float(rot.hydro["V"])
             VTOT = VTOT + V_rot
             Sum_V_rCB = Sum_V_rCB + h(fs.node_r0[node]) * V_rot
@@ -339,15 +369,13 @@ def calc_statics(fs, Xi0=None):
     for pi in fs.pointInertias:
         node = int(np.argmin(np.linalg.norm(
             fs.node_r0 - np.asarray(pi["r"]), axis=1)))
-        dR = h(pi["r"] - fs.node_r0[node])
-        W6, C6 = tf.weight_of_point_mass(pi["m"], dR, g=g)
-        M6 = tf.translate_matrix_6to6(h(pi["inertia"]), dR)
-        W_blocks[node] += W6
-        M_blocks[node] += M6
-        Cs_blocks[node] += C6
-        Msub_blocks[node] += M6
-        Cssub_blocks[node] += C6
-        Wsub_blocks[node] += W6
+        dR = h(pi["r"] - fs.node_r0[node]).expand(R, 3)
+        W6, C6 = tf.weight_of_point_mass(
+            torch.full((R,), float(pi["m"]), **kw), dR, g=g)
+        M6 = tf.translate_matrix_6to6(h(pi["inertia"]).expand(R, 6, 6), dR)
+        for acc, x in ((W_b, W6), (M_b, M6), (Cs_b, C6), (Msub_b, M6),
+                       (Cssub_b, C6), (Wsub_b, W6)):
+            acc.add(node, x)
         m_sub = m_sub + pi["m"]
         m_sub_sum = m_sub_sum + h(pi["r"]) * pi["m"]
         m_center_sum = m_center_sum + h(pi["r"]) * pi["m"]
@@ -356,58 +384,58 @@ def calc_statics(fs, Xi0=None):
     for pl in fs.pointLoads:
         node = int(np.argmin(np.linalg.norm(
             fs.node_r0 - np.asarray(pl["r"]), axis=1)))
-        f0_blocks[node] += tf.transform_force_6(h(pl["f"]),
-                                                h(pl["r"] - fs.node_r0[node]))
+        f0_b.add(node, tf.transform_force_6(h(pl["f"]),
+                                            h(pl["r"] - fs.node_r0[node])))
 
     # ---- reduce to the structure DOFs
     def reduce_mat(blocks):
-        return torch.einsum("nia,nij,njb->ab", Tn, blocks, Tn)
+        return torch.einsum("rnia,rnij,rnjb->rab", Tn, blocks.stacked(), Tn)
 
     def reduce_vec(blocks):
-        return torch.einsum("nia,ni->a", Tn, blocks)
+        return torch.einsum("rnia,rni->ra", Tn, blocks.stacked())
 
-    M_struc = reduce_mat(M_blocks)
-    M_struc_sub = reduce_mat(Msub_blocks)
-    C_struc = reduce_mat(Cs_blocks)
-    C_struc_sub = reduce_mat(Cssub_blocks)
-    C_hydro = reduce_mat(Ch_blocks)
-    W_struc = reduce_vec(W_blocks)
-    W_hydro = reduce_vec(Wh_blocks)
-    f0_additional = reduce_vec(f0_blocks)
+    M_struc = reduce_mat(M_b)
+    M_struc_sub = reduce_mat(Msub_b)
+    C_struc = reduce_mat(Cs_b)
+    C_struc_sub = reduce_mat(Cssub_b)
+    C_hydro = reduce_mat(Ch_b)
+    W_struc = reduce_vec(W_b)
+    W_hydro = reduce_vec(Wh_b)
+    f0_additional = reduce_vec(f0_b)
 
     # ---- geometric stiffness:
     # C_geom[3+i, 3+j] = -sum_n cross(cross(e_j, d_n), F_n)[i]
-    d_n = r_nodes - r_root
-    eye3 = torch.eye(3, **_HOST)
+    d_n = r_nodes - r_root[:, None]
+    eye3 = torch.eye(3, **kw)
 
-    def c_geom(F_blocks):
-        F = F_blocks[:, :3]
-        cj = tf.cross(eye3[None, :, :], d_n[:, None, :])      # (N, 3j, 3)
-        contrib = tf.cross(cj, F[:, None, :])                  # (N, 3j, 3i)
-        C = torch.zeros((6, 6), **_HOST)
-        C[3:, 3:] = -torch.sum(contrib, dim=0).T
-        return C
+    def c_geom(blocks):
+        F = blocks.stacked()[..., :3]                        # (R, N, 3)
+        cj = tf.cross(eye3[None, None], d_n[:, :, None, :])  # (R, N, 3j, 3)
+        contrib = tf.cross(cj, F[:, :, None, :])             # (R, N, 3j, 3i)
+        Cg = -torch.sum(contrib, dim=1).transpose(-1, -2)
+        Z3 = torch.zeros_like(Cg)
+        return torch.cat([torch.cat([Z3, Z3], dim=-1),
+                          torch.cat([Z3, Cg], dim=-1)], dim=-2)
 
-    C_hydro = C_hydro + c_geom(Wh_blocks)
-    C_struc = C_struc + c_geom(W_blocks)
-    C_struc_sub = C_struc_sub + c_geom(Wsub_blocks)
+    C_hydro = C_hydro + c_geom(Wh_b)
+    C_struc = C_struc + c_geom(W_b)
+    C_struc_sub = C_struc_sub + c_geom(Wsub_b)
 
     def sym(A):
-        return 0.5 * (A + A.T)
+        return 0.5 * (A + A.transpose(-1, -2))
 
     M_struc, M_struc_sub = sym(M_struc), sym(M_struc_sub)
     C_hydro, C_struc, C_struc_sub = sym(C_hydro), sym(C_struc), sym(C_struc_sub)
 
     # ---- totals
-    m_all = M_struc[0, 0]
-    rCG = m_center_sum / m_all
-    rCG_sub = m_sub_sum / torch.where(m_sub > 0, m_sub, 1.0)
-    M_sub6 = tf.translate_matrix_6to6(M_struc_sub[:6, :6], -rCG_sub)
-    M_all6 = tf.translate_matrix_6to6(M_struc[:6, :6], -rCG)
-    rCB = Sum_V_rCB / torch.where(VTOT > 0, VTOT, 1.0)
-    zMeta = torch.where(VTOT > 0,
-                        rCB[2] + IWPx_TOT / torch.where(VTOT > 0, VTOT, 1.0),
-                        0.0)
+    m_all = M_struc[:, 0, 0]
+    rCG = m_center_sum / m_all[:, None]
+    rCG_sub = m_sub_sum / torch.where(m_sub > 0, m_sub, 1.0)[:, None]
+    M_sub6 = tf.translate_matrix_6to6(M_struc_sub[:, :6, :6], -rCG_sub)
+    M_all6 = tf.translate_matrix_6to6(M_struc[:, :6, :6], -rCG)
+    Vs = torch.where(VTOT > 0, VTOT, 1.0)
+    rCB = Sum_V_rCB / Vs[:, None]
+    zMeta = torch.where(VTOT > 0, rCB[:, 2] + IWPx_TOT / Vs, 0.0)
 
     # ballast bookkeeping
     pb = []
@@ -417,22 +445,24 @@ def calc_statics(fs, Xi0=None):
         for p in mem.pfill:
             if p != 0 and p not in pb:
                 pb.append(p)
-    m_ballast = np.zeros(len(pb))
+    m_ballast = [zero] * len(pb)
     for mem in fs.members:
         if mem.part_of == "nacelle":
             continue
-        for mf, p in zip(mem.mfill, mem.pfill):
+        mfill = _rows(mem.mfill, R, kw)
+        for j, p in enumerate(mem.pfill):
             if p != 0:
-                m_ballast[pb.index(p)] += mf
+                m_ballast[pb.index(p)] = m_ballast[pb.index(p)] + mfill[:, j]
 
     return dict(
         M_struc=M_struc, M_struc_sub=M_struc_sub, C_struc=C_struc,
         C_struc_sub=C_struc_sub, C_hydro=C_hydro,
-        C_elast=torch.zeros((nDOF, nDOF), **_HOST),
+        C_elast=torch.zeros((R, nDOF, nDOF), **kw),
         W_struc=W_struc, W_hydro=W_hydro, f0_additional=f0_additional,
         rCG=rCG, rCG_sub=rCG_sub, rCB=rCB, m=m_all, m_sub=m_sub, V=VTOT,
-        AWP=AWP_TOT, rM=torch.stack([rCB[0], rCB[1], zMeta]),
-        m_ballast=torch.as_tensor(m_ballast, **_HOST), pb=pb,
+        AWP=AWP_TOT, rM=torch.stack([rCB[:, 0], rCB[:, 1], zMeta], dim=-1),
+        m_ballast=(torch.stack(m_ballast, dim=-1) if pb
+                   else torch.zeros((R, 0), **kw)), pb=pb,
         mtower=mtower, rCG_tow=rCG_tow, M_all6=M_all6, M_sub6=M_sub6,
         r_nodes=r_nodes, R_ptfm=R_ptfm, Tn=Tn,
     )

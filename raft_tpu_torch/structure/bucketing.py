@@ -31,11 +31,11 @@ from raft_tpu_torch.api import _case_status, _policy_cdt
 from raft_tpu_torch.models.dynamics import (fused_response_enabled,
                                             solve_dynamics_fowt,
                                             system_response)
-from raft_tpu_torch.models.statics_solve import solve_equilibrium_general
+from raft_tpu_torch.models.statics_solve import (MooringClosure,
+                                                 solve_equilibrium_general)
 from raft_tpu_torch.ops import waves as wv
 from raft_tpu_torch.physics import morison
-from raft_tpu_torch.physics.mooring import (MooringSystem,
-                                            line_forces_and_stiffness)
+from raft_tpu_torch.physics.mooring import MooringSystem
 from raft_tpu_torch.physics.statics import node_T, platform_kinematics
 from raft_tpu_torch.utils import config
 from raft_tpu_torch.utils.dtypes import compute_dtypes, resolve_device
@@ -341,11 +341,7 @@ def _masked_moor_closures(d):
     catenary Newton loop (:func:`line_forces_and_stiffness`)."""
     line_args = (d["moor_fair0"], d["moor_anchor"], d["moor_L"],
                  d["moor_w"], d["moor_EA"], d["line_mask"])
-
-    def mooring_fn(X):
-        return line_forces_and_stiffness(*line_args, X)
-
-    return mooring_fn
+    return MooringClosure(lambda X: line_args)
 
 
 def _compute_dtype(K_h):
@@ -469,7 +465,7 @@ class BucketEvaluator(nn.Module):
 
         # ---- sea states + excitation, one per heading
         S_spec = wv.jonswap(w, Hs, Tp, gamma=gamma)           # (R, nH, nw)
-        zeta = torch.sqrt(2.0 * S_spec * self.dw).to(_policy_cdt(K_h))
+        zeta = wv.amplitudes(S_spec, self.dw).to(_policy_cdt(K_h))
         exc = [morison.hydro_excitation(fsb, ss, hc, zeta[:, ih],
                                         beta[:, ih], w, d["k"], Tn, r_nodes)
                for ih in range(nH)]

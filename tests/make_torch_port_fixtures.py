@@ -59,16 +59,39 @@ and 0.21 with
 * ``packed_<rotor>.npz``: the JAX builder's packed leaves of each rotor
   design (blade added mass and buoyancy included).
 
+For the geometry design axis and the gradients it writes:
+
+* ``golden_geometry_<name>.npz`` for the five full-evaluator sets: the
+  JAX geometry evaluator (``make_full_evaluator(geometry=True)``) over
+  the set's rows, each with geometry scales drawn over
+  :data:`GEOM_BOX` (per member: diameter, thickness, ballast fill and
+  fill density; per row: drag, added mass, mooring length and
+  stiffness), FUSED on and off;
+* ``golden_grad_<name>.npz`` for spar, semi and semi_wind: the metric
+  sum |Xi[0]|^2 + sum X0^2 on the first 4 of those rows and its
+  ``jax.grad`` with respect to every geometry key;
+* ``golden_grad_design_<name>.npz`` for the three demos: the same
+  metric's ``jax.grad`` with respect to the six design-evaluator inputs
+  on :data:`GRAD_DESIGN_ROWS` (the reference's spectrum floored, see
+  :func:`_floored_jonswap`);
+
+each gradient checked against ``jax.jacfwd`` within 1e-10 x its max.
+
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --geometry \
+        [geometry] [grad] [grad_design]
 
-It writes ``tests/fixtures/torch_port/*``.
+It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
+geometry and gradient goldens, or the named parts of them).
 The checked-in files came from ``raft_tpu`` as of commit d384195 (its
 sources are unchanged since c7d9048).  Not collected by pytest (the
 file name does not start with ``test_``); the slow tests
-``tests/test_torch_bucket.py::test_fixtures_regenerate`` and
-``tests/test_torch_full.py::test_full_fixtures_regenerate`` re-run the
+``tests/test_torch_bucket.py::test_fixtures_regenerate``,
+``tests/test_torch_full.py::test_full_fixtures_regenerate``,
+``tests/test_torch_geometry.py::test_geometry_fixtures_regenerate`` and
+``tests/test_torch_grad.py::test_grad_fixtures_regenerate`` re-run the
 builders here and compare with the files.
 """
 
@@ -599,10 +622,225 @@ def write_full_fixtures():
               f"status_off={gd['off_status'].tolist()}")
 
 
+# ---------------------------------------------------- geometry fixtures
+
+#: the geometry keys of the full evaluator's ``geom`` rows: per member
+#: (one value per entry of ``fs.members``) and per row; each drawn
+#: uniformly over its range
+GEOM_MEMBER_KEYS = ("d_scale", "t_scale", "fill_scale", "rho_fill_scale")
+GEOM_ROW_KEYS = ("Cd_scale", "Ca_scale", "L_moor_scale", "EA_moor_scale")
+GEOM_BOX = dict(d_scale=(0.9, 1.1), t_scale=(0.9, 1.1),
+                fill_scale=(0.8, 1.2), rho_fill_scale=(0.9, 1.1),
+                Cd_scale=(0.5, 2.0), Ca_scale=(0.5, 1.5),
+                L_moor_scale=(0.98, 1.02), EA_moor_scale=(0.8, 1.2))
+GEOM_SEED = 20261021
+#: gradient goldens: the first GRAD_ROWS rows of these geometry sets, and
+#: GRAD_ROWS rows of GOLDEN_DESIGN_ROWS from the second on the three demos
+#: (the first, beta = 0 at unit scales, leaves some of the mhk demo's
+#: transverse strip velocities exactly 0, where the reference's
+#: derivative of the drag linearisation's masked per-axis rms is
+#: 0 * inf = NaN: jax.grad gives NaN for Ca_scale there)
+GRAD_SETS = ("spar", "semi", "semi_wind")
+GRAD_ROWS = 4
+GRAD_DESIGN_ROWS = GOLDEN_DESIGN_ROWS[1:1 + GRAD_ROWS]
+
+
+def geometry_rows(n_members, n=8, seed=GEOM_SEED):
+    """``n`` geometry rows over :data:`GEOM_BOX` from a fixed numpy seed:
+    (n, n_members) per-member scales, (n,) per-row scales."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    return {k: rng.uniform(*GEOM_BOX[k], (n, n_members)
+                           if k in GEOM_MEMBER_KEYS else n)
+            for k in GEOM_MEMBER_KEYS + GEOM_ROW_KEYS}
+
+
+def response_metric(out):
+    """The optimisation metric of one row, sum |Xi[0]|^2 + sum X0^2 (as
+    ``tests/test_design_sweep.py``'s reverse-mode test)."""
+    import jax.numpy as jnp
+
+    return jnp.sum(jnp.abs(out["Xi"][0]) ** 2) + jnp.sum(out["X0"] ** 2)
+
+
+def _with_fused(fused, fn):
+    prev = os.environ.get("RAFT_TPU_FUSED")
+    os.environ["RAFT_TPU_FUSED"] = fused
+    try:
+        return fn()
+    finally:
+        if prev is None:
+            os.environ.pop("RAFT_TPU_FUSED", None)
+        else:
+            os.environ["RAFT_TPU_FUSED"] = prev
+
+
+def _geometry_evaluator(name):
+    import raft_tpu
+    from raft_tpu.api import make_full_evaluator
+
+    model = raft_tpu.Model(full_design(name))
+    ev = make_full_evaluator(model, nWaves=FULL_SETS[name], geometry=True)
+    return model, ev
+
+
+def build_geometry_golden(name):
+    """The ``golden_geometry_<name>.npz`` dict: the set's full-evaluator
+    rows with :func:`geometry_rows` through the JAX geometry evaluator,
+    FUSED on and off."""
+    jax = _jax()
+    import numpy as np
+
+    rows = full_rows(name)
+    gd = dict(rows)
+    for fused in ("on", "off"):
+        def run():
+            model, ev = _geometry_evaluator(name)
+            geom = geometry_rows(len(model.fowtList[0].members))
+            gd.update({f"geom_{k}": v for k, v in geom.items()})
+            out = jax.jit(jax.vmap(ev))(dict(rows, geom=geom))
+            return {k: np.asarray(out[k]) for k in FULL_OUT_KEYS}
+        for k, v in _with_fused(fused, run).items():
+            gd[f"{fused}_{k}"] = v
+    return gd
+
+
+def _grad_pair(metric, args):
+    """Per-row jax.grad and jax.jacfwd of ``metric`` over the rows of
+    ``args``; asserts the two within 1e-10 x each key's max."""
+    jax = _jax()
+    import numpy as np
+
+    val = np.asarray(jax.jit(jax.vmap(metric))(*args))
+    grev = jax.jit(jax.vmap(jax.grad(metric)))(*args)
+    gfwd = jax.jit(jax.vmap(jax.jacfwd(metric)))(*args)
+    out = {}
+    for k in grev:
+        a, b = np.asarray(grev[k]), np.asarray(gfwd[k])
+        scale = float(np.max(np.abs(b)))
+        err = float(np.max(np.abs(a - b)))
+        assert np.all(np.isfinite(a)), (k, a)
+        assert err <= 1e-10 * scale, \
+            f"grad vs jacfwd {k}: {err} > 1e-10 x {scale}"
+        out[k] = a
+    return val, out
+
+
+def build_grad_golden(name):
+    """The ``golden_grad_<name>.npz`` dict: the response metric and its
+    reverse-mode gradient with respect to every geometry key on the
+    first :data:`GRAD_ROWS` geometry rows, FUSED on and off."""
+    _jax()
+    rows = {k: v[:GRAD_ROWS] for k, v in full_rows(name).items()}
+    gd = dict(rows)
+    for fused in ("on", "off"):
+        def run():
+            model, ev = _geometry_evaluator(name)
+            geom = {k: v[:GRAD_ROWS] for k, v in geometry_rows(
+                len(model.fowtList[0].members)).items()}
+            gd.update({f"geom_{k}": v for k, v in geom.items()})
+            return _grad_pair(
+                lambda g, r: response_metric(ev(dict(r, geom=g))),
+                (geom, rows))
+        val, g = _with_fused(fused, run)
+        gd[f"{fused}_metric"] = val
+        gd.update({f"{fused}_g_{k}": v for k, v in g.items()})
+    return gd
+
+
+#: the floor of the spectrum under :func:`_floored_jonswap`
+SPECTRUM_FLOOR = 1e-300
+
+
+def _floored_jonswap():
+    """A context in which the JAX package's ``jonswap`` returns its
+    spectrum floored at :data:`SPECTRUM_FLOOR`.
+
+    Where the JONSWAP tail underflows to 0 (f below about 0.2 / Tp), the
+    reference's ``sqrt(2 S dw)`` has the derivative 0 * inf = NaN, so
+    its gradient with respect to Hs and Tp is NaN on every row.  With
+    the floor the derivative there is 0, its limit; the amplitudes move
+    by about 1e-151, below every output's rounding (a floor whose
+    ``2 S dw`` is subnormal would be flushed to 0 by XLA on the CPU)."""
+    import contextlib
+
+    import jax.numpy as jnp
+
+    from raft_tpu.ops import waves
+
+    @contextlib.contextmanager
+    def ctx():
+        plain = waves.jonswap
+        waves.jonswap = lambda *a, **k: jnp.maximum(plain(*a, **k),
+                                                    SPECTRUM_FLOOR)
+        try:
+            yield
+        finally:
+            waves.jonswap = plain
+
+    return ctx()
+
+
+def build_grad_design_golden(name):
+    """The ``golden_grad_design_<name>.npz`` dict: the response metric
+    and its gradient with respect to the six design-evaluator inputs on
+    :data:`GRAD_DESIGN_ROWS`, FUSED on and off, with the spectrum floored
+    (:func:`_floored_jonswap`)."""
+    _jax()
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.api import make_design_evaluator
+
+    params = {k: np.asarray(c, dtype=float) for k, c in
+              zip(DESIGN_KEYS, zip(*GRAD_DESIGN_ROWS))}
+    gd = dict(params)
+    for fused in ("on", "off"):
+        def run():
+            model = raft_tpu.Model(os.path.join(ROOT, "raft_tpu", "designs",
+                                                DESIGNS[name]))
+            ev = make_design_evaluator(model)
+            with _floored_jonswap():
+                return _grad_pair(lambda p: response_metric(ev(p)),
+                                  (params,))
+        val, g = _with_fused(fused, run)
+        gd[f"{fused}_metric"] = val
+        gd.update({f"{fused}_g_{k}": v for k, v in g.items()})
+    return gd
+
+
+def write_geometry_fixtures(parts=("geometry", "grad", "grad_design")):
+    """Write every geometry and gradient golden (of ``parts``)."""
+    import numpy as np
+
+    for name in FULL_SETS if "geometry" in parts else ():
+        gd = build_geometry_golden(name)
+        np.savez_compressed(
+            os.path.join(OUT_DIR, f"golden_geometry_{name}.npz"), **gd)
+        print(f"geometry {name}: status_on={gd['on_status'].tolist()} "
+              f"n_iter_on={gd['on_n_iter_drag'].tolist()}", flush=True)
+    for name in GRAD_SETS if "grad" in parts else ():
+        gd = build_grad_golden(name)
+        np.savez_compressed(
+            os.path.join(OUT_DIR, f"golden_grad_{name}.npz"), **gd)
+        print(f"grad {name}: metric_on={gd['on_metric'].tolist()}",
+              flush=True)
+    for name in DESIGNS if "grad_design" in parts else ():
+        gd = build_grad_design_golden(name)
+        np.savez_compressed(
+            os.path.join(OUT_DIR, f"golden_grad_design_{name}.npz"), **gd)
+        print(f"grad design {name}: metric_on={gd['on_metric'].tolist()}",
+              flush=True)
+
+
 def main():
     import numpy as np
 
     os.makedirs(OUT_DIR, exist_ok=True)
+    if sys.argv[1:] and sys.argv[1] == "--geometry":
+        write_geometry_fixtures(*([sys.argv[2:]] if sys.argv[2:] else []))
+        return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
         np.savez_compressed(os.path.join(OUT_DIR, f"packed_{name}.npz"), **pk)
@@ -618,6 +856,7 @@ def main():
               f"L={int(pk['sig_L'])} status_on={gd['on_status'].tolist()} "
               f"n_iter_on={gd['on_n_iter_drag'].tolist()}")
     write_full_fixtures()
+    write_geometry_fixtures()
 
 
 if __name__ == "__main__":

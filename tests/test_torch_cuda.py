@@ -7,9 +7,11 @@ it there without the repository's conftest (which imports JAX)::
     PYTHONPATH=. python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances are the kernel-vs-plain ones of ``chip_smoke.py``: float64
-within 1e-12 x max|x|, float32 within 1e-5 x max|x|; the slice, the
-design and the full evaluator within 1e-10 x max of the JAX goldens with
-``status`` and ``n_iter_drag`` equal.
+within 1e-12 x max|x|, float32 within 1e-5 x max|x| (the forward and the
+adjoint entry alike); the slice, the design, the full and the geometry
+evaluator within 1e-10 x max of the JAX goldens with ``status`` and
+``n_iter_drag`` equal; reverse-mode gradients within 1e-9 x each key's
+max|g| of the JAX goldens.
 """
 
 import json
@@ -22,6 +24,7 @@ import torch
 from raft_tpu_torch.api import (ENV_KEYS, FULL_OUT_KEYS, SEA_KEYS,
                                 make_design_evaluator,
                                 make_full_evaluator)
+from raft_tpu_torch.models import dynamics
 from raft_tpu_torch.models.model import Model
 from raft_tpu_torch.ops import linsolve
 from raft_tpu_torch.structure import bucketing as tb
@@ -157,3 +160,89 @@ def test_full_on_card_matches_goldens(cuda, name, nWaves):
             np.testing.assert_array_equal(a, b, err_msg=k)
         else:
             assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 2, 3, 6, 9, 12])
+@pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-12),
+                                       (torch.complex64, 1e-5)])
+def test_adjoint_kernel_matches_plain(cuda, N, dtype, tol):
+    """The adjoint entry on the forward's planes against
+    ``_native_solve(Z.mH, G)``."""
+    Z, G = systems(N, (3,), 41, N + 100)
+    Z, G = Z.to(dtype).to(cuda), G.to(dtype).to(cuda)
+    _, planes = linsolve._cuda_solve(Z, G, keep_planes=True)
+    before = linsolve.ADJ_KERNEL_LAUNCHES
+    lam = linsolve._cuda_solve_adj(planes, G)
+    torch.cuda.synchronize()
+    assert linsolve.ADJ_KERNEL_LAUNCHES == before + 1
+    ref = linsolve._native_solve(Z.mH, G)
+    scale = float(torch.max(torch.abs(ref)))
+    assert float(torch.max(torch.abs(lam - ref))) <= tol * scale
+
+
+@pytest.mark.cuda
+def test_solve_backward_on_card_matches_cpu(cuda):
+    """The solve's gradient through the adjoint kernel (broadcast Z) on
+    the card against the same backward on the CPU."""
+    Z, _ = systems(6, (4, 1), 17, 7)
+    F = torch.as_tensor(np.random.default_rng(2).normal(size=(4, 3, 17, 6))
+                        + 1j)
+    grads = []
+    for dev in ("cpu", cuda):
+        z = Z.to(dev).requires_grad_()
+        f = F.to(dev).requires_grad_()
+        x = linsolve.solve(z, f)
+        gz, gf = torch.autograd.grad((x.abs() ** 2).sum(), (z, f))
+        grads.append((gz.cpu(), gf.cpu()))
+    for a, b in zip(*grads):
+        assert a.shape == b.shape
+        assert float(torch.max(torch.abs(a - b))) <= \
+            1e-12 * float(torch.max(torch.abs(b)))
+
+
+def _geometry_rows(g):
+    return ({k: g[k] for k in ENV_KEYS + SEA_KEYS},
+            {k[5:]: g[k] for k in g if k.startswith("geom_")})
+
+
+@pytest.mark.cuda
+def test_geometry_on_card_matches_goldens(cuda):
+    """The geometry evaluator's golden rows of semi_wind on the card,
+    FUSED on, float64."""
+    with open(os.path.join(FIX, "design_semi_wind.json")) as f:
+        model = Model(json.load(f))
+    g = np.load(os.path.join(FIX, "golden_geometry_semi_wind.npz"))
+    rows, geom = _geometry_rows(g)
+    out = make_full_evaluator(model, nWaves=1, device=cuda,
+                              geometry=True)(geom=geom, **rows)
+    for k in FULL_OUT_KEYS:
+        a, b = out[k].cpu().numpy(), g["on_" + k]
+        if k in ("status", "n_iter_drag", "drag_converged"):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k
+
+
+@pytest.mark.cuda
+def test_geometry_gradient_on_card_matches_goldens(cuda):
+    """Reverse-mode gradients of sum |Xi[0]|^2 + sum X0^2 with respect to
+    every geometry key of spar's golden rows on the card; the adjoint
+    kernel launches at least once per Neumann step."""
+    with open(os.path.join(FIX, "design_spar.json")) as f:
+        model = Model(json.load(f))
+    g = np.load(os.path.join(FIX, "golden_grad_spar.npz"))
+    rows, geom = _geometry_rows(g)
+    geom = {k: torch.tensor(v, device=cuda, requires_grad=True)
+            for k, v in geom.items()}
+    out = make_full_evaluator(model, nWaves=2, device=cuda,
+                              geometry=True)(geom=geom, **rows)
+    metric = (out["Xi"][:, 0].abs() ** 2).sum((-2, -1)) \
+        + (out["X0"] ** 2).sum(-1)
+    before = linsolve.ADJ_KERNEL_LAUNCHES
+    grads = torch.autograd.grad(metric.sum(), list(geom.values()))
+    assert linsolve.ADJ_KERNEL_LAUNCHES - before >= dynamics.NEUMANN_STEPS
+    for k, a in zip(geom, grads):
+        b = g["on_g_" + k]
+        assert np.max(np.abs(a.cpu().numpy() - b)) <= \
+            1e-9 * np.max(np.abs(b)), k

@@ -191,8 +191,8 @@ def test_design_case_rows_evaluate():
 
 def test_refusals_by_message():
     """What the full path still refuses: potential-flow (BEM) members
-    and coefficient files, external QTFs, the geometry axis, beams,
-    arrays."""
+    and coefficient files, external QTFs, beams, arrays, and gradients
+    through the aero stage's inputs."""
     d = design("spar")
     bem = copy.deepcopy(d)
     bem["platform"]["potModMaster"] = 0
@@ -212,8 +212,9 @@ def test_refusals_by_message():
     arr["array"] = {"keys": ["ID"], "data": [[1], [2]]}
     with pytest.raises(NotImplementedError, match=r"array.*ROADMAP A11"):
         Model(arr)
-    with pytest.raises(NotImplementedError, match=r"geometry.*ROADMAP A9"):
-        tapi.make_full_evaluator(model("spar"), device="cpu", geometry=True)
+    U = torch.tensor([8.0], dtype=torch.float64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match=r"aero.*ROADMAP A12"):
+        evaluator("semi_wind")(wind_speed=U, Hs=4.0, Tp=9.0)
 
 
 def test_no_device_without_cuda_raises(monkeypatch):
