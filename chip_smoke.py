@@ -82,9 +82,29 @@ Phases, each printing one line (the last line is the result object):
              _native_solve(Z.mH, G) at 20,480 systems (bit-equal), its
              time beside the byte bound, the plain version's and
              torch.linalg.solve's on the same adjoint systems.
-14. kernels - one JSON object listing both entries of the solve kernel,
-             the forward with its launches on every path and the adjoint
-             with its launches on the grad path.
+14. farm    - the farm evaluator (make_farm_evaluator, float64) on
+             design_farm_semi_wind.json, two units with their own
+             catenaries and a shared line over a free buoy (nT = 12):
+             warm-up on the golden rows alone, then FARM_ROWS (1024)
+             seeded operating rows (free-stream wind for the upstream
+             unit, a wake deficit of 0-35% for the downstream one) with
+             the golden rows first, held against golden_farm_semi_wind.npz;
+             farm-evals/s, stage ms (aero, statics, excitation,
+             fixed_point, system_response), statics Newton iterations per
+             chunk and free-point steps per network solve, status-bit
+             shares, the solve kernel's launches against the trips run
+             (per chunk: trips + the final update at N = 6 + the system
+             response at N = 12); then the golden rows of the three-spar
+             farm (nT = 18, torch.linalg.solve), held, untimed.
+15. kernel12 - the kernel at the farm's system-response shape (512 rows
+             x 40 frequencies = 20,480 systems of N = 12, complex128)
+             bit-equal to its plain version; its time, the plain
+             version's, torch.linalg.solve's and the bound.
+16. profile_farm - torch.profiler over one 512-row farm chunk: kernel
+             launches, device busy time, idle share.
+17. kernels - one JSON object listing both entries of the solve kernel,
+             the forward with its launches on every path (and its N = 12
+             times) and the adjoint with its launches on the grad path.
 
 Exits non-zero, before printing any result, without CUDA, outside the
 repository, or when any phase misses its tolerance.  Measurements go to
@@ -133,6 +153,8 @@ GEOM_BOX = dict(d_scale=(0.9, 1.1), t_scale=(0.9, 1.1),
                 L_moor_scale=(0.98, 1.02), EA_moor_scale=(0.8, 1.2))
 GRAD_ROWS = 512                        # rows of the grad phase (one chunk)
 GRAD_TOL = 1e-9                        # x each key's max |golden gradient|
+FARM_ROWS = 1024                       # rows of the farm phase (2 chunks)
+FARM_SEED = 20261023
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -230,6 +252,44 @@ def phase_build(out_dir):
     return dict(build_s=dt, ptxas=report)
 
 
+def time_kernel(Z, F):
+    """CUDA-event times of the raw kernel, the wrapper, the plain version
+    and torch.linalg.solve on the systems Z (..., N, N) against F
+    (..., N), float64, the kernel's max abs difference from the plain
+    version, and its bound: the larger of the bytes it must move (Z, F
+    and x, each once) over the memory rate and its operations over the
+    FP64 peak."""
+    from raft_tpu_torch.ops import linsolve
+
+    N = Z.shape[-1]
+    B = F.numel() // N
+    planes, _ = linsolve.soa_planes(Z, F)
+    xr, xi = torch.empty_like(planes[2]), torch.empty_like(planes[2])
+
+    def raw():
+        err = linsolve.launch(planes, xr, xi)
+        check(err == 0, f"raw kernel launch N={N} failed: cudaError {err}")
+
+    t = dict(
+        N=N, systems=B,
+        ms=cuda_time(raw, reps=100, queue_ahead=True),
+        wrapper_ms=cuda_time(lambda: linsolve._cuda_solve(Z, F), reps=50),
+        plain_ms=cuda_time(lambda: linsolve._native_solve(Z, F), reps=10),
+        library_ms=cuda_time(lambda: torch.linalg.solve(Z, F[..., None]),
+                             reps=10),
+    )
+    x_k = linsolve._cuda_solve(Z, F)
+    x_p = linsolve._native_solve(Z, F)
+    nbytes = B * (2 * N * N + 2 * N + 2 * N) * 8
+    bound_bytes = nbytes / MEM_BPS * 1e3
+    bound_ops = B * ge_flops(N) / PEAK_FLOPS[torch.float64] * 1e3
+    t.update(max_abs_err=float(torch.max(torch.abs(x_k - x_p))),
+             bytes=nbytes, flops=B * ge_flops(N),
+             bound_ms=max(bound_bytes, bound_ops),
+             bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+    return t
+
+
 def phase_kernel():
     from raft_tpu_torch.ops import linsolve
 
@@ -268,31 +328,8 @@ def phase_kernel():
     Z = impedance_systems(rng, 6, (512,), 40, torch.complex128).to(dev)
     F = torch.as_tensor(rng.normal(size=(512, 40, 6))
                         + 1j * rng.normal(size=(512, 40, 6))).to(dev)
-    B, N = 512 * 40, 6
-    planes, _ = linsolve.soa_planes(Z, F)
-    xr, xi = torch.empty_like(planes[2]), torch.empty_like(planes[2])
-
-    def raw():
-        err = linsolve.launch(planes, xr, xi)
-        check(err == 0, f"raw kernel launch failed: cudaError {err}")
-
-    t = dict(
-        ms=cuda_time(raw, reps=100, queue_ahead=True),
-        wrapper_ms=cuda_time(lambda: linsolve._cuda_solve(Z, F), reps=50),
-        plain_ms=cuda_time(lambda: linsolve._native_solve(Z, F), reps=10),
-        library_ms=cuda_time(lambda: torch.linalg.solve(Z, F[..., None]),
-                             reps=10),
-    )
-    x_k = linsolve._cuda_solve(Z, F)
-    x_p = linsolve._native_solve(Z, F)
-    max_abs_err = float(torch.max(torch.abs(x_k - x_p)))
-    nbytes = B * (2 * N * N + 2 * N + 2 * N) * 8
-    bound_bytes = nbytes / MEM_BPS * 1e3
-    bound_ops = B * ge_flops(N) / PEAK_FLOPS[torch.float64] * 1e3
-    t.update(max_abs_err=max_abs_err, bytes=nbytes, flops=B * ge_flops(N),
-             bound_ms=max(bound_bytes, bound_ops),
-             bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-             worst_rel={f"{k[0]} N={k[1]} {k[2]}": e / s
+    t = time_kernel(Z, F)
+    t.update(worst_rel={f"{k[0]} N={k[1]} {k[2]}": e / s
                         for k, (e, s) in worst.items()})
     n_checks = len(worst)
     print(f"kernel: {n_checks} comparisons within tolerance (f64 "
@@ -300,7 +337,7 @@ def phase_kernel():
           f"kernel {t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms, plain "
           f"{t['plain_ms']:.3f} ms, torch.linalg.solve {t['library_ms']:.3f} "
           f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), max abs err "
-          f"{max_abs_err:.3e}")
+          f"{t['max_abs_err']:.3e}")
     return t
 
 
@@ -1300,6 +1337,205 @@ def phase_grad(geo_ev, demo_models, card):
     return res
 
 
+def farm_rows(gold, n, seed=FARM_SEED):
+    """``n`` rows of the farm's operating traffic, the golden rows first:
+    free-stream wind U over 3-25 m/s (5% at 0), the upstream unit at U
+    and the downstream one at U (1 - d), d uniform over 0-0.35 (a
+    Gaussian wake's deficit at 8 diameters); TI 0.05-0.20, wind heading
+    -30 to 30 deg, yaw -8 to 8 deg, current 0-1 m/s from 0-360 deg, Hs
+    1-12 m, Tp 4-20 s, beta 0-180 deg, gamma 0 (the IEC default)."""
+    from raft_tpu_torch.api import ENV_KEYS, SEA_KEYS
+
+    rng = np.random.default_rng(seed)
+    m = n - len(gold["Hs"])
+    u = rng.uniform
+    U = u(3.0, 25.0, m)
+    U[rng.random(m) < 0.05] = 0.0
+    new = dict(wind_speed=np.stack([U, U * (1.0 - u(0.0, 0.35, m))], axis=1),
+               wind_heading_deg=u(-30.0, 30.0, m), TI=u(0.05, 0.20, m),
+               yaw_misalign_deg=u(-8.0, 8.0, m), current_speed=u(0.0, 1.0, m),
+               current_heading_deg=u(0.0, 360.0, m),
+               Hs=u(1.0, 12.0, (m, 1)), Tp=u(4.0, 20.0, (m, 1)),
+               gamma=np.zeros((m, 1)), beta_deg=u(0.0, 180.0, (m, 1)))
+    return {k: np.concatenate([gold[k], new[k]]) for k in ENV_KEYS + SEA_KEYS}
+
+
+def _farm(name):
+    """(Model, nWaves, golden dict) of a farm fixture."""
+    from raft_tpu_torch.models.model import Model
+
+    with open(os.path.join(FIX, f"design_farm_{name}.json")) as f:
+        model = Model(json.load(f), base_dir=FIX)
+    gold = dict(np.load(os.path.join(FIX, f"golden_farm_{name}.npz")))
+    return model, gold["Hs"].shape[1], gold
+
+
+def phase_farm(card, rows=FARM_ROWS):
+    """The farm evaluator on the two-unit shared-mooring farm: warm-up on
+    the golden rows (held), then ``rows`` operating rows with the golden
+    rows first, timed per stage, the statics' network evaluations per
+    chunk, the kernel's launches against the trips run, status shares;
+    then the three-spar farm's golden rows (nT = 18, the library solve),
+    held, untimed."""
+    from raft_tpu_torch.api import FARM_OUT_KEYS, FARM_STAGES
+    from raft_tpu_torch.api import make_farm_evaluator
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.physics.mooring import MooringNetwork
+    from raft_tpu_torch.utils import config
+
+    model, nW, gold = _farm("semi_wind")
+    ev = make_farm_evaluator(model, nWaves=nW, device=DEVICE)
+    n_gold = len(gold["Hs"])
+    pfx = "on_" if config.get("FUSED") == "on" else "off_"
+
+    def run(p, timer=None):
+        return {k: v.cpu().numpy() for k, v in ev(**p, timer=timer).items()}
+
+    t0 = time.time()
+    out = run(farm_rows(gold, n_gold))
+    warm_s = time.time() - t0
+    worst = hold_goldens(out, {"semi_wind": np.arange(n_gold)},
+                         {"semi_wind": gold}, pfx, "farm", keys=FARM_OUT_KEYS)
+
+    p = farm_rows(gold, rows)
+    timer = StageTimer()
+    calls = []
+
+    def mark(stage):
+        if stage == "start":
+            calls.append(ev.mooring.calls)
+        elif stage == "statics":
+            calls[-1] = ev.mooring.calls - calls[-1]
+        timer(stage)
+
+    linsolve.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out = run(p, mark)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = linsolve.KERNEL_LAUNCHES
+    main = hold_goldens(out, {"semi_wind": np.arange(n_gold)},
+                        {"semi_wind": gold}, pfx, "farm", keys=FARM_OUT_KEYS)
+    for k, v in main.items():
+        worst[k] = max(worst[k], v)
+    for k in ("X0", "Xi", "PSD"):
+        check(np.all(np.isfinite(out[k])), f"farm: non-finite {k}")
+    cap = ev.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
+        + max(int(ev.n_iter_extra), 0)
+    chunk_rows = int(config.get("BUCKET_ROWS")) or rows
+    # per chunk: the trips, the fixed point's final update and the system
+    # response (N = 12, the kernel)
+    exp = expected_launches(out["n_iter_drag"].max(axis=1), chunk_rows, cap,
+                            min(max(1, config.get("SCAN_CHUNK")), cap),
+                            fused=False)
+    check(launches == exp, f"farm: solve kernel launched {launches} times, "
+          f"expected {exp}")
+    chunks = timer.chunks()
+    stage_ms = {s: sum(c.get(s, 0.0) for c in chunks) for s in FARM_STAGES}
+    st = out["status"]
+    res = dict(
+        rows=rows, nT=ev.nT, wall_s=wall, evals_per_s=rows / wall,
+        device_evals_per_s=rows / (sum(stage_ms.values()) / 1e3),
+        warm_s=warm_s, chunks=len(chunks), stage_ms=stage_ms,
+        statics_share=stage_ms["statics"] / sum(stage_ms.values()),
+        newton_per_chunk=[c - 1 for c in calls],
+        free_point_steps=MooringNetwork.FREE_STEPS,
+        launches=launches, expected_launches=exp,
+        n_iter_drag_max=int(out["n_iter_drag"].max()),
+        status_shares=_status_shares(st),
+        worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()})
+    print(f"farm semi_wind on {card}: {rows} rows x 2 units (nT {ev.nT}), "
+          f"{res['chunks']} chunks in {wall:.2f} s = "
+          f"{res['evals_per_s']:.2f} farm-evals/s; stage ms "
+          + ", ".join(f"{k} {v:.1f}" for k, v in stage_ms.items())
+          + f" (statics {100 * res['statics_share']:.1f}%); statics Newton "
+          f"iterations per chunk {res['newton_per_chunk']} (one network "
+          f"solve each, {MooringNetwork.FREE_STEPS} free-point steps per "
+          f"solve); solve kernel launches {launches} (expected {exp}: trips "
+          f"+ final update at N = 6 + system response at N = 12, per "
+          f"chunk); status shares {res['status_shares']}")
+    print("  farm goldens (gate {:g} x max; status, n_iter_drag equal): "
+          .format(SLICE_TOL) + ", ".join(
+              f"{k} {v:.1e}" for k, v in res["worst_rel"].items()))
+
+    model3, nW3, gold3 = _farm("spar3")
+    ev3 = make_farm_evaluator(model3, nWaves=nW3, device=DEVICE)
+    out3 = {k: v.cpu().numpy() for k, v in ev3(
+        **{k: gold3[k] for k in p}).items()}
+    res["spar3_worst_rel"] = {
+        k.split(".", 1)[1]: v for k, v in hold_goldens(
+            out3, {"spar3": np.arange(len(gold3["Hs"]))}, {"spar3": gold3},
+            pfx, "farm", keys=FARM_OUT_KEYS).items()}
+    print(f"  spar3 (3 units, nT {ev3.nT}, torch.linalg.solve) goldens: "
+          + ", ".join(f"{k} {v:.1e}"
+                      for k, v in res["spar3_worst_rel"].items()))
+    return res, ev, p
+
+
+def phase_kernel12(rows=512, nw=40):
+    """The kernel at the farm's system response shape: rows x nw systems
+    of N = 12, complex128, against its plain version (the same op order:
+    bit-equal expected), timed beside torch.linalg.solve and the bound."""
+    rng = np.random.default_rng(12)
+    Z = impedance_systems(rng, 12, (rows,), nw, torch.complex128).to(DEVICE)
+    F = torch.as_tensor(rng.normal(size=(rows, nw, 12))
+                        + 1j * rng.normal(size=(rows, nw, 12))).to(DEVICE)
+    t = time_kernel(Z, F)
+    check(t["max_abs_err"] == 0.0, f"kernel N=12: differs from its plain "
+          f"version by {t['max_abs_err']:.3e}")
+    print(f"kernel12: {t['systems']:,} systems N=12 f64: kernel "
+          f"{t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms, plain "
+          f"{t['plain_ms']:.3f} ms, torch.linalg.solve {t['library_ms']:.3f} "
+          f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), bit-equal")
+    return t
+
+
+def _device_profile(fn):
+    """(wall ms, device busy ms, runtime kernel launches, device events)
+    of one call of ``fn`` under torch.profiler with the CUDA activity
+    alone, read from the profiler's raw events: ``key_averages`` builds
+    one Python object per event, too slow for the millions of launches
+    of a farm chunk."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    busy_ns = launches = device_events = 0
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+            device_events += 1
+        elif e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += 1
+    return wall_ms, busy_ns / 1e6, launches, device_events
+
+
+def phase_profile_farm(ev, p, rows=512):
+    """torch.profiler over one ``rows``-row chunk of the farm: runtime
+    kernel launches, device events, busy time and idle share."""
+    q = {k: v[:rows] for k, v in p.items()}
+    wall, busy, launches, events = _device_profile(lambda: ev(**q))
+    res = dict(wall_ms=wall, busy_ms=busy, kernel_launches=launches,
+               device_events=events,
+               idle_share=(1.0 - busy / wall) if wall else None)
+    if busy > 0:
+        print(f"profile_farm: one {rows}-row farm chunk: {launches} kernel "
+              f"launches, {events} device events, device busy {busy:.1f} ms "
+              f"of {wall:.1f} ms (under the profiler), idle share "
+              f"{res['idle_share']:.3f}")
+    else:
+        print("profile_farm: the profiler recorded no device time "
+              "(not measured)")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
@@ -1349,6 +1585,10 @@ def main():
                                         rotor_models[GEOMETRY_DESIGN],
                                         rec["card"])
         rec["grad"] = timed("grad", phase_grad, geo_ev, models, rec["card"])
+        rec["farm"], farm_ev, farm_p = timed("farm", phase_farm, rec["card"])
+        rec["kernel12"] = timed("kernel12", phase_kernel12)
+        rec["profile_farm"] = timed("profile_farm", phase_profile_farm,
+                                    farm_ev, farm_p)
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1359,7 +1599,9 @@ def main():
         **{f"full_{n}": r["launches"] for n, r in rec["full"].items()},
         geometry=rec["geometry"]["launches"],
         grad=rec["grad"]["fwd_launches"],
-        grad_adjoint=rec["grad"]["adj_launches"])
+        grad_adjoint=rec["grad"]["adj_launches"],
+        farm=rec["farm"]["launches"])
+    k12 = rec["kernel12"]
     kernels = [dict(
         name="ge_solve", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
@@ -1367,10 +1609,13 @@ def main():
         launches=(rec["slice"]["launches"] + rec["design"]["launches"]
                   + sum(r["launches"] for r in rec["full"].values())
                   + rec["geometry"]["launches"]
-                  + rec["grad"]["fwd_launches"]),
+                  + rec["grad"]["fwd_launches"] + rec["farm"]["launches"]),
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
-        bound_by=k["bound_by"], library_ms=k["library_ms"]), dict(
+        bound_by=k["bound_by"], library_ms=k["library_ms"],
+        n12_ms=k12["ms"], n12_plain_ms=k12["plain_ms"],
+        n12_bound_ms=k12["bound_ms"], n12_library_ms=k12["library_ms"],
+        n12_max_abs_err=k12["max_abs_err"]), dict(
         name="ge_solve_adj", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
         replaces="raft_tpu/ops/linsolve.py:277",

@@ -1,4 +1,4 @@
-"""PyTorch/CUDA port of raft_tpu's rigid single-FOWT evaluators.
+"""PyTorch/CUDA port of raft_tpu's rigid-FOWT and farm evaluators.
 
 The JAX package :mod:`raft_tpu` is the reference; this package mirrors
 its module paths (``raft_tpu_torch/ops/linsolve.py`` is the counterpart
@@ -23,6 +23,10 @@ Entry points:
   over rows of wind, current and seas, forward only, with
   :func:`~raft_tpu_torch.api.case_to_traced` turning a case-table row
   into its row parameters;
+* :func:`raft_tpu_torch.api.make_farm_evaluator` — an array design's
+  batched farm evaluator (several rigid units, their own moorings and a
+  shared-mooring network from a MoorDyn file, the coupled statics and
+  the system response), forward only;
 * :class:`raft_tpu_torch.structure.bucketing.BucketEvaluator` — one
   bucket signature's batched evaluator (statics, excitation, drag
   fixed point, response);

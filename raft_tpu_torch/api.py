@@ -639,3 +639,432 @@ def make_full_evaluator(model, nWaves=1, turb_static=None, device=None,
     reference interpolates in ``d_scale``, ROADMAP A11)."""
     return FullEvaluator(model, nWaves=nWaves, turb_static=turb_static,
                          device=device, geometry=geometry)
+
+
+# ------------------------------------------------------------------ farm
+
+#: the output keys of :class:`FarmEvaluator`, as the reference's
+FARM_OUT_KEYS = ("X0", "Xi", "PSD", "S", "zeta", "drag_resid", "n_iter_drag",
+                 "status")
+#: the stages a :class:`FarmEvaluator` timer is called with, in order
+FARM_STAGES = ("aero", "statics", "excitation", "fixed_point",
+               "system_response")
+
+
+class FarmMooring:
+    """``mooring_fn(X) -> (F, C)`` of an array over its poses X (R, nT):
+    every unit's own catenary lines (padded to one line count, masked)
+    as rows of one catenary call, then each network, a unit's own
+    (MoorDyn file with free points) or the array's shared one last,
+    as the reference's closures add them.  C is the units' blocks plus
+    the shared network's coupled stiffness; :meth:`parts` gives the two
+    apart at a pose (the system impedance takes them apart), and
+    ``calls`` counts the evaluations."""
+
+    def __init__(self, lines, networks, nF):
+        self.lines = lines          # (fair0, anchor, L, w, EA, mask) or None
+        self.networks = networks    # [(network, unit indices, shared)]
+        self.nF = nF
+        self.calls = 0
+        self._last = None
+
+    def _evaluate(self, X):
+        R, nF = X.shape[0], self.nF
+        Xb = X.reshape(R, nF, 6)
+        F = torch.zeros_like(Xb)
+        C_units = torch.zeros((R, nF, 6, 6), dtype=X.dtype, device=X.device)
+        Ka = torch.zeros((R, 6 * nF, 6 * nF), dtype=X.dtype, device=X.device)
+        if self.lines is not None:
+            from raft_tpu_torch.physics import mooring
+
+            args = [a[None].expand((R,) + a.shape).reshape(
+                (R * nF,) + a.shape[1:]) for a in self.lines]
+            Fl, Cl = mooring.line_forces_and_stiffness(
+                *args, Xb.reshape(R * nF, 6))
+            F = F + Fl.reshape(R, nF, 6)
+            C_units = C_units + Cl.reshape(R, nF, 6, 6)
+        for net, units, shared in self.networks:
+            out = net.solve(Xb[:, units])
+            F[:, units] += out["F"]
+            if shared:
+                idx = torch.as_tensor([6 * u + j for u in units
+                                       for j in range(6)], device=X.device)
+                Ka[:, idx[:, None], idx] += out["K"]
+            else:
+                C_units[:, units[0]] += out["K"]
+        self.calls += 1
+        self._last = (X, C_units, Ka)
+        return F, C_units, Ka
+
+    def __call__(self, X):
+        F, C_units, Ka = self._evaluate(X)
+        return F.reshape(X.shape), _block_diag(C_units) + Ka
+
+    def parts(self, X):
+        """(C_units (R, nF, 6, 6), the shared network's stiffness
+        (R, nT, nT)) at X: the last evaluation's when it was at X."""
+        last = self._last
+        if last is None or last[0].shape != X.shape or not torch.equal(
+                last[0], X):
+            self._evaluate(X)
+        return self._last[1], self._last[2]
+
+
+def _block_diag(blocks):
+    """(R, n, k, k) blocks -> (R, n k, n k) block-diagonal matrices."""
+    R, n, k = blocks.shape[:3]
+    out = torch.zeros((R, n, k, n, k), dtype=blocks.dtype,
+                      device=blocks.device)
+    i = torch.arange(n, device=blocks.device)
+    out[:, i, :, i, :] = blocks.transpose(0, 1)
+    return out.reshape(R, n * k, n * k)
+
+
+class FarmEvaluator(nn.Module):
+    """Batched full-physics evaluator of a multi-FOWT array (the
+    reference's ``make_farm_evaluator``), forward only.
+
+    ``forward(**rows, timer=None)`` takes R rows of :data:`ENV_KEYS` and
+    :data:`SEA_KEYS` as :class:`FullEvaluator` does, except that
+    ``wind_speed`` may be per unit (the waked speeds): a scalar, (R,) or
+    (R, nFOWT).  It returns :data:`FARM_OUT_KEYS` per row: X0 (nT,), Xi
+    (nWaves + 1, nT, nw) (the last heading zero), PSD, S and zeta per
+    heading, drag_resid and n_iter_drag per unit and one status word
+    (nT = 6 nFOWT).  Per chunk of ``RAFT_TPU_BUCKET_ROWS`` rows, with the
+    units of a row as extra rows of each per-unit stage:
+
+    1. ``aero``: every active rotor of every unit at that unit's speed,
+       one blade-element call per rotor for all units alike;
+    2. ``statics``: current loads at each unit's zero pose, then the
+       coupled equilibrium over all units with their own moorings and
+       the shared network (:class:`FarmMooring`);
+    3. ``excitation``: each unit's strip excitation at its displaced
+       pose, the array phase carried by its absolute node positions;
+    4. ``fixed_point``: each unit's drag-linearised impedance with its
+       own mooring stiffness only, every (row, unit) with its own trips;
+    5. ``system_response``: the block impedance of the units plus the
+       shared network's stiffness at X0, solved for every heading (N =
+       nT: the solve kernel up to N = 12, ``torch.linalg.solve`` above).
+
+    The status word ORs every unit's dynamics bits with the coupled
+    statics bits and the output guards.  The reference's evaluator has
+    no ``RAFT_TPU_FUSED`` path, and neither does this one.
+    """
+
+    def __init__(self, model, nWaves=1, turb_static=None, device=None):
+        super().__init__()
+        from raft_tpu_torch.models.statics_solve import make_tolerances
+        from raft_tpu_torch.physics.aero import rotor_tensors
+        from raft_tpu_torch.physics.mooring import MooringNetwork
+        from raft_tpu_torch.physics.statics import node_T
+        from raft_tpu_torch.structure import bucketing
+
+        device = resolve_device(device)
+        self.device = device
+        self.rdt, self.cdt = compute_dtypes()
+        fowts = model.fowtList
+        self.nF = nF = model.nFOWT
+        if any(fs.nDOF != 6 for fs in fowts):
+            raise NotImplementedError(
+                "the farm evaluator covers rigid 6-DOF units (flexible "
+                "units: ROADMAP A11)")
+        self.nT = 6 * nF
+        self.nWaves = int(nWaves)
+        if self.nWaves < 1:
+            raise ValueError(f"nWaves={nWaves}: need at least one heading")
+        self.turb_static = tuple(turb_static or ("NTM", 50.0))
+        self.fs = fowts[0]
+        self.nw = model.nw
+        self.dw = float(model.w[1] - model.w[0])
+        self.n_iter, self.Xi_start = model.nIter, model.XiStart
+        self.n_iter_extra = model.nIterExtra
+        kw = dict(dtype=self.rdt, device=device)
+        self.w = torch.as_tensor(np.asarray(model.w, dtype=float), **kw)
+
+        # every unit packed into one signature (the largest strip and
+        # node counts), its mooring left to FarmMooring
+        S = max(model.hydro[i].strips.S for i in range(nF))
+        N = max(fs.n_nodes for fs in fowts)
+        self.N = N
+        sig = ("rigid6", bucketing.BUCKET_VERSION, S, N, 0,
+               tuple(float(x) for x in np.asarray(model.w)),
+               int(model.nIter), float(model.XiStart), int(model.nIterExtra))
+        self.units = bucketing.packed_from_numpy(bucketing.stack_packed(
+            [bucketing.pack_design(model, sig, ifowt=i, mooring=False)
+             for i in range(nF)]), device)
+        u = self.units
+        self.K_h = _block_diag(u["K_h"][None])[0]
+        self.C_elast = torch.as_tensor(np.stack(
+            [model.statics(i)["C_elast"] for i in range(nF)])).to(**kw)
+        self.C_elast_T = _block_diag(self.C_elast[None])[0]
+        self.F_und = u["F_und"].reshape(-1)
+
+        def padded(a, fill):
+            a = np.asarray(a)
+            tail = np.full((S - a.shape[0],) + a.shape[1:], fill, a.dtype)
+            return np.concatenate([a, tail])
+
+        self.hc0 = {k: torch.as_tensor(np.stack([
+            padded(model.hydro[i].hc0[k], False if k == "sub" else 0.0)
+            for i in range(nF)])).to(
+                device=device, dtype=torch.bool if k == "sub" else self.rdt)
+            for k in ("r", "q", "p1", "p2", "sub")}
+        self.Tn0 = node_T(u["node_r0"], u["node_r0"][torch.arange(nF),
+                                                     u["root"].long()])
+        self.Zref = torch.as_tensor(
+            [min([r.Zhub for r in fs.rotors if r.Zhub < 0], default=0.0)
+             for fs in fowts], **kw)
+        tols, caps, refs = make_tolerances(fowts)
+        self.tol_vec, self.caps, self.refs = (torch.tensor(v, **kw)
+                                              for v in (tols, caps, refs))
+
+        # (ir, rotor tensors, [(units, their properties, nodes)]) of every
+        # rotor with aero-servo physics; units whose properties agree
+        # share one blade-element call
+        rotor_models = model.rotor_aero if fowts[0].nrotors else []
+        self.rotors = []
+        for ir, rot in enumerate(rotor_models):
+            groups = {}
+            for i, fs in enumerate(fowts):
+                rp = fs.rotors[ir]
+                if rp.aeroServoMod <= 0:
+                    continue
+                key = tuple(getattr(rp, k) for k in (
+                    "shaft_tilt", "shaft_toe", "Zhub", "aeroServoMod",
+                    "overhang", "I_drivetrain", "yaw_mode"))
+                groups.setdefault(key, (rp, []))[1].append(i)
+            if groups:
+                self.rotors.append((ir, rotor_tensors(rot, device, self.rdt), [
+                    (units, rp, [int(fowts[i].rotor_node[ir]) for i in units])
+                    for rp, units in groups.values()]))
+
+        self.mooring = FarmMooring(
+            self._unit_lines(model.ms_list, kw),
+            [(ms, [i], False) for i, ms in enumerate(model.ms_list)
+             if isinstance(ms, MooringNetwork)]
+            + ([(model.ms_array, list(range(model.ms_array.n_bodies)), True)]
+               if model.ms_array is not None else []), nF)
+
+    def _unit_lines(self, ms_list, kw):
+        """The units' own catenary lines as (nF, nL, ...) tensors padded
+        to one line count (a padded line repeats a real one and is
+        masked out), or None when no unit has one."""
+        from raft_tpu_torch.physics.mooring import MooringSystem
+
+        systems = [ms if isinstance(ms, MooringSystem) else None
+                   for ms in ms_list]
+        real = [ms for ms in systems if ms is not None]
+        if not real:
+            return None
+        nL = max(ms.n_lines for ms in real)
+        cols = []
+        for key in ("r_fair0", "r_anchor", "L", "w", "EA"):
+            per = []
+            for ms in systems:
+                a = np.asarray(getattr(ms or real[0], key), dtype=float)
+                per.append(np.concatenate([a, np.repeat(
+                    a[:1], nL - a.shape[0], axis=0)]))
+            cols.append(torch.as_tensor(np.stack(per), **kw))
+        mask = torch.as_tensor(np.stack([
+            np.arange(nL) < (ms.n_lines if ms is not None else 0)
+            for ms in systems]), device=kw["device"])
+        return tuple(cols) + (mask,)
+
+    def forward(self, timer=None, **rows):
+        p, n = self._rows(rows)
+        cap = int(config.get("BUCKET_ROWS")) or n
+        mark = timer if timer is not None else (lambda stage: None)
+        with torch.no_grad():
+            outs = [self._chunk({k: v[a:a + cap] for k, v in p.items()}, mark)
+                    for a in range(0, n, cap)]
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    def _rows(self, rows):
+        """The row parameters as tensors of n rows: (n,) environment,
+        (n, nFOWT) wind speeds, (n, nWaves) seas; and n."""
+        unknown = set(rows) - set(ENV_KEYS + SEA_KEYS)
+        if unknown:
+            raise TypeError(f"unknown row parameters {sorted(unknown)}")
+        if not {"Hs", "Tp"} <= set(rows):
+            raise TypeError("rows need Hs and Tp")
+        kw = dict(dtype=self.rdt, device=self.device)
+        vals = {k: torch.as_tensor(rows.get(k, 0.0), **kw)
+                for k in ENV_KEYS + SEA_KEYS}
+        if torch.is_grad_enabled() and any(v.requires_grad
+                                           for v in vals.values()):
+            raise NotImplementedError(
+                "the farm evaluator is forward only: its reverse mode (a "
+                "root rule at the free-point equilibrium) is ROADMAP A11")
+        for k, v in vals.items():
+            wide = k in SEA_KEYS or k == "wind_speed"
+            if v.dim() > (2 if wide else 1):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} has too many "
+                                 "axes")
+            width = self.nF if k == "wind_speed" else self.nWaves
+            if wide and v.dim() == 2 and v.shape[1] != width:
+                raise ValueError(f"{k}: shape {tuple(v.shape)}, expected "
+                                 f"(R, {width})")
+        n = torch.broadcast_shapes(*(v.shape[:1] for v in vals.values()))
+        n = n[0] if n else 1
+        p = {}
+        for k, v in vals.items():
+            if k in SEA_KEYS or k == "wind_speed":
+                v = v[:, None] if v.dim() == 1 else v
+                p[k] = v.expand(n, self.nF if k == "wind_speed"
+                                else self.nWaves)
+            else:
+                p[k] = v.expand(n)
+        if n == 0:
+            raise ValueError("empty batch: no rows to evaluate")
+        return p, n
+
+    def _unit_rows(self, R):
+        """The units' packed leaves for R rows: (R nF, ...), row-major
+        (row, unit)."""
+        return {k: v[None].expand((R,) + v.shape).reshape(
+            (R * self.nF,) + v.shape[1:]) for k, v in self.units.items()}
+
+    def _aero(self, p, R):
+        """Every active rotor's aero-servo terms reduced to its unit:
+        f0 (R nF, 6), A, B (R nF, 6, 6, nw), B_gyro (R nF, 6, 6) and the
+        rows with a clamped speed (R,)."""
+        from raft_tpu_torch.physics.aero import calc_aero_traced
+
+        rdt, dev, nw, nF = self.rdt, self.device, self.nw, self.nF
+        U = R * nF
+        f0 = torch.zeros((U, 6), dtype=rdt, device=dev)
+        A = torch.zeros((U, 6, 6, nw), dtype=rdt, device=dev)
+        B = torch.zeros_like(A)
+        Bg = torch.zeros((U, 6, 6), dtype=rdt, device=dev)
+        clipped = torch.zeros(R, dtype=torch.bool, device=dev)
+        deg = math.pi / 180
+        for _, rt, groups in self.rotors:
+            for units, rp, nodes in groups:
+                nu = len(units)
+                current = rp.Zhub < 0
+                speed = (p["current_speed"][:, None].expand(R, nu) if current
+                         else p["wind_speed"][:, units]).reshape(-1)
+                heading = (p["current_heading_deg"] if current
+                           else p["wind_heading_deg"]) * deg
+
+                def per_unit(x):
+                    return x.repeat_interleave(nu)
+
+                on = speed > 0
+                clipped |= (on & (speed < 0.1)).reshape(R, nu).any(dim=1)
+                f0r, _, a6, b6, Bgr, _, _, _ = calc_aero_traced(
+                    rt, rp, self.w, torch.clamp(speed, min=0.1),
+                    per_unit(heading), per_unit(p["TI"]),
+                    yaw_command_rad=per_unit(p["yaw_misalign_deg"] * deg),
+                    turb_static=self.turb_static)
+                Tn = self.Tn0[units, nodes]                     # (nu, 6, 6)
+                Tn = Tn[None].expand(R, -1, -1, -1).reshape(-1, 6, 6)
+                onr = on.to(rdt)
+                idx = (torch.arange(R, device=dev)[:, None] * nF
+                       + torch.as_tensor(units, device=dev)).reshape(-1)
+                f0[idx] += onr[:, None] * (f0r[:, None, :] @ Tn)[:, 0]
+                A[idx] += onr[:, None, None, None] * torch.einsum(
+                    "ria,rijw,rjb->rabw", Tn, a6, Tn)
+                B[idx] += onr[:, None, None, None] * torch.einsum(
+                    "ria,rijw,rjb->rabw", Tn, b6, Tn)
+                Bg[idx] += onr[:, None, None] * (Tn.transpose(-1, -2) @ Bgr
+                                                 @ Tn)
+        return f0, A, B, Bg, clipped
+
+    def _chunk(self, p, mark):
+        from raft_tpu_torch.models.dynamics import (solve_dynamics_fowt,
+                                                    system_response)
+        from raft_tpu_torch.models.statics_solve import \
+            solve_equilibrium_general
+        from raft_tpu_torch.ops import waves as wv
+        from raft_tpu_torch.physics.statics import node_T, platform_kinematics
+        from raft_tpu_torch.structure import bucketing
+
+        R, nF, nT, nw = p["Hs"].shape[0], self.nF, self.nT, self.nw
+        U = R * nF
+        mark("start")
+        f0, A_aero, B_aero, B_gyro, clipped = self._aero(p, R)
+        mark("aero")
+
+        d = self._unit_rows(R)
+        site = bucketing.site_of(d, self.N)
+        ss = bucketing.strips_of(d)
+        hc0 = {k: v[None].expand((R,) + v.shape).reshape((U,) + v.shape[1:])
+               for k, v in self.hc0.items()}
+        Tn0 = self.Tn0[None].expand((R,) + self.Tn0.shape).reshape(
+            (U,) + self.Tn0.shape[1:])
+        F_cur = morison.current_loads(
+            site, ss, hc0, p["current_speed"].repeat_interleave(nF),
+            p["current_heading_deg"].repeat_interleave(nF),
+            self.Zref.repeat(R)[:, None], self.fs.shearExp_water, Tn0,
+            d["node_r0"])
+        F_env = (F_cur + f0).reshape(R, nT)
+        X0, _, _, _, st_status, _ = solve_equilibrium_general(
+            self.K_h.expand(R, nT, nT), self.F_und.expand(R, nT), F_env,
+            self.mooring, self.tol_vec, self.caps, self.refs,
+            C_elast=self.C_elast_T)
+        mark("statics")
+
+        # ---- per-unit excitation at the displaced poses
+        C_units, Ka = self.mooring.parts(X0)
+        Xu = X0.reshape(U, 6)
+        r_nodes, R_ptfm, r_root = platform_kinematics(d["node_r0"],
+                                                      d["root"], Xu)
+        Tn = node_T(r_nodes, r_root)
+        hc = bucketing.packed_hydro(d, ss, R_ptfm, r_nodes)
+        S_spec = wv.jonswap(self.w, p["Hs"], p["Tp"], gamma=p["gamma"])
+        zeta = wv.amplitudes(S_spec, self.dw).to(_policy_cdt(X0))
+        zeta_u = zeta.repeat_interleave(nF, dim=0)
+        beta_u = (p["beta_deg"] * (math.pi / 180)).repeat_interleave(nF,
+                                                                      dim=0)
+        exc = [morison.hydro_excitation(site, ss, hc, zeta_u[:, ih],
+                                        beta_u[:, ih], self.w, d["k"], Tn,
+                                        r_nodes)
+               for ih in range(self.nWaves)]
+        mark("excitation")
+
+        # ---- per-unit drag fixed point with the unit's own mooring
+        M_lin = A_aero + (d["M_struc"] + d["A_hydro"])[..., None]
+        B_lin = B_aero + B_gyro[..., None]
+        C_lin = d["K_h"] + C_units.reshape(U, 6, 6) \
+            + self.C_elast.repeat(R, 1, 1)
+        Z, _, Bmat, diag = solve_dynamics_fowt(
+            site, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin,
+            exc[0]["F_hydro_iner"], self.w, Tn, r_nodes, n_iter=self.n_iter,
+            Xi_start=self.Xi_start, n_iter_extra=self.n_iter_extra,
+            timer=mark)
+
+        # ---- system response: unit blocks + shared stiffness at X0
+        F_sys = torch.stack([
+            (exc[ih]["F_hydro_iner"] + morison.drag_excitation(
+                site, ss, hc, Bmat, exc[ih]["u"], Tn, r_nodes)).reshape(
+                    R, nT, nw) for ih in range(self.nWaves)], dim=1)
+        Zb = Z.reshape(R, nF, nw, 6, 6).transpose(1, 2).reshape(
+            R * nw, nF, 6, 6)
+        Z_sys = _block_diag(Zb).reshape(R, nw, nT, nT) + Ka[:, None]
+        Xi = system_response(Z_sys[:, None], F_sys)
+        Xi = torch.cat([Xi, torch.zeros((R, 1, nT, nw), dtype=Xi.dtype,
+                                        device=Xi.device)], dim=1)
+        dyn = diag["status"].reshape(R, nF)
+        dyn_status = dyn[:, 0]
+        for i in range(1, nF):
+            dyn_status = dyn_status | dyn[:, i]
+        out = dict(
+            X0=X0, Xi=Xi, PSD=torch.sum(0.5 * torch.abs(Xi) ** 2 / self.dw,
+                                        dim=1),
+            S=S_spec, zeta=zeta,
+            drag_resid=diag["drag_resid"].reshape(R, nF),
+            n_iter_drag=diag["n_iter_drag"].reshape(R, nF),
+            status=_case_status(st_status, dict(status=dyn_status), X0, Xi,
+                                input_clipped=clipped))
+        mark("system_response")
+        return out
+
+
+def make_farm_evaluator(model, nWaves=1, turb_static=None, device=None):
+    """The batched :class:`FarmEvaluator` of an array ``model`` with
+    ``nWaves`` wave headings per row, on ``device`` (default: the current
+    CUDA device; raises without one).  ``turb_static`` is the turbulence
+    model and class reference speed (default ``("NTM", 50.0)``)."""
+    return FarmEvaluator(model, nWaves=nWaves, turb_static=turb_static,
+                         device=device)

@@ -1,39 +1,49 @@
 """Top-level Model of one design (counterpart of the build half of
 ``raft_tpu/models/model.py``): frequency grid, wave numbers, the FOWT
-structure, its mooring, strips and statics.
+structures, their moorings, strips and statics.
 
 All of it is host work in numpy or float64 CPU tensors; the evaluators
 (:mod:`raft_tpu_torch.api`) and the bucket packer
 (:func:`raft_tpu_torch.structure.bucketing.pack_design`) move what they
-need to the card.  One rigid FOWT with an inline catenary mooring (or
-none), and its rotors' blade-element models (:attr:`Model.rotor_aero`);
-arrays and MoorDyn-file moorings (ROADMAP A11) and line dynamics (A10)
-raise ``NotImplementedError`` naming their ROADMAP item.
+need to the card.  One rigid FOWT, or with an ``array`` section one per
+array row at its position and heading (the farm evaluator's input),
+each with an inline catenary mooring, a MoorDyn-file mooring or none;
+an array may add a shared-mooring network from its ``array_mooring``
+MoorDyn file.  Rotors get their blade-element models
+(:attr:`Model.rotor_aero`).  Line dynamics (``moorMod`` 1 or 2, ROADMAP
+A10) raise ``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
 
+import os
+
+import numpy as np
 import torch
 
 from raft_tpu_torch.models.fowt import FOWTStructure
 from raft_tpu_torch.models.hydro import FOWTHydro
 from raft_tpu_torch.ops.waves import wave_number_ref
-from raft_tpu_torch.physics.mooring import build_mooring
+from raft_tpu_torch.physics.mooring import (build_mooring, parse_moordyn,
+                                            parse_moordyn_system)
 from raft_tpu_torch.physics.statics import calc_statics
-from raft_tpu_torch.structure.schema import (coerce, frequency_grid,
+from raft_tpu_torch.structure.schema import (array_mooring, array_units,
+                                             coerce, frequency_grid,
                                              load_design, parse_cases)
 
 
 class Model:
     """One design: ``Model(design)`` with a design dict or a ``.json`` /
-    ``.yaml`` path."""
+    ``.yaml`` path.  ``base_dir`` resolves the relative data paths of a
+    design dict (MoorDyn and bathymetry files); a path's own directory
+    is the default."""
 
-    def __init__(self, design):
+    def __init__(self, design, base_dir=None):
+        self.base_dir = base_dir
+        if not isinstance(design, dict):
+            self.base_dir = os.path.dirname(os.path.abspath(design))
         design = load_design(design)
         self.design = design
-        if "array" in design:
-            raise NotImplementedError(
-                "array (multi-FOWT) designs are not ported (ROADMAP A11)")
 
         settings = design.get("settings", {}) or {}
         self.XiStart = coerce(settings, "XiStart", default=0.1)
@@ -48,27 +58,79 @@ class Model:
         self.k = wave_number_ref(self.w, self.depth)
         self.cases = parse_cases(design)
 
-        mo = design.get("mooring")
-        if isinstance(mo, dict) and "file" in mo and "lines" not in mo:
-            raise NotImplementedError(
-                "MoorDyn-file moorings are not ported (ROADMAP A11); give "
-                "the mooring inline as points / lines / line_types")
-        fs = FOWTStructure(design, depth=self.depth)
-        self.fowtList = [fs]
-        self.ms = (build_mooring(mo, rho_water=fs.rho_water, g=fs.g)
-                   if isinstance(mo, dict) else None)
-        self.nFOWT = 1
-        self.nDOF = fs.nDOF
+        self.fowtList, self.ms_list = [], []
+        self.ms_array = None
+        if "array" in design:
+            for unit, info in array_units(design):
+                place = dict(x_ref=info["x_location"],
+                             y_ref=info["y_location"],
+                             heading_adjust=info.get("heading_adjust", 0))
+                fs = FOWTStructure(unit, depth=self.depth, **place)
+                self.fowtList.append(fs)
+                self.ms_list.append(self._unit_mooring(
+                    unit.get("mooring"), fs, **place))
+            shared = array_mooring(design)
+            if shared is not None:
+                path, bath = shared
+                self.ms_array = parse_moordyn(
+                    self._resolve_data_path(path), self.depth,
+                    rho=self.fowtList[0].rho_water, g=self.fowtList[0].g,
+                    bathymetry=bath and self._resolve_data_path(bath))
+        else:
+            fs = FOWTStructure(design, depth=self.depth)
+            self.fowtList.append(fs)
+            self.ms_list.append(self._unit_mooring(design.get("mooring"), fs))
+        self.nFOWT = len(self.fowtList)
+        self.nDOF = sum(f.nDOF for f in self.fowtList)
+        self.dof_offsets = np.cumsum([0] + [f.nDOF for f in self.fowtList])
+        self.ms = self.ms_list[0]                 # the single-FOWT alias
         self._hydro = None
         self._statics = None
         self._rotor_aero = None
+
+    def _unit_mooring(self, mo, fs, x_ref=0.0, y_ref=0.0, heading_adjust=0.0):
+        """One unit's own mooring: an inline catenary system at the
+        unit's position, a MoorDyn file (a simple vessel-to-anchor file
+        as a catenary system, else a network), or None."""
+        if not isinstance(mo, dict):
+            return None
+        moorMod = int(coerce(mo, "moorMod", default=0, dtype=int))
+        if moorMod != 0:
+            raise NotImplementedError(
+                f"moorMod {moorMod}: mooring line dynamics are not ported "
+                "(ROADMAP A10); only the quasi-static catenary (moorMod 0) "
+                "is")
+        if "file" in mo and "lines" not in mo:
+            path = self._resolve_data_path(mo["file"])
+            depth = coerce(mo, "water_depth", default=self.depth)
+            try:
+                return parse_moordyn_system(path, depth, rho=fs.rho_water,
+                                            g=fs.g)
+            except ValueError:
+                return parse_moordyn(path, depth, rho=fs.rho_water, g=fs.g)
+        return build_mooring(mo, rho_water=fs.rho_water, g=fs.g, x_ref=x_ref,
+                             y_ref=y_ref, heading_adjust=heading_adjust)
+
+    def _resolve_data_path(self, path):
+        """A design-relative data path: tried against ``base_dir`` and
+        its parent (the reference resolves such paths against the
+        working directory it runs from)."""
+        if os.path.isabs(path) or self.base_dir is None:
+            return path
+        for base in (self.base_dir,
+                     os.path.normpath(os.path.join(self.base_dir, ".."))):
+            cand = os.path.normpath(os.path.join(base, path))
+            if os.path.exists(cand):
+                return cand
+        return os.path.join(self.base_dir, path)
 
     @property
     def hydro(self):
         """``[FOWTHydro]``: strips and zero-pose hydro constants (built on
         first use)."""
         if self._hydro is None:
-            self._hydro = [FOWTHydro(self.fowtList[0], self.w, self.k)]
+            self._hydro = [FOWTHydro(f, self.w, self.k)
+                           for f in self.fowtList]
         return self._hydro
 
     @property

@@ -132,7 +132,9 @@ def _check_bucketable(model):
     """The reference's refusals (most already raise when the port's
     Model is built)."""
     if model.nFOWT != 1:
-        raise UnbucketableDesignError("bucketing covers single-FOWT models")
+        raise UnbucketableDesignError(
+            "bucketing covers single-FOWT models: an array runs through "
+            "make_farm_evaluator")
     fs = model.fowtList[0]
     if not fs.is_single_body:
         raise UnbucketableDesignError(
@@ -202,21 +204,25 @@ def _pad_axis_rows(a, n, axis0_fill):
     return np.concatenate([a, tail], axis=0)
 
 
-def pack_design(model, sig=None):
+def pack_design(model, sig=None, ifowt=0, mooring=True):
     """One model's padded leaves in its bucket: numpy arrays of the
     bucket's static shape, the host-built statics matrices and zero-pose
     hydro constants included.  Padded strips carry zero areas and
     coefficients and a False ``strip_mask``/``active``; padded nodes get
     no strip; padded mooring lines repeat line 0 and are masked out of
-    the force sum (so of the stiffness too)."""
+    the force sum (so of the stiffness too).
+
+    ``ifowt`` packs that unit of an array model; ``mooring=False`` leaves
+    its mooring out (a signature with no lines), as the farm evaluator,
+    which couples the units' moorings itself, packs them."""
     sig = sig or bucket_signature(model)
     meta = signature_meta(sig)
     S, N, L = meta["S"], meta["N"], meta["L"]
-    fs = model.fowtList[0]
-    fh = model.hydro[0]
+    fs = model.fowtList[ifowt]
+    fh = model.hydro[ifowt]
     ss = fh.strips
-    stat = model.statics()
-    ms = model.ms
+    stat = model.statics(ifowt)
+    ms = model.ms_list[ifowt] if mooring else None
     if not np.array_equal(np.asarray(model.w, dtype=float), meta["w"]):
         raise ValueError("model frequency grid does not match the signature")
     if (ms is None) != (L == 0):
@@ -455,11 +461,7 @@ class BucketEvaluator(nn.Module):
 
         # ---- strip frames; the validity mask extends submergence
         if hydro is None:
-            r, q, p1, p2 = morison.strip_frames(ss, R_ptfm, r_nodes)
-            sub = (r[..., 2] < 0) & d["strip_mask"]
-            hc = dict(Imat=d["Imat"], a_i=d["a_i"], A_hydro=d["A_hydro"],
-                      r=r, q=q, p1=p1, p2=p2, sub=sub,
-                      active=sub & d["active"])
+            hc = packed_hydro(d, ss, R_ptfm, r_nodes)
         else:
             hc = hydro(fsb, ss, R_ptfm, r_nodes, Tn)
 
@@ -520,6 +522,16 @@ def one_heading(out):
     :data:`OUT_KEYS`: Xi (R, 6, nw) and S (R, nw)."""
     out = dict(out, Xi=out["Xi"][:, 0], S=out["S"][:, 0])
     return {k: out[k] for k in OUT_KEYS}
+
+
+def packed_hydro(d, ss, R_ptfm, r_nodes):
+    """The hydro constants of packed rows ``d`` at a displaced pose: the
+    packed zero-pose Imat, a_i and A_hydro with the strip frames at the
+    pose, submergence masked by ``strip_mask``."""
+    r, q, p1, p2 = morison.strip_frames(ss, R_ptfm, r_nodes)
+    sub = (r[..., 2] < 0) & d["strip_mask"]
+    return dict(Imat=d["Imat"], a_i=d["a_i"], A_hydro=d["A_hydro"],
+                r=r, q=q, p1=p1, p2=p2, sub=sub, active=sub & d["active"])
 
 
 def site_of(d, n_nodes):

@@ -95,3 +95,39 @@ def frequency_grid(design):
     max_freq = coerce(settings, "max_freq", default=1.00)
     w = np.arange(min_freq, max_freq + 0.5 * min_freq, min_freq) * 2 * np.pi
     return w
+
+
+def array_units(design):
+    """The units of an ``array`` design as (unit design dict, array row)
+    pairs, as the reference's array mode reads them: each row of
+    ``array`` (``keys`` / ``data``: turbineID, platformID, mooringID,
+    x_location, y_location, heading_adjust) picks its entries, 1-based,
+    from the ``turbines`` / ``platforms`` / ``moorings`` lists (a single
+    ``turbine`` / ``platform`` / ``mooring`` stands for a one-entry list;
+    ID 0 means none).  Each unit design carries the shared ``site`` and
+    ``settings``."""
+    lists = {}
+    for one, many in (("turbine", "turbines"), ("platform", "platforms"),
+                      ("mooring", "moorings")):
+        lists[one] = design.get(many)
+        if lists[one] is None and one in design:
+            lists[one] = [design[one]]
+    units = []
+    for row in design["array"]["data"]:
+        info = dict(zip(design["array"]["keys"], row))
+        unit = {"site": design["site"], "settings": design.get("settings", {})}
+        for key in ("turbine", "platform", "mooring"):
+            i = info.get(key + "ID", 1 if key == "platform" else 0)
+            if i != 0:
+                unit[key] = lists[key][i - 1]
+        units.append((unit, info))
+    return units
+
+
+def array_mooring(design):
+    """(MoorDyn file, bathymetry file or None) of the design's
+    ``array_mooring`` section, or None without a file."""
+    am = design.get("array_mooring") or {}
+    if not am.get("file"):
+        return None
+    return am["file"], am.get("bathymetry")

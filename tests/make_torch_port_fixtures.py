@@ -834,12 +834,230 @@ def write_geometry_fixtures(parts=("geometry", "grad", "grad_design")):
               flush=True)
 
 
+# ------------------------------------------------------- farm fixtures
+
+#: the shared line of the two-unit farm: a MoorDyn v2 file, one line in
+#: two slack segments from unit 1 over a free buoy (net buoyancy
+#: 252.6 kN) to unit 2, attached body-locally on the facing sides; no
+#: segment can ground (no fixed point)
+FARM_SHARED_DAT = """\
+--------------------- MoorDyn Input File ------------------------------------
+Shared mooring line between the two units of design_farm_semi_wind.json
+---------------------- LINE TYPES -----------------------------------------
+Name     Diam     MassDen   EA        BA/-zeta  EI      Cd    Ca    CdAx  CaAx
+(name)   (m)      (kg/m)    (N)       (N-s/-)   (N-m^2) (-)   (-)   (-)   (-)
+shared   0.150    50.0      1.0e9     -1.0      0.0     1.2   1.0   0.2   0.0
+---------------------- POINTS ---------------------------------------------
+ID  Attachment  X       Y     Z      M       V     CdA   Ca
+(#) (-)         (m)     (m)   (m)    (kg)    (m^3) (m^2) (-)
+1   Turbine1    58.0    0.0   -14.0  0       0     0     0
+2   Free        1000.0  0.0   -60.0  5000.0  30.0  0     0
+3   Turbine2    -58.0   0.0   -14.0  0       0     0     0
+---------------------- LINES ----------------------------------------------
+ID  LineType  AttachA  AttachB  UnstrLen  NumSegs  Outputs
+(#) (name)    (#)      (#)      (m)       (-)      (-)
+1   shared    1        2        960.0     40       -
+2   shared    2        3        960.0     40       -
+---------------------- OPTIONS --------------------------------------------
+200      depth
+---------------------- OUTPUTS --------------------------------------------
+END
+"""
+
+ARRAY_KEYS = ["ID", "turbineID", "platformID", "mooringID", "x_location",
+              "y_location", "heading_adjust"]
+
+
+def farm_semi_wind_design():
+    """Two semi_wind units 2000 m apart (about 8 rotor diameters), each
+    on its own three-line catenary mooring, joined by the shared line of
+    ``farm_shared.dat``."""
+    d = semi_wind_design()
+    d["name"] = ("raft_tpu_torch fixture: two semi_wind units with a "
+                 "shared line over a buoy")
+    d.pop("cases", None)
+    d["array"] = dict(keys=ARRAY_KEYS, data=[[1, 1, 1, 1, 0.0, 0.0, 0.0],
+                                             [2, 1, 1, 1, 2000.0, 0.0, 0.0]])
+    d["array_mooring"] = dict(file="farm_shared.dat")
+    return d
+
+
+def farm_spar3_design():
+    """Three spar demo units on a 2000 m triangle at heading_adjust 0,
+    120 and 240 deg, each on its own mooring, no rotor model, no shared
+    line."""
+    d = design_dict("spar")
+    d["name"] = "raft_tpu_torch fixture: three spar demo units"
+    d.pop("cases", None)
+    d["array"] = dict(keys=ARRAY_KEYS, data=[
+        [1, 1, 1, 1, 0.0, 0.0, 0.0],
+        [2, 1, 1, 1, 2000.0, 0.0, 120.0],
+        [3, 1, 1, 1, 1000.0, 1732.0508, 240.0]])
+    return d
+
+
+FARM_DESIGNS = {"semi_wind": farm_semi_wind_design,
+                "spar3": farm_spar3_design}
+#: wave headings per row of each farm golden set
+FARM_SETS = {"semi_wind": 1, "spar3": 2}
+#: the farm golden rows: per-unit (waked) wind speeds (one unit at
+#: 0.05 m/s on row 1, clipped to 0.1), seas per wave heading
+FARM_ROWS = {
+    "semi_wind": dict(
+        wind_speed=[[10.0, 8.5], [0.0, 0.05], [5.0, 4.1], [14.0, 11.2],
+                    [25.0, 20.0], [8.0, 7.3], [11.0, 9.0], [18.0, 14.5]],
+        wind_heading_deg=[0.0, 10.0, -20.0, 30.0, 0.0, -10.0, 5.0, 25.0],
+        TI=[0.10, 0.05, 0.20, 0.12, 0.08, 0.15, 0.10, 0.06],
+        yaw_misalign_deg=[0.0, 3.0, -5.0, 0.0, 8.0, -8.0, 2.0, 0.0],
+        current_speed=[0.0, 0.5, 1.0, 0.2, 0.0, 0.8, 0.3, 0.6],
+        current_heading_deg=[0.0, 45.0, 90.0, 180.0, 270.0, 10.0, 300.0,
+                             30.0],
+        Hs=[[6.0], [2.5], [1.0], [12.0], [9.0], [4.0], [11.0], [3.0]],
+        Tp=[[12.0], [7.5], [4.0], [20.0], [14.0], [9.0], [6.0], [17.0]],
+        gamma=[[0.0], [3.3], [0.0], [1.0], [0.0], [2.0], [0.0], [5.0]],
+        beta_deg=[[0.0], [20.0], [178.0], [70.0], [137.0], [45.0], [110.0],
+                  [5.0]]),
+    "spar3": dict(
+        wind_speed=[[0.0] * 3] * 8,
+        wind_heading_deg=[0.0] * 8, TI=[0.0] * 8,
+        yaw_misalign_deg=[0.0] * 8,
+        current_speed=[0.0, 0.5, 1.0, 0.2, 0.0, 0.8, 0.3, 0.6],
+        current_heading_deg=[0.0, 45.0, 90.0, 180.0, 270.0, 10.0, 300.0,
+                             30.0],
+        Hs=[[6.0, 2.0], [2.5, 1.0], [1.0, 0.5], [12.0, 3.0], [9.0, 2.5],
+            [4.0, 1.5], [11.0, 4.0], [3.0, 3.0]],
+        Tp=[[12.0, 8.0], [7.5, 5.0], [4.0, 9.0], [20.0, 11.0], [14.0, 6.0],
+            [9.0, 14.0], [6.0, 7.0], [17.0, 10.0]],
+        gamma=[[0.0, 0.0], [3.3, 1.0], [0.0, 2.0], [1.0, 0.0], [0.0, 5.0],
+               [2.0, 0.0], [0.0, 3.3], [5.0, 1.0]],
+        beta_deg=[[0.0, 90.0], [20.0, 200.0], [178.0, 0.0], [70.0, 300.0],
+                  [137.0, 45.0], [45.0, 120.0], [110.0, 260.0],
+                  [5.0, 175.0]]),
+}
+FARM_OUT_KEYS = ("X0", "Xi", "PSD", "S", "zeta", "drag_resid", "n_iter_drag",
+                 "status")
+#: the network golden's perturbations of golden row 0's equilibrium:
+#: per pose, the offsets of both units' 6 DOFs
+NETWORK_PERTURB = (
+    [[3.0, -2.0, 0.5, 0.01, -0.02, 0.03], [-4.0, 1.5, -0.3, -0.01, 0.015,
+                                            -0.02]],
+    [[-10.0, 5.0, 1.0, 0.0, 0.03, -0.05], [12.0, -6.0, 0.0, 0.02, 0.0, 0.04]],
+    [[0.0, 20.0, -1.0, 0.04, 0.0, 0.1], [0.0, -20.0, 1.0, -0.04, 0.0, -0.1]],
+)
+#: catenary spans (XF, ZF) and line properties (L, w, EA) for the
+#: can_ground=False golden: slack, taut and inverted spans
+CATENARY_SUSPENDED = (
+    (942.0, 48.6, 960.0, 312.8, 1.0e9),
+    (900.0, 100.0, 905.0, 312.8, 1.0e9),
+    (500.0, -30.0, 600.0, 1500.0, 5.0e8),
+    (300.0, 250.0, 600.0, 6400.0, 3.0e9),
+    (950.0, 5.0, 949.0, 312.8, 1.0e9),
+    (10.0, 80.0, 120.0, 200.0, 2.0e8),
+)
+
+
+def farm_model(name):
+    import raft_tpu
+
+    return raft_tpu.Model(FARM_DESIGNS[name](), base_dir=OUT_DIR)
+
+
+def farm_rows(name):
+    import numpy as np
+
+    return {k: np.asarray(v, dtype=float) for k, v in FARM_ROWS[name].items()}
+
+
+def golden_farm(name, fused):
+    """JAX farm-evaluator outputs over the set's golden rows."""
+    jax = _jax()
+    import numpy as np
+
+    from raft_tpu.api import make_farm_evaluator
+
+    def run():
+        ev = make_farm_evaluator(farm_model(name), nWaves=FARM_SETS[name])
+        out = jax.jit(jax.vmap(ev))(farm_rows(name))
+        return {k: np.asarray(out[k]) for k in FARM_OUT_KEYS}
+
+    return _with_fused(fused, run)
+
+
+def build_farm_golden(name):
+    """The ``golden_farm_<name>.npz`` dict, as written."""
+    gd = dict(farm_rows(name))
+    for fused in ("on", "off"):
+        for k, v in golden_farm(name, fused).items():
+            gd[f"{fused}_{k}"] = v
+    return gd
+
+
+def build_network_golden(X0):
+    """The ``golden_network_semi_wind.npz`` dict: the JAX network's body
+    forces, coupled stiffness, free-point positions and line tensions at
+    the golden rows' equilibria X0 (R, 12) and at NETWORK_PERTURB about
+    row 0's, plus the JAX catenary with ``can_ground=False`` over
+    CATENARY_SUSPENDED."""
+    jax = _jax()
+    import jax.numpy as jnp
+    import numpy as np
+
+    from raft_tpu.physics.mooring import solve_catenary
+
+    net = farm_model("semi_wind").ms_array
+    poses = [np.asarray(x).reshape(2, 6) for x in X0]
+    poses += [poses[0] + np.asarray(d) for d in NETWORK_PERTURB]
+    out = dict(X=np.stack(poses))
+    keys = ("F", "K", "r_free", "tensions")
+    for k in keys:
+        out[k] = []
+    for r6 in poses:
+        F, info = net.body_forces(jnp.asarray(r6))
+        out["F"].append(np.asarray(F))
+        out["K"].append(np.asarray(net.stiffness(jnp.asarray(r6))))
+        out["r_free"].append(np.asarray(info["r_free"]))
+        out["tensions"].append(np.asarray(info["tensions"]))
+    out.update({k: np.stack(out[k]) for k in keys})
+    cat = np.asarray(CATENARY_SUSPENDED, dtype=float)
+    res = jax.vmap(lambda c: jnp.stack(solve_catenary(
+        c[0], c[1], c[2], c[3], c[4], can_ground=False)))(jnp.asarray(cat))
+    out.update(cat_in=cat, cat_out=np.asarray(res))
+    return out
+
+
+def write_farm_fixtures():
+    """Write the farm designs, the shared-line file and the farm and
+    network goldens."""
+    import json
+
+    import numpy as np
+
+    with open(os.path.join(OUT_DIR, "farm_shared.dat"), "w") as f:
+        f.write(FARM_SHARED_DAT)
+    for name, fn in FARM_DESIGNS.items():
+        with open(os.path.join(OUT_DIR, f"design_farm_{name}.json"), "w") as f:
+            f.write(json.dumps(fn(), indent=1) + "\n")
+    for name in FARM_DESIGNS:
+        gd = build_farm_golden(name)
+        np.savez_compressed(os.path.join(OUT_DIR, f"golden_farm_{name}.npz"),
+                            **gd)
+        print(f"farm {name}: status_on={gd['on_status'].tolist()} "
+              f"n_iter_on={gd['on_n_iter_drag'].tolist()}", flush=True)
+        if name == "semi_wind":
+            np.savez_compressed(
+                os.path.join(OUT_DIR, "golden_network_semi_wind.npz"),
+                **build_network_golden(gd["on_X0"]))
+
+
 def main():
     import numpy as np
 
     os.makedirs(OUT_DIR, exist_ok=True)
     if sys.argv[1:] and sys.argv[1] == "--geometry":
         write_geometry_fixtures(*([sys.argv[2:]] if sys.argv[2:] else []))
+        return
+    if sys.argv[1:] == ["--farm"]:
+        write_farm_fixtures()
         return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
@@ -857,6 +1075,7 @@ def main():
               f"n_iter_on={gd['on_n_iter_drag'].tolist()}")
     write_full_fixtures()
     write_geometry_fixtures()
+    write_farm_fixtures()
 
 
 if __name__ == "__main__":

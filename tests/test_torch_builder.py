@@ -125,15 +125,18 @@ def _refusals():
         d["platform"]["hydroPath"] = "spar_bem"
 
     def file_mooring(d):
-        d["mooring"] = {"water_depth": 320, "file": "lines.dat"}
+        # a MoorDyn-file mooring with line dynamics
+        d["mooring"] = {"water_depth": 320, "file": "lines.dat", "moorMod": 1}
 
     def moor_mod(d):
         d["mooring"]["moorMod"] = 1
 
     def array(d):
+        # an array of potential-flow units
         d["array"] = {"keys": ["ID", "turbineID", "platformID", "mooringID",
                                "x_location", "y_location"],
                       "data": [[1, 1, 1, 1, 0, 0], [2, 1, 1, 1, 900, 0]]}
+        d["platform"]["potModMaster"] = 2
 
     def qtf(d):
         d["platform"]["potSecOrder"] = 2

@@ -9,8 +9,8 @@ it there without the repository's conftest (which imports JAX)::
 Tolerances are the kernel-vs-plain ones of ``chip_smoke.py``: float64
 within 1e-12 x max|x|, float32 within 1e-5 x max|x| (the forward and the
 adjoint entry alike); the slice, the design, the full and the geometry
-evaluator within 1e-10 x max of the JAX goldens with ``status`` and
-``n_iter_drag`` equal; reverse-mode gradients within 1e-9 x each key's
+evaluator and the farm evaluator within 1e-10 x max of the JAX
+goldens with ``status`` and ``n_iter_drag`` equal; reverse-mode gradients within 1e-9 x each key's
 max|g| of the JAX goldens.
 """
 
@@ -21,9 +21,9 @@ import numpy as np
 import pytest
 import torch
 
-from raft_tpu_torch.api import (ENV_KEYS, FULL_OUT_KEYS, SEA_KEYS,
-                                make_design_evaluator,
-                                make_full_evaluator)
+from raft_tpu_torch.api import (ENV_KEYS, FARM_OUT_KEYS, FULL_OUT_KEYS,
+                                SEA_KEYS, make_design_evaluator,
+                                make_farm_evaluator, make_full_evaluator)
 from raft_tpu_torch.models import dynamics
 from raft_tpu_torch.models.model import Model
 from raft_tpu_torch.ops import linsolve
@@ -157,6 +157,27 @@ def test_full_on_card_matches_goldens(cuda, name, nWaves):
     for k in FULL_OUT_KEYS:
         a, b = out[k].cpu().numpy(), g["on_" + k]
         if k in ("status", "n_iter_drag", "drag_converged"):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["semi_wind", "spar3"])
+def test_farm_on_card_matches_goldens(cuda, name):
+    """The farm evaluator's golden rows on the card, float64: the
+    two-unit shared-mooring farm (its system response is the kernel at
+    N = 12) and the three-spar farm (N = 18, torch.linalg.solve)."""
+    with open(os.path.join(FIX, f"design_farm_{name}.json")) as f:
+        model = Model(json.load(f), base_dir=FIX)
+    g = np.load(os.path.join(FIX, f"golden_farm_{name}.npz"))
+    before = linsolve.KERNEL_LAUNCHES
+    out = make_farm_evaluator(model, nWaves=g["Hs"].shape[1], device=cuda)(
+        **{k: g[k] for k in ENV_KEYS + SEA_KEYS})
+    assert linsolve.KERNEL_LAUNCHES > before
+    for k in FARM_OUT_KEYS:
+        a, b = out[k].cpu().numpy(), g["on_" + k]
+        if k in ("status", "n_iter_drag"):
             np.testing.assert_array_equal(a, b, err_msg=k)
         else:
             assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k

@@ -191,8 +191,8 @@ def test_design_case_rows_evaluate():
 
 def test_refusals_by_message():
     """What the full path still refuses: potential-flow (BEM) members
-    and coefficient files, external QTFs, beams, arrays, and gradients
-    through the aero stage's inputs."""
+    and coefficient files, external QTFs, beams, arrays (which the farm
+    evaluator takes), and gradients through the aero stage's inputs."""
     d = design("spar")
     bem = copy.deepcopy(d)
     bem["platform"]["potModMaster"] = 0
@@ -209,9 +209,11 @@ def test_refusals_by_message():
     with pytest.raises(NotImplementedError, match=r"ROADMAP A11"):
         Model(beam)
     arr = copy.deepcopy(d)
-    arr["array"] = {"keys": ["ID"], "data": [[1], [2]]}
-    with pytest.raises(NotImplementedError, match=r"array.*ROADMAP A11"):
-        Model(arr)
+    arr["array"] = {"keys": ["ID", "turbineID", "platformID", "mooringID",
+                             "x_location", "y_location"],
+                    "data": [[1, 1, 1, 1, 0, 0], [2, 1, 1, 1, 2000, 0]]}
+    with pytest.raises(ValueError, match=r"array.*make_farm_evaluator"):
+        tapi.make_full_evaluator(Model(arr), device="cpu")
     U = torch.tensor([8.0], dtype=torch.float64, requires_grad=True)
     with pytest.raises(NotImplementedError, match=r"aero.*ROADMAP A12"):
         evaluator("semi_wind")(wind_speed=U, Hs=4.0, Tp=9.0)
