@@ -6,8 +6,11 @@ Phases, each printing one line (the last line is the result object):
 
 1. device  - the card's name and power limit (nvidia-smi); TF32 off.
 2. build   - nvcc builds raft_tpu_torch/csrc/linsolve.cu for sm_90a
-             (or reuses the build); the -Xptxas -v report goes to
-             <out>/ptxas_linsolve.txt.
+             afresh; the -Xptxas -v report goes to
+             <out>/ptxas_linsolve.txt, and the registers and spill bytes
+             of every instantiation (design, type, N, entry) are
+             printed; fails if one is missing or an instantiation of
+             the one-lane-per-row design (N = 7-12) spills.
 3. kernel  - the solve kernel against its plain PyTorch version on the
              card: N in {1, 2, 3, 6, 9, 12}, float64 and float32,
              impedance-structured systems, the main-path shape (512 rows
@@ -94,17 +97,24 @@ Phases, each printing one line (the last line is the result object):
              chunk and free-point steps per network solve, status-bit
              shares, the solve kernel's launches against the trips run
              (per chunk: trips + the final update at N = 6 + the system
-             response at N = 12); then the golden rows of the three-spar
-             farm (nT = 18, torch.linalg.solve), held, untimed.
-15. kernel12 - the kernel at the farm's system-response shape (512 rows
-             x 40 frequencies = 20,480 systems of N = 12, complex128)
-             bit-equal to its plain version; its time, the plain
-             version's, torch.linalg.solve's and the bound.
+             response at N = 12), the system response's launches on the
+             one-lane-per-row design (one per chunk); then the golden
+             rows of the three-spar farm (nT = 18, torch.linalg.solve),
+             held, untimed.
+15. kernel12 - the one-lane-per-row design (N = 7-12), forward and
+             adjoint, against its plain versions _native_solve(Z, F) and
+             _native_solve(Z.mH, G) at N = 7-12 on a ragged batch
+             (float64 bit-equal, float32 within F32_TOL); then at the
+             farm's system-response shape (512 rows x 40 frequencies =
+             20,480 systems of N = 12, complex128), for each entry, the
+             raw kernel's time on Z and F as they lie, the wrapper's, the
+             plain version's, torch.linalg.solve's and the bound.
 16. profile_farm - torch.profiler over one 512-row farm chunk: kernel
              launches, device busy time, idle share.
 17. kernels - one JSON object listing both entries of the solve kernel,
-             the forward with its launches on every path (and its N = 12
-             times) and the adjoint with its launches on the grad path.
+             the forward with its launches on every path and the adjoint
+             with its launches on the grad path, each with its N = 12
+             (one-lane-per-row) figures.
 
 Exits non-zero, before printing any result, without CUDA, outside the
 repository, or when any phase misses its tolerance.  Measurements go to
@@ -117,6 +127,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -184,13 +195,17 @@ def impedance_systems(rng, N, lead, nw, dtype):
     return torch.as_tensor(Z).to(dtype)
 
 
-def ge_flops(N):
+def ge_flops(N, live=False):
     """Real floating-point operations of one pivot-free complex N x N
-    elimination and back substitution (the kernel's arithmetic)."""
+    elimination and back substitution: as the thread-per-system design
+    computes them (whole rows), or with ``live`` only those whose result
+    is read again (columns j > kk of the rows below the pivot), as the
+    one-lane-per-row design computes them."""
     f = 0
     for kk in range(N - 1):
         f += 3 + 3                       # |z|^2, 1/z
-        f += (N - 1 - kk) * (6 + 8 * N + 8)
+        cols = N - 1 - kk if live else N
+        f += (N - 1 - kk) * (6 + 8 * cols + 8)
     for kk in range(N):
         f += (N - 1 - kk) * 8 + 3 + 8
     return f
@@ -232,24 +247,73 @@ def phase_device():
     return card
 
 
+ROW_NS = (7, 8, 9, 10, 11, 12)         # the one-lane-per-row design's N
+
+
+def ptxas_table(report):
+    """{(design, type, N, entry): {registers, stack, spill_stores,
+    spill_loads}} of every kernel instantiation in nvcc's -Xptxas -v
+    report; design "soa" (thread per system) or "rows" (lane per row)."""
+    name = re.compile(r"(ge_solve(_rows)?_kernel)I([df])Li(\d+)ELb([01])E")
+    table, cur = {}, None
+    for ln in report.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            k = name.search(m.group(1))
+            cur = None if k is None else (
+                "rows" if k.group(2) else "soa",
+                "f64" if k.group(3) == "d" else "f32", int(k.group(4)),
+                "adj" if k.group(5) == "1" else "fwd")
+            if cur:
+                table[cur] = {}
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            table[cur].update(stack=int(m[1]), spill_stores=int(m[2]),
+                              spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            table[cur]["registers"] = int(m[1])
+    return table
+
+
 def phase_build(out_dir):
     from raft_tpu_torch.ops import linsolve
 
     t0 = time.time()
-    path, report = linsolve.build()
+    path, report = linsolve.build(force=True)
     dt = time.time() - t0
     with open(os.path.join(out_dir, "ptxas_linsolve.txt"), "w") as f:
         f.write(report)
-    regs = sorted({ln.split("Used")[1].split(",")[0].strip()
-                   for ln in report.splitlines() if "Used" in ln})
-    spills = sorted({ln.strip() for ln in report.splitlines()
-                     if "spill" in ln and not
-                     ln.strip().startswith("0 bytes spill")})
+    table = ptxas_table(report)
+    want = [(d, t, n, e) for t in ("f64", "f32") for e in ("fwd", "adj")
+            for d, ns in (("soa", range(1, 7)), ("rows", ROW_NS))
+            for n in ns]
+    missing = [k for k in want if "registers" not in table.get(k, {})]
+    check(not missing, f"build: no ptxas report of {missing}")
+    check(sorted(table) == sorted(want),
+          f"build: unexpected instantiations "
+          f"{sorted(set(table) - set(want))}")
+    spilled = [k for k in want if k[0] == "rows" and (
+        table[k].get("spill_stores", 0) or table[k].get("spill_loads", 0))]
     linsolve._lib()
-    print(f"build: {os.path.relpath(path, HERE)} in {dt:.1f} s "
-          f"(registers {', '.join(regs) or 'reused build'}; "
-          f"{len(spills)} spill lines)")
-    return dict(build_s=dt, ptxas=report)
+    print(f"build: {os.path.relpath(path, HERE)} in {dt:.1f} s, "
+          f"{len(table)} instantiations")
+    for d, ns in (("soa", range(1, 7)), ("rows", ROW_NS)):
+        for t in ("f64", "f32"):
+            for e in ("fwd", "adj"):
+                print(f"  ptxas {d} {t} {e}: " + ", ".join(
+                    f"N={n} {table[(d, t, n, e)]['registers']} regs "
+                    f"{table[(d, t, n, e)].get('spill_stores', 0)}"
+                    f"+{table[(d, t, n, e)].get('spill_loads', 0)} B spill"
+                    for n in ns))
+    check(not spilled, f"build: the row design spills in {spilled}")
+    return dict(build_s=dt, ptxas=report,
+                ptxas_table={" ".join(map(str, k)): v
+                             for k, v in table.items()})
 
 
 def time_kernel(Z, F):
@@ -1255,6 +1319,7 @@ def phase_grad(geo_ev, demo_models, card):
     val, grads, fwd_s, bwd_s = run()
     fwd_launches = linsolve.KERNEL_LAUNCHES
     adj_launches = linsolve.ADJ_KERNEL_LAUNCHES
+    row_launches = linsolve.ROW_KERNEL_LAUNCHES
     peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2 ** 20
     chunks = math.ceil(GRAD_ROWS / (int(config.get("BUCKET_ROWS"))
                                     or GRAD_ROWS))
@@ -1318,6 +1383,7 @@ def phase_grad(geo_ev, demo_models, card):
                bwd_over_fwd=bwd_s / fwd_s, peak_mb_per_chunk=peak_mb / chunks,
                chunks=chunks, fwd_launches=fwd_launches,
                adj_launches=adj_launches, expected_adj_launches=exp_adj,
+               row_launches=row_launches,
                worst_rel=worst, worst_rel_design=worst_design, adjoint=t)
     print(f"grad {name} on {card}: {GRAD_ROWS} rows, d/d{{{', '.join(grads)}}}"
           f" of sum |Xi[0]|^2 + sum X0^2: forward {fwd_s:.2f} s, backward "
@@ -1415,6 +1481,7 @@ def phase_farm(card, rows=FARM_ROWS):
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = linsolve.KERNEL_LAUNCHES
+    row_launches = linsolve.ROW_KERNEL_LAUNCHES
     main = hold_goldens(out, {"semi_wind": np.arange(n_gold)},
                         {"semi_wind": gold}, pfx, "farm", keys=FARM_OUT_KEYS)
     for k, v in main.items():
@@ -1432,6 +1499,9 @@ def phase_farm(card, rows=FARM_ROWS):
     check(launches == exp, f"farm: solve kernel launched {launches} times, "
           f"expected {exp}")
     chunks = timer.chunks()
+    check(row_launches == len(chunks), f"farm: the row design launched "
+          f"{row_launches} times, expected {len(chunks)} (one system "
+          f"response at N = {ev.nT} per chunk)")
     stage_ms = {s: sum(c.get(s, 0.0) for c in chunks) for s in FARM_STAGES}
     st = out["status"]
     res = dict(
@@ -1441,7 +1511,7 @@ def phase_farm(card, rows=FARM_ROWS):
         statics_share=stage_ms["statics"] / sum(stage_ms.values()),
         newton_per_chunk=[c - 1 for c in calls],
         free_point_steps=MooringNetwork.FREE_STEPS,
-        launches=launches, expected_launches=exp,
+        launches=launches, expected_launches=exp, row_launches=row_launches,
         n_iter_drag_max=int(out["n_iter_drag"].max()),
         status_shares=_status_shares(st),
         worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()})
@@ -1454,7 +1524,8 @@ def phase_farm(card, rows=FARM_ROWS):
           f"solve each, {MooringNetwork.FREE_STEPS} free-point steps per "
           f"solve); solve kernel launches {launches} (expected {exp}: trips "
           f"+ final update at N = 6 + system response at N = 12, per "
-          f"chunk); status shares {res['status_shares']}")
+          f"chunk), {row_launches} of them on the one-lane-per-row design "
+          f"(the system responses); status shares {res['status_shares']}")
     print("  farm goldens (gate {:g} x max; status, n_iter_drag equal): "
           .format(SLICE_TOL) + ", ".join(
               f"{k} {v:.1e}" for k, v in res["worst_rel"].items()))
@@ -1473,22 +1544,167 @@ def phase_farm(card, rows=FARM_ROWS):
     return res, ev, p
 
 
+def time_rows(Z, F, adjoint=False):
+    """CUDA-event times of the one-lane-per-row design on Z (..., N, N)
+    and F (..., N) of one batch shape, float64: the raw kernel on Z and F
+    as they lie (no copy), the wrapper, the plain version and
+    torch.linalg.solve, each solving Z x = F (Z^H x = F with
+    ``adjoint``); the kernel's max abs difference from the plain
+    version; and its bound, the larger of the bytes it must move (Z, F
+    and x, each once) over the memory rate and its live operations over
+    the FP64 peak."""
+    from raft_tpu_torch.ops import linsolve
+
+    N = Z.shape[-1]
+    B = F.numel() // N
+    Zb, Fb = Z.reshape(B, N, N), F.reshape(B, N)
+    x = torch.empty_like(Fb)
+    Zp = Z.mH if adjoint else Z
+
+    def raw():
+        err = linsolve.launch_rows(Zb, Fb, x, adjoint)
+        check(err == 0, f"raw row kernel launch N={N} failed: cudaError "
+              f"{err}")
+
+    t = dict(
+        N=N, systems=B, adjoint=adjoint,
+        ms=cuda_time(raw, reps=100, queue_ahead=True),
+        wrapper_ms=cuda_time(lambda: linsolve._cuda_solve_rows(
+            Z, F, adjoint=adjoint), reps=50),
+        plain_ms=cuda_time(lambda: linsolve._native_solve(Zp, F), reps=10),
+        library_ms=cuda_time(lambda: torch.linalg.solve(Zp, F[..., None]),
+                             reps=10),
+    )
+    x_k = linsolve._cuda_solve_rows(Z, F, adjoint=adjoint)
+    x_p = linsolve._native_solve(Zp, F)
+    nbytes = B * (2 * N * N + 2 * N + 2 * N) * 8
+    flops = B * ge_flops(N, live=True)
+    bound_bytes = nbytes / MEM_BPS * 1e3
+    bound_ops = flops / PEAK_FLOPS[torch.float64] * 1e3
+    t.update(max_abs_err=float(torch.max(torch.abs(x_k - x_p))),
+             bytes=nbytes, flops=flops,
+             bound_ms=max(bound_bytes, bound_ops),
+             bound_by="bytes" if bound_bytes >= bound_ops else "operations")
+    return t
+
+
+def sass_census(path, kernel):
+    """{opcode: count} of one kernel's instructions in cuobjdump's SASS
+    listing of the library at ``path`` (static: every instruction once,
+    the never-taken slow paths of the divisions included), or None where
+    the toolkit has no cuobjdump."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", path], capture_output=True,
+                          text=True, timeout=300).stdout
+    ops, on = {}, False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            on = kernel in ln
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]+\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
+                     ln) if on else None
+        if m:
+            ops[m.group(2)] = ops.get(m.group(2), 0) + 1
+    return ops
+
+
 def phase_kernel12(rows=512, nw=40):
-    """The kernel at the farm's system response shape: rows x nw systems
-    of N = 12, complex128, against its plain version (the same op order:
-    bit-equal expected), timed beside torch.linalg.solve and the bound."""
+    """The one-lane-per-row design, forward and adjoint: against the
+    plain versions at N = 7-12 on a ragged batch (25 x 41 systems),
+    float64 bit-equal and float32 within F32_TOL; then at the farm's
+    system response shape, rows x nw systems of N = 12 in complex128,
+    both entries bit-equal, timed beside the wrapper, the plain
+    version, torch.linalg.solve and the bound."""
+    from raft_tpu_torch.ops import linsolve
+
     rng = np.random.default_rng(12)
+    worst = {}
+    for dtype, tol in ((torch.complex128, 0.0), (torch.complex64, F32_TOL)):
+        for N in ROW_NS:
+            Z = impedance_systems(rng, N, (25,), 41, dtype).to(DEVICE)
+            F = torch.as_tensor(rng.normal(size=(25, 41, N)) + 1j
+                                * rng.normal(size=(25, 41, N))
+                                ).to(dtype).to(DEVICE)
+            for adjoint in (False, True):
+                x_k = linsolve._cuda_solve_rows(Z, F, adjoint=adjoint)
+                x_p = linsolve._native_solve(Z.mH if adjoint else Z, F)
+                torch.cuda.synchronize()
+                tag = (f"kernel12 N={N} {dtype} "
+                       f"{'adjoint' if adjoint else 'forward'}")
+                check(bool(torch.isfinite(torch.view_as_real(x_k)).all()),
+                      f"{tag}: non-finite output")
+                err = float(torch.max(torch.abs(x_k - x_p)))
+                scale = float(torch.max(torch.abs(x_p)))
+                check(err <= tol * scale, f"{tag}: |x_k - x_p| = {err:.3e} "
+                      f"> {tol:g} x {scale:.3e}")
+                worst[tag] = err / scale
+
     Z = impedance_systems(rng, 12, (rows,), nw, torch.complex128).to(DEVICE)
     F = torch.as_tensor(rng.normal(size=(rows, nw, 12))
                         + 1j * rng.normal(size=(rows, nw, 12))).to(DEVICE)
-    t = time_kernel(Z, F)
-    check(t["max_abs_err"] == 0.0, f"kernel N=12: differs from its plain "
-          f"version by {t['max_abs_err']:.3e}")
-    print(f"kernel12: {t['systems']:,} systems N=12 f64: kernel "
-          f"{t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms, plain "
-          f"{t['plain_ms']:.3f} ms, torch.linalg.solve {t['library_ms']:.3f} "
-          f"ms, bound {t['bound_ms']:.4f} ms ({t['bound_by']}), bit-equal")
-    return t
+    res = dict(checks=len(worst), worst_rel=worst)
+    for entry, adjoint in (("forward", False), ("adjoint", True)):
+        t = res[entry] = time_rows(Z, F, adjoint)
+        check(t["max_abs_err"] == 0.0, f"kernel12 {entry} N=12: differs "
+              f"from its plain version by {t['max_abs_err']:.3e}")
+
+    # what holds it back: the raw forward per N at rows x nw systems, per
+    # system against the batch at N = 12, and the SASS it issues
+    def raw_us(Zr, Fr):
+        B, N = Fr.shape
+        x = torch.empty_like(Fr)
+        return 1e3 * cuda_time(lambda: linsolve.launch_rows(
+            Zr.reshape(B, N, N), Fr, x), reps=50, queue_ahead=True)
+
+    per_n = {}
+    for N in ROW_NS:
+        Zn = impedance_systems(rng, N, (rows,), nw, torch.complex128)
+        Fn = torch.as_tensor(rng.normal(size=(rows * nw, N))
+                             + 1j * rng.normal(size=(rows * nw, N)))
+        Zn, Fn = Zn.to(DEVICE).reshape(-1, N, N), Fn.to(DEVICE)
+        us = raw_us(Zn, Fn)
+        bound = rows * nw * (2 * N * N + 4 * N) * 8 / MEM_BPS * 1e6
+        per_n[N] = dict(us=us, bound_us=bound, share=bound / us)
+    Zb = Z.reshape(-1, 12, 12)
+    Fb = F.reshape(-1, 12)
+    scaling = {}
+    for frac in (8, 1):
+        B = Fb.shape[0] // frac
+        scaling[B] = raw_us(Zb[:B], Fb[:B]) / B * 1e3      # ns per system
+    B4 = 4 * Fb.shape[0]
+    scaling[B4] = raw_us(Zb.repeat(4, 1, 1), Fb.repeat(4, 1)) / B4 * 1e3
+    census = sass_census(linsolve.library_path(),
+                         "ge_solve_rows_kernelIdLi12ELb0E")
+    res.update(per_n=per_n, ns_per_system=scaling, sass_n12_f64_fwd=census)
+    print(f"kernel12: {len(worst)} comparisons of the row design at N = "
+          f"7-12 within tolerance (f64 bit-equal, f32 {F32_TOL:g} x "
+          f"max|x|), forward and adjoint")
+    for entry in ("forward", "adjoint"):
+        t = res[entry]
+        print(f"  {entry}, {t['systems']:,} systems N=12 f64: kernel "
+              f"{t['ms']:.4f} ms, wrapper {t['wrapper_ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.3f} ms, torch.linalg.solve "
+              f"{t['library_ms']:.3f} ms, bound {t['bound_ms']:.4f} ms "
+              f"({t['bound_by']}, {t['bound_ms'] / t['ms']:.1%} of it), "
+              f"bit-equal")
+    print("  raw forward at 20,480 systems: " + ", ".join(
+        f"N={n} {v['us']:.2f} us ({v['share']:.1%} of its byte bound)"
+        for n, v in per_n.items()) + "; N=12 ns per system at " + ", ".join(
+        f"{b:,} systems {v:.3f}" for b, v in scaling.items()))
+    if census:
+        dp = sum(v for k, v in census.items() if k in ("DADD", "DMUL",
+                                                      "DFMA"))
+        print(f"  SASS of the N=12 f64 forward (static): "
+              f"{sum(census.values())} instructions, {dp} FP64, "
+              f"{census.get('SHFL', 0)} SHFL, "
+              f"{census.get('LDS', 0)} LDS, {census.get('STS', 0)} STS, "
+              f"{census.get('BRA', 0)} BRA per warp (two systems)")
+    else:
+        print("  SASS census: no cuobjdump (not measured)")
+    return res
 
 
 def _device_profile(fn):
@@ -1601,7 +1817,8 @@ def main():
         grad=rec["grad"]["fwd_launches"],
         grad_adjoint=rec["grad"]["adj_launches"],
         farm=rec["farm"]["launches"])
-    k12 = rec["kernel12"]
+    k12 = rec["kernel12"]["forward"]
+    a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
         name="ge_solve", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
@@ -1613,16 +1830,23 @@ def main():
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],
-        n12_ms=k12["ms"], n12_plain_ms=k12["plain_ms"],
-        n12_bound_ms=k12["bound_ms"], n12_library_ms=k12["library_ms"],
-        n12_max_abs_err=k12["max_abs_err"]), dict(
+        n12_ms=k12["ms"], n12_wrapper_ms=k12["wrapper_ms"],
+        n12_plain_ms=k12["plain_ms"], n12_bound_ms=k12["bound_ms"],
+        n12_library_ms=k12["library_ms"],
+        n12_max_abs_err=k12["max_abs_err"],
+        n12_launches=rec["farm"]["row_launches"]), dict(
         name="ge_solve_adj", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
         replaces="raft_tpu/ops/linsolve.py:277",
         launches=rec["grad"]["adj_launches"],
         max_abs_err=a["max_abs_err"], ms=a["ms"], plain_ms=a["plain_ms"],
         bound_ms=a["bound_ms"], bound_by=a["bound_by"],
-        library_ms=a["library_ms"])]
+        library_ms=a["library_ms"],
+        n12_ms=a12["ms"], n12_wrapper_ms=a12["wrapper_ms"],
+        n12_plain_ms=a12["plain_ms"], n12_bound_ms=a12["bound_ms"],
+        n12_library_ms=a12["library_ms"],
+        n12_max_abs_err=a12["max_abs_err"],
+        n12_launches=rec["grad"]["row_launches"])]
     rec["build"].pop("ptxas")
     rec["total_s"] = time.time() - t_start
     print(f"phases: {rec['total_s']:.1f} s in all; " + ", ".join(

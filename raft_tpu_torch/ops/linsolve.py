@@ -13,7 +13,10 @@ Dispatch is by the tensors' device, never by a fallback:
   (the SSA elimination of the reference's ``_native_solve``, op for op);
 * a CUDA tensor takes the hand-written kernel ``csrc/linsolve.cu``
   through :func:`_cuda_solve`, which raises on anything the kernel does
-  not take or a launch it cannot make;
+  not take or a launch it cannot make.  The kernel has two designs:
+  N <= 6 one system per thread on batch-last planes that
+  :func:`soa_planes` repacks; N = 7-12 (``ROW_MIN_N`` up) one lane per
+  row, on Z and F in PyTorch's own layout (:func:`_cuda_solve_rows`);
 * N > ``MAX_NATIVE_N`` goes to ``torch.linalg.solve`` on either device,
   as the reference routes it to ``jnp.linalg.solve`` (not on the
   bucket path, whose systems are 6 x 6).
@@ -23,7 +26,8 @@ Dispatch is by the tensors' device, never by a fallback:
 :func:`solve` is differentiable through one ``torch.autograd.Function``
 (:class:`_Solve`): its backward solves the adjoint system ``Z^H lam =
 X_bar`` through the same dispatch (the kernel's adjoint entry on the
-card, which reads the forward's saved planes of Z transposed;
+card, which reads the forward's saved planes of Z transposed at N <= 6
+and the saved Z itself at N = 7-12;
 ``_native_solve(Z.mH, G)`` on the CPU; ``torch.linalg.solve`` above
 N = 12) and returns ``F_bar = lam`` and ``Z_bar = -lam X^H``, each
 summed over the broadcast dimensions: the formula of
@@ -47,14 +51,19 @@ import torch
 from raft_tpu_torch.utils import config
 
 MAX_NATIVE_N = 12
+#: the smallest N that takes the kernel's one-lane-per-row design
+ROW_MIN_N = 7
 
-#: launches of the CUDA kernel, counted by :func:`_cuda_solve` where it
-#: launches (and nowhere else), so a run can show the main path went
-#: through the kernel
+#: launches of the CUDA kernel's forward entry, either design, counted by
+#: :func:`_cuda_solve` and :func:`_cuda_solve_rows` where they launch (and
+#: nowhere else), so a run can show the main path went through the kernel
 KERNEL_LAUNCHES = 0
 #: launches of the kernel's adjoint entry (the solve's backward), counted
 #: apart from the forward's
 ADJ_KERNEL_LAUNCHES = 0
+#: launches of the N = 7-12 design, forward and adjoint (each counted in
+#: KERNEL_LAUNCHES or ADJ_KERNEL_LAUNCHES as well)
+ROW_KERNEL_LAUNCHES = 0
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 PKG_DIR = os.path.dirname(_HERE)
@@ -93,8 +102,8 @@ def solve(Z, F, path=None):
 
 
 def _forward(Z, F, path, keep_planes=False):
-    """(x, the kernel's SoA planes of Z when ``keep_planes``, else None)
-    by the forward dispatch."""
+    """(x, the kernel's SoA planes of Z when ``keep_planes`` and the
+    SoA design ran, else None) by the forward dispatch."""
     if path == "lapack":
         N = Z.shape[-1]
         bshape = torch.broadcast_shapes(Z.shape[:-2], F.shape[:-1])
@@ -110,13 +119,16 @@ def _forward(Z, F, path, keep_planes=False):
 
 def _adjoint(Z, planes, G, path):
     """lam with ``Z^H lam = G`` (G of the broadcast batch shape), by the
-    forward's dispatch: the kernel's adjoint entry on the forward's
-    planes, the plain version, or ``torch.linalg.solve``."""
+    forward's dispatch: the kernel's adjoint entry (on the forward's
+    planes at N <= 6, on Z at N = 7-12), the plain version, or
+    ``torch.linalg.solve``."""
     if path == "lapack":
         N = Z.shape[-1]
         return torch.linalg.solve(Z.mH.expand(G.shape[:-1] + (N, N)),
                                   G[..., None])[..., 0]
     if Z.device.type == "cuda":
+        if Z.shape[-1] >= ROW_MIN_N:
+            return _cuda_solve_rows(Z, G, adjoint=True)
         return _cuda_solve_adj(planes, G)
     return _native_solve(Z.mH, G)
 
@@ -244,13 +256,14 @@ def library_path():
     return os.path.join(BUILD_DIR, f"liblinsolve_{h.hexdigest()[:12]}.so")
 
 
-def build():
+def build(force=False):
     """Compile ``csrc/linsolve.cu`` with ``nvcc`` for ``sm_90a`` into
-    ``raft_tpu_torch/build/`` unless that build exists; returns the
-    library path and, when it compiled, nvcc's ``-Xptxas -v`` report.
-    Raises ``RuntimeError`` with the compiler's output on failure."""
+    ``raft_tpu_torch/build/`` unless that build exists (or ``force``);
+    returns the library path and, when it compiled, nvcc's ``-Xptxas
+    -v`` report.  Raises ``RuntimeError`` with the compiler's output on
+    failure."""
     out = library_path()
-    if os.path.exists(out):
+    if os.path.exists(out) and not force:
         return out, ""
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
@@ -283,6 +296,14 @@ def _lib():
                                             ctypes.c_int, ctypes.c_void_p]
             for name in ("raft_ge_solve_f64", "raft_ge_solve_f32",
                          "raft_ge_solve_adj_f64", "raft_ge_solve_adj_f32"):
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            args = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_void_p]
+            for name in ("raft_ge_solve_rows_f64", "raft_ge_solve_rows_f32",
+                         "raft_ge_solve_rows_adj_f64",
+                         "raft_ge_solve_rows_adj_f32"):
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = ctypes.c_int
@@ -333,29 +354,40 @@ def launch(planes, xr, xi, adjoint=False):
                   xr.data_ptr(), xi.data_ptr(), B, N, THREADS, stream)
 
 
-def _cuda_solve(Z, F, keep_planes=False):
-    """Launch the hand-written kernel on ``Z``'s CUDA device.
-
-    Repacks Z and F with :func:`soa_planes` and launches one thread per
-    system on the current stream.  Raises on a device, dtype, shape or
-    launch the kernel does not take; there is no fallback.  With
-    ``keep_planes`` it returns ``(x, planes)``, the planes of Z for the
-    adjoint entry.
-    """
-    global KERNEL_LAUNCHES
+def _check_inputs(Z, F, who, lo=1):
+    """Raise unless Z (..., N, N) and F (..., N) are complex128 or
+    complex64 of one type on one CUDA device with lo <= N <= 12."""
     if Z.device.type != "cuda" or F.device != Z.device:
-        raise ValueError(f"_cuda_solve needs Z and F on one CUDA device, "
+        raise ValueError(f"{who} needs Z and F on one CUDA device, "
                          f"got {Z.device} and {F.device}")
     if Z.dtype not in (torch.complex128, torch.complex64) or \
             F.dtype != Z.dtype:
-        raise TypeError(f"_cuda_solve takes complex128 or complex64 Z and "
+        raise TypeError(f"{who} takes complex128 or complex64 Z and "
                         f"F of the same type, got {Z.dtype} and {F.dtype}")
     N = Z.shape[-1]
     if Z.dim() < 2 or Z.shape[-2] != N or F.dim() < 1 or F.shape[-1] != N \
-            or not 1 <= N <= MAX_NATIVE_N:
-        raise ValueError(f"_cuda_solve takes Z (..., N, N) and F (..., N) "
-                         f"with 1 <= N <= {MAX_NATIVE_N}, got "
+            or not lo <= N <= MAX_NATIVE_N:
+        raise ValueError(f"{who} takes Z (..., N, N) and F (..., N) "
+                         f"with {lo} <= N <= {MAX_NATIVE_N}, got "
                          f"{tuple(Z.shape)} and {tuple(F.shape)}")
+
+
+def _cuda_solve(Z, F, keep_planes=False):
+    """Launch the hand-written kernel on ``Z``'s CUDA device.
+
+    At N <= 6 it repacks Z and F with :func:`soa_planes` and launches one
+    thread per system on the current stream; at N = 7-12 it takes
+    :func:`_cuda_solve_rows` (no planes).  Raises on a device, dtype,
+    shape or launch the kernel does not take; there is no fallback.
+    With ``keep_planes`` it returns ``(x, planes)``, the planes of Z for
+    the adjoint entry (None at N = 7-12, whose adjoint reads Z).
+    """
+    global KERNEL_LAUNCHES
+    _check_inputs(Z, F, "_cuda_solve")
+    N = Z.shape[-1]
+    if N >= ROW_MIN_N:
+        x = _cuda_solve_rows(Z, F)
+        return (x, None) if keep_planes else x
     planes, bshape = soa_planes(Z, F)
     out_shape = bshape + (N,)
     if math.prod(bshape) == 0:
@@ -402,9 +434,79 @@ def _cuda_solve_adj(planes, G):
     return torch.complex(xr.T, xi.T).reshape(G.shape)
 
 
+def launch_rows(Z, F, x, adjoint=False):
+    """One launch of the N = 7-12 design on Z (B, N, N) and F (B, N),
+    writing x (B, N) on the current stream; with ``adjoint`` it solves
+    ``Z^H x = F``.  Each tensor must be contiguous, of one complex type,
+    unconjugated and aligned to its element (16 B for complex128).
+    Raises ``ValueError`` on anything else; returns the C function's
+    ``cudaError_t`` (0 on success).  Counts nothing: the wrapper counts
+    its own launches."""
+    N = Z.shape[-1]
+    B = x.numel() // N
+    if Z.shape != (B, N, N) or F.shape != (B, N) or x.shape != (B, N) or \
+            not ROW_MIN_N <= N <= MAX_NATIVE_N:
+        raise ValueError(f"launch_rows takes Z (B, N, N), F (B, N) and x "
+                         f"(B, N) with {ROW_MIN_N} <= N <= {MAX_NATIVE_N}, "
+                         f"got {tuple(Z.shape)}, {tuple(F.shape)} and "
+                         f"{tuple(x.shape)}")
+    for name, t in (("Z", Z), ("F", F), ("x", x)):
+        if t.dtype != Z.dtype or t.device != Z.device or \
+                not t.is_contiguous() or t.is_conj() or \
+                t.data_ptr() % t.element_size():
+            raise ValueError(f"launch_rows: {name} must be a contiguous, "
+                             f"unconjugated {Z.dtype} tensor on {Z.device} "
+                             f"aligned to {Z.element_size()} bytes")
+    lib = _lib()
+    f64 = Z.dtype == torch.complex128
+    if adjoint:
+        fn = lib.raft_ge_solve_rows_adj_f64 if f64 else \
+            lib.raft_ge_solve_rows_adj_f32
+    else:
+        fn = lib.raft_ge_solve_rows_f64 if f64 else lib.raft_ge_solve_rows_f32
+    stream = torch.cuda.current_stream(Z.device).cuda_stream
+    with torch.cuda.device(Z.device):
+        return fn(Z.data_ptr(), F.data_ptr(), x.data_ptr(), B, N, stream)
+
+
+def _cuda_solve_rows(Z, F, adjoint=False):
+    """The kernel's N = 7-12 design, one lane per row, on Z and F in
+    PyTorch's layout: Z is broadcast against F as :func:`solve` does.  A
+    Z that has F's batch shape is read where it lies when it is
+    contiguous; a broadcast Z is materialised once, and F is made
+    contiguous (1/N of Z's bytes).  With ``adjoint`` it solves ``Z^H x
+    = F`` (F then the cotangent, of the forward's broadcast batch
+    shape).  Raises on anything the kernel does not take or a launch it
+    cannot make; there is no fallback."""
+    global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES
+    _check_inputs(Z, F, "_cuda_solve_rows", lo=ROW_MIN_N)
+    N = Z.shape[-1]
+    bshape = torch.broadcast_shapes(Z.shape[:-2], F.shape[:-1])
+    x = torch.empty(bshape + (N,), dtype=Z.dtype, device=Z.device)
+    B = math.prod(bshape)
+    if B == 0:
+        return x
+    Zc = Z.expand(bshape + (N, N)).resolve_conj().contiguous()
+    Fc = F.expand(bshape + (N,)).resolve_conj().contiguous()
+    err = launch_rows(Zc.view(B, N, N), Fc.view(B, N), x.view(B, N),
+                      adjoint)
+    if err != 0:
+        raise RuntimeError(f"linsolve {'adjoint ' if adjoint else ''}row "
+                           f"kernel launch failed: cudaError {err} (N={N}, "
+                           f"batch shape={tuple(bshape)}, {Z.dtype})")
+    if adjoint:
+        ADJ_KERNEL_LAUNCHES += 1
+    else:
+        KERNEL_LAUNCHES += 1
+    ROW_KERNEL_LAUNCHES += 1
+    return x
+
+
 def reset_launches():
-    """Set :data:`KERNEL_LAUNCHES` and :data:`ADJ_KERNEL_LAUNCHES` to 0
-    (returns the previous forward count)."""
-    global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES
-    n, KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES = KERNEL_LAUNCHES, 0, 0
+    """Set :data:`KERNEL_LAUNCHES`, :data:`ADJ_KERNEL_LAUNCHES` and
+    :data:`ROW_KERNEL_LAUNCHES` to 0 (returns the previous forward
+    count)."""
+    global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES
+    n, KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES = \
+        KERNEL_LAUNCHES, 0, 0, 0
     return n

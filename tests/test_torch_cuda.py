@@ -7,7 +7,8 @@ it there without the repository's conftest (which imports JAX)::
     PYTHONPATH=. python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerances are the kernel-vs-plain ones of ``chip_smoke.py``: float64
-within 1e-12 x max|x|, float32 within 1e-5 x max|x| (the forward and the
+bit-equal (both designs follow the plain version's operation order under
+--fmad=false), float32 within 1e-5 x max|x| (the forward and the
 adjoint entry alike); the slice, the design, the full and the geometry
 evaluator and the farm evaluator within 1e-10 x max of the JAX
 goldens with ``status`` and ``n_iter_drag`` equal; reverse-mode gradients within 1e-9 x each key's
@@ -57,20 +58,58 @@ def systems(N, lead, nw, seed):
     return torch.as_tensor(Z), torch.as_tensor(F)
 
 
+NS = [1, 2, 3, 6, 7, 8, 9, 10, 11, 12]
+DTYPES = [(torch.complex128, 0.0), (torch.complex64, 1e-5)]
+
+
+def _launches():
+    return (linsolve.KERNEL_LAUNCHES, linsolve.ADJ_KERNEL_LAUNCHES,
+            linsolve.ROW_KERNEL_LAUNCHES)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 2, 3, 6, 9, 12])
-@pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-12),
-                                       (torch.complex64, 1e-5)])
+@pytest.mark.parametrize("N", NS)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_kernel_matches_plain(cuda, N, dtype, tol):
     Z, F = systems(N, (3,), 41, N)      # 123 systems: not a block multiple
     Z, F = Z.to(dtype).to(cuda), F.to(dtype).to(cuda)
-    before = linsolve.KERNEL_LAUNCHES
+    fwd, adj, rows = _launches()
     x_k = linsolve.solve(Z, F)
     torch.cuda.synchronize()
-    assert linsolve.KERNEL_LAUNCHES == before + 1
+    row = int(N >= linsolve.ROW_MIN_N)
+    assert _launches() == (fwd + 1, adj, rows + row)
     x_p = linsolve._native_solve(Z, F)
     scale = float(torch.max(torch.abs(x_p)))
     assert float(torch.max(torch.abs(x_k - x_p))) <= tol * scale
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [7, 8, 9, 10, 11, 12])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_row_kernel_layouts(cuda, N, dtype, tol):
+    """The N = 7-12 design on a ragged batch (not a multiple of its
+    8-system tile), a broadcast Z (nw, N, N) against F (nH, nw, N), and
+    a non-contiguous F, forward and adjoint, against the plain
+    version."""
+    Z, F = systems(N, (), 13, 50 + N)
+    Z, F = Z.to(dtype).to(cuda), F.to(dtype).to(cuda)
+    H = torch.as_tensor(np.random.default_rng(N).normal(
+        size=(3, 13, 2 * N, 2))).to(cuda)
+    H = torch.complex(H[..., 0], H[..., 1]).to(dtype)
+    G = H[..., :N].contiguous()
+    cases = {"ragged": (Z, F),
+             "broadcast": (Z, G),
+             "noncontiguous": (Z[None].expand(3, 13, N, N).contiguous(),
+                               H[..., ::2])}
+    for name, (z, f) in cases.items():
+        for adjoint in (False, True):
+            x_k = linsolve._cuda_solve_rows(z, f, adjoint=adjoint)
+            x_p = linsolve._native_solve(z.mH if adjoint else z, f)
+            torch.cuda.synchronize()
+            assert x_k.shape == x_p.shape, name
+            scale = float(torch.max(torch.abs(x_p)))
+            assert float(torch.max(torch.abs(x_k - x_p))) <= tol * scale, \
+                (name, adjoint)
 
 
 @pytest.mark.cuda
@@ -99,6 +138,12 @@ def test_kernel_wrapper_rejects(cuda):
                                        device=cuda)[None],
                              torch.ones(1, 13, dtype=torch.complex128,
                                         device=cuda))
+    Z9 = torch.eye(9, dtype=torch.complex128, device=cuda)[None]
+    F9 = torch.ones(1, 9, dtype=torch.complex128, device=cuda)
+    with pytest.raises(ValueError):
+        linsolve._cuda_solve_rows(Z, F)          # N = 6: the SoA design's
+    with pytest.raises(ValueError):              # the raw launch: strided
+        linsolve.launch_rows(Z9.transpose(-1, -2), F9, torch.empty_like(F9))
 
 
 @pytest.mark.cuda
@@ -184,30 +229,32 @@ def test_farm_on_card_matches_goldens(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("N", [1, 2, 3, 6, 9, 12])
-@pytest.mark.parametrize("dtype,tol", [(torch.complex128, 1e-12),
-                                       (torch.complex64, 1e-5)])
+@pytest.mark.parametrize("N", NS)
+@pytest.mark.parametrize("dtype,tol", DTYPES)
 def test_adjoint_kernel_matches_plain(cuda, N, dtype, tol):
-    """The adjoint entry on the forward's planes against
-    ``_native_solve(Z.mH, G)``."""
+    """The adjoint entry (on the forward's planes at N <= 6, on Z at
+    N = 7-12) against ``_native_solve(Z.mH, G)``."""
     Z, G = systems(N, (3,), 41, N + 100)
     Z, G = Z.to(dtype).to(cuda), G.to(dtype).to(cuda)
     _, planes = linsolve._cuda_solve(Z, G, keep_planes=True)
-    before = linsolve.ADJ_KERNEL_LAUNCHES
-    lam = linsolve._cuda_solve_adj(planes, G)
+    assert (planes is None) == (N >= linsolve.ROW_MIN_N)
+    fwd, adj, rows = _launches()
+    lam = linsolve._adjoint(Z, planes, G, "native")
     torch.cuda.synchronize()
-    assert linsolve.ADJ_KERNEL_LAUNCHES == before + 1
+    assert _launches() == (fwd, adj + 1,
+                           rows + int(N >= linsolve.ROW_MIN_N))
     ref = linsolve._native_solve(Z.mH, G)
     scale = float(torch.max(torch.abs(ref)))
     assert float(torch.max(torch.abs(lam - ref))) <= tol * scale
 
 
 @pytest.mark.cuda
-def test_solve_backward_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("N", [6, 12])
+def test_solve_backward_on_card_matches_cpu(cuda, N):
     """The solve's gradient through the adjoint kernel (broadcast Z) on
-    the card against the same backward on the CPU."""
-    Z, _ = systems(6, (4, 1), 17, 7)
-    F = torch.as_tensor(np.random.default_rng(2).normal(size=(4, 3, 17, 6))
+    the card against the same backward on the CPU, in both designs."""
+    Z, _ = systems(N, (4, 1), 17, 7)
+    F = torch.as_tensor(np.random.default_rng(2).normal(size=(4, 3, 17, N))
                         + 1j)
     grads = []
     for dev in ("cpu", cuda):

@@ -154,3 +154,145 @@ def test_plain_solve_matches_pallas_interpret():
                                  path="pallas"))
     x_t = tls.solve(torch.as_tensor(Z), torch.as_tensor(F)).numpy()
     assert np.max(np.abs(x_t - x_pal)) <= F64_TOL * np.max(np.abs(x_pal))
+
+
+def row_design(Z, F, adjoint=False):
+    """The N = 7-12 kernel design's operation order in plain torch: lane
+    i holds row i of [Z | F] (row i of Z^H, the conjugated column i of
+    Z, for the adjoint) as one tensor per column; step kk broadcasts the
+    pivot row, every row below it inverts the pivot through |z|^2, forms
+    its multiplier and updates its live columns (j > kk) and right-hand
+    side only; back substitution is row-oriented, each term a[kk][jj]
+    x[jj] formed once x[jj] is known and subtracted in increasing jj."""
+    N = Z.shape[-1]
+    bshape = torch.broadcast_shapes(Z.shape[:-2], F.shape[:-1])
+    Zb = Z.expand(bshape + (N, N))
+    Fb = F.expand(bshape + (N,))
+    if adjoint:
+        ar = [[Zb.real[..., j, i] for j in range(N)] for i in range(N)]
+        ai = [[-Zb.imag[..., j, i] for j in range(N)] for i in range(N)]
+    else:
+        ar = [[Zb.real[..., i, j] for j in range(N)] for i in range(N)]
+        ai = [[Zb.imag[..., i, j] for j in range(N)] for i in range(N)]
+    gr = [Fb.real[..., i] for i in range(N)]
+    gi = [Fb.imag[..., i] for i in range(N)]
+
+    for kk in range(N - 1):
+        # the pivot row, as lane kk writes it for the team
+        qr, qi = ar[kk][kk:], ai[kk][kk:]
+        fr, fi = gr[kk], gi[kk]
+        for ii in range(kk + 1, N):
+            pr, pi = qr[0], qi[0]
+            d = pr * pr + pi * pi
+            ivr, ivi = pr / d, -pi / d
+            cr, ci = ar[ii][kk], ai[ii][kk]
+            mr = cr * ivr - ci * ivi
+            mi = cr * ivi + ci * ivr
+            for j in range(kk + 1, N):
+                rr = ar[ii][j] - (mr * qr[j - kk] - mi * qi[j - kk])
+                ri = ai[ii][j] - (mr * qi[j - kk] + mi * qr[j - kk])
+                ar[ii][j], ai[ii][j] = rr, ri
+            gr[ii], gi[ii] = (gr[ii] - (mr * fr - mi * fi),
+                              gi[ii] - (mr * fi + mi * fr))
+
+    xr, xi = [None] * N, [None] * N
+    for kk in range(N - 1, -1, -1):
+        if kk < N - 1:
+            yr, yi = xr[kk + 1], xi[kk + 1]
+            for ii in range(kk + 1):
+                tr = ar[ii][kk + 1] * yr - ai[ii][kk + 1] * yi
+                ti = ar[ii][kk + 1] * yi + ai[ii][kk + 1] * yr
+                ar[ii][kk + 1], ai[ii][kk + 1] = tr, ti
+        sr, si = gr[kk], gi[kk]
+        for jj in range(kk + 1, N):
+            sr = sr - ar[kk][jj]
+            si = si - ai[kk][jj]
+        pr, pi = ar[kk][kk], ai[kk][kk]
+        d = pr * pr + pi * pi
+        xr[kk] = (sr * pr + si * pi) / d
+        xi[kk] = (si * pr - sr * pi) / d
+    return torch.complex(torch.stack(xr, dim=-1), torch.stack(xi, dim=-1))
+
+
+@pytest.mark.parametrize("N", range(1, 13))
+@pytest.mark.parametrize("dtype", [torch.complex128, torch.complex64])
+def test_row_design_order_is_bit_equal_to_plain(N, dtype):
+    """The one-lane-per-row design's order (dead columns skipped, pivot
+    row broadcast, row-oriented back substitution with early products)
+    gives the plain version's bits, forward and adjoint, on three seeds
+    of impedance systems in the broadcast layout."""
+    for seed in range(3):
+        Z, F = impedance_systems(np.random.default_rng(1000 * N + seed), N)
+        Z = torch.as_tensor(Z).to(dtype)
+        F = torch.as_tensor(F).to(dtype)
+        x = row_design(Z, F)
+        assert x.dtype == dtype and x.shape == (3, 17, N)
+        assert torch.equal(x, tls._native_solve(Z, F))
+        lam = row_design(Z, F, adjoint=True)
+        assert torch.equal(lam, tls._native_solve(Z.mH, F))
+
+
+class _FakeCuda:
+    """A stand-in CUDA tensor: enough of one for the dispatch to read
+    its device, type and shape."""
+
+    device = torch.device("cuda", 0)
+    dtype = torch.complex128
+    requires_grad = False
+
+    def __init__(self, shape):
+        self.shape = torch.Size(shape)
+
+    def dim(self):
+        return len(self.shape)
+
+    def expand(self, shape):
+        return _FakeCuda(shape)
+
+    def __getitem__(self, idx):
+        return _FakeCuda(self.shape + (1,))
+
+    @property
+    def mH(self):
+        return self
+
+
+class _Launched(Exception):
+    pass
+
+
+@pytest.mark.parametrize("N", [1, 6, 7, 9, 12, 13])
+def test_cuda_dispatch_by_n(monkeypatch, N):
+    """On a CUDA tensor, forward and adjoint: N <= 6 repacks with
+    soa_planes for the thread-per-system design, N = 7-12 goes to the
+    row design and never to soa_planes, N > 12 to torch.linalg.solve;
+    never to the plain version.  Simulated with stand-in tensors, since
+    there is no card here."""
+    calls = []
+
+    def soa(Z, F):
+        calls.append("soa")
+        raise _Launched
+
+    def lapack(A, b):
+        calls.append("lapack")
+        return torch.zeros(tuple(A.shape[:-1]) + (1,))
+
+    monkeypatch.setattr(tls, "soa_planes", soa)
+    monkeypatch.setattr(tls, "_cuda_solve_rows",
+                        lambda Z, F, adjoint=False: calls.append(
+                            "rows_adj" if adjoint else "rows") or "r")
+    monkeypatch.setattr(tls, "_cuda_solve_adj",
+                        lambda planes, G: calls.append("soa_adj") or "a")
+    monkeypatch.setattr(tls, "_native_solve",
+                        lambda Z, F: calls.append("plain") or "p")
+    monkeypatch.setattr(torch.linalg, "solve", lapack)
+    Z, F = _FakeCuda((4, N, N)), _FakeCuda((4, N))
+    try:
+        tls.solve(Z, F)
+    except _Launched:
+        pass
+    tls._adjoint(Z, None, F, tls.solver_path(N))
+    expect = {1: ["soa", "soa_adj"], 6: ["soa", "soa_adj"],
+              13: ["lapack", "lapack"]}.get(N, ["rows", "rows_adj"])
+    assert calls == expect
