@@ -111,7 +111,29 @@ Phases, each printing one line (the last line is the result object):
              plain version's, torch.linalg.solve's and the bound.
 16. profile_farm - torch.profiler over one 512-row farm chunk: kernel
              launches, device busy time, idle share.
-17. kernels - one JSON object listing both entries of the solve kernel,
+17. flex    - the flexible evaluator (make_flexible_evaluator, float64)
+             on design_semi_wind_flex.json (the semi_wind rotor on a
+             steel beam tower, nDOF 168): warm-up on the golden rows
+             (held against golden_flex_semi_wind.npz), then FLEX_ROWS
+             (1024) rows of the full phase's semi_wind operating table
+             with the golden rows first, in chunks of the evaluator's
+             FLEX_ROWS; flex-evals/s, stage ms (aero, statics,
+             kinematics, excitation, fixed_point, response), Newton
+             iterations and peak device memory per chunk, status
+             shares, the torch.linalg.solve share of the fixed point
+             and its FLOP rate (LU and substitution),
+             and no launch of either solve-kernel design (N > 12 goes to
+             the library, as in the reference).  The keys past the
+             N-DOF solves are held at kappa eps (FLEX_KAPPA_K for X0,
+             FLEX_KAPPA_Z for Xi, PSD, drag_resid).
+    flex_geometry - the flexible geometry axis: the golden rows of
+             golden_flex_geometry_semi_wind.npz (three rebuilt tower
+             designs, held), then FLEX_GEOMETRY_DESIGNS (8) host-rebuilt
+             designs (tower d and t each scaled over 0.9-1.1) x
+             FLEX_GEOMETRY_ROWS (64) operating rows through
+             geometry=True, with the golden rows first; host build s per
+             design, geometry-evals/s, stage ms.
+18. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path and the adjoint
              with its launches on the grad path, each with its N = 12
              (one-lane-per-row) figures.
@@ -166,6 +188,19 @@ GRAD_ROWS = 512                        # rows of the grad phase (one chunk)
 GRAD_TOL = 1e-9                        # x each key's max |golden gradient|
 FARM_ROWS = 1024                       # rows of the farm phase (2 chunks)
 FARM_SEED = 20261023
+FLEX_DESIGN = "semi_wind"
+FLEX_ROWS = 1024                       # rows of the flex phase
+FLEX_SEED = 20261024
+FLEX_GEOMETRY_DESIGNS = 8              # host-rebuilt tower designs
+FLEX_GEOMETRY_ROWS = 64                # operating rows per design
+FLEX_GEOMETRY_SEED = 20261025
+#: the flexible path's gates past its N = 108-168 solves (pivoted LU of
+#: two libraries, tests/test_torch_flexible.py): X0 at kappa(K) eps and
+#: Xi, PSD and drag_resid at kappa(Z) eps, with the largest condition
+#: numbers of the statics stiffness and of the response impedance over
+#: the golden rows
+FLEX_KAPPA_K = 2.80e9
+FLEX_KAPPA_Z = 2.72e10
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -442,12 +477,12 @@ def expected_launches(n_iter_rows, chunk_rows, cap, scan_chunk, fused):
     return total
 
 
-def hold_goldens(out, where, gold, pfx, tag, keys=None):
+def hold_goldens(out, where, gold, pfx, tag, keys=None, tols=None):
     """Rows ``where[name]`` of ``out`` against ``gold[name]``'s keys with
     prefix ``pfx`` (``keys``, default the bucket path's): floats within
-    SLICE_TOL x each key's max, the status word, iteration counts and
-    convergence flags exactly.  Returns the worst relative error per
-    design.key."""
+    SLICE_TOL (or ``tols[key]``) x each key's max, the status word,
+    iteration counts and convergence flags exactly.  Returns the worst
+    relative error per design.key."""
     from raft_tpu_torch.structure import bucketing as bk
 
     worst = {}
@@ -461,8 +496,9 @@ def hold_goldens(out, where, gold, pfx, tag, keys=None):
                 continue
             scale = float(np.max(np.abs(b)))
             err = float(np.max(np.abs(a - b)))
-            check(err <= SLICE_TOL * scale,
-                  f"{tag} {n} {k}: {err:.3e} > {SLICE_TOL:g} x {scale:.3e}")
+            tol = (tols or {}).get(k, SLICE_TOL)
+            check(err <= tol * scale,
+                  f"{tag} {n} {k}: {err:.3e} > {tol:g} x {scale:.3e}")
             worst[f"{n}.{k}"] = err / scale if scale else 0.0
     return worst
 
@@ -1752,6 +1788,277 @@ def phase_profile_farm(ev, p, rows=512):
     return res
 
 
+# ---------------------------------------------------------------- flexible
+
+def _flex_tols():
+    """The flexible path's gates, x each key's max (FLEX_KAPPA_*)."""
+    eps = float(np.finfo(np.float64).eps)
+    z = FLEX_KAPPA_Z * eps
+    return dict(X0=FLEX_KAPPA_K * eps, Xi=z, PSD=z, drag_resid=z)
+
+
+def _flex_design(d_scale=1.0, t_scale=1.0):
+    """design_semi_wind_flex.json with its tower's d and t scaled."""
+    with open(os.path.join(FIX, f"design_{FLEX_DESIGN}_flex.json")) as f:
+        d = json.load(f)
+    tw = d["turbine"]["tower"]
+    tw["d"] = [x * d_scale for x in tw["d"]]
+    tw["t"] = [x * t_scale for x in tw["t"]]
+    return d
+
+
+class SolveTimer:
+    """While installed, a CUDA event pair around every call of
+    ``torch.linalg.solve``, attributed to the stage in progress (the one
+    that ends at the timer's next mark), with the real FLOP its systems
+    need: per complex N x N system 8/3 N^3 for the LU and 8 N^2 per
+    right-hand side for the two triangular solves (a real system a
+    quarter of that)."""
+
+    def __init__(self, stages):
+        self.fn = torch.linalg.solve
+        self.after = dict(zip(("start",) + tuple(stages), stages))
+        self.stage = None
+        self.events = []
+
+    def __enter__(self):
+        def timed(*a, **kw):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            out = self.fn(*a, **kw)
+            e1.record()
+            A, B = a[0], a[1]
+            N = A.shape[-1]
+            systems = math.prod(torch.broadcast_shapes(
+                A.shape[:-2], B.shape[:-2] if B.dim() == A.dim()
+                else B.shape[:-1]))
+            rhs = B.shape[-1] if B.dim() == A.dim() else 1
+            flop = systems * (8 / 3 * N ** 3 + 8 * N ** 2 * rhs)
+            if not A.is_complex():
+                flop /= 4
+            self.events.append((self.stage, e0, e1, flop))
+            return out
+
+        torch.linalg.solve = timed
+        return self
+
+    def __exit__(self, *exc):
+        torch.linalg.solve = self.fn
+
+    def mark(self, stage):
+        self.stage = self.after.get(stage)
+
+    def ms(self):
+        """{stage: (ms in torch.linalg.solve, calls, FLOP)}."""
+        out = {}
+        for stage, e0, e1, flop in self.events:
+            ms, n, f = out.get(stage, (0.0, 0, 0.0))
+            out[stage] = (ms + e0.elapsed_time(e1), n + 1, f + flop)
+        return out
+
+
+def _flex_run(ev, p, stages, sp=None):
+    """One timed run of the flexible evaluator: outputs (numpy), wall s,
+    stage ms summed over chunks, Newton iterations, peak device memory
+    and torch.linalg.solve time per stage; the solve kernel's launch
+    counters must not move."""
+    from raft_tpu_torch.ops import linsolve
+
+    timer = StageTimer()
+    peaks, base = [], []
+    with MooringCounter() as moor, SolveTimer(stages) as solves:
+        def mark(stage):
+            moor.mark(stage)
+            solves.mark(stage)
+            if stage == "start":
+                torch.cuda.reset_peak_memory_stats()
+                base.append(torch.cuda.memory_allocated())
+            elif stage == "response":
+                peaks.append(torch.cuda.max_memory_allocated())
+            timer(stage)
+
+        linsolve.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = ev(**p, struct_params=sp, timer=mark)
+        out = {k: v.cpu().numpy() for k, v in out.items()}
+        wall = time.time() - t0
+        torch.cuda.synchronize()
+    check(linsolve.KERNEL_LAUNCHES == 0 and linsolve.ADJ_KERNEL_LAUNCHES == 0
+          and linsolve.ROW_KERNEL_LAUNCHES == 0,
+          f"flex: the solve kernel launched ({linsolve.KERNEL_LAUNCHES}, "
+          f"{linsolve.ADJ_KERNEL_LAUNCHES}, {linsolve.ROW_KERNEL_LAUNCHES}); "
+          "N > 12 goes to torch.linalg.solve")
+    chunks = timer.chunks()
+    stage_ms = {st: sum(c.get(st, 0.0) for c in chunks) for st in stages}
+    return dict(out=out, wall=wall, chunks=len(chunks), stage_ms=stage_ms,
+                newton=[e - 1 for e in moor.per_chunk],
+                peak_mib=[x / 2 ** 20 for x in peaks],
+                base_mib=[x / 2 ** 20 for x in base], solve=solves.ms())
+
+
+def phase_flex(card, rows=FLEX_ROWS):
+    """The flexible evaluator on semi_wind_flex: warm-up on the golden
+    rows (held), then ``rows`` operating rows with the golden rows first,
+    timed per stage, Newton iterations and peak memory per chunk, the
+    library solve's share of the fixed point, no solve-kernel launch."""
+    from raft_tpu_torch import api
+    from raft_tpu_torch.models.model import Model
+
+    t0 = time.time()
+    model = Model(_flex_design())
+    ev = api.make_flexible_evaluator(model, nWaves=1, device=DEVICE)
+    build_s = time.time() - t0
+    gold = dict(np.load(os.path.join(FIX, f"golden_flex_{FLEX_DESIGN}.npz")))
+    n_gold = len(gold["Hs"])
+    tols = _flex_tols()
+    keys = api.FLEX_OUT_KEYS
+
+    t0 = time.time()
+    warm = _flex_run(ev, full_rows("semi_wind", gold, n_gold,
+                                   FLEX_SEED), api.FLEX_STAGES)
+    warm_s = time.time() - t0
+    worst = hold_goldens(warm["out"], {FLEX_DESIGN: np.arange(n_gold)},
+                         {FLEX_DESIGN: gold}, "on_", "flex", keys=keys,
+                         tols=tols)
+    r = _flex_run(ev, full_rows("semi_wind", gold, rows, FLEX_SEED),
+                  api.FLEX_STAGES)
+    out = r["out"]
+    main = hold_goldens(out, {FLEX_DESIGN: np.arange(n_gold)},
+                        {FLEX_DESIGN: gold}, "on_", "flex", keys=keys,
+                        tols=tols)
+    for k, v in main.items():
+        worst[k] = max(worst[k], v)
+    for k in ("X0", "Xi", "PSD"):
+        check(np.all(np.isfinite(out[k])), f"flex: non-finite {k}")
+    check(out["Xi"].shape == (rows, 2, ev.n, ev.nw),
+          f"flex: Xi shape {out['Xi'].shape}")
+    stage_ms = r["stage_ms"]
+    total = sum(stage_ms.values())
+    fp_solve_ms, fp_solves, fp_flop = r["solve"].get("fixed_point",
+                                                     (0.0, 0, 0.0))
+    res = dict(
+        design=FLEX_DESIGN, nDOF=ev.n, nodes=ev.fs.n_nodes, rows=rows,
+        chunk_rows=api.FLEX_ROWS, build_s=build_s, warm_s=warm_s,
+        wall_s=r["wall"], evals_per_s=rows / r["wall"],
+        device_evals_per_s=rows / (total / 1e3), chunks=r["chunks"],
+        stage_ms=stage_ms,
+        stage_share={k: v / total for k, v in stage_ms.items()},
+        newton_per_chunk=r["newton"], peak_mib_per_chunk=r["peak_mib"],
+        base_mib=r["base_mib"][0] if r["base_mib"] else 0.0,
+        solve_ms_by_stage={k: v[0] for k, v in r["solve"].items()},
+        solve_calls_by_stage={k: v[1] for k, v in r["solve"].items()},
+        fixed_point_solve_share=(fp_solve_ms / stage_ms["fixed_point"]
+                                 if stage_ms["fixed_point"] else 0.0),
+        fixed_point_solve_tflops=(fp_flop / fp_solve_ms / 1e9
+                                  if fp_solve_ms else 0.0),
+        fixed_point_solve_peak_share=(
+            fp_flop / fp_solve_ms / 1e-3 / PEAK_FLOPS[torch.float64]
+            if fp_solve_ms else 0.0),
+        n_iter_drag_max=int(out["n_iter_drag"].max()),
+        status_shares=_status_shares(out["status"]),
+        worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()},
+        gates=tols)
+    print(f"flex {FLEX_DESIGN} (nDOF {ev.n}, {ev.fs.n_nodes} nodes) on "
+          f"{card}: {rows} rows in {r['chunks']} chunks of {api.FLEX_ROWS} "
+          f"in {r['wall']:.2f} s = {res['evals_per_s']:.2f} flex-evals/s; "
+          "stage ms " + ", ".join(
+              f"{k} {v:.1f} ({100 * res['stage_share'][k]:.1f}%)"
+              for k, v in stage_ms.items())
+          + f"; torch.linalg.solve {fp_solve_ms:.1f} ms of the fixed point "
+          f"({100 * res['fixed_point_solve_share']:.1f}%, {fp_solves} "
+          f"calls, {res['fixed_point_solve_tflops']:.2f} TFLOP/s of LU and "
+          f"substitution, {100 * res['fixed_point_solve_peak_share']:.1f}% "
+          f"of the FP64 peak); statics Newton iterations per chunk "
+          f"{r['newton']}; peak device memory per chunk {max(r['peak_mib']):.0f} MiB "
+          f"(before a chunk {res['base_mib']:.0f} MiB); status shares "
+          f"{res['status_shares']}; solve-kernel launches 0 (N > 12: "
+          "torch.linalg.solve)")
+    print("  flex goldens (gates x max: " + ", ".join(
+        f"{k} {v:.1e}" for k, v in tols.items())
+        + ", else {:g}; status, n_iter_drag, drag_converged equal): "
+        .format(SLICE_TOL) + ", ".join(
+            f"{k} {v:.1e}" for k, v in res["worst_rel"].items()))
+    res["flex_geometry"] = phase_flex_geometry(model, card)
+    return res
+
+
+def _stack_rows(trees):
+    """Nested dicts of numpy arrays stacked leaf by leaf (rows first)."""
+    if isinstance(trees[0], dict):
+        return {k: _stack_rows([t[k] for t in trees]) for k in trees[0]}
+    return np.stack(trees)
+
+
+def phase_flex_geometry(model, card):
+    """The flexible geometry axis: the golden rows (three rebuilt tower
+    designs, held), then FLEX_GEOMETRY_DESIGNS host-rebuilt designs x
+    FLEX_GEOMETRY_ROWS operating rows with the golden rows first."""
+    from raft_tpu_torch import api
+    from raft_tpu_torch.models.model import Model
+
+    ev = api.make_flexible_evaluator(model, nWaves=1, device=DEVICE,
+                                     geometry=True)
+    gold = dict(np.load(os.path.join(
+        FIX, f"golden_flex_geometry_{FLEX_DESIGN}.npz")))
+    n_gold = len(gold["Hs"])
+    rng = np.random.default_rng(FLEX_GEOMETRY_SEED)
+    scales = [tuple(x) for x in rng.uniform(0.9, 1.1,
+                                             (FLEX_GEOMETRY_DESIGNS, 2))]
+    gold_scales = sorted(set(zip(gold["d_scale"].tolist(),
+                                 gold["t_scale"].tolist())))
+    t0 = time.time()
+    sps = {sc: api.flexible_struct_params(Model(_flex_design(*sc)))
+           for sc in scales}
+    build_s = (time.time() - t0) / len(scales)
+    sps.update({sc: api.flexible_struct_params(Model(_flex_design(*sc)))
+                for sc in gold_scales})
+    gkeys = list(zip(gold["d_scale"].tolist(), gold["t_scale"].tolist()))
+    m = FLEX_GEOMETRY_ROWS * len(scales)
+    base = {k: v[n_gold:] for k, v in full_rows(
+        "semi_wind", gold, n_gold + m, FLEX_GEOMETRY_SEED).items()}
+    p = {k: np.concatenate([gold[k], base[k]])
+         for k in api.ENV_KEYS + api.SEA_KEYS}
+    keys = gkeys + [sc for sc in scales for _ in range(FLEX_GEOMETRY_ROWS)]
+    sp = _stack_rows([sps[k] for k in keys])
+    stages = ("geometry",) + api.FLEX_STAGES
+    tols = _flex_tols()
+
+    warm = _flex_run(ev, {k: v[:n_gold] for k, v in p.items()}, stages,
+                     _stack_rows([sps[k] for k in gkeys]))
+    worst = hold_goldens(warm["out"], {FLEX_DESIGN: np.arange(n_gold)},
+                         {FLEX_DESIGN: gold}, "on_", "flex_geometry",
+                         keys=api.FLEX_OUT_KEYS, tols=tols)
+    r = _flex_run(ev, p, stages, sp)
+    main = hold_goldens(r["out"], {FLEX_DESIGN: np.arange(n_gold)},
+                        {FLEX_DESIGN: gold}, "on_", "flex_geometry",
+                        keys=api.FLEX_OUT_KEYS, tols=tols)
+    for k, v in main.items():
+        worst[k] = max(worst[k], v)
+    for k in ("X0", "Xi", "PSD"):
+        check(np.all(np.isfinite(r["out"][k])),
+              f"flex_geometry: non-finite {k}")
+    rows = len(keys)
+    res = dict(designs=len(scales), rows_per_design=FLEX_GEOMETRY_ROWS,
+               rows=rows, scales=scales, build_s_per_design=build_s,
+               wall_s=r["wall"], evals_per_s=rows / r["wall"],
+               chunks=r["chunks"], stage_ms=r["stage_ms"],
+               newton_per_chunk=r["newton"],
+               peak_mib_per_chunk=r["peak_mib"],
+               status_shares=_status_shares(r["out"]["status"]),
+               worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()})
+    print(f"flex_geometry on {card}: {len(scales)} host-rebuilt tower "
+          f"designs ({build_s:.2f} s each) x {FLEX_GEOMETRY_ROWS} rows + "
+          f"{n_gold} golden rows in {r['wall']:.2f} s = "
+          f"{res['evals_per_s']:.2f} evals/s; stage ms " + ", ".join(
+              f"{k} {v:.1f}" for k, v in r["stage_ms"].items())
+          + f"; Newton iterations per chunk {r['newton']}; status shares "
+          f"{res['status_shares']}; goldens worst " + ", ".join(
+              f"{k} {v:.1e}" for k, v in res["worst_rel"].items()))
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
@@ -1805,6 +2112,7 @@ def main():
         rec["kernel12"] = timed("kernel12", phase_kernel12)
         rec["profile_farm"] = timed("profile_farm", phase_profile_farm,
                                     farm_ev, farm_p)
+        rec["flex"] = timed("flex", phase_flex, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

@@ -1,4 +1,5 @@
-"""PyTorch/CUDA port of raft_tpu's rigid-FOWT and farm evaluators.
+"""PyTorch/CUDA port of raft_tpu's rigid-FOWT, flexible-FOWT and farm
+evaluators.
 
 The JAX package :mod:`raft_tpu` is the reference; this package mirrors
 its module paths (``raft_tpu_torch/ops/linsolve.py`` is the counterpart
@@ -23,6 +24,13 @@ Entry points:
   over rows of wind, current and seas, forward only, with
   :func:`~raft_tpu_torch.api.case_to_traced` turning a case-table row
   into its row parameters;
+* :func:`raft_tpu_torch.api.make_flexible_evaluator` — one flexible or
+  multibody design's batched evaluator (beam members as FE chains,
+  reduced N-DOF structures: general statics, the displaced-pose
+  topology replayed in torch over rows, the N-DOF drag linearisation
+  and impedance solves), forward only, with a geometry axis over
+  host-rebuilt designs (:func:`~raft_tpu_torch.api.
+  flexible_struct_params`);
 * :func:`raft_tpu_torch.api.make_farm_evaluator` — an array design's
   batched farm evaluator (several rigid units, their own moorings and a
   shared-mooring network from a MoorDyn file, the coupled statics and

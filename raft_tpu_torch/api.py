@@ -322,6 +322,60 @@ def case_in_traced_domain(case):
     return np.ndim(case.get("wave_heading", 0.0)) == 0
 
 
+def _rotor_terms(ev, p, R):
+    """Every active rotor's aero-servo terms for the R rows of ``p``,
+    reduced to the n DOFs of ``ev`` through the rows of its node
+    reduction ``ev.Tn0`` (N, 6, n) at each rotor's node: f_aero0 (R, n),
+    f_aero (R, n, nw), A_aero, B_aero (R, n, n, nw), B_gyro (R, n, n),
+    the rotor-axis A00, B00 (R, nw, nRotor), Omega_rpm and pitch_deg
+    (R, nRotor), and the rows with a clamped speed (R,).  ``ev`` is a
+    :class:`FullEvaluator` or :class:`FlexibleEvaluator`."""
+    from raft_tpu_torch.physics.aero import calc_aero_traced
+
+    rdt, dev, nw = ev.rdt, ev.device, ev.nw
+    n = ev.Tn0.shape[-1]
+    out = dict(
+        f_aero0=torch.zeros((R, n), dtype=rdt, device=dev),
+        f_aero=torch.zeros((R, n, nw), dtype=ev.cdt, device=dev),
+        A_aero=torch.zeros((R, n, n, nw), dtype=rdt, device=dev),
+        B_aero=torch.zeros((R, n, n, nw), dtype=rdt, device=dev),
+        B_gyro=torch.zeros((R, n, n), dtype=rdt, device=dev),
+        A00=torch.zeros((R, nw, ev.n_rot_out), dtype=rdt, device=dev),
+        B00=torch.zeros((R, nw, ev.n_rot_out), dtype=rdt, device=dev),
+        Omega_rpm=torch.zeros((R, ev.n_rot_out), dtype=rdt, device=dev),
+        pitch_deg=torch.zeros((R, ev.n_rot_out), dtype=rdt, device=dev),
+        input_clipped=torch.zeros(R, dtype=torch.bool, device=dev),
+    )
+    deg = math.pi / 180
+    yaw_cmd = p["yaw_misalign_deg"] * deg
+    for ir, rprops, rt, node in ev.rotors:
+        current = rprops.Zhub < 0
+        speed = p["current_speed"] if current else p["wind_speed"]
+        heading = (p["current_heading_deg"] if current
+                   else p["wind_heading_deg"]) * deg
+        on = speed > 0
+        speed_safe = torch.clamp(speed, min=0.1)
+        out["input_clipped"] |= on & (speed < 0.1)
+        f0, f6, a6, b6, Bg, _, Om, pit = calc_aero_traced(
+            rt, rprops, ev.w, speed_safe, heading, p["TI"],
+            yaw_command_rad=yaw_cmd, turb_static=ev.turb_static)
+        Tn = ev.Tn0[node]                                    # (6, n)
+        onr = on.to(rdt)
+        out["f_aero0"] += onr[:, None] * (f0 @ Tn)
+        out["f_aero"] += onr[:, None, None] * torch.einsum(
+            "ia,riw->raw", Tn.to(f6.dtype), f6)
+        out["A_aero"] += onr[:, None, None, None] * torch.einsum(
+            "ia,rijw,jb->rabw", Tn, a6, Tn)
+        out["B_aero"] += onr[:, None, None, None] * torch.einsum(
+            "ia,rijw,jb->rabw", Tn, b6, Tn)
+        out["B_gyro"] += onr[:, None, None] * (Tn.T @ Bg @ Tn)
+        out["A00"][:, :, ir] = onr[:, None] * a6[:, 0, 0, :]
+        out["B00"][:, :, ir] = onr[:, None] * b6[:, 0, 0, :]
+        out["Omega_rpm"][:, ir] = onr * Om
+        out["pitch_deg"][:, ir] = onr * pit
+    return out
+
+
 class FullEvaluator(CaseEvaluator):
     """Batched full-physics evaluator of one rigid single-FOWT design
     (the reference's ``make_full_evaluator``).
@@ -369,6 +423,12 @@ class FullEvaluator(CaseEvaluator):
 
     def __init__(self, model, nWaves=1, turb_static=None, device=None,
                  geometry=False):
+        fs = model.fowtList[0]
+        if model.nFOWT == 1 and not fs.is_single_body:
+            raise NotImplementedError(
+                f"the full evaluator covers rigid 6-DOF FOWTs; this "
+                f"structure reduces to {fs.nDOF} DOFs: use "
+                "make_flexible_evaluator (ROADMAP A11, the flexible path)")
         super().__init__(model, device)
         from raft_tpu_torch.physics.aero import rotor_tensors
         from raft_tpu_torch.physics.statics import node_T
@@ -520,51 +580,7 @@ class FullEvaluator(CaseEvaluator):
 
     def _aero(self, p, R):
         """Every active rotor's aero-servo terms, reduced to the body."""
-        from raft_tpu_torch.physics.aero import calc_aero_traced
-
-        rdt, dev, nw = self.rdt, self.device, self.nw
-        out = dict(
-            f_aero0=torch.zeros((R, 6), dtype=rdt, device=dev),
-            f_aero=torch.zeros((R, 6, nw), dtype=self.cdt, device=dev),
-            A_aero=torch.zeros((R, 6, 6, nw), dtype=rdt, device=dev),
-            B_aero=torch.zeros((R, 6, 6, nw), dtype=rdt, device=dev),
-            B_gyro=torch.zeros((R, 6, 6), dtype=rdt, device=dev),
-            A00=torch.zeros((R, nw, self.n_rot_out), dtype=rdt, device=dev),
-            B00=torch.zeros((R, nw, self.n_rot_out), dtype=rdt, device=dev),
-            Omega_rpm=torch.zeros((R, self.n_rot_out), dtype=rdt,
-                                  device=dev),
-            pitch_deg=torch.zeros((R, self.n_rot_out), dtype=rdt,
-                                  device=dev),
-            input_clipped=torch.zeros(R, dtype=torch.bool, device=dev),
-        )
-        deg = math.pi / 180
-        yaw_cmd = p["yaw_misalign_deg"] * deg
-        for ir, rprops, rt, node in self.rotors:
-            current = rprops.Zhub < 0
-            speed = p["current_speed"] if current else p["wind_speed"]
-            heading = (p["current_heading_deg"] if current
-                       else p["wind_heading_deg"]) * deg
-            on = speed > 0
-            speed_safe = torch.clamp(speed, min=0.1)
-            out["input_clipped"] |= on & (speed < 0.1)
-            f0, f6, a6, b6, Bg, _, Om, pit = calc_aero_traced(
-                rt, rprops, self.w, speed_safe, heading, p["TI"],
-                yaw_command_rad=yaw_cmd, turb_static=self.turb_static)
-            Tn = self.Tn0[node]                                  # (6, 6)
-            onr = on.to(rdt)
-            out["f_aero0"] += onr[:, None] * (f0 @ Tn)
-            out["f_aero"] += onr[:, None, None] * torch.einsum(
-                "ia,riw->raw", Tn.to(f6.dtype), f6)
-            out["A_aero"] += onr[:, None, None, None] * torch.einsum(
-                "ia,rijw,jb->rabw", Tn, a6, Tn)
-            out["B_aero"] += onr[:, None, None, None] * torch.einsum(
-                "ia,rijw,jb->rabw", Tn, b6, Tn)
-            out["B_gyro"] += onr[:, None, None] * (Tn.T @ Bg @ Tn)
-            out["A00"][:, :, ir] = onr[:, None] * a6[:, 0, 0, :]
-            out["B00"][:, :, ir] = onr[:, None] * b6[:, 0, 0, :]
-            out["Omega_rpm"][:, ir] = onr * Om
-            out["pitch_deg"][:, ir] = onr * pit
-        return out
+        return _rotor_terms(self, p, R)
 
     def _structure(self, p, R, mark):
         """(design leaves, mooring, zero-pose strip frames, C_elast) of
@@ -764,7 +780,7 @@ class FarmEvaluator(nn.Module):
         self.rdt, self.cdt = compute_dtypes()
         fowts = model.fowtList
         self.nF = nF = model.nFOWT
-        if any(fs.nDOF != 6 for fs in fowts):
+        if not all(fs.is_single_body for fs in fowts):
             raise NotImplementedError(
                 "the farm evaluator covers rigid 6-DOF units (flexible "
                 "units: ROADMAP A11)")
@@ -1068,3 +1084,338 @@ def make_farm_evaluator(model, nWaves=1, turb_static=None, device=None):
     model and class reference speed (default ``("NTM", 50.0)``)."""
     return FarmEvaluator(model, nWaves=nWaves, turb_static=turb_static,
                          device=device)
+
+
+# -------------------------------------------------------------- flexible
+
+#: the output keys of :class:`FlexibleEvaluator`, as the reference's
+FLEX_OUT_KEYS = ("X0", "Xi", "PSD", "S", "zeta", "drag_resid",
+                 "drag_converged", "n_iter_drag", "status")
+#: the stages a :class:`FlexibleEvaluator` timer is called with, in order
+#: (with the geometry axis, "geometry" first)
+FLEX_STAGES = ("aero", "statics", "kinematics", "excitation", "fixed_point",
+               "response")
+#: rows per chunk of the flexible evaluator, from the device memory a
+#: row takes.  At n = 168 DOFs and 40 frequencies one row's impedance Z
+#: (nw, n, n) complex128 is 18.1 MB and each (n, n, nw) float64 operand
+#: (M_lin, A_aero, B_aero, B_lin) 9.0 MB; with the impedance's
+#: intermediates, the trip's Z and the library's LU copy, a 64-row chunk
+#: of semi_wind_flex peaked at 5,992 MiB on an H100 (94 MiB a row,
+#: ``chip_smoke.py`` flex phase), so 256 rows take about 24 GB, under a
+#: third of the card's 80 GB, and leave the rest to the caller
+FLEX_ROWS = 256
+#: the geometry keys of ``struct_params`` (:func:`flexible_struct_params`)
+FLEX_STRUCT_KEYS = ("K_h", "C_elast", "F_und", "M_struc")
+FLEX_HC0_KEYS = ("A_hydro", "Amat", "Imat", "a_i")
+FLEX_SS_KEYS = ("ds", "drs", "Cd_q", "Cd_p1", "Cd_p2", "Cd_End", "Ca_q",
+                "Ca_p1", "Ca_p2", "Ca_End", "Cm_p1_w", "Cm_p2_w")
+
+
+def flexible_struct_params(model):
+    """The geometry-dependent constants of a flexible model (the
+    reference's ``flexible_struct_params``), as numpy: the statics
+    matrices K_h, C_elast, M_struc and F_und, the zero-pose hydro
+    constants ``hc0``, the strip tables ``ss`` and the mooring's L, EA
+    and w (``ms``).  Models rebuilt on the host at other member d/t
+    share the station layout (nodes, topology, strip counts), so their
+    parameters stack per row into one :class:`FlexibleEvaluator` with
+    ``geometry=True``."""
+    fh = model.hydro[0]
+    stat = model.statics()
+    ss = fh.strips
+    ms = model.ms
+    out = dict(
+        K_h=np.asarray(stat["C_struc"] + stat["C_hydro"]),
+        C_elast=np.asarray(stat["C_elast"]),
+        F_und=np.asarray(stat["W_struc"] + stat["W_hydro"]
+                         + stat["f0_additional"]),
+        M_struc=np.asarray(stat["M_struc"]),
+        hc0={k: np.asarray(fh.hc0[k]) for k in FLEX_HC0_KEYS},
+        ss={k: np.asarray(getattr(ss, k)) for k in FLEX_SS_KEYS},
+    )
+    if ms is not None:
+        out["ms"] = dict(L=np.asarray(ms.L), EA=np.asarray(ms.EA),
+                         w=np.asarray(ms.w))
+    return out
+
+
+class FlexibleEvaluator(nn.Module):
+    """Batched full-physics evaluator of one flexible or multibody FOWT
+    (reduced N-DOF structures with beam members; the reference's
+    ``make_flexible_evaluator``), forward only.
+
+    ``forward(**rows, timer=None)`` takes R rows of :data:`ENV_KEYS`
+    and :data:`SEA_KEYS` as :class:`FullEvaluator` does and returns
+    :data:`FLEX_OUT_KEYS` per row: X0 (n,), Xi (nWaves + 1, n, nw) (the
+    last heading zero), PSD, S and zeta per heading, and the drag fixed
+    point's diagnostics and the status word.  Per chunk of
+    :data:`FLEX_ROWS` rows, in the reference's order:
+
+    1. ``aero``: every active rotor's aero-servo terms, reduced through
+       its node's rows of the zero-pose T;
+    2. ``statics``: current loads at the zero pose, then the N-DOF
+       Newton equilibrium with the elastic stiffness C_elast and the
+       mooring on the first six DOFs;
+    3. ``kinematics``: the displaced-pose node positions, rotations and
+       T of :class:`~raft_tpu_torch.structure.topology_traced.
+       TracedTopology`, and the strip frames there (each member rotated
+       with its first node);
+    4. ``excitation``: the spectra and the strip excitation per heading;
+    5. ``fixed_point``: the drag-linearised (nw, n, n) impedance solves
+       (``torch.linalg.solve`` above 12 DOFs, as the reference's
+       ``jnp.linalg.solve``);
+    6. ``response``: the drag excitation of every heading and a second
+       solve, always (the reference's flexible evaluator takes the
+       staged response whatever ``RAFT_TPU_FUSED`` says).
+
+    With ``geometry=True`` a row may carry ``struct_params``: the
+    :func:`flexible_struct_params` of a model rebuilt on the host at
+    other member d/t (one design for every row, or stacked with a
+    leading row axis), which replace K_h, C_elast, F_und, M_struc, the
+    zero-pose hydro constants, the strip tables and the mooring's L, EA
+    and w (timer stage "geometry" first).  Inputs that require grad
+    raise: the flexible path's reverse mode is ROADMAP A12.
+    """
+
+    def __init__(self, model, nWaves=1, turb_static=None, device=None,
+                 geometry=False):
+        super().__init__()
+        from raft_tpu_torch.models.statics_solve import make_tolerances
+        from raft_tpu_torch.physics.aero import rotor_tensors
+        from raft_tpu_torch.structure.topology_traced import TracedTopology
+
+        if model.nFOWT != 1:
+            raise ValueError("the flexible evaluator covers single-FOWT "
+                             "models: an array runs through "
+                             "make_farm_evaluator")
+        fs = model.fowtList[0]
+        if fs.is_single_body:
+            raise ValueError("a rigid 6-DOF FOWT runs through "
+                             "make_full_evaluator (this is the N-DOF path)")
+        device = resolve_device(device)
+        self.device = device
+        self.rdt, self.cdt = compute_dtypes()
+        self.nWaves = int(nWaves)
+        if self.nWaves < 1:
+            raise ValueError(f"nWaves={nWaves}: need at least one heading")
+        self.geometry = bool(geometry)
+        self.turb_static = tuple(turb_static or ("NTM", 50.0))
+        self.fs = fs
+        self.n = fs.nDOF
+        self.nw = model.nw
+        self.dw = float(model.w[1] - model.w[0])
+        self.n_iter, self.Xi_start = model.nIter, model.XiStart
+        self.n_iter_extra = model.nIterExtra
+        self.tt = TracedTopology(fs)
+        kw = dict(dtype=self.rdt, device=device)
+        self.w = torch.as_tensor(np.asarray(model.w, dtype=float), **kw)
+        self.k = torch.as_tensor(np.asarray(model.k, dtype=float), **kw)
+        self.Tn0 = torch.as_tensor(fs.T.reshape(fs.n_nodes, 6, fs.nDOF),
+                                   **kw)
+        self.node_r0 = torch.as_tensor(fs.node_r0, **kw)
+        self.site = dict(rho_water=fs.rho_water, depth=fs.depth, g=fs.g)
+        fh = model.hydro[0]
+        self.ss = morison.strips_to_rows(fh.strips, device)
+        # the zero-pose hydro constants, and the strip frames the current
+        # loads are taken at
+        dts = dict(Imat=self.cdt, sub=torch.bool)
+        self.hc0 = {k: torch.as_tensor(fh.hc0[k]).to(device,
+                                                     dts.get(k, self.rdt))
+                    for k in FLEX_HC0_KEYS + ("r", "q", "p1", "p2", "sub")}
+        base = flexible_struct_params(model)
+        self.struct = {k: torch.as_tensor(base[k], **kw)
+                       for k in FLEX_STRUCT_KEYS}
+        self.ms = None if model.ms is None else model.ms.to(device, self.rdt)
+        self.Zref = min([r.Zhub for r in fs.rotors if r.Zhub < 0],
+                        default=0.0)
+        tols, caps, refs = make_tolerances([fs])
+        self.tol_vec, self.caps, self.refs = (torch.tensor(v, **kw)
+                                              for v in (tols, caps, refs))
+        self.n_rot_out = max(fs.nrotors, 1)
+        self.rotors = [
+            (ir, fs.rotors[ir], rotor_tensors(rot, device, self.rdt),
+             int(fs.rotor_node[ir]))
+            for ir, rot in enumerate(model.rotor_aero if fs.nrotors else [])
+            if fs.rotors[ir].aeroServoMod > 0]
+
+    def forward(self, timer=None, struct_params=None, **rows):
+        unknown = set(rows) - set(ENV_KEYS + SEA_KEYS)
+        if unknown:
+            raise TypeError(f"unknown row parameters {sorted(unknown)}")
+        if struct_params is not None and not self.geometry:
+            raise TypeError("struct_params needs "
+                            "make_flexible_evaluator(..., geometry=True)")
+        if not {"Hs", "Tp"} <= set(rows):
+            raise TypeError("rows need Hs and Tp")
+        kw = dict(dtype=self.rdt, device=self.device)
+        vals = {k: torch.as_tensor(rows.get(k, 0.0), **kw)
+                for k in ENV_KEYS + SEA_KEYS}
+        sp = _tree_map(self._param, struct_params)
+        if torch.is_grad_enabled() and any(
+                t.requires_grad for t in list(vals.values())
+                + list(_tree_leaves(sp))):
+            raise NotImplementedError(
+                "the flexible evaluator is forward only: the reverse mode "
+                "of the flexible path is ROADMAP A12")
+        for k, v in vals.items():
+            if v.dim() > (2 if k in SEA_KEYS else 1):
+                raise ValueError(f"{k}: shape {tuple(v.shape)} has too many "
+                                 "axes")
+            if k in SEA_KEYS and v.dim() == 2 and v.shape[1] != self.nWaves:
+                raise ValueError(f"{k}: shape {tuple(v.shape)}, expected "
+                                 f"(R, {self.nWaves})")
+        lead = [v.shape[:1] for v in vals.values()]
+        per_row = sp is not None and sp["K_h"].dim() == 3
+        if per_row:
+            lead.append(sp["K_h"].shape[:1])
+        n = torch.broadcast_shapes(*lead)
+        n = n[0] if n else 1
+        if n == 0:
+            raise ValueError("empty batch: no rows to evaluate")
+        p = {}
+        for k, v in vals.items():
+            if k in SEA_KEYS:
+                v = v[:, None] if v.dim() == 1 else v
+                p[k] = v.expand(n, self.nWaves)
+            else:
+                p[k] = v.expand(n)
+        mark = timer if timer is not None else (lambda stage: None)
+        outs = []
+        with torch.no_grad():
+            for a in range(0, n, FLEX_ROWS):
+                chunk = {k: v[a:a + FLEX_ROWS] for k, v in p.items()}
+                R = chunk["Hs"].shape[0]
+                csp = None if sp is None else _tree_map(
+                    (lambda t: t[a:a + FLEX_ROWS]) if per_row
+                    else (lambda t: t.expand((R,) + t.shape)), sp)
+                outs.append(self._chunk(chunk, csp, mark))
+        return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
+
+    def _param(self, a):
+        """One struct_params leaf on the device in the policy's dtype."""
+        t = torch.as_tensor(a)
+        return t.to(self.device, self.cdt if t.is_complex() else self.rdt)
+
+    def _structure(self, R, sp, mark):
+        """(K_h, C_elast, F_und, M_struc, hc0, ss, ms) of R rows: the
+        model's own, or the rows' ``struct_params`` (marked
+        "geometry")."""
+        st = {k: v.expand((R,) + v.shape) for k, v in self.struct.items()}
+        hc0 = {k: v.expand((R,) + v.shape) for k, v in self.hc0.items()}
+        ss, ms = self.ss, self.ms
+        ss = morison.StripSet(**{
+            k: v.expand((R,) + v.shape[1:]) if isinstance(v, torch.Tensor)
+            else v for k, v in vars(ss).items()})
+        if sp is None:
+            return st, hc0, ss, ms
+        st = {k: sp[k] for k in FLEX_STRUCT_KEYS}
+        hc0 = dict(hc0, **sp["hc0"])
+        ss = dataclasses.replace(ss, **sp["ss"])
+        if ms is not None and "ms" in sp:
+            ms = dataclasses.replace(ms, **sp["ms"])
+        mark("geometry")
+        return st, hc0, ss, ms
+
+    def _chunk(self, p, sp, mark):
+        from raft_tpu_torch.models.dynamics import (solve_dynamics_fowt,
+                                                    system_response)
+        from raft_tpu_torch.models.statics_solve import (
+            single_ms_closures, solve_equilibrium_general)
+        from raft_tpu_torch.ops import waves as wv
+
+        R, n, nw = p["Hs"].shape[0], self.n, self.nw
+        mark("start")
+        st, hc0, ss, ms = self._structure(R, sp, mark)
+        aero = _rotor_terms(self, p, R)
+        mark("aero")
+
+        kw = dict(dtype=self.rdt, device=self.device)
+        site = morison.SiteRows(
+            **{k: torch.full((R,), float(v), **kw)
+               for k, v in self.site.items()}, n_nodes=self.fs.n_nodes)
+        Tn0 = self.Tn0.expand((R,) + self.Tn0.shape)
+        node_r0 = self.node_r0.expand((R,) + self.node_r0.shape)
+        F_current = morison.current_loads(
+            site, ss, hc0, p["current_speed"], p["current_heading_deg"],
+            self.Zref, self.fs.shearExp_water, Tn0, node_r0)
+        X0, _, _, _, st_status, C_moor = solve_equilibrium_general(
+            st["K_h"], st["F_und"], F_current + aero["f_aero0"],
+            single_ms_closures(ms, n), self.tol_vec, self.caps, self.refs,
+            C_elast=st["C_elast"])
+        mark("statics")
+
+        r_nodes, node_rot, Tn = self.tt.kinematics(X0)
+        r, q, p1, p2 = morison.strip_frames(ss, None, r_nodes,
+                                            node_rot=node_rot)
+        sub = r[..., 2] < 0
+        hc = dict(hc0, r=r, q=q, p1=p1, p2=p2, sub=sub,
+                  active=sub & ss.active)
+        mark("kinematics")
+
+        S = wv.jonswap(self.w, p["Hs"], p["Tp"], gamma=p["gamma"])
+        zeta = wv.amplitudes(S, self.dw).to(_policy_cdt(X0))
+        beta = p["beta_deg"] * (math.pi / 180)
+        k = self.k.expand(R, nw)
+        exc = [morison.hydro_excitation(site, ss, hc, zeta[:, ih],
+                                        beta[:, ih], self.w, k, Tn, r_nodes)
+               for ih in range(self.nWaves)]
+        mark("excitation")
+
+        M_lin = aero["A_aero"] + (st["M_struc"] + hc0["A_hydro"])[..., None]
+        B_lin = aero["B_aero"] + aero["B_gyro"][..., None]
+        C_lin = st["K_h"] + C_moor + st["C_elast"]
+        Z, _, Bmat, diag = solve_dynamics_fowt(
+            site, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin,
+            exc[0]["F_hydro_iner"], self.w, Tn, r_nodes, n_iter=self.n_iter,
+            Xi_start=self.Xi_start, n_iter_extra=self.n_iter_extra,
+            timer=mark)
+        del M_lin, B_lin
+
+        F_waves = torch.stack([
+            exc[ih]["F_hydro_iner"] + morison.drag_excitation(
+                site, ss, hc, Bmat, exc[ih]["u"], Tn, r_nodes)
+            for ih in range(self.nWaves)], dim=1)
+        Xi = system_response(Z[:, None], F_waves)
+        Xi = torch.cat([Xi, torch.zeros((R, 1, n, nw), dtype=Xi.dtype,
+                                        device=Xi.device)], dim=1)
+        out = dict(
+            X0=X0, Xi=Xi,
+            PSD=torch.sum(0.5 * torch.abs(Xi) ** 2 / self.dw, dim=1),
+            S=S, zeta=zeta, drag_resid=diag["drag_resid"],
+            drag_converged=diag["drag_converged"],
+            n_iter_drag=diag["n_iter_drag"],
+            status=_case_status(st_status, diag, X0, Xi,
+                                input_clipped=aero["input_clipped"]))
+        mark("response")
+        return out
+
+
+def _tree_map(f, tree):
+    """``f`` over the leaves of a nested dict (None passes through)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _tree_map(f, v) for k, v in tree.items()}
+    return f(tree)
+
+
+def _tree_leaves(tree):
+    if tree is None:
+        return
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tree_leaves(v)
+    else:
+        yield tree
+
+
+def make_flexible_evaluator(model, nWaves=1, turb_static=None, device=None,
+                            geometry=False):
+    """The batched :class:`FlexibleEvaluator` of a flexible or multibody
+    single-FOWT ``model`` with ``nWaves`` wave headings per row, on
+    ``device`` (default: the current CUDA device; raises without one).
+    ``turb_static`` is the turbulence model and class reference speed
+    (default ``("NTM", 50.0)``); ``geometry=True`` takes per-row
+    ``struct_params`` (:func:`flexible_struct_params`)."""
+    return FlexibleEvaluator(model, nWaves=nWaves, turb_static=turb_static,
+                             device=device, geometry=geometry)

@@ -11,8 +11,12 @@ A submerged rotor with blades gets its blades' hydro summary
 (:func:`raft_tpu_torch.physics.aero.blade_hydro`) at build time.  What
 the port does not build raises ``NotImplementedError`` naming its
 ROADMAP item, before anything is half-built: potential-flow members and
-coefficient files (A11), external QTF files (A13) and structures that do
-not reduce to one rigid 6-DOF body (A11).
+coefficient files (A11) and external QTF files (A13).  A flexible
+(``type: beam``) member gets one node per strip, chained in the topology;
+whether the structure reduces to one rigid 6-DOF body is
+``is_single_body``, which picks the evaluator (the full and farm
+evaluators refuse other structures, as the reference's do, and
+:func:`raft_tpu_torch.api.make_flexible_evaluator` takes them).
 """
 
 from __future__ import annotations
@@ -169,11 +173,6 @@ class FOWTStructure:
 
         # ---- topology: nodes, joints, DOF reduction ----
         self._build_topology(design)
-        if not self.is_single_body:
-            raise NotImplementedError(
-                f"the structure reduces to {self.nDOF} DOFs, not one rigid "
-                "6-DOF body: flexible and multibody topologies are not "
-                "ported (ROADMAP A11)")
 
     # ------------------------------------------------------------------
     def _build_rotor(self, turbine, ir):
@@ -230,10 +229,21 @@ class FOWTStructure:
         """Joints + nodes + reduction; raft_fowt.py:183-339."""
         topo = Topology()
 
-        # one node per (rigid) member, at rA0
+        # nodes per member: rigid members have a single node at rA0;
+        # beams get one node per strip (raft_member.py:273-287)
         member_nodes = []
         for im, mem in enumerate(self.members):
-            member_nodes.append(topo.add_node(mem.rA0, "member", owner=im).id)
+            if mem.mtype == "rigid":
+                member_nodes.append(topo.add_node(mem.rA0, "member", owner=im).id)
+            else:
+                r = mem.rA0[None, :] + mem.q0[None, :] * mem.ls[:, None]
+                ids = []
+                for i in range(mem.ns):
+                    end = i == 0 or i == mem.ns - 1
+                    ids.append(topo.add_node(r[i], "member", owner=im,
+                                             end_node=end).id)
+                topo.add_chain(ids)
+                member_nodes.append(ids[0])
         rotor_nodes = []
         for ir, rot in enumerate(self.rotors):
             rotor_nodes.append(topo.add_node(rot.r_rel, "rotor", owner=ir).id)

@@ -4,7 +4,11 @@ constants at the zero pose.
 
 The constants are host work, as in the reference (which pins them to
 the CPU): :func:`raft_tpu_torch.physics.morison.hydro_constants` on one
-row of float64 tensors on the CPU, returned as numpy.
+row of float64 tensors on the CPU, returned as numpy.  A single rigid
+body takes its closed-form rigid kinematics; any other structure the
+node positions and T of :meth:`~raft_tpu_torch.structure.topology.
+Topology.self_consistent_displacements` at the zero pose (the
+reference positions and the build-time T).
 """
 
 from __future__ import annotations
@@ -59,10 +63,18 @@ class FOWTHydro:
         self.nw = len(self.w)
         self.strips = morison.build_strips(fs, k_array=self.k)
         f64 = dict(dtype=torch.float64, device=_CPU)
-        r_nodes, R_ptfm, r_root = platform_kinematics(
-            torch.as_tensor(fs.node_r0, **f64)[None],
-            torch.tensor([fs.root_id]), torch.zeros((1, fs.nDOF), **f64))
-        Tn = node_T(r_nodes, r_root)
+        if fs.is_single_body:
+            r_nodes, R_ptfm, r_root = platform_kinematics(
+                torch.as_tensor(fs.node_r0, **f64)[None],
+                torch.tensor([fs.root_id]), torch.zeros((1, fs.nDOF), **f64))
+            Tn = node_T(r_nodes, r_root)
+        else:
+            disp, T = fs.topology.self_consistent_displacements(
+                fs.T, fs.reducedDOF, fs.root_id, np.zeros(fs.nDOF))
+            r_nodes = torch.as_tensor(fs.node_r0 + disp[:, :3], **f64)[None]
+            R_ptfm = torch.eye(3, **f64)[None]
+            Tn = torch.as_tensor(T.reshape(fs.n_nodes, 6, fs.nDOF),
+                                 **f64)[None]
         hc = morison.hydro_constants(
             site_rows(fs, _CPU), morison.strips_to_rows(self.strips, _CPU),
             R_ptfm, r_nodes, Tn)

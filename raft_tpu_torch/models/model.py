@@ -161,12 +161,24 @@ class Model:
         return self._rotor_aero
 
     def statics(self, ifowt=0, Xi0=None):
-        """FOWT statics as numpy (cached at the zero pose; host work)."""
+        """FOWT statics as numpy (cached at the zero pose; host work): a
+        single rigid body by :func:`~raft_tpu_torch.physics.statics.
+        calc_statics`, any other structure by :func:`~raft_tpu_torch.
+        physics.statics_general.calc_statics_general`."""
         if Xi0 is not None:
-            return _host(calc_statics(self.fowtList[ifowt], Xi0))
+            return _fowt_statics(self.fowtList[ifowt], Xi0)
         if self._statics is None:
-            self._statics = [_host(calc_statics(f)) for f in self.fowtList]
+            self._statics = [_fowt_statics(f) for f in self.fowtList]
         return self._statics[ifowt]
+
+
+def _fowt_statics(fs, Xi0=None):
+    if not fs.is_single_body:
+        from raft_tpu_torch.physics.statics_general import \
+            calc_statics_general
+
+        return calc_statics_general(fs, Xi0=Xi0)
+    return _host(calc_statics(fs, Xi0))
 
 
 def _host(stat):

@@ -148,12 +148,16 @@ def solve_equilibrium_general(
     X = X_ref.expand(R, n).clone() if X0 is None else X0.clone()
     max_iter_eff = max_iter * max(int(config.get("ITER_SCALE")), 1)
 
-    # the hydrostatic and elastic stiffness act alike on X - X_ref
+    # the hydrostatic and elastic stiffness act alike on X - X_ref, each
+    # applied on its own (the reference's order of the sum)
     K_lin = K_hydrostatic if C_elast is None else K_hydrostatic + C_elast
 
     def net_force(X, F_moor):
         dx = (X - X_ref)[..., None]
-        return F_undisplaced - (K_lin @ dx)[..., 0] + F_env + F_moor
+        F = F_undisplaced - (K_hydrostatic @ dx)[..., 0] + F_env + F_moor
+        if C_elast is not None:
+            F = F - (C_elast @ dx)[..., 0]
+        return F
 
     it = torch.zeros(R, dtype=torch.int32, device=dev)
     capped = torch.zeros(R, dtype=torch.int32, device=dev)

@@ -1,5 +1,5 @@
-"""Morison strip-theory hydrodynamics, rigid-body subset (batch-first
-torch counterpart of ``raft_tpu/physics/morison.py``).
+"""Morison strip-theory hydrodynamics (batch-first torch counterpart of
+``raft_tpu/physics/morison.py``).
 
 Two kinds of function live here:
 
@@ -12,6 +12,12 @@ Two kinds of function live here:
   reference's ``segment_sum`` over it becomes one ``index_add_`` over
   flattened ``row * N + node`` offsets, and its gathers become index
   gathers with the same offsets.
+
+A flexible (beam) member's strips sit on their own structural nodes and
+rotate with their member's first node (``node_rot`` of
+:func:`strip_frames`).  Above 12 reduced DOFs the drag linearisation
+reduces its damping through the nodes each trip instead of folding it
+per strip (:func:`drag_lin_precompute`), as the reference does.
 """
 
 from __future__ import annotations
@@ -158,8 +164,13 @@ def build_strips(fs, k_array=None):
     nw = len(k_array) if k_array is not None else 1
     for im, mem in enumerate(fs.members):
         ns = mem.ns
-        cols["node"] += [int(fs.member_node[im])] * ns
-        cols["ls"] += list(mem.ls)  # axial offset from the member node
+        if mem.mtype == "rigid":
+            cols["node"] += [int(fs.member_node[im])] * ns
+            cols["ls"] += list(mem.ls)  # axial offset from the member node
+        else:
+            # beam strips sit exactly at their own structural nodes
+            cols["node"] += [int(fs.member_node[im]) + i for i in range(ns)]
+            cols["ls"] += [0.0] * ns
         cols["mnode0"] += [int(fs.member_node[im])] * ns
         cols["dls"] += list(mem.dls)
         cols["ds"] += list(mem.ds)
@@ -239,14 +250,24 @@ def segment_sum_nodes(x, node, n_nodes):
     return out.reshape((R, n_nodes) + x.shape[2:])
 
 
-def strip_frames(ss, R_ptfm, r_nodes):
-    """Strip positions and member axes under the pose (rigid members:
-    r_strip = r_node + q * ls).  R_ptfm (R, 3, 3), r_nodes (R, N, 3) ->
-    (r, q, p1, p2) each (R, S, 3)."""
-    Rt = R_ptfm.transpose(-1, -2)
-    q = ss.q0 @ Rt
-    p1 = ss.p10 @ Rt
-    p2 = ss.p20 @ Rt
+def strip_frames(ss, R_ptfm, r_nodes, node_rot=None):
+    """Strip positions and member axes under the pose (r_strip = r_node
+    + q * ls).  R_ptfm (R, 3, 3), r_nodes (R, N, 3) -> (r, q, p1, p2)
+    each (R, S, 3).  A general structure passes its node rotations
+    ``node_rot`` (R, N, 3) instead: each member then rotates with its
+    first node (the reference's ``member.setPosition``,
+    raft_member.py:348-357) and R_ptfm is not read."""
+    if node_rot is not None:
+        th = gather_nodes(node_rot, ss.mnode0)                # (R, S, 3)
+        Rs = tf.rotation_matrix(th[..., 0], th[..., 1], th[..., 2])
+        q = torch.einsum("rsij,rsj->rsi", Rs, ss.q0)
+        p1 = torch.einsum("rsij,rsj->rsi", Rs, ss.p10)
+        p2 = torch.einsum("rsij,rsj->rsi", Rs, ss.p20)
+    else:
+        Rt = R_ptfm.transpose(-1, -2)
+        q = ss.q0 @ Rt
+        p1 = ss.p10 @ Rt
+        p2 = ss.p20 @ Rt
     r = gather_nodes(r_nodes, ss.node) + q * ss.ls[..., None]
     return r, q, p1, p2
 
@@ -366,13 +387,11 @@ def hydro_excitation(fs, ss, hc, zeta, beta, w, k, Tn, r_nodes):
 def drag_lin_precompute(fs, ss, hc, u_ih, Tn, r_nodes, w, dtype=None):
     """Everything Xi-independent of the drag linearisation, hoisted out
     of the fixed point (geometry, projections, the separable
-    drag-force fold T6_d and the folded damping tensors G_d).
-    u_ih (R, S, 3, nw); dtype: (real, complex) policy.  Rigid bodies
-    only: the reference's general nDOF > 12 reduction (flexible
-    models) is not ported yet."""
-    if Tn.shape[-1] > 12:
-        raise NotImplementedError("drag linearisation of nDOF > 12 models "
-                                  "(flexible topologies) is not ported")
+    drag-force fold T6_d and, up to 12 reduced DOFs, the folded damping
+    tensors G_d: (R, S, n, n) each, which the N-DOF models of flexible
+    structures skip for the per-trip node reduction of
+    :func:`drag_lin_iter`).  u_ih (R, S, 3, nw); dtype: (real, complex)
+    policy."""
     rho = fs.rho_water
     r, q, p1, p2 = hc["r"], hc["q"], hc["p1"], hc["p2"]
     _, _, a_end, a_q, a_p1, a_p2 = _areas(ss)
@@ -402,19 +421,22 @@ def drag_lin_precompute(fs, ss, hc, u_ih, Tn, r_nodes, w, dtype=None):
     pre["T6p2"], pre["up2"] = reduce_force_dir(p2)
 
     H = tf.skew(r_off)
-    Ht = H.transpose(-1, -2)
+    if Tn.shape[-1] > 12:
+        pre["H"] = H
+    else:
+        Ht = H.transpose(-1, -2)
 
-    def reduce_dir(P):
-        MH = P @ H
-        M6 = torch.cat([torch.cat([P, MH], dim=-1),
-                        torch.cat([MH.transpose(-1, -2), H @ P @ Ht],
-                                  dim=-1)], dim=-2)
-        G = torch.einsum("rsia,rsij,rsjb->rsab", Tn_s, M6, Tn_s)
-        return torch.where(sub[..., None, None], G, 0.0)
+        def reduce_dir(P):
+            MH = P @ H
+            M6 = torch.cat([torch.cat([P, MH], dim=-1),
+                            torch.cat([MH.transpose(-1, -2), H @ P @ Ht],
+                                      dim=-1)], dim=-2)
+            G = torch.einsum("rsia,rsij,rsjb->rsab", Tn_s, M6, Tn_s)
+            return torch.where(sub[..., None, None], G, 0.0)
 
-    pre["Gq"] = reduce_dir(pre["qq"])
-    pre["Gp1"] = reduce_dir(pre["p1p1"])
-    pre["Gp2"] = reduce_dir(pre["p2p2"])
+        pre["Gq"] = reduce_dir(pre["qq"])
+        pre["Gp1"] = reduce_dir(pre["p1p1"])
+        pre["Gp2"] = reduce_dir(pre["p2p2"])
     if dtype is not None:
         rdt, cdt = dtype
         pre = {k2: (v.to(cdt) if v.is_complex()
@@ -424,7 +446,7 @@ def drag_lin_precompute(fs, ss, hc, u_ih, Tn, r_nodes, w, dtype=None):
 
 
 def drag_lin_iter(pre, Xi):
-    """One drag-linearisation evaluation at the response Xi (R, 6, nw):
+    """One drag-linearisation evaluation at the response Xi (R, n, nw):
     the reduced damping matrix B_hydro_drag (R, n, n), the per-strip
     Bmat (R, S, 3, 3) and the drag excitation F_hydro_drag (R, n, nw)."""
     q, p1, p2 = pre["q"], pre["p1"], pre["p2"]
@@ -478,9 +500,23 @@ def drag_lin_iter(pre, Xi):
               + torch.einsum("rsa,rsw->raw", pre["T6p2"].to(cdt),
                              Bp2[..., None] * pre["up2"]))
 
-    B_red = torch.sum(cq_[..., None, None] * pre["Gq"]
-                      + Bp1[..., None, None] * pre["Gp1"]
-                      + Bp2[..., None, None] * pre["Gp2"], dim=1)
+    if "Gq" in pre:
+        B_red = torch.sum(cq_[..., None, None] * pre["Gq"]
+                          + Bp1[..., None, None] * pre["Gp1"]
+                          + Bp2[..., None, None] * pre["Gp2"], dim=1)
+        return dict(B_hydro_drag=B_red, Bmat=Bmat, F_hydro_drag=F_drag)
+
+    # general (N-DOF) reduction: Bmat translated by the lever arms,
+    # summed over each node's strips, then the T congruence
+    H = pre["H"]
+    MH = Bmat @ H
+    M6 = torch.cat([torch.cat([Bmat, MH], dim=-1),
+                    torch.cat([MH.transpose(-1, -2),
+                               H @ Bmat @ H.transpose(-1, -2)], dim=-1)],
+                   dim=-2)
+    Tn = pre["Tn"]
+    Mn = segment_sum_nodes(M6, pre["node"], Tn.shape[1])     # (R, N, 6, 6)
+    B_red = torch.einsum("rnia,rnij,rnjb->rab", Tn, Mn, Tn)
     return dict(B_hydro_drag=B_red, Bmat=Bmat, F_hydro_drag=F_drag)
 
 

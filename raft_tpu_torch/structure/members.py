@@ -9,8 +9,11 @@ member-local axes), following the reference RAFT ``Member`` constructor
 (``raft_member.py``: strips :190-267, stations :82-188, caps :161-176,
 inertia :412-541 and :659-823).
 
-Rigid members only: a ``type: beam`` member raises
-``NotImplementedError`` (flexible members, ROADMAP A11).
+A ``type: beam`` (flexible) member also carries its Young's and shear
+moduli ``E`` and ``G``, its outer and inner section at every strip node
+and, per node, the lumped ballast and end-cap mass, centre and principal
+moments (:func:`_build_beam_node_data`); its shell comes from the FE
+matrices of :mod:`raft_tpu_torch.physics.beams`.
 """
 
 from __future__ import annotations
@@ -159,6 +162,18 @@ class MemberGeometry:
     cap_L: np.ndarray | None = None       # (nc,) axial positions 0..l
     cap_t_arr: np.ndarray | None = None   # (nc,) cap thicknesses
     cap_d_in_arr: np.ndarray | None = None  # (nc,) or (nc,2) hole sizes
+    # beam (flexible) member data
+    E: float = 0.0
+    G: float = 0.0
+    dorsl_node_ext: np.ndarray | None = None  # (ns, 2) external d/side at strip nodes
+    dorsl_node_int: np.ndarray | None = None  # (ns, 2) internal
+    # per-node lumped ballast/cap data of beams (raft_member.py:550-657, 806-823)
+    node_ballast_mass: np.ndarray | None = None    # (ns,)
+    node_ballast_center: np.ndarray | None = None  # (ns, 3) global at the ref pose
+    node_ballast_I: np.ndarray | None = None       # (ns, 3) local principal MoI about its CG
+    node_cap_mass: np.ndarray | None = None
+    node_cap_center: np.ndarray | None = None
+    node_cap_I: np.ndarray | None = None
 
     @property
     def ns(self):
@@ -173,10 +188,6 @@ def build_member(mi, heading=0.0, part_of="platform", global_dlsMax=5.0):
     # normalise the member type: the current schema uses 'rigid'/'beam';
     # legacy designs carry numeric type codes (all rigid)
     mtype = "beam" if str(mi.get("type", "rigid")).lower() == "beam" else "rigid"
-    if mtype == "beam":
-        raise NotImplementedError(
-            f"member {mi.get('name', 'member')!r}: flexible (type: beam) "
-            "members are not ported (ROADMAP A11)")
     rA0 = np.array(mi["rA"], dtype=float)
     rB0 = np.array(mi["rB"], dtype=float)
     shape = str(mi["shape"])
@@ -227,37 +238,49 @@ def build_member(mi, heading=0.0, part_of="platform", global_dlsMax=5.0):
 
     # ----- strip discretisation (raft_member.py:190-254) -----
     dorsl = [d[i].copy() for i in range(n)]
+    dorsl_int = [np.maximum(0.0, d[i] - 2 * t[i]) for i in range(n)]
     dlsMax = float(coerce(mi, "dlsMax", shape=0, default=global_dlsMax))
 
     ls = [0.0]
     dls = [0.0]
     ds = [0.5 * dorsl[0]]
     drs = [0.5 * dorsl[0]]
+    d_node_ext = [dorsl[0]]
+    d_node_int = [dorsl_int[0]]
     for i in range(1, n):
         lstrip = stations[i] - stations[i - 1]
         if lstrip > 0.0:
             ns_i = int(np.ceil(lstrip / dlsMax))
             dlstrip = lstrip / ns_i
             m = 0.5 * (dorsl[i] - dorsl[i - 1]) / lstrip
+            m_int = 0.5 * (dorsl_int[i] - dorsl_int[i - 1]) / lstrip
             ls += [stations[i - 1] + dlstrip * (0.5 + j) for j in range(ns_i)]
             dls += [dlstrip] * ns_i
             ds += [dorsl[i - 1] + dlstrip * 2 * m * (0.5 + j) for j in range(ns_i)]
             drs += [dlstrip * m] * ns_i
+            d_node_ext += [dorsl[i - 1] + dlstrip * 2 * m * (0.5 + j) for j in range(ns_i)]
+            d_node_int += [dorsl_int[i - 1] + dlstrip * 2 * m_int * (0.5 + j) for j in range(ns_i)]
         elif lstrip == 0.0:
             ls += [stations[i - 1]]
             dls += [0.0]
             ds += [0.5 * (dorsl[i - 1] + dorsl[i])]
             drs += [0.5 * (dorsl[i] - dorsl[i - 1])]
+            d_node_ext += [dorsl[i - 1]]
+            d_node_int += [dorsl_int[i - 1]]
     # end B strip (raft_member.py:245-254)
     ls += [stations[-1]]
     dls += [0.0]
     ds += [0.5 * dorsl[-1]]
     drs += [-0.5 * dorsl[-1]]
+    d_node_ext += [dorsl[-1]]
+    d_node_int += [dorsl_int[-1]]
 
     ls = np.array(ls, dtype=float)
     dls = np.array(dls, dtype=float)
     ds = np.stack([np.broadcast_to(x, (2,)) for x in ds])
     drs = np.stack([np.broadcast_to(x, (2,)) for x in drs])
+    d_node_ext = np.stack([np.broadcast_to(x, (2,)) for x in d_node_ext])
+    d_node_int = np.stack([np.broadcast_to(x, (2,)) for x in d_node_int])
 
     # ----- member axes at reference pose (raft_member.py:312-345) -----
     q = (rB0 - rA0) / l
@@ -318,9 +341,16 @@ def build_member(mi, heading=0.0, part_of="platform", global_dlsMax=5.0):
         elem_Ixx=np.zeros(0),
         elem_Iyy=np.zeros(0),
         elem_Izz=np.zeros(0),
+        E=float(np.atleast_1d(mi.get("E", [0.0]))[0]) if "E" in mi else 0.0,
+        G=float(np.atleast_1d(mi.get("G", [0.0]))[0]) if "G" in mi else 0.0,
+        dorsl_node_ext=d_node_ext,
+        dorsl_node_int=d_node_int,
     )
     _parse_caps(geom, mi)
-    _build_inertia_elements(geom, mi)
+    if mtype == "beam":
+        _build_beam_node_data(geom, mi)
+    else:
+        _build_inertia_elements(geom, mi)
     return geom
 
 
@@ -579,6 +609,98 @@ def _build_inertia_elements(g: MemberGeometry, mi):
     g.elem_Iyy = np.array(Iyys)
     g.elem_Izz = np.array(Izzs)
     g.mshell = mshell
+    g.mfill = mfill
+    g.pfill = pfill
+    g.vfill = vfill
+
+
+def _build_beam_node_data(g: MemberGeometry, mi):
+    """Per-node lumped ballast and cap data for flexible members.
+
+    Beam branch of Member.getInertia (raft_member.py:550-657): ballast
+    in each section is split between nodes by their half-spacing zones;
+    caps lump at the closest node (:806-823).
+    """
+    ns = g.ns
+    nodes_s = g.ls.copy()  # node positions along axis (straight member)
+    dist_p = np.diff(nodes_s, prepend=0)
+    dist_n = np.diff(nodes_s, append=nodes_s[-1])
+
+    mass_b = np.zeros(ns)
+    center_b = np.zeros((ns, 3))
+    I_b = np.zeros((ns, 3))
+    n = len(g.stations)
+    mfill, pfill, vfill = [], [], []
+    for i in range(1, n):
+        lsec = g.stations[i] - g.stations[i - 1]
+        sec_mass = 0.0
+        sec_v = 0.0
+        rho_fill = g.rho_fill[i - 1] if lsec > 0 else 0.0
+        if lsec > 0:
+            l_fill = g.l_fill[i - 1]
+            for inode in range(ns):
+                s_lo = max(nodes_s[inode] - dist_p[inode] / 2, g.stations[i - 1])
+                s_hi = min(nodes_s[inode] + dist_n[inode] / 2, g.stations[i - 1] + l_fill)
+                l_node = s_hi - s_lo
+                if l_node <= 0:
+                    continue
+                if g.circular:
+                    dA_st = g.d[i - 1, 0] - 2 * g.t[i - 1]
+                    dB_st = g.d[i, 0] - 2 * g.t[i]
+                    dA = (dB_st - dA_st) * ((s_lo - g.stations[i - 1]) / lsec) + dA_st
+                    dB = (dB_st - dA_st) * ((s_hi - g.stations[i - 1]) / lsec) + dA_st
+                    v_n, hc_n = _frustum_vcv(dA, dB, l_node)
+                    m_n = v_n * rho_fill
+                    Ir_end, Ia = _frustum_moi(dA, dB, l_node, rho_fill)
+                    Ir = Ir_end - m_n * hc_n**2
+                    Ixx, Iyy, Izz = Ir, Ir, Ia
+                else:
+                    slA_st = g.d[i - 1] - 2 * g.t[i - 1]
+                    slB_st = g.d[i] - 2 * g.t[i]
+                    slA = (slB_st - slA_st) * ((s_lo - g.stations[i - 1]) / lsec) + slA_st
+                    slB = (slB_st - slA_st) * ((s_hi - g.stations[i - 1]) / lsec) + slA_st
+                    v_n, hc_n = _frustum_vcv(slA, slB, l_node)
+                    m_n = v_n * rho_fill
+                    Ix_e, Iy_e, Iz_e = _rect_moi(slA[0], slA[1], slB[0], slB[1], l_node, rho_fill)
+                    Ixx = Ix_e - m_n * hc_n**2
+                    Iyy = Iy_e - m_n * hc_n**2
+                    Izz = Iz_e
+                center = g.rA0 + g.q0 * (s_lo + hc_n)
+                mass_b[inode] += m_n
+                center_b[inode] += center * m_n
+                I_b[inode] += np.array([Ixx, Iyy, Izz])
+                sec_mass += m_n
+                sec_v += v_n
+        vfill.append(float(sec_v))
+        mfill.append(float(sec_mass))
+        pfill.append(float(rho_fill))
+    nonzero = mass_b > 0
+    center_b[nonzero] /= mass_b[nonzero, None]
+
+    # caps lump at the closest node (raft_member.py:806-823)
+    mass_c = np.zeros(ns)
+    center_c = np.zeros((ns, 3))
+    I_c = np.zeros((ns, 3))
+    m_caps_total = 0.0
+    for (m_cap, s_cg, Ix, Iy, Iz) in _cap_elements(g):
+        center_cap = g.rA0 + g.q0 * s_cg
+        inode = int(np.argmin(np.linalg.norm(
+            (g.rA0[None, :] + g.q0[None, :] * nodes_s[:, None]) - center_cap[None, :],
+            axis=1)))
+        mass_c[inode] += m_cap
+        center_c[inode] += center_cap * m_cap
+        I_c[inode] += np.array([Ix, Iy, Iz])
+        m_caps_total += m_cap
+    nz = mass_c > 0
+    center_c[nz] /= mass_c[nz, None]
+
+    g.node_ballast_mass = mass_b
+    g.node_ballast_center = center_b
+    g.node_ballast_I = I_b
+    g.node_cap_mass = mass_c
+    g.node_cap_center = center_c
+    g.node_cap_I = I_c
+    g.mshell = m_caps_total  # shell mass itself comes from the FE matrix
     g.mfill = mfill
     g.pfill = pfill
     g.vfill = vfill

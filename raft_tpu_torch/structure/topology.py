@@ -11,10 +11,17 @@ RAFT's ``raft_fowt.py`` ``addJoint`` :439, ``attachMemberToJoint`` :477,
 ``reduceDOF`` :553 and ``raft_node.py`` ``attachToNode`` :79-159, with a
 single anchor node per offset joint in place of its two dummy nodes).
 
-The displaced-pose node kinematics of flexible and multibody structures
-are not ported (ROADMAP A11): the port evaluates single rigid bodies,
-whose displaced pose is the closed-form rigid motion of
-:func:`raft_tpu_torch.physics.statics.platform_kinematics`.
+A flexible (beam) member is a chain of nodes, one per strip
+(:meth:`Topology.add_chain`): its end nodes attach through joints, its
+internal nodes own their six DOFs.  :meth:`Topology.displacements` and
+:meth:`Topology.self_consistent_displacements` give the nonlinear mean
+node displacements of such structures (the reference's
+``setNodesPosition``, ``raft_fowt.py:669-780``); T depends on the
+current node positions through the rigid-link offsets, so it is rebuilt
+at the displaced pose.  :mod:`raft_tpu_torch.structure.topology_traced`
+records both traversals once and replays them in torch over rows.
+Single rigid bodies take the closed-form rigid motion of
+:func:`raft_tpu_torch.physics.statics.platform_kinematics` instead.
 """
 
 from __future__ import annotations
@@ -22,6 +29,18 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 
 import numpy as np
+
+
+def _rotmat(th):
+    """Intrinsic z-y-x rotation matrix of the rotation vector th (3,),
+    numpy, by the evaluators' own :func:`~raft_tpu_torch.ops.transforms.
+    rotation_matrix`."""
+    import torch
+
+    from raft_tpu_torch.ops.transforms import rotation_matrix
+
+    t = torch.as_tensor(np.asarray(th, dtype=float))
+    return rotation_matrix(t[0], t[1], t[2]).numpy()
 
 
 def _getH(r):
@@ -53,6 +72,7 @@ class Topology:
         self.nodes: list[TopoNode] = []
         self.joints: list[dict] = []
         self._links: list[tuple[int, int]] = []
+        self._chains: list[list[int]] = []  # beam member node chains
 
     # ---------------------------------------------------------- build
     def add_node(self, r0, kind, owner=-1, end_node=True):
@@ -60,6 +80,12 @@ class Topology:
                      owner=owner, end_node=end_node)
         self.nodes.append(n)
         return n
+
+    def add_chain(self, node_ids):
+        """Register a flexible member's node chain: internal nodes own
+        their DOFs; traversal reaches them through the chain (the BFS
+        beam handling of raft_fowt.py:601-605)."""
+        self._chains.append(list(node_ids))
 
     def add_joint(self, r, jtype, name, tol=1e-3):
         """Create (or reuse, by name+position) a joint; raft_fowt.py:439-475."""
@@ -93,6 +119,23 @@ class Topology:
         self._links.append((anchor.id, node.id))
 
     # ------------------------------------------------------- traversal
+    def _links_by_node(self):
+        out: dict[int, list[int]] = {}
+        for a, b in self._links:
+            out.setdefault(a, []).append(b)
+            out.setdefault(b, []).append(a)
+        return out
+
+    def _joint_groups(self):
+        out: dict[int, list[int]] = {}
+        for n in self.nodes:
+            if n.joint_id is not None:
+                out.setdefault(n.joint_id, []).append(n.id)
+        return out
+
+    def _chains_by_node(self):
+        return {nid: chain for chain in self._chains for nid in chain}
+
     def reduce(self, positions=None):
         """Assign reduced DOFs via BFS from the root node and build T.
 
@@ -117,15 +160,7 @@ class Topology:
         # root: node closest to the origin (raft_fowt.py:315-318)
         root = min(nodes, key=lambda n: np.linalg.norm(n.r0))
 
-        links_by_node: dict[int, list[int]] = {}
-        for a, b in self._links:
-            links_by_node.setdefault(a, []).append(b)
-            links_by_node.setdefault(b, []).append(a)
-
-        joint_groups: dict[int, list[int]] = {}
-        for n in nodes:
-            if n.joint_id is not None:
-                joint_groups.setdefault(n.joint_id, []).append(n.id)
+        links_by_node, joint_groups = self._links_by_node(), self._joint_groups()
 
         def attach(child: TopoNode, parent: TopoNode, rigid_link: bool):
             """raft_node.py:79-159 (open-tree branches)."""
@@ -155,6 +190,8 @@ class Topology:
             child.T_aux = T2[:, order]
             child.parent = parent.id
 
+        chains_by_node = self._chains_by_node()
+
         root.reducedDOF = [[root.id, i] for i in range(6)]
         root.T_aux = np.eye(6)
         root.parent = root.id
@@ -162,6 +199,12 @@ class Topology:
         queue = [root]
         while queue:
             node = queue.pop(0)
+            # unattached nodes reached through a beam chain get their own
+            # identity DOFs (raft_fowt.py:577-584)
+            if node.reducedDOF is None:
+                node.reducedDOF = [[node.id, i] for i in range(6)]
+                node.T_aux = np.eye(6)
+                node.parent = node.id
             for pid in links_by_node.get(node.id, []):
                 p = nodes[pid]
                 if p.id not in visited:
@@ -175,6 +218,12 @@ class Topology:
                         attach(nn, node, rigid_link=False)
                         visited.add(nn.id)
                         queue.append(nn)
+            # traverse beam chains from their end nodes
+            if node.end_node and node.id in chains_by_node:
+                for nid in chains_by_node[node.id]:
+                    if nid not in visited:
+                        visited.add(nid)
+                        queue.append(nodes[nid])
 
         if len(visited) != len(nodes):
             missing = [n.id for n in nodes if n.id not in visited]
@@ -195,6 +244,121 @@ class Topology:
             for jcol, d in enumerate(n.reducedDOF):
                 T[6 * n.id : 6 * n.id + 6, reducedDOF.index(d)] = n.T_aux[:, jcol]
         return T, reducedDOF, root.id
+
+    def displacements(self, T, reducedDOF, root_id, Xi0):
+        """Nonlinear mean node displacements (n_nodes, 6) for reduced
+        displacements Xi0 — the setNodesPosition nonlinear path
+        (raft_fowt.py:669-752): rigid links rotate exactly
+        ((R(theta) - I) d), ball joints keep their own linear rotation,
+        beam chains get linear displacements plus the end-node's
+        nonlinear-minus-linear correction.  Preserves rigid link lengths
+        at large mean rotations (the displaced-pose statics of
+        flexible/multibody structures need this).
+
+        NOTE the linear map ``T`` is an input: the reference evaluates
+        setDisplacementLinear with each node's *current* T (recomputed
+        by reduceDOF at the latest node positions), so at a converged
+        mean pose the kinematics satisfy the self-consistency
+        T* = reduce(positions(T*, Xi0)) — see
+        :func:`self_consistent_displacements`."""
+        Xi0 = np.asarray(Xi0, dtype=float)
+        nodes = self.nodes
+        n = len(nodes)
+        lin = (np.asarray(T) @ Xi0).reshape(n, 6)
+        disp = np.full((n, 6), np.nan)
+
+        links_by_node, joint_groups = self._links_by_node(), self._joint_groups()
+        chains_by_node = self._chains_by_node()
+
+        root = nodes[root_id]
+        disp[root.id] = lin[root.id]
+        visited = {root.id}
+        queue = [root]
+        while queue:
+            node = queue.pop(0)
+            # rigid-link partners: exact rotation of the offset
+            for pid in links_by_node.get(node.id, []):
+                p = nodes[pid]
+                if p.id in visited:
+                    continue
+                d = p.r0 - node.r0
+                R = _rotmat(lin[node.id][3:])
+                disp[p.id] = disp[node.id].copy()
+                disp[p.id][:3] += (R - np.eye(3)) @ d
+                visited.add(p.id)
+                queue.append(p)
+            # joint-connected nodes: same translation; ball/universal
+            # joints keep their own (linear) rotation
+            if node.joint_id is not None:
+                for nid in joint_groups.get(node.joint_id, []):
+                    nn = nodes[nid]
+                    if nn.id in visited:
+                        continue
+                    disp[nn.id] = disp[node.id].copy()
+                    # the reference overrides the rotation only for ball
+                    # joints (raft_fowt.py:731-733)
+                    if nn.joint_type == "ball":
+                        disp[nn.id][3:] = lin[nn.id][3:]
+                    visited.add(nn.id)
+                    queue.append(nn)
+            # beam chains: linear + the end node's nonlinear correction
+            if node.end_node and node.id in chains_by_node:
+                dR = disp[node.id] - lin[node.id]
+                for nid in chains_by_node[node.id]:
+                    if nid in visited:
+                        continue
+                    disp[nid] = lin[nid] + dR
+                    visited.add(nid)
+                    queue.append(nodes[nid])
+        # any unreached node (shouldn't happen on a connected structure)
+        # falls back to the linear map
+        missing = np.isnan(disp[:, 0])
+        disp[missing] = lin[missing]
+        return disp
+
+    def self_consistent_displacements(self, T0, reducedDOF, root_id, Xi0,
+                                      n_iter=1, atol=1e-13):
+        """Displacements + T of the displaced pose with ``n_iter`` lag
+        updates of the node-displacement map.
+
+        The reference's solveStatics calls setPosition at every solver
+        evaluation; each call computes node displacements with the T of
+        the *previous* reduceDOF and then recomputes T at the new
+        positions (raft_fowt.py:753-780).  Its published equilibria
+        correspond to ONE applied Newton step (the loose 0.05 m /
+        0.005 rad dsolve tolerances discard the second), so the final
+        node positions are computed with the reference-pose T and the
+        final T is rebuilt once at those positions — ``n_iter=1``, the
+        default, replicates that (validated against the flexible
+        analyzeCases golden; the high-frequency excitation-phase band is
+        ~100x closer than the full fixed point).  ``n_iter>=2`` iterates
+        toward the self-consistent fixed point
+        T* = reduce(positions(T*, Xi0)) instead — the path-independent
+        choice if matching the reference's solver-path artifact is not
+        required.
+
+        Returns (disp (n_nodes, 6), T (nFull, nDOF)).
+        """
+        Xi0 = np.asarray(Xi0, dtype=float)
+        r0 = np.array([n.r0 for n in self.nodes])
+        T_cur = np.asarray(T0)
+        disp = None
+        mutated = False
+        try:
+            for _ in range(max(1, int(n_iter))):
+                disp = self.displacements(T_cur, reducedDOF, root_id, Xi0)
+                if not np.any(disp):
+                    break
+                T_new, _, _ = self.reduce(positions=r0 + disp[:, :3])
+                mutated = True
+                dT = np.max(np.abs(T_new - T_cur))
+                T_cur = T_new
+                if dT <= atol:
+                    break
+        finally:
+            if mutated:
+                self.reduce()  # restore reference-pose traversal state
+        return disp, T_cur
 
     def reduce_with_derivative(self):
         """T at the reference pose plus dT/d(reduced rotation dofs).

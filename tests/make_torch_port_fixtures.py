@@ -77,11 +77,31 @@ For the geometry design axis and the gradients it writes:
 
 each gradient checked against ``jax.jacfwd`` within 1e-10 x its max.
 
+For the flexible (N-DOF beam) evaluator it writes two designs whose
+tower is a ``type: beam`` member of steel (E 200 GPa, G 79.3 GPa; the
+Timoshenko beam needs both):
+
+* ``design_spar_flex.json``: the spar demo with its tower a beam (nDOF
+  108 over 22 nodes: 18 tower strips, the spar, the RNA node and two
+  joint anchors; its rotor's aero is off);
+* ``design_semi_wind_flex.json``: semi_wind with its tower a beam (nDOF
+  168 over 38 nodes: 28 tower strips, the seven rigid semi members, the
+  rotor node and two joint anchors);
+
+and the JAX flexible evaluator's outputs (``make_flexible_evaluator``,
+float64, CPU, vmapped): ``golden_flex_spar.npz`` (two headings over
+:data:`FLEX_SPAR_SEED` rows of seas and current),
+``golden_flex_semi_wind.npz`` (one heading over the semi_wind golden
+rows) and ``golden_flex_geometry_semi_wind.npz`` (the geometry axis:
+:data:`FLEX_GEOMETRY_SCALES` tower d/t scalings, each rebuilt on the
+host, over the first rows of semi_wind's).
+
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --geometry \
         [geometry] [grad] [grad_design]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --flex
 
 It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
 geometry and gradient goldens, or the named parts of them).
@@ -1049,6 +1069,156 @@ def write_farm_fixtures():
                 **build_network_golden(gd["on_X0"]))
 
 
+# ---------------------------------------------------------------- flexible
+
+#: steel's Young's and shear moduli of the flexible towers [Pa]
+STEEL_E, STEEL_G = 200.0e9, 79.3e9
+#: the seed of the spar_flex golden rows
+FLEX_SPAR_SEED = 11
+#: rows of the spar_flex golden set
+FLEX_SPAR_ROWS = 6
+#: (tower d scale, tower t scale) of the flexible geometry goldens
+FLEX_GEOMETRY_SCALES = ((0.9, 1.1), (1.1, 0.9), (1.05, 0.95))
+#: rows of semi_wind's golden table per flexible geometry design
+FLEX_GEOMETRY_ROWS = 3
+FLEX_OUT_KEYS = ("X0", "Xi", "PSD", "S", "zeta", "drag_resid",
+                 "drag_converged", "n_iter_drag", "status")
+
+
+def flexible_tower(d, d_scale=1.0, t_scale=1.0):
+    """``d`` with its tower a steel beam, diameters and thicknesses
+    scaled."""
+    tw = d["turbine"]["tower"]
+    tw.update(type="beam", E=STEEL_E, G=STEEL_G,
+              d=[x * d_scale for x in tw["d"]],
+              t=[x * t_scale for x in tw["t"]])
+    return d
+
+
+def spar_flex_design():
+    d = flexible_tower(design_dict("spar"))
+    d["name"] = "raft_tpu_torch fixture: spar demo with a flexible tower"
+    return d
+
+
+def semi_wind_flex_design(d_scale=1.0, t_scale=1.0):
+    d = flexible_tower(semi_wind_design(), d_scale, t_scale)
+    d["name"] = "raft_tpu_torch fixture: semi_wind with a flexible tower"
+    return d
+
+
+FLEX_DESIGNS = {"spar": spar_flex_design, "semi_wind": semi_wind_flex_design}
+#: wave headings per row of each flexible golden set
+FLEX_SETS = {"spar": 2, "semi_wind": 1}
+
+
+def flex_rows(name):
+    """The golden rows of a flexible set as float64 numpy arrays: the
+    spar's seeded seas (Hs 1-12 m, Tp 4-20 s, gamma 0-5, any heading)
+    and current (0-1.5 m/s), or semi_wind's full-evaluator rows."""
+    import numpy as np
+
+    if name == "semi_wind":
+        return full_rows("semi_wind")
+    rng = np.random.default_rng(FLEX_SPAR_SEED)
+    n, h = FLEX_SPAR_ROWS, FLEX_SETS["spar"]
+    return dict(
+        current_speed=rng.uniform(0.0, 1.5, n),
+        current_heading_deg=rng.uniform(0.0, 360.0, n),
+        Hs=rng.uniform(1.0, 12.0, (n, h)), Tp=rng.uniform(4.0, 20.0, (n, h)),
+        gamma=rng.uniform(0.0, 5.0, (n, h)),
+        beta_deg=rng.uniform(0.0, 360.0, (n, h)))
+
+
+def golden_flex(name):
+    """JAX flexible-evaluator outputs over the set's golden rows."""
+    jax = _jax()
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.api import make_flexible_evaluator
+
+    ev = make_flexible_evaluator(raft_tpu.Model(FLEX_DESIGNS[name]()),
+                                 nWaves=FLEX_SETS[name])
+    out = jax.jit(jax.vmap(ev))(flex_rows(name))
+    return {k: np.asarray(out[k]) for k in FLEX_OUT_KEYS}
+
+
+def flex_geometry_rows():
+    """(rows, struct_params) of the flexible geometry golden: the first
+    FLEX_GEOMETRY_ROWS semi_wind rows under each FLEX_GEOMETRY_SCALES
+    design, the JAX ``flexible_struct_params`` of each design's host
+    rebuild stacked per row."""
+    _jax()
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.api import flexible_struct_params
+
+    base = full_rows("semi_wind")
+    n = FLEX_GEOMETRY_ROWS
+    rows = {k: np.concatenate([v[:n]] * len(FLEX_GEOMETRY_SCALES))
+            for k, v in base.items()}
+    sps = [flexible_struct_params(raft_tpu.Model(
+        semi_wind_flex_design(ds, ts))) for ds, ts in FLEX_GEOMETRY_SCALES]
+    stacked = jax_tree_stack([sp for sp in sps for _ in range(n)])
+    rows["d_scale"] = np.repeat([s[0] for s in FLEX_GEOMETRY_SCALES], n)
+    rows["t_scale"] = np.repeat([s[1] for s in FLEX_GEOMETRY_SCALES], n)
+    return rows, stacked
+
+
+def jax_tree_stack(trees):
+    """Stack a list of nested dicts of numpy arrays leaf by leaf."""
+    import numpy as np
+
+    if isinstance(trees[0], dict):
+        return {k: jax_tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return np.stack([np.asarray(t) for t in trees])
+
+
+def golden_flex_geometry():
+    """The ``golden_flex_geometry_semi_wind.npz`` dict: the rows, their
+    tower scales and the JAX flexible geometry evaluator's outputs."""
+    jax = _jax()
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.api import make_flexible_evaluator
+
+    rows, sp = flex_geometry_rows()
+    ev = make_flexible_evaluator(raft_tpu.Model(semi_wind_flex_design()),
+                                 nWaves=1, geometry=True)
+    case = {k: v for k, v in rows.items() if k not in ("d_scale", "t_scale")}
+    case["struct_params"] = sp
+    out = jax.jit(jax.vmap(ev))(case)
+    gd = dict(rows)
+    gd.update({f"on_{k}": np.asarray(out[k]) for k in FLEX_OUT_KEYS})
+    return gd
+
+
+def write_flex_fixtures():
+    """Write the flexible designs and the flexible goldens."""
+    import json
+
+    import numpy as np
+
+    for name, fn in FLEX_DESIGNS.items():
+        with open(os.path.join(OUT_DIR, f"design_{name}_flex.json"),
+                  "w") as f:
+            f.write(json.dumps(fn(), indent=1) + "\n")
+        gd = dict(flex_rows(name))
+        gd.update({f"on_{k}": v for k, v in golden_flex(name).items()})
+        np.savez_compressed(os.path.join(OUT_DIR, f"golden_flex_{name}.npz"),
+                            **gd)
+        print(f"flex {name}: status={gd['on_status'].tolist()} "
+              f"n_iter={gd['on_n_iter_drag'].tolist()}", flush=True)
+    gd = golden_flex_geometry()
+    np.savez_compressed(
+        os.path.join(OUT_DIR, "golden_flex_geometry_semi_wind.npz"), **gd)
+    print(f"flex geometry: status={gd['on_status'].tolist()} "
+          f"n_iter={gd['on_n_iter_drag'].tolist()}", flush=True)
+
+
 def main():
     import numpy as np
 
@@ -1058,6 +1228,9 @@ def main():
         return
     if sys.argv[1:] == ["--farm"]:
         write_farm_fixtures()
+        return
+    if sys.argv[1:] == ["--flex"]:
+        write_flex_fixtures()
         return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
@@ -1076,6 +1249,7 @@ def main():
     write_full_fixtures()
     write_geometry_fixtures()
     write_farm_fixtures()
+    write_flex_fixtures()
 
 
 if __name__ == "__main__":

@@ -149,9 +149,20 @@ def _refusals():
 @pytest.mark.parametrize("variant", sorted(_refusals()))
 def test_unsupported_designs_raise(variant):
     """Each variant of the spar the port does not build raises, naming
-    its ROADMAP item, before any Model exists."""
+    its ROADMAP item, before any Model exists.  A beam member builds (the
+    flexible path) and the rigid full evaluator refuses it, as the
+    reference's does, naming make_flexible_evaluator."""
     d = copy.deepcopy(design("spar"))
     _refusals()[variant](d)
+    if variant == "beam":
+        from raft_tpu_torch.api import make_full_evaluator
+
+        model = Model(d)
+        assert not model.fowtList[0].is_single_body
+        with pytest.raises(NotImplementedError,
+                           match=r"make_flexible_evaluator.*ROADMAP A11"):
+            make_full_evaluator(model, device="cpu")
+        return
     with pytest.raises(NotImplementedError, match=r"ROADMAP A1[013]"):
         Model(d)
 

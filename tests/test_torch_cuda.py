@@ -314,3 +314,70 @@ def test_geometry_gradient_on_card_matches_goldens(cuda):
         b = g["on_g_" + k]
         assert np.max(np.abs(a.cpu().numpy() - b)) <= \
             1e-9 * np.max(np.abs(b)), k
+
+
+#: the flexible path's gates past its N-DOF solves (pivoted LU of two
+#: libraries; tests/test_torch_flexible.py): X0 at kappa(K) eps, Xi, PSD
+#: and drag_resid at kappa(Z) eps, the largest condition numbers of the
+#: golden rows
+FLEX_GATES = dict(X0=2.80e9 * np.finfo(np.float64).eps,
+                  Xi=2.72e10 * np.finfo(np.float64).eps,
+                  PSD=2.72e10 * np.finfo(np.float64).eps,
+                  drag_resid=2.72e10 * np.finfo(np.float64).eps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,nWaves", [("spar", 2), ("semi_wind", 1)])
+def test_flexible_on_card_matches_goldens(cuda, name, nWaves):
+    """The flexible evaluator's golden rows on the card (nDOF 108 and
+    168), float64, with no launch of either solve-kernel design: its
+    solves are N > 12, torch.linalg.solve as in the reference."""
+    from raft_tpu_torch.api import FLEX_OUT_KEYS, make_flexible_evaluator
+
+    with open(os.path.join(FIX, f"design_{name}_flex.json")) as f:
+        model = Model(json.load(f))
+    g = np.load(os.path.join(FIX, f"golden_flex_{name}.npz"))
+    before = (linsolve.KERNEL_LAUNCHES, linsolve.ROW_KERNEL_LAUNCHES)
+    out = make_flexible_evaluator(model, nWaves=nWaves, device=cuda)(
+        **{k: g[k] for k in ENV_KEYS + SEA_KEYS if k in g})
+    assert (linsolve.KERNEL_LAUNCHES, linsolve.ROW_KERNEL_LAUNCHES) == before
+    for k in FLEX_OUT_KEYS:
+        a, b = out[k].cpu().numpy(), g["on_" + k]
+        if k in ("status", "n_iter_drag", "drag_converged"):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            tol = FLEX_GATES.get(k, 1e-10)
+            assert np.max(np.abs(a - b)) <= tol * np.max(np.abs(b)), k
+
+
+@pytest.mark.cuda
+def test_traced_topology_on_card_matches_cpu(cuda):
+    """TracedTopology.kinematics of 4 seeded rows on the card against the
+    same replay on the CPU (semi_wind_flex, nDOF 168)."""
+    from raft_tpu_torch.structure.topology_traced import TracedTopology
+
+    with open(os.path.join(FIX, "design_semi_wind_flex.json")) as f:
+        fs = Model(json.load(f)).fowtList[0]
+    tt = TracedTopology(fs)
+    X = 0.05 * np.random.default_rng(7).standard_normal((4, fs.nDOF))
+    cpu = tt.kinematics(torch.as_tensor(X))
+    card = tt.kinematics(torch.as_tensor(X, device=cuda))
+    for a, b in zip(card, cpu):
+        assert a.device.type == "cuda"
+        b = b.numpy()
+        assert np.max(np.abs(a.cpu().numpy() - b)) <= 1e-12 * np.max(
+            np.abs(b))
+
+
+@pytest.mark.cuda
+def test_solve_dispatch_above_12_goes_to_the_library(cuda):
+    """A CUDA system of N = 108 goes to torch.linalg.solve: no launch of
+    either solve-kernel design, the library's answer bit for bit."""
+    Z, F = systems(108, (2,), 4, seed=108)
+    Z, F = Z.to(cuda), F.to(cuda)
+    before = (linsolve.KERNEL_LAUNCHES, linsolve.ADJ_KERNEL_LAUNCHES,
+              linsolve.ROW_KERNEL_LAUNCHES)
+    x = linsolve.solve(Z, F)
+    assert (linsolve.KERNEL_LAUNCHES, linsolve.ADJ_KERNEL_LAUNCHES,
+            linsolve.ROW_KERNEL_LAUNCHES) == before
+    assert torch.equal(x, torch.linalg.solve(Z, F[..., None])[..., 0])

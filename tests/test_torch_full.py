@@ -206,8 +206,9 @@ def test_refusals_by_message():
         Model(qtf)
     beam = copy.deepcopy(d)
     beam["platform"]["members"][0]["type"] = "beam"
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A11"):
-        Model(beam)
+    with pytest.raises(NotImplementedError,
+                       match=r"make_flexible_evaluator.*ROADMAP A11"):
+        tapi.make_full_evaluator(Model(beam), device="cpu")
     arr = copy.deepcopy(d)
     arr["array"] = {"keys": ["ID", "turbineID", "platformID", "mooringID",
                              "x_location", "y_location"],
