@@ -6,7 +6,8 @@ Phases, each printing one line (the last line is the result object):
 
 1. device  - the card's name and power limit (nvidia-smi); TF32 off.
 2. build   - nvcc builds raft_tpu_torch/csrc/linsolve.cu for sm_90a
-             afresh; the -Xptxas -v report goes to
+             afresh, while g++ builds the host panel solver
+             raft_tpu_torch/csrc/panel_bem.cpp; the -Xptxas -v report goes to
              <out>/ptxas_linsolve.txt, and the registers and spill bytes
              of every instantiation (design, type, N, entry) are
              printed; fails if one is missing or an instantiation of
@@ -133,7 +134,25 @@ Phases, each printing one line (the last line is the result object):
              FLEX_GEOMETRY_ROWS (64) operating rows through
              geometry=True, with the golden rows first; host build s per
              design, geometry-evals/s, stage ms.
-18. kernels - one JSON object listing both entries of the solve kernel,
+18. bem     - potential flow on design_semi_wind_bem.json (semi_wind
+             with every platform member meshed: 684 panels, 25 BEM
+             frequencies, 8 headings, 200 m deep): the port's run_bem
+             solves on the host (g++-built csrc/panel_bem.cpp, the
+             shipped Green table) into a fresh cache under <out>; its raw
+             A/B/X and its model-grid coefficients after the .1/.3 round
+             trip held against golden_bem_semi_wind.npz within
+             BEM_COEF_TOL (1e-10) x max; host seconds of the table load,
+             the build and the solve.  Then make_full_evaluator (float64,
+             default flags) on the golden rows (held) and BEM_ROWS (4096)
+             semi_wind operating rows with them first: full-evals/s,
+             stage ms, Newton iterations per chunk, the solve kernel's
+             launches against the trips run; the WAMIT-file design
+             (design_semi_wind_wamit.json) on its golden rows (held);
+             the d_scale geometry axis: the two extra host solves (timed),
+             the golden d_scale rows (held), then BEM_GEOMETRY_ROWS (1024)
+             rows with d_scale uniform over D_SCALE_BOX, geometry-evals/s,
+             launches against the trips run.
+19. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path and the adjoint
              with its launches on the grad path, each with its N = 12
              (one-lane-per-row) figures.
@@ -194,6 +213,15 @@ FLEX_SEED = 20261024
 FLEX_GEOMETRY_DESIGNS = 8              # host-rebuilt tower designs
 FLEX_GEOMETRY_ROWS = 64                # operating rows per design
 FLEX_GEOMETRY_SEED = 20261025
+#: the potential-flow phase: rows of the evaluator and of its d_scale
+#: geometry axis (uniform over D_SCALE_BOX), their seeds, and the gate of
+#: the host solve's coefficients against the JAX goldens
+BEM_ROWS = 4096
+BEM_SEED = 20261026
+BEM_GEOMETRY_ROWS = 1024
+BEM_GEOMETRY_SEED = 20261027
+D_SCALE_BOX = (0.92, 1.08)
+BEM_COEF_TOL = 1e-10
 #: the flexible path's gates past its N = 108-168 solves (pivoted LU of
 #: two libraries, tests/test_torch_flexible.py): X0 at kappa(K) eps and
 #: Xi, PSD and drag_resid at kappa(Z) eps, with the largest condition
@@ -316,11 +344,31 @@ def ptxas_table(report):
 
 
 def phase_build(out_dir):
+    import threading
+
+    from raft_tpu_torch import native
     from raft_tpu_torch.ops import linsolve
 
+    # g++ builds the host panel solver while nvcc builds the kernel
+    host = {}
+
+    def gxx():
+        t = time.time()
+        try:
+            host["path"] = native.build(force=True)
+        except RuntimeError as e:
+            host["error"] = str(e)
+        host["s"] = time.time() - t
+
+    th = threading.Thread(target=gxx)
+    th.start()
     t0 = time.time()
     path, report = linsolve.build(force=True)
     dt = time.time() - t0
+    th.join()
+    check("error" not in host, f"build: {host.get('error')}")
+    print(f"build: {os.path.relpath(host['path'], HERE)} (g++, host panel "
+          f"solver) in {host['s']:.1f} s")
     with open(os.path.join(out_dir, "ptxas_linsolve.txt"), "w") as f:
         f.write(report)
     table = ptxas_table(report)
@@ -346,7 +394,7 @@ def phase_build(out_dir):
                     f"+{table[(d, t, n, e)].get('spill_loads', 0)} B spill"
                     for n in ns))
     check(not spilled, f"build: the row design spills in {spilled}")
-    return dict(build_s=dt, ptxas=report,
+    return dict(build_s=dt, gxx_s=host["s"], ptxas=report,
                 ptxas_table={" ".join(map(str, k)): v
                              for k, v in table.items()})
 
@@ -1984,6 +2032,227 @@ def phase_flex(card, rows=FLEX_ROWS):
     return res
 
 
+def _bem_hold(got, gold, tag):
+    """Coefficients ``got`` against ``gold`` (name -> (array, golden
+    array)) at BEM_COEF_TOL x max; the worst relative error per name."""
+    worst = {}
+    for k, (a, b) in got.items():
+        a, b = np.asarray(a), np.asarray(b)
+        check(a.shape == b.shape, f"{tag} {k}: shape {a.shape} != {b.shape}")
+        scale = float(np.max(np.abs(b)))
+        err = float(np.max(np.abs(a - b)))
+        check(err <= BEM_COEF_TOL * scale,
+              f"{tag} {k}: {err:.3e} > {BEM_COEF_TOL:g} x {scale:.3e}")
+        worst[k] = err / scale
+    return worst
+
+
+def _bem_timed_rows(ev, p, tag, geom=None):
+    """``p`` (and ``geom``) through ``ev`` with stage events, the statics
+    iterations counted and the solve kernel's launches counted from 0:
+    (numpy outputs, wall s, stage ms, Newton iterations per chunk,
+    launches, expected launches)."""
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    timer = StageTimer()
+    with MooringCounter() as moor:
+        def mark(stage):
+            moor.mark(stage)
+            timer(stage)
+
+        kw = {} if geom is None else dict(geom=geom)
+        linsolve.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out = {k: v.cpu().numpy() for k, v in ev(**p, **kw,
+                                                   timer=mark).items()}
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+    launches = linsolve.KERNEL_LAUNCHES
+    cap = ev.body.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
+        + max(int(ev.body.n_iter_extra), 0)
+    rows = len(p["Hs"])
+    exp = expected_launches(out["n_iter_drag"],
+                            int(config.get("BUCKET_ROWS")) or rows, cap,
+                            min(max(1, config.get("SCAN_CHUNK")), cap),
+                            config.get("FUSED") == "on" and ev.nWaves == 1)
+    check(launches == exp, f"{tag}: solve kernel launched {launches} times, "
+          f"expected {exp}")
+    for k in ("X0", "Xi", "PSD"):
+        check(np.all(np.isfinite(out[k])), f"{tag}: non-finite {k}")
+    chunks = timer.chunks()
+    stages = [s for s in ("geometry", "aero", "statics", "excitation",
+                          "fixed_point", "response")
+              if any(s in c for c in chunks)]
+    stage_ms = {s: sum(c.get(s, 0.0) for c in chunks) for s in stages}
+    return (out, wall, stage_ms, [e - 1 for e in moor.per_chunk], launches,
+            exp)
+
+
+def phase_bem(out_dir, card):
+    """Potential flow on semi_wind_bem (module docstring, phase 18): the
+    host panel solve into a fresh cache, its raw and model-grid
+    coefficients held against the JAX goldens; the full evaluator's
+    golden rows and BEM_ROWS rows; the WAMIT-file design's golden rows;
+    the d_scale geometry axis' golden rows and BEM_GEOMETRY_ROWS rows."""
+    import shutil
+
+    from raft_tpu_torch import native
+    from raft_tpu_torch.api import (ENV_KEYS, FULL_OUT_KEYS, SEA_KEYS,
+                                    make_full_evaluator)
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.native import green_table
+    from raft_tpu_torch.utils import config
+
+    pfx = "on_" if config.get("FUSED") == "on" else "off_"
+    gold = dict(np.load(os.path.join(FIX, "golden_bem_semi_wind.npz")))
+    cache = os.path.join(out_dir, "bem_cache")
+    shutil.rmtree(cache, ignore_errors=True)
+    prev = os.environ.get("RAFT_TPU_BEM_DIR")
+    os.environ["RAFT_TPU_BEM_DIR"] = cache
+    res = {}
+    try:
+        # ---- host solve, nothing served from a cache
+        t0 = time.time()
+        green_table.build_tables()
+        res["table_s"] = time.time() - t0
+        t0 = time.time()
+        native.build()
+        res["gxx_s"] = time.time() - t0
+        raw = []
+        solve = native.solve_bem
+
+        def recording(*a, **kw):
+            raw.append((len(a[3]), solve(*a, **kw)))
+            return raw[-1][1]
+
+        native.solve_bem = recording
+        try:
+            with open(os.path.join(FIX, "design_semi_wind_bem.json")) as f:
+                model = Model(json.load(f))
+            t0 = time.time()
+            bem = model.bem
+            res["solve_s"] = time.time() - t0
+        finally:
+            native.solve_bem = solve
+        check(len(raw) == 1, f"bem: {len(raw)} panel solves, expected 1")
+        mesh, (A, B, X) = raw[0]
+        check(mesh == int(gold["n_panels"]),
+              f"bem: {mesh} panels, the reference meshes {gold['n_panels']}")
+        res["raw_worst"] = _bem_hold(dict(A=(A, gold["A"]), B=(B, gold["B"]),
+                                          X=(X, gold["X"])), gold, "bem raw")
+        res["coef_worst"] = _bem_hold(
+            {k: (bem[k], gold["coef_" + k]) for k in ("A_BEM", "B_BEM",
+                                                      "X_BEM")},
+            gold, "bem coefficients")
+        check(np.array_equal(bem["headings"], gold["coef_headings"]),
+              "bem: headings differ")
+        res.update(panels=mesh, frequencies=len(gold["w_bem"]),
+                   headings=len(gold["bem_headings"]),
+                   threads=min(8, max(1, (os.cpu_count() or 2) - 1)))
+        print(f"bem host solve on {card}: {mesh} panels x "
+              f"{res['frequencies']} frequencies x {res['headings']} "
+              f"headings, {res['threads']} threads on {os.cpu_count()} "
+              f"cores: table load {res['table_s']:.2f} s, g++ "
+              f"{res['gxx_s']:.2f} s (built in the build phase), mesh + "
+              f"solve + .1/.3 round trip {res['solve_s']:.1f} s; raw "
+              "A/B/X against the JAX goldens (gate "
+              f"{BEM_COEF_TOL:g} x max) " + ", ".join(
+                  f"{k} {v:.1e}" for k, v in res["raw_worst"].items())
+              + "; after the WAMIT round trip " + ", ".join(
+                  f"{k} {v:.1e}" for k, v in res["coef_worst"].items()))
+
+        # ---- the evaluator: golden rows, then BEM_ROWS rows
+        ev = make_full_evaluator(model, device=DEVICE)
+        g1 = {k: gold["h1_" + k] for k in ENV_KEYS + SEA_KEYS}
+        n_gold = len(g1["Hs"])
+        ref = {"semi_wind_bem": {k[3:]: v for k, v in gold.items()
+                                 if k.startswith("h1_")}}
+        out = {k: v.cpu().numpy() for k, v in ev(**g1).items()}
+        worst = hold_goldens(out, {"semi_wind_bem": np.arange(n_gold)}, ref,
+                             pfx, "bem", keys=FULL_OUT_KEYS)
+        p = full_rows("semi_wind", g1, BEM_ROWS, BEM_SEED)
+        out, wall, stage_ms, newton, launches, exp = _bem_timed_rows(
+            ev, p, "bem")
+        main = hold_goldens(out, {"semi_wind_bem": np.arange(n_gold)}, ref,
+                            pfx, "bem", keys=FULL_OUT_KEYS)
+        worst = {k: max(v, main[k]) for k, v in worst.items()}
+        res.update(rows=BEM_ROWS, wall_s=wall, evals_per_s=BEM_ROWS / wall,
+                   stage_ms=stage_ms, newton_per_chunk=newton,
+                   launches=launches, expected_launches=exp,
+                   status_shares=_status_shares(out["status"]),
+                   worst_rel={k.split(".", 1)[1]: v
+                              for k, v in worst.items()})
+        print(f"bem semi_wind_bem on {card}: {BEM_ROWS} rows, nWaves 1, "
+              f"{wall:.2f} s = {res['evals_per_s']:.1f} full-evals/s; "
+              "stage ms " + ", ".join(f"{s} {v:.1f}"
+                                      for s, v in stage_ms.items())
+              + f"; statics Newton iterations per chunk {newton}; solve "
+              f"kernel launches {launches} (expected {exp}); status-bit "
+              f"shares {res['status_shares']}; goldens (gate "
+              f"{SLICE_TOL:g} x max; status, n_iter_drag, drag_converged "
+              f"equal): worst {max(res['worst_rel'].values()):.1e}")
+
+        # ---- the WAMIT-file design's golden rows
+        gw = dict(np.load(os.path.join(FIX, "golden_bem_semi_wind_wamit.npz")))
+        wm = Model(os.path.join(FIX, "design_semi_wind_wamit.json"))
+        out = {k: v.cpu().numpy() for k, v in make_full_evaluator(
+            wm, device=DEVICE)(**{k: gw["h1_" + k]
+                                  for k in ENV_KEYS + SEA_KEYS}).items()}
+        ww = hold_goldens(
+            out, {"semi_wind_wamit": np.arange(len(gw["h1_Hs"]))},
+            {"semi_wind_wamit": {k[3:]: v for k, v in gw.items()
+                                 if k.startswith("h1_")}},
+            pfx, "bem wamit", keys=FULL_OUT_KEYS)
+        res["wamit_worst"] = max(ww.values())
+        print(f"bem semi_wind_wamit on {card}: golden rows held, worst "
+              f"{res['wamit_worst']:.1e}")
+
+        # ---- the d_scale geometry axis
+        geo = make_full_evaluator(model, device=DEVICE, geometry=True)
+        t0 = time.time()
+        geo.bem_samples()
+        res["geometry_solve_s"] = time.time() - t0
+        gg = {k: gold["geo_" + k] for k in ENV_KEYS + SEA_KEYS}
+        ds = gold["geo_d_scale"]
+        out = {k: v.cpu().numpy() for k, v in geo(
+            geom=dict(d_scale=ds), **gg).items()}
+        gref = {"semi_wind_bem": {k[4:]: v for k, v in gold.items()
+                                  if k.startswith("geo_")}}
+        wg = hold_goldens(out, {"semi_wind_bem": np.arange(len(ds))}, gref,
+                          pfx, "bem geometry", keys=FULL_OUT_KEYS)
+        rng = np.random.default_rng(BEM_GEOMETRY_SEED)
+        pg = full_rows("semi_wind", gg, BEM_GEOMETRY_ROWS, BEM_GEOMETRY_SEED)
+        dsg = np.concatenate([ds, rng.uniform(*D_SCALE_BOX,
+                                              BEM_GEOMETRY_ROWS - len(ds))])
+        out, gwall, gstage, gnewton, glaunch, gexp = _bem_timed_rows(
+            geo, pg, "bem geometry", geom=dict(d_scale=dsg))
+        main = hold_goldens(out, {"semi_wind_bem": np.arange(len(ds))}, gref,
+                            pfx, "bem geometry", keys=FULL_OUT_KEYS)
+        res["geometry"] = dict(
+            rows=BEM_GEOMETRY_ROWS, wall_s=gwall,
+            evals_per_s=BEM_GEOMETRY_ROWS / gwall, stage_ms=gstage,
+            newton_per_chunk=gnewton, launches=glaunch,
+            expected_launches=gexp,
+            worst=max(max(wg.values()), max(main.values())))
+        r = res["geometry"]
+        print(f"bem geometry on {card}: two more host solves (d_scale "
+              f"{geo.bem_scales[0]:g}, {geo.bem_scales[2]:g}) in "
+              f"{res['geometry_solve_s']:.1f} s; {BEM_GEOMETRY_ROWS} rows, "
+              f"d_scale over {D_SCALE_BOX}, {gwall:.2f} s = "
+              f"{r['evals_per_s']:.1f} geometry-evals/s; stage ms "
+              + ", ".join(f"{s} {v:.1f}" for s, v in gstage.items())
+              + f"; solve kernel launches {glaunch} (expected {gexp}); "
+              f"goldens worst {r['worst']:.1e}")
+    finally:
+        if prev is None:
+            os.environ.pop("RAFT_TPU_BEM_DIR", None)
+        else:
+            os.environ["RAFT_TPU_BEM_DIR"] = prev
+    return res
+
+
 def _stack_rows(trees):
     """Nested dicts of numpy arrays stacked leaf by leaf (rows first)."""
     if isinstance(trees[0], dict):
@@ -2113,6 +2382,7 @@ def main():
         rec["profile_farm"] = timed("profile_farm", phase_profile_farm,
                                     farm_ev, farm_p)
         rec["flex"] = timed("flex", phase_flex, rec["card"])
+        rec["bem"] = timed("bem", phase_bem, args.out, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2124,7 +2394,8 @@ def main():
         geometry=rec["geometry"]["launches"],
         grad=rec["grad"]["fwd_launches"],
         grad_adjoint=rec["grad"]["adj_launches"],
-        farm=rec["farm"]["launches"])
+        farm=rec["farm"]["launches"], bem=rec["bem"]["launches"],
+        bem_geometry=rec["bem"]["geometry"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -2134,7 +2405,9 @@ def main():
         launches=(rec["slice"]["launches"] + rec["design"]["launches"]
                   + sum(r["launches"] for r in rec["full"].values())
                   + rec["geometry"]["launches"]
-                  + rec["grad"]["fwd_launches"] + rec["farm"]["launches"]),
+                  + rec["grad"]["fwd_launches"] + rec["farm"]["launches"]
+                  + rec["bem"]["launches"]
+                  + rec["bem"]["geometry"]["launches"]),
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

@@ -20,10 +20,16 @@ Entry points:
   scales) evaluators, forward only;
 * :func:`raft_tpu_torch.api.make_full_evaluator` — one design's batched
   full-physics evaluator (rotor aero-servo with load derivatives,
-  submerged-rotor blade hydro, current loads, several wave headings)
-  over rows of wind, current and seas, forward only, with
+  submerged-rotor blade hydro, current loads, several wave headings,
+  potential-flow coefficients from the host panel solver or WAMIT
+  files) over rows of wind, current and seas, with
   :func:`~raft_tpu_torch.api.case_to_traced` turning a case-table row
   into its row parameters;
+* :meth:`raft_tpu_torch.models.model.Model.run_bem` — the potential-flow
+  coefficients of a design's potMod members: the panel mesh
+  (:mod:`raft_tpu_torch.io.panels`), the host C++ panel solver
+  (:mod:`raft_tpu_torch.native`, ``csrc/panel_bem.cpp`` built with g++
+  at first use) and the WAMIT files (:mod:`raft_tpu_torch.io.wamit`);
 * :func:`raft_tpu_torch.api.make_flexible_evaluator` — one flexible or
   multibody design's batched evaluator (beam members as FE chains,
   reduced N-DOF structures: general statics, the displaced-pose
@@ -48,5 +54,6 @@ Entry points:
 They run on the CUDA device unless ``device="cpu"`` is passed; without
 a card and without an explicit device they raise.  The one hand-written
 kernel is the batched complex solve, ``csrc/linsolve.cu``, built with
-``nvcc`` at first use into ``raft_tpu_torch/build/``.
+``nvcc`` at first use into ``raft_tpu_torch/build/``; the panel solver
+is host C++, as in the reference.
 """

@@ -69,7 +69,7 @@ class CaseEvaluator(nn.Module):
     displaced pose.
     """
 
-    def __init__(self, model, device=None):
+    def __init__(self, model, device=None, potential_flow=False):
         super().__init__()
         from raft_tpu_torch.structure import bucketing
 
@@ -77,7 +77,8 @@ class CaseEvaluator(nn.Module):
         self.device = device
         self.rdt, self.cdt = compute_dtypes()
         self.fs = model.fowtList[0]
-        sig = bucketing.bucket_signature(model, ladders={})
+        sig = bucketing.bucket_signature(model, ladders={},
+                                         potential_flow=potential_flow)
         self.body = bucketing.BucketEvaluator(sig, device)
         self.design = {k: v[None] for k, v in bucketing.packed_from_numpy(
             bucketing.pack_design(model, sig), device).items()}
@@ -225,7 +226,10 @@ class GeometryConstants:
     tensors) and mooring ``ms`` (L and EA (R, nL)), the statics matrices
     K_h, C_elast, M_struc (R, 6, 6) and F_und (R, 6), and the zero-pose
     hydro constants ``hc0`` (A_hydro with the rotor added mass, Imat,
-    a_i and the strip frames).  Slicing takes rows."""
+    a_i and the strip frames).  A potential-flow design's rows whose
+    d_scale is not 1 also carry ``bem``: their coefficients A, B
+    (R, 6, 6, nw) and X (R, nHeading, 6, nw) interpolated in d_scale
+    (else None: the design's own).  Slicing takes rows."""
 
     ss: object
     ms: object
@@ -234,6 +238,7 @@ class GeometryConstants:
     F_und: torch.Tensor
     M_struc: torch.Tensor
     hc0: dict
+    bem: dict | None = None
 
     @property
     def rows(self):
@@ -250,6 +255,8 @@ class GeometryConstants:
             yield from (self.ms.L, self.ms.EA)
         yield from (self.K_h, self.C_elast, self.F_und, self.M_struc)
         yield from self.hc0.values()
+        if self.bem is not None:
+            yield from self.bem.values()
 
     def _map(self, f):
         ms = self.ms
@@ -260,7 +267,9 @@ class GeometryConstants:
                                    else v for k, v in vars(self.ss).items()}),
             ms=ms, K_h=f(self.K_h), C_elast=f(self.C_elast),
             F_und=f(self.F_und), M_struc=f(self.M_struc),
-            hc0={k: f(v) for k, v in self.hc0.items()})
+            hc0={k: f(v) for k, v in self.hc0.items()},
+            bem=None if self.bem is None else {k: f(v) for k, v in
+                                               self.bem.items()})
 
     def __getitem__(self, sl):
         return self._map(lambda t: t[sl])
@@ -376,6 +385,49 @@ def _rotor_terms(ev, p, R):
     return out
 
 
+def _interp_heading_rows(X_BEM, headings, beta_deg):
+    """Wrap-around heading interpolation of excitation coefficients and
+    their rotation to the global frame (the reference's
+    ``_interp_heading_traced``) for rows of headings.
+
+    X_BEM (nh, 6, nw) or per row (R, nh, 6, nw) complex at ``headings``
+    (nh,) [deg] ascending in [0, 360); beta_deg (R, nH) [deg].  Returns
+    (R, nH, 6, nw)."""
+    h = np.asarray(headings, dtype=float)
+    nh = len(h)
+    ext_h = torch.as_tensor(np.concatenate([[h[-1] - 360.0], h,
+                                            [h[0] + 360.0]]),
+                            dtype=beta_deg.dtype, device=beta_deg.device)
+    ext_X = torch.cat([X_BEM[..., -1:, :, :], X_BEM, X_BEM[..., :1, :, :]],
+                      dim=-3)
+    beta = torch.remainder(beta_deg, 360.0)
+    idx = torch.clamp(torch.searchsorted(ext_h, beta, right=True) - 1, 0, nh)
+    f = ((beta - ext_h[idx]) / (ext_h[idx + 1] - ext_h[idx]))[..., None, None]
+    if ext_X.dim() == 3:
+        X0, X1 = ext_X[idx], ext_X[idx + 1]
+    else:
+        r = torch.arange(idx.shape[0], device=idx.device)[:, None]
+        X0, X1 = ext_X[r, idx], ext_X[r, idx + 1]
+    Xp = X0 * (1 - f) + X1 * f                           # (R, nH, 6, nw)
+    b = beta_deg * (math.pi / 180)
+    sb, cb = torch.sin(b)[..., None], torch.cos(b)[..., None]
+    x = [Xp[..., i, :] for i in range(6)]
+    return torch.stack([x[0] * cb - x[1] * sb, x[0] * sb + x[1] * cb, x[2],
+                        x[3] * cb - x[4] * sb, x[3] * sb + x[4] * cb, x[5]],
+                       dim=-2)
+
+
+def _lagrange3(vals, s_nodes, s):
+    """Quadratic Lagrange interpolation of stacked samples vals (3, ...)
+    taken at the three ``s_nodes``, at each row's s (R,): (R, ...)."""
+    s0, s1, s2 = (float(x) for x in s_nodes)
+    shape = s.shape + (1,) * (vals.dim() - 1)
+    l0 = ((s - s1) * (s - s2) / ((s0 - s1) * (s0 - s2))).reshape(shape)
+    l1 = ((s - s0) * (s - s2) / ((s1 - s0) * (s1 - s2))).reshape(shape)
+    l2 = ((s - s0) * (s - s1) / ((s2 - s0) * (s2 - s1))).reshape(shape)
+    return l0 * vals[0] + l1 * vals[1] + l2 * vals[2]
+
+
 class FullEvaluator(CaseEvaluator):
     """Batched full-physics evaluator of one rigid single-FOWT design
     (the reference's ``make_full_evaluator``).
@@ -400,6 +452,16 @@ class FullEvaluator(CaseEvaluator):
        the aerodynamic added mass, damping and gyroscopic damping added
        to the linear system.
 
+    A potential-flow design (potMod members, or WAMIT files through
+    ``hydroPath`` with ``potFirstOrder: 1``) adds its coefficients
+    (:attr:`~raft_tpu_torch.models.model.Model.bem`, solved or read when
+    the evaluator is made): the added mass A_BEM and damping B_BEM to
+    the linear system in the reference's order (``A_aero + (M_struc +
+    A_hydro) + A_BEM``, ``B_aero + B_BEM + B_gyro``) and, per row and
+    heading, the excitation X_BEM interpolated at ``(beta -
+    heading_adjust) mod 360`` (:func:`_interp_heading_rows`) times the
+    array phase and the wave amplitudes to every heading's excitation.
+
     ``F_2nd_mean`` is zero: the builder refuses every second-order
     source.  ``timer(stage)``, when given, is called with "start" and
     then with each of :data:`FULL_STAGES` per chunk.
@@ -414,7 +476,15 @@ class FullEvaluator(CaseEvaluator):
     the statics (:func:`~raft_tpu_torch.physics.statics.calc_statics`)
     and the zero-pose hydro constants, with the strips' diameters and
     coefficients and the mooring lines' lengths and stiffnesses scaled
-    (timer stages :data:`GEOMETRY_STAGES`).  Rigid members only.
+    (timer stages :data:`GEOMETRY_STAGES`).  Rigid members only.  On a
+    potential-flow design a row's d_scale must be one scale for every
+    member: its coefficients are the quadratic interpolation in d_scale
+    of the panel solver's at the settings' ``bem_geom_scales`` (default
+    0.92, 1.0, 1.08), the two off-unit scales solved on the first chunk
+    with a d_scale other than 1 (the design's coefficients where d_scale
+    is 1).  File coefficients (``hydroPath``) cannot be re-solved and
+    refuse ``geometry=True``; a d_scale that requires grad raises
+    (ROADMAP A12).
 
     The aero stage enters as constants: gradients with respect to its
     own inputs (wind, or current for a submerged rotor, TI, yaw) are not
@@ -429,7 +499,16 @@ class FullEvaluator(CaseEvaluator):
                 f"the full evaluator covers rigid 6-DOF FOWTs; this "
                 f"structure reduces to {fs.nDOF} DOFs: use "
                 "make_flexible_evaluator (ROADMAP A11, the flexible path)")
-        super().__init__(model, device)
+        from raft_tpu_torch.structure import bucketing
+
+        pot = bucketing.has_potential_flow(fs)
+        if geometry and pot and fs.potFirstOrder == 1 and fs.hydroPath:
+            raise ValueError(
+                "the geometry axis of a potential-flow design needs the "
+                "panel solver: coefficients read from WAMIT files "
+                f"(hydroPath {fs.hydroPath!r}) cannot be re-solved per "
+                "geometry")
+        super().__init__(model, device, potential_flow=pot)
         from raft_tpu_torch.physics.aero import rotor_tensors
         from raft_tpu_torch.physics.statics import node_T
 
@@ -465,6 +544,52 @@ class FullEvaluator(CaseEvaluator):
         self.strips0 = model.hydro[0].strips
         self.k = np.asarray(model.k)
         self.n_members = len(fs.members)
+        self.bem = model.bem if pot else None
+        if self.bem is not None:
+            self._init_bem(model)
+
+    def _init_bem(self, model):
+        """The design's potential-flow coefficients on the device, and on
+        the geometry axis the three d_scale sample points."""
+        bem, kw = self.bem, dict(dtype=self.rdt, device=self.device)
+        self.bem_headings = np.asarray(bem["headings"], dtype=float)
+        self.bem_has_X = bool(np.any(np.abs(bem["X_BEM"]) > 0))
+        self.bem_t = dict(
+            A=torch.as_tensor(bem["A_BEM"], **kw),
+            B=torch.as_tensor(bem["B_BEM"], **kw),
+            X=torch.as_tensor(bem["X_BEM"]).to(dtype=self.cdt,
+                                               device=self.device))
+        self.k_t = torch.as_tensor(self.k, **kw)
+        self._bem_tab = None
+        if self.geometry:
+            settings = model.design.get("settings", {}) or {}
+            scales = tuple(float(s) for s in settings.get(
+                "bem_geom_scales", (0.92, 1.0, 1.08)))
+            if len(scales) != 3 or len(set(scales)) != 3:
+                raise ValueError(
+                    "bem_geom_scales: exactly 3 distinct sample scales; "
+                    "d_scale should stay inside their span (the quadratic "
+                    "fit extrapolates beyond it)")
+            self.bem_scales = scales
+            self._run_bem = model.run_bem
+
+    def bem_samples(self):
+        """The coefficients at the three ``bem_geom_scales`` (A, B and X
+        stacked on a leading axis of 3, and the scales ``s``): the
+        design's own at 1, the others solved by
+        :meth:`~raft_tpu_torch.models.model.Model.run_bem` on first
+        use."""
+        if self._bem_tab is None:
+            bems = [self.bem if abs(s - 1.0) < 1e-12
+                    else self._run_bem(d_scale=s) for s in self.bem_scales]
+            kw = dict(dtype=self.rdt, device=self.device)
+            self._bem_tab = dict(
+                s=self.bem_scales,
+                A=torch.as_tensor(np.stack([b["A_BEM"] for b in bems]), **kw),
+                B=torch.as_tensor(np.stack([b["B_BEM"] for b in bems]), **kw),
+                X=torch.as_tensor(np.stack([b["X_BEM"] for b in bems])).to(
+                    dtype=self.cdt, device=self.device))
+        return self._bem_tab
 
     def geometry_constants(self, geom):
         """The per-row geometry constants (:class:`GeometryConstants`) of
@@ -498,7 +623,29 @@ class FullEvaluator(CaseEvaluator):
             ss=ss, ms=ms, K_h=st["C_struc"] + st["C_hydro"],
             C_elast=st["C_elast"],
             F_und=st["W_struc"] + st["W_hydro"] + st["f0_additional"],
-            M_struc=st["M_struc"], hc0=hc)
+            M_struc=st["M_struc"], hc0=hc, bem=self._bem_geometry(g))
+
+    def _bem_geometry(self, g):
+        """The potential-flow coefficients of geometry rows ``g`` (None
+        without potential flow, or where every row's d_scale is 1)."""
+        if self.bem is None:
+            return None
+        d = g["d_scale"]
+        if not bool(torch.all(d == d[:, :1])):
+            raise ValueError(
+                "potential-flow geometry rows need one uniform d_scale "
+                "for every member (the coefficients are interpolated in "
+                "that one scale)")
+        s = d[:, 0]
+        if s.requires_grad:
+            raise NotImplementedError(
+                "the gradient with respect to d_scale of a potential-flow "
+                "design (through its interpolated coefficients) is not "
+                "ported (ROADMAP A12)")
+        if not bool(torch.any(s != 1.0)):
+            return None
+        tab = self.bem_samples()
+        return {k: _lagrange3(tab[k], tab["s"], s) for k in ("A", "B", "X")}
 
     def _geom_rows(self, geom, n=None):
         """``geom`` as tensors: (R, nMember) per member, (R,) per row
@@ -582,15 +729,37 @@ class FullEvaluator(CaseEvaluator):
         """Every active rotor's aero-servo terms, reduced to the body."""
         return _rotor_terms(self, p, R)
 
+    def _potential(self, p, bem):
+        """The potential-flow terms of chunk ``p`` (None without potential
+        flow): A_BEM and B_BEM, the design's (6, 6, nw) or the geometry
+        rows' ``bem`` (R, 6, 6, nw), and X (R, nH, 6, nw), the excitation
+        per unit wave amplitude at each row's headings, with the array
+        phase (None where the coefficients have no excitation)."""
+        if self.bem is None:
+            return None
+        bem = bem or self.bem_t
+        out = dict(A=bem["A"], B=bem["B"], X=None)
+        if self.bem_has_X:
+            fs, bd = self.fs, p["beta_deg"]
+            b = bd * (math.pi / 180)
+            phase = torch.exp(-1j * self.k_t * (
+                fs.x_ref * torch.cos(b) + fs.y_ref * torch.sin(b))[..., None])
+            X = _interp_heading_rows(bem["X"], self.bem_headings,
+                                     torch.remainder(bd - fs.heading_adjust,
+                                                     360.0))
+            out["X"] = X * phase[:, :, None, :]
+        return out
+
     def _structure(self, p, R, mark):
-        """(design leaves, mooring, zero-pose strip frames, C_elast) of
-        the R rows of chunk ``p``: the design's own, or with the
-        geometry axis the rows' :class:`GeometryConstants` (computed
-        here from their ``geom`` unless given), marked "geometry"."""
+        """(design leaves, mooring, zero-pose strip frames, C_elast, the
+        rows' potential-flow coefficients or None) of the R rows of chunk
+        ``p``: the design's own, or with the geometry axis the rows'
+        :class:`GeometryConstants` (computed here from their ``geom``
+        unless given), marked "geometry"."""
         d, ms, _ = self._design_rows(p, R)
         if not self.geometry:
             hc0 = {k: v.expand((R,) + v.shape) for k, v in self.hc0.items()}
-            return d, ms, hc0, self.C_elast
+            return d, ms, hc0, self.C_elast, None
         gc = p.get("geom_const")
         if gc is None:
             gc = self.geometry_constants({k[5:]: v for k, v in p.items()
@@ -603,14 +772,14 @@ class FullEvaluator(CaseEvaluator):
                                                    "Cd_p1", "Cd_p2",
                                                    "Cd_End")})
         hc0 = {k: gc.hc0[k] for k in ("r", "q", "p1", "p2", "sub")}
-        return d, gc.ms, hc0, gc.C_elast
+        return d, gc.ms, hc0, gc.C_elast, gc.bem
 
     def _chunk(self, p, mark):
         from raft_tpu_torch.structure import bucketing
 
         R = p["Hs"].shape[0]
         mark("start")
-        d, ms, hc0, C_elast = self._structure(p, R, mark)
+        d, ms, hc0, C_elast, bem = self._structure(p, R, mark)
         with torch.no_grad():
             aero = self._aero(p, R)
         mark("aero")
@@ -625,13 +794,16 @@ class FullEvaluator(CaseEvaluator):
             C_elast=C_elast)
         mark("statics")
 
+        lin = dict(M=aero["A_aero"],
+                   B=aero["B_aero"] + aero["B_gyro"][..., None], C=C_elast)
+        pot = self._potential(p, bem)
+        if pot is not None:
+            lin.update(A=pot["A"], X=pot["X"],
+                       B=aero["B_aero"] + pot["B"] + aero["B_gyro"][..., None])
         out = self.body.respond(
             d, X0, st_status, C_moor, p["Hs"], p["Tp"],
             p["beta_deg"] * (math.pi / 180), mark, gamma=p["gamma"],
-            lin=dict(M=aero["A_aero"],
-                     B=aero["B_aero"] + aero["B_gyro"][..., None],
-                     C=C_elast),
-            input_clipped=aero["input_clipped"])
+            lin=lin, input_clipped=aero["input_clipped"])
         Xi = out["Xi"]
         out.update(
             Xi=torch.cat([Xi, torch.zeros((R, 1) + Xi.shape[2:],
@@ -650,9 +822,9 @@ def make_full_evaluator(model, nWaves=1, turb_static=None, device=None,
     wave headings per row, on ``device`` (default: the current CUDA
     device; raises without one).  ``turb_static`` is the turbulence
     model and class reference speed (default ``("NTM", 50.0)``).
-    ``geometry=True`` adds the geometry design axis (rigid members; the
-    builder refuses the potential-flow designs whose coefficients the
-    reference interpolates in ``d_scale``, ROADMAP A11)."""
+    ``geometry=True`` adds the geometry design axis (rigid members; a
+    potential-flow design's coefficients are interpolated in one
+    uniform ``d_scale`` per row)."""
     return FullEvaluator(model, nWaves=nWaves, turb_static=turb_static,
                          device=device, geometry=geometry)
 
@@ -784,6 +956,12 @@ class FarmEvaluator(nn.Module):
             raise NotImplementedError(
                 "the farm evaluator covers rigid 6-DOF units (flexible "
                 "units: ROADMAP A11)")
+        if any(bucketing.has_potential_flow(fs) for fs in fowts):
+            raise NotImplementedError(
+                "potential-flow units (potMod members or hydroPath "
+                "coefficients) in an array: the reference's farm "
+                "evaluator refuses them (ROADMAP A11; its orchestrated "
+                "path, A10, takes them)")
         self.nT = 6 * nF
         self.nWaves = int(nWaves)
         if self.nWaves < 1:
@@ -1192,6 +1370,12 @@ class FlexibleEvaluator(nn.Module):
         if fs.is_single_body:
             raise ValueError("a rigid 6-DOF FOWT runs through "
                              "make_full_evaluator (this is the N-DOF path)")
+        from raft_tpu_torch.structure.bucketing import has_potential_flow
+
+        if has_potential_flow(fs):
+            raise NotImplementedError(
+                "potential-flow coefficients on a flexible structure: the "
+                "reference's flexible evaluator refuses them (ROADMAP A11)")
         device = resolve_device(device)
         self.device = device
         self.rdt, self.cdt = compute_dtypes()

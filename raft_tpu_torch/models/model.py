@@ -10,8 +10,10 @@ array row at its position and heading (the farm evaluator's input),
 each with an inline catenary mooring, a MoorDyn-file mooring or none;
 an array may add a shared-mooring network from its ``array_mooring``
 MoorDyn file.  Rotors get their blade-element models
-(:attr:`Model.rotor_aero`).  Line dynamics (``moorMod`` 1 or 2, ROADMAP
-A10) raise ``NotImplementedError`` naming their ROADMAP item.
+(:attr:`Model.rotor_aero`), potential-flow members or WAMIT files their
+coefficients (:attr:`Model.bem_list`, :meth:`Model.run_bem`).  Line
+dynamics (``moorMod`` 1 or 2, ROADMAP A10) raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,6 +32,11 @@ from raft_tpu_torch.physics.statics import calc_statics
 from raft_tpu_torch.structure.schema import (array_mooring, array_units,
                                              coerce, frequency_grid,
                                              load_design, parse_cases)
+
+
+#: the panel solver's version token in the coefficient cache key (its
+#: own, so a file the reference package wrote is never served here)
+BEM_TOKEN = b"raft_tpu_torch/panel_bem-v2-fd"
 
 
 class Model:
@@ -87,6 +94,7 @@ class Model:
         self._hydro = None
         self._statics = None
         self._rotor_aero = None
+        self._bem_list = None
 
     def _unit_mooring(self, mo, fs, x_ref=0.0, y_ref=0.0, heading_adjust=0.0):
         """One unit's own mooring: an inline catenary system at the
@@ -111,16 +119,18 @@ class Model:
         return build_mooring(mo, rho_water=fs.rho_water, g=fs.g, x_ref=x_ref,
                              y_ref=y_ref, heading_adjust=heading_adjust)
 
-    def _resolve_data_path(self, path):
+    def _resolve_data_path(self, path, suffixes=("",)):
         """A design-relative data path: tried against ``base_dir`` and
         its parent (the reference resolves such paths against the
-        working directory it runs from)."""
+        working directory it runs from); a candidate counts when it
+        exists with one of ``suffixes`` (a WAMIT ``hydroPath`` names
+        its files without their ``.1`` / ``.3``)."""
         if os.path.isabs(path) or self.base_dir is None:
             return path
         for base in (self.base_dir,
                      os.path.normpath(os.path.join(self.base_dir, ".."))):
             cand = os.path.normpath(os.path.join(base, path))
-            if os.path.exists(cand):
+            if any(os.path.exists(cand + s) for s in suffixes):
                 return cand
         return os.path.join(self.base_dir, path)
 
@@ -159,6 +169,137 @@ class Model:
                     self._rotor_aero.append(
                         build_rotor_aero(t, ir, submerged=submerged))
         return self._rotor_aero
+
+    @property
+    def bem(self):
+        """The first FOWT's potential-flow coefficients (see
+        :attr:`bem_list`)."""
+        return self.bem_list[0]
+
+    @property
+    def bem_list(self):
+        """Per-FOWT potential-flow coefficients (built on first use), the
+        dict of :func:`raft_tpu_torch.io.wamit.load_bem_coefficients` or
+        None: read from WAMIT files where the design points at them
+        (``hydroPath`` with ``potFirstOrder: 1``), else solved by the
+        panel solver on the potMod members (:meth:`run_bem`), else None.
+        Non-finite file coefficients raise."""
+        if self._bem_list is None:
+            from raft_tpu_torch.io.wamit import load_bem_coefficients
+
+            out = []
+            for i, fs in enumerate(self.fowtList):
+                bem_i = None
+                if fs.potFirstOrder == 1 and fs.hydroPath:
+                    path = self._resolve_data_path(fs.hydroPath, (".1", ".3"))
+                    bem_i = load_bem_coefficients(
+                        path, self.w, fs.rho_water, fs.g,
+                        r_ref=fs.node_r0[fs.root_id])
+                    for key in ("A_BEM", "B_BEM", "X_BEM"):
+                        if not np.all(np.isfinite(bem_i[key])):
+                            raise RuntimeError(
+                                f"non-finite {key} coefficients loaded from "
+                                f"{path}")
+                elif any(m.potMod for m in fs.members):
+                    bem_i = self.run_bem(ifowt=i)
+                out.append(bem_i)
+            self._bem_list = out
+        return self._bem_list
+
+    def run_bem(self, ifowt=0, w_bem=None, headings=None, save_dir=None,
+                n_az=None, dz_max=None, force=False, workers=None,
+                d_scale=1.0):
+        """Solve the FOWT's potMod members with the panel solver
+        (:func:`raft_tpu_torch.native.solve_bem`) and read the
+        coefficients back through WAMIT ``.1`` / ``.3`` files, as the
+        reference does (mesh, solve, write, read).
+
+        The files are cached in ``save_dir`` (default: the
+        ``RAFT_TPU_BEM_DIR`` flag, else ``_bem_cache`` in the working
+        directory) under a key hashed from this package's solver token,
+        the panel vertices and areas, the frequencies, headings, depth,
+        rho and g; ``force=True`` solves again.  The token differs from
+        the reference package's, so a file it wrote is never read here.
+        ``d_scale`` scales the potMod members' diameters before meshing
+        (the geometry axis).  BEM frequencies default to the settings'
+        ``dw_BEM`` / ``wMax_BEM`` (else 25 steps over the model grid),
+        headings to 0-315 deg by 45, the mesh to ``nAz_BEM`` (18) and
+        ``dz_BEM``.  Returns the dict of
+        :func:`~raft_tpu_torch.io.wamit.load_bem_coefficients`, or None
+        when no potMod member is submerged."""
+        import copy
+        import dataclasses
+        import hashlib
+
+        from raft_tpu_torch.io.panels import mesh_fowt
+        from raft_tpu_torch.io.wamit import (load_bem_coefficients,
+                                             write_wamit1, write_wamit3)
+        from raft_tpu_torch.utils import config
+
+        fs = self.fowtList[ifowt]
+        settings = self.design.get("settings", {}) or {}
+        name = str(self.design.get("name", "design")).replace(" ", "_")[:40]
+        if save_dir is None:
+            save_dir = (config.get("BEM_DIR")
+                        or os.path.join(os.getcwd(), "_bem_cache"))
+        os.makedirs(save_dir, exist_ok=True)
+
+        if w_bem is None:
+            dw = float(coerce(settings, "dw_BEM", default=0.0) or 0.0)
+            wMax = float(coerce(settings, "wMax_BEM", default=0.0) or 0.0)
+            if dw <= 0:
+                dw = max((self.w[-1] - self.w[0]) / 24.0, 1e-3)
+            if wMax <= 0:
+                wMax = float(self.w[-1])
+            w_bem = np.arange(dw, wMax + 0.5 * dw, dw)
+        if headings is None:
+            headings = np.arange(0.0, 360.0, 45.0)
+
+        n_az_v = n_az or int(coerce(settings, "nAz_BEM", default=18,
+                                    dtype=int))
+        dz_v = dz_max or (coerce(settings, "dz_BEM", default=0.0) or None)
+        fs_mesh = fs
+        if abs(float(d_scale) - 1.0) > 1e-12:
+            fs_mesh = copy.copy(fs)
+            fs_mesh.members = [
+                dataclasses.replace(m, d=np.asarray(m.d) * float(d_scale))
+                if m.potMod else m for m in fs.members]
+        v, c, nrm, a = mesh_fowt(fs_mesh, dz_max=dz_v, n_az=n_az_v)
+        if len(a) == 0:
+            return None
+        hsh = hashlib.sha256()
+        hsh.update(BEM_TOKEN)
+        for arr in (v, a, np.asarray(w_bem, float),
+                    np.asarray(headings, float),
+                    np.asarray([self.depth, fs.rho_water, fs.g], float)):
+            hsh.update(np.ascontiguousarray(
+                np.asarray(arr, dtype=np.float64)).tobytes())
+        prefix = os.path.join(save_dir,
+                              f"{name}_f{ifowt}_{hsh.hexdigest()[:12]}")
+
+        if force or not os.path.exists(prefix + ".1"):
+            from raft_tpu_torch.native import solve_bem
+
+            A, B, X = solve_bem(v, c, nrm, a, w_bem, headings_deg=headings,
+                                depth=self.depth, rho=fs.rho_water, g=fs.g,
+                                ref=(0.0, 0.0, 0.0), workers=workers)
+            write_wamit1(prefix + ".1", w_bem, A, B, rho=fs.rho_water)
+            write_wamit3(prefix + ".3", w_bem, headings, X,
+                         rho=fs.rho_water, g=fs.g)
+        return load_bem_coefficients(prefix, self.w, fs.rho_water, fs.g,
+                                     r_ref=fs.node_r0[fs.root_id])
+
+    def bem_matrices(self, ifowt=0):
+        """Potential-flow added mass and radiation damping on the model
+        grid, (nDOF, nDOF, nw) numpy each (zero without coefficients)."""
+        nDOF, nw = self.fowtList[ifowt].nDOF, self.nw
+        A = np.zeros((nDOF, nDOF, nw))
+        B = np.zeros((nDOF, nDOF, nw))
+        bem = self.bem_list[ifowt]
+        if bem is not None:
+            A[:6, :6, :] = bem["A_BEM"]
+            B[:6, :6, :] = bem["B_BEM"]
+        return A, B
 
     def statics(self, ifowt=0, Xi0=None):
         """FOWT statics as numpy (cached at the zero pose; host work): a

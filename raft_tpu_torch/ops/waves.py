@@ -34,6 +34,26 @@ def wave_number_ref(w, h, g=9.81, e=0.001):
     return k
 
 
+def wave_number(w, h, g=9.81, n_iter=12):
+    """Dispersion ``w^2 = g k tanh(k h)`` to double precision (numpy):
+    ``n_iter`` Newton steps on ``g k tanh(k h) - w^2`` from the Eckart
+    seed, op for op the reference's ``wave_number`` (the panel solver's
+    wave number above K h = 6 at a finite depth)."""
+    w = np.asarray(w, dtype=float)
+    w2g = w * w / g
+    arg = np.maximum(w2g * h, 1e-30)
+    k = w2g / np.sqrt(np.tanh(arg))
+    for _ in range(n_iter):
+        kh = np.minimum(k * h, 50.0)  # tanh saturates; keep sech2 stable
+        th = np.tanh(kh)
+        sech2 = 1.0 - th * th
+        f = k * th - w2g
+        fp = th + kh * sech2
+        fp = np.where(fp == 0, 1.0, fp)
+        k = np.maximum(k - f / fp, 0.0)
+    return k
+
+
 def jonswap(ws, Hs, Tp, gamma=None):
     """One-sided JONSWAP spectrum.
 

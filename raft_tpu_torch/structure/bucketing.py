@@ -128,9 +128,11 @@ def _axis_pad(n, axis, ladders=None):
     return r
 
 
-def _check_bucketable(model):
-    """The reference's refusals (most already raise when the port's
-    Model is built)."""
+def _check_bucketable(model, potential_flow=False):
+    """The reference's refusals (some already raise when the port's
+    Model is built).  ``potential_flow=True`` lets potential-flow
+    designs through: the full evaluator, which adds their coefficients
+    to the bucket's stages, packs them."""
     if model.nFOWT != 1:
         raise UnbucketableDesignError(
             "bucketing covers single-FOWT models: an array runs through "
@@ -139,10 +141,12 @@ def _check_bucketable(model):
     if not fs.is_single_body:
         raise UnbucketableDesignError(
             "bucketing covers rigid single-body (6-DOF) FOWTs")
-    if (fs.potFirstOrder == 1 and fs.hydroPath) or any(
-            m.potMod for m in fs.members):
+    if not potential_flow and has_potential_flow(fs):
+        # the design's flags, not model.bem_list: that would run the
+        # panel solver just to refuse the design
         raise UnbucketableDesignError(
-            "potential-flow coefficients are not bucketed")
+            "potential-flow coefficients are design-shaped host data: "
+            "potMod and hydroPath designs run through make_full_evaluator")
     if fs.potSecOrder == 2 and fs.hydroPath:
         raise UnbucketableDesignError("external QTFs are not bucketed")
     if fs.x_ref or fs.y_ref:
@@ -155,13 +159,22 @@ def _check_bucketable(model):
         raise UnbucketableDesignError("moorMod 1/2 line dynamics not bucketed")
 
 
-def bucket_signature(model, ladders=None):
+def has_potential_flow(fs):
+    """Whether a FOWT takes potential-flow coefficients: potMod members,
+    or first-order WAMIT files (``hydroPath`` with ``potFirstOrder``
+    1)."""
+    return bool((fs.potFirstOrder == 1 and fs.hydroPath)
+                or any(m.potMod for m in fs.members))
+
+
+def bucket_signature(model, ladders=None, potential_flow=False):
     """Hashable static-shape signature of a model's bucket: padded
     strip / node / line counts under the pad ladders (default: the
     ``RAFT_TPU_BUCKET_STEPS`` flag), the frequency grid verbatim and the
     fixed point's budget.  ``ladders={}`` gives the unpadded signature,
-    every axis at its real size."""
-    _check_bucketable(model)
+    every axis at its real size.  A potential-flow design raises unless
+    ``potential_flow`` (the full evaluator's packing)."""
+    _check_bucketable(model, potential_flow)
     fs = model.fowtList[0]
     ms = model.ms
     ss = model.hydro[0].strips
@@ -443,8 +456,13 @@ class BucketEvaluator(nn.Module):
         they are the packed zero-pose ones with the displaced frames.
         ``lin``, when given, holds M, B (R, 6, 6, nw) and C (R, 6, 6)
         added to the linear system (the full path's aero-servo terms
-        and elastic stiffness); ``input_clipped`` (R,) bool sets
-        INPUT_CLIPPED in the status."""
+        and elastic stiffness) and optionally the potential-flow terms:
+        ``A`` (R, 6, 6, nw), added mass added after the body's own mass
+        and added mass, and ``X`` (R, nH, 6, nw) complex, the
+        first-order excitation per unit wave amplitude, so that
+        F = X zeta is added to every heading's excitation, the fixed
+        point's included (the reference's ``F_BEM``);
+        ``input_clipped`` (R,) bool sets INPUT_CLIPPED in the status."""
         K_h = d["K_h"]
         rdt = _compute_dtype(K_h)
         R = K_h.shape[0]
@@ -478,11 +496,18 @@ class BucketEvaluator(nn.Module):
             R, 6, 6, self.nw)
         B_lin = torch.zeros((R, 6, 6, self.nw), dtype=rdt, device=dev)
         C_lin = K_h + C_moor
+        F_pot = None
         if lin is not None:
             M_lin = lin["M"] + M_lin
+            if lin.get("A") is not None:
+                M_lin = M_lin + lin["A"]
             B_lin = B_lin + lin["B"]
             C_lin = C_lin + lin["C"]
+            if lin.get("X") is not None:
+                F_pot = lin["X"] * zeta[:, :, None, :]
         F_lin = exc[0]["F_hydro_iner"]
+        if F_pot is not None:
+            F_lin = F_pot[:, 0] + F_lin
         Z, Xi_fused, Bmat, dyn_diag = solve_dynamics_fowt(
             fsb, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin, F_lin, w, Tn,
             r_nodes, n_iter=self.n_iter, Xi_start=self.Xi_start,
@@ -491,8 +516,10 @@ class BucketEvaluator(nn.Module):
             Xi = Xi_fused[:, None]
         else:
             F_waves = torch.stack([
-                exc[ih]["F_hydro_iner"] + morison.drag_excitation(
-                    fsb, ss, hc, Bmat, exc[ih]["u"], Tn, r_nodes)
+                (exc[ih]["F_hydro_iner"] if F_pot is None
+                 else F_pot[:, ih] + exc[ih]["F_hydro_iner"])
+                + morison.drag_excitation(fsb, ss, hc, Bmat, exc[ih]["u"],
+                                          Tn, r_nodes)
                 for ih in range(nH)], dim=1)
             Xi = system_response(Z[:, None], F_waves)
 

@@ -107,4 +107,7 @@ _register(
               "axis=rungs entries where rungs is an ascending comma list "
               "(doubling continues past the last rung) or 'pow2' "
               "(power-of-two ceiling at the axis floor)"),
+    Flag("BEM_DIR", "str", "",
+         help="panel-solver coefficient cache directory (default: "
+              "_bem_cache in the working directory)"),
 )

@@ -96,12 +96,36 @@ rows) and ``golden_flex_geometry_semi_wind.npz`` (the geometry axis:
 :data:`FLEX_GEOMETRY_SCALES` tower d/t scalings, each rebuilt on the
 host, over the first rows of semi_wind's).
 
+For potential flow (the panel solver and WAMIT files) it writes:
+
+* ``design_semi_wind_bem.json``: semi_wind with ``potModMaster: 2``
+  (all seven platform members meshed: 684 panels at the default
+  ``nAz_BEM`` 18; 25 BEM frequencies, 8 headings, 200 m deep, so both
+  the finite-depth series and the tabulated deep kernel run);
+  ``design_semi_wind_bem_coarse.json``, its coarse copy for the CPU
+  tests (``nAz_BEM`` 8, ``dz_BEM`` 3.0: 304 panels);
+* ``design_semi_wind_wamit.json``: semi_wind reading its first-order
+  coefficients from ``semi_wind_wamit.1`` / ``.3`` (``hydroPath``,
+  ``potFirstOrder: 1``), the files the JAX ``Model.run_bem`` wrote for
+  ``design_semi_wind_bem.json``;
+* ``bem_cache_jax/``: the files the JAX ``run_bem`` wrote for the coarse
+  copy, under the JAX cache names (a reference-populated cache that the
+  port must not serve);
+* ``golden_bem_<set>.npz`` for ``semi_wind`` (full mesh),
+  ``semi_wind_coarse`` and ``semi_wind_wamit``: the raw coefficients of
+  the JAX ``native.solve_bem`` on the JAX mesh and the model-grid ones
+  of ``run_bem`` (panel sets), and the JAX full evaluator over
+  :data:`BEM_ROWS` (``h1_*``), over :data:`BEM_ROWS2` with two headings
+  (``h2_*``, coarse) and, with ``geometry=True``, over the rows with
+  :data:`BEM_D_SCALE` (``geo_*``, panel sets), FUSED on and off.
+
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --geometry \
         [geometry] [grad] [grad_design]
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --flex
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --bem
 
 It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
 geometry and gradient goldens, or the named parts of them).
@@ -1219,6 +1243,194 @@ def write_flex_fixtures():
           f"n_iter={gd['on_n_iter_drag'].tolist()}", flush=True)
 
 
+# ---------------------------------------------------------- potential flow
+
+#: the coarse mesh of the CPU tests' copy
+BEM_COARSE = dict(nAz_BEM=8, dz_BEM=3.0)
+#: the evaluator rows of the potential-flow sets: semi_wind's
+BEM_ROWS = SEMI_WIND_ROWS
+#: two headings: semi_wind's rows with a second heading around the
+#: wrap (negative, past 360, between the last BEM heading and 360)
+BEM_ROWS2 = dict(
+    SEMI_WIND_ROWS,
+    Hs=[[6.0, 2.0], [2.0, 1.0], [4.0, 3.0], [8.0, 1.5], [10.0, 2.5],
+        [12.0, 4.0], [1.5, 1.0], [9.0, 3.0]],
+    Tp=[[12.0, 6.0], [7.0, 5.0], [9.0, 11.0], [13.0, 7.0], [15.0, 8.0],
+        [18.0, 9.0], [5.0, 4.0], [11.0, 14.0]],
+    gamma=[[0.0, 1.0], [3.3, 0.0], [0.0, 2.0], [1.0, 0.0], [2.0, 5.0],
+           [0.0, 1.0], [5.0, 0.0], [0.0, 3.3]],
+    beta_deg=[[0.0, 90.0], [30.0, 350.0], [90.0, 359.5], [150.0, -30.0],
+              [10.0, 315.0], [180.0, 400.0], [60.0, 200.0],
+              [120.0, 337.5]],
+)
+#: the geometry rows' uniform diameter scales (inside bem_geom_scales'
+#: 0.92-1.08, both ends and 1 included)
+BEM_D_SCALE = (1.0, 0.92, 0.95, 1.02, 1.05, 1.08, 0.97, 1.0)
+BEM_SETS = ("semi_wind", "semi_wind_coarse", "semi_wind_wamit")
+BEM_COEF_KEYS = ("A_BEM", "B_BEM", "X_BEM", "headings")
+
+
+def semi_wind_bem_design(coarse=False):
+    """semi_wind with every platform member potential flow; ``coarse``
+    the CPU tests' mesh (:data:`BEM_COARSE`)."""
+    d = semi_wind_design()
+    # the cache files are named after the design: no colon in the name
+    d["name"] = ("semi_wind_bem - raft_tpu_torch fixture of semi_wind with "
+                 "potential flow")
+    d["platform"]["potModMaster"] = 2
+    if coarse:
+        d["name"] = ("semi_wind_bem_coarse - raft_tpu_torch fixture of "
+                     "semi_wind with potential flow on a coarse mesh")
+        d["settings"].update(BEM_COARSE)
+    return d
+
+
+def semi_wind_wamit_design():
+    """semi_wind with its first-order coefficients from
+    ``semi_wind_wamit.1`` / ``.3`` (its members potential flow, so no
+    Morison inertia)."""
+    d = semi_wind_design()
+    d["name"] = ("semi_wind_wamit - raft_tpu_torch fixture of semi_wind with "
+                 "WAMIT coefficient files")
+    d["platform"].update(potModMaster=2, potFirstOrder=1,
+                         hydroPath="semi_wind_wamit")
+    return d
+
+
+BEM_DESIGNS = {"semi_wind": semi_wind_bem_design,
+               "semi_wind_coarse": lambda: semi_wind_bem_design(True),
+               "semi_wind_wamit": semi_wind_wamit_design}
+BEM_DESIGN_FILES = {"semi_wind": "design_semi_wind_bem.json",
+                    "semi_wind_coarse": "design_semi_wind_bem_coarse.json",
+                    "semi_wind_wamit": "design_semi_wind_wamit.json"}
+
+
+def bem_model(name):
+    """The JAX model of a potential-flow set (designs read from their
+    fixture file, so a WAMIT path resolves against the fixtures)."""
+    _jax()
+    import raft_tpu
+
+    return raft_tpu.Model(os.path.join(OUT_DIR, BEM_DESIGN_FILES[name]))
+
+
+def bem_rows(rows, d_scale=None):
+    import numpy as np
+
+    out = {k: np.asarray(v, dtype=float) for k, v in rows.items()}
+    if d_scale is not None:
+        out["geom"] = dict(d_scale=np.asarray(d_scale, dtype=float))
+    return out
+
+
+def golden_bem_rows(name, rows, nWaves, fused, geometry=False):
+    """JAX full-evaluator outputs of a potential-flow set over ``rows``
+    (a ``geom`` entry with ``geometry``)."""
+    jax = _jax()
+    import numpy as np
+
+    from raft_tpu.api import make_full_evaluator
+
+    def run():
+        ev = make_full_evaluator(bem_model(name), nWaves=nWaves,
+                                 geometry=geometry)
+        if geometry:
+            # the d_scale samples are host solves: run them before the
+            # trace, which then reads them
+            ev.geometry_constants(dict(d_scale=1.0))
+        out = jax.jit(jax.vmap(ev))(rows)
+        return {k: np.asarray(out[k]) for k in FULL_OUT_KEYS}
+    return _with_fused(fused, run)
+
+
+def bem_coefficients(name):
+    """The panel set's coefficients: the JAX mesh, the raw JAX
+    ``native.solve_bem`` output on it and the model-grid coefficients of
+    the JAX ``Model.run_bem`` (in the ``RAFT_TPU_BEM_DIR`` cache)."""
+    import numpy as np
+
+    from raft_tpu.io.panels import mesh_fowt
+    from raft_tpu.native import solve_bem
+
+    model = bem_model(name)
+    st = model.design["settings"]
+    fs = model.fowtList[0]
+    v, c, n, a = mesh_fowt(fs, dz_max=st.get("dz_BEM") or None,
+                           n_az=int(st.get("nAz_BEM", 18)))
+    dw = (model.w[-1] - model.w[0]) / 24.0
+    w_bem = np.arange(dw, model.w[-1] + 0.5 * dw, dw)
+    heads = np.arange(0.0, 360.0, 45.0)
+    A, B, X = solve_bem(v, c, n, a, w_bem, headings_deg=heads,
+                        depth=model.depth, rho=fs.rho_water, g=fs.g)
+    bem = model.run_bem()
+    out = dict(n_panels=np.int64(len(a)), w_bem=w_bem, bem_headings=heads,
+               A=A, B=B, X=X)
+    out.update({f"coef_{k}": np.asarray(bem[k]) for k in BEM_COEF_KEYS})
+    return out
+
+
+def write_bem_fixtures():
+    """Write the potential-flow designs, the WAMIT files, the JAX cache
+    copy and the ``golden_bem_*`` files (about 20 min on 8 cores)."""
+    import glob
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    cache = tempfile.mkdtemp(prefix="bem_cache_")
+    os.environ["RAFT_TPU_BEM_DIR"] = cache
+    try:
+        for name in ("semi_wind", "semi_wind_coarse"):
+            with open(os.path.join(OUT_DIR, BEM_DESIGN_FILES[name]), "w") as f:
+                f.write(json.dumps(BEM_DESIGNS[name](), indent=1) + "\n")
+        gds = {}
+        for name in ("semi_wind", "semi_wind_coarse"):
+            before = set(glob.glob(os.path.join(cache, "*")))
+            gds[name] = bem_coefficients(name)
+            new = sorted(set(glob.glob(os.path.join(cache, "*"))) - before)
+            if name == "semi_wind":
+                for f in new:
+                    shutil.copy(f, os.path.join(
+                        OUT_DIR, "semi_wind_wamit" + os.path.splitext(f)[1]))
+            else:
+                jdir = os.path.join(OUT_DIR, "bem_cache_jax")
+                shutil.rmtree(jdir, ignore_errors=True)
+                os.makedirs(jdir)
+                for f in new:
+                    shutil.copy(f, jdir)
+        with open(os.path.join(OUT_DIR, BEM_DESIGN_FILES["semi_wind_wamit"]),
+                  "w") as f:
+            f.write(json.dumps(semi_wind_wamit_design(), indent=1) + "\n")
+        gds["semi_wind_wamit"] = {}
+        for name in BEM_SETS:
+            gd = gds[name]
+            runs = [("h1", BEM_ROWS, 1, None)]
+            if name == "semi_wind_coarse":
+                runs.append(("h2", BEM_ROWS2, 2, None))
+            if name != "semi_wind_wamit":
+                runs.append(("geo", BEM_ROWS, 1, BEM_D_SCALE))
+            for tag, rows, nW, ds in runs:
+                r = bem_rows(rows, ds)
+                gd.update({f"{tag}_{k}": v for k, v in r.items()
+                           if k != "geom"})
+                if ds is not None:
+                    gd[f"{tag}_d_scale"] = r["geom"]["d_scale"]
+                for fused in ("on", "off"):
+                    out = golden_bem_rows(name, r, nW, fused,
+                                          geometry=ds is not None)
+                    gd.update({f"{tag}_{fused}_{k}": v
+                               for k, v in out.items()})
+                print(f"bem {name} {tag}: "
+                      f"status_on={gd[f'{tag}_on_status'].tolist()} "
+                      f"n_iter_on={gd[f'{tag}_on_n_iter_drag'].tolist()}")
+            np.savez_compressed(os.path.join(OUT_DIR, f"golden_bem_{name}.npz"),
+                                **gd)
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def main():
     import numpy as np
 
@@ -1231,6 +1443,9 @@ def main():
         return
     if sys.argv[1:] == ["--flex"]:
         write_flex_fixtures()
+        return
+    if sys.argv[1:] == ["--bem"]:
+        write_bem_fixtures()
         return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
@@ -1250,6 +1465,7 @@ def main():
     write_geometry_fixtures()
     write_farm_fixtures()
     write_flex_fixtures()
+    write_bem_fixtures()
 
 
 if __name__ == "__main__":

@@ -149,19 +149,35 @@ def _refusals():
 @pytest.mark.parametrize("variant", sorted(_refusals()))
 def test_unsupported_designs_raise(variant):
     """Each variant of the spar the port does not build raises, naming
-    its ROADMAP item, before any Model exists.  A beam member builds (the
-    flexible path) and the rigid full evaluator refuses it, as the
-    reference's does, naming make_flexible_evaluator."""
+    its ROADMAP item, before any Model exists.  What builds is refused
+    where the reference refuses it: a beam member (the flexible path) by
+    the rigid full evaluator, naming make_flexible_evaluator;
+    potential-flow members and coefficient files by the bucket path
+    (the case, design and sweep paths), without running the panel
+    solver; an array of potential-flow units by the farm evaluator."""
+    from raft_tpu_torch.api import make_farm_evaluator, make_full_evaluator
+
     d = copy.deepcopy(design("spar"))
     _refusals()[variant](d)
     if variant == "beam":
-        from raft_tpu_torch.api import make_full_evaluator
-
         model = Model(d)
         assert not model.fowtList[0].is_single_body
         with pytest.raises(NotImplementedError,
                            match=r"make_flexible_evaluator.*ROADMAP A11"):
             make_full_evaluator(model, device="cpu")
+        return
+    if variant in ("pot_mod", "pot_master", "hydro_path"):
+        model = Model(d)
+        assert tb.has_potential_flow(model.fowtList[0])
+        with pytest.raises(tb.UnbucketableDesignError, match="potential"):
+            tb.bucket_signature(model)
+        assert model._bem_list is None
+        return
+    if variant == "array":
+        model = Model(d)
+        with pytest.raises(NotImplementedError, match=r"ROADMAP A11"):
+            make_farm_evaluator(model, device="cpu")
+        assert model._bem_list is None
         return
     with pytest.raises(NotImplementedError, match=r"ROADMAP A1[013]"):
         Model(d)

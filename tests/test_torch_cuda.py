@@ -11,8 +11,9 @@ bit-equal (both designs follow the plain version's operation order under
 --fmad=false), float32 within 1e-5 x max|x| (the forward and the
 adjoint entry alike); the slice, the design, the full and the geometry
 evaluator and the farm evaluator within 1e-10 x max of the JAX
-goldens with ``status`` and ``n_iter_drag`` equal; reverse-mode gradients within 1e-9 x each key's
-max|g| of the JAX goldens.
+goldens with ``status`` and ``n_iter_drag`` equal (the full evaluator
+on the potential-flow designs too); reverse-mode gradients within 1e-9 x
+each key's max|g| of the JAX goldens.
 """
 
 import json
@@ -201,6 +202,30 @@ def test_full_on_card_matches_goldens(cuda, name, nWaves):
     assert linsolve.KERNEL_LAUNCHES > before
     for k in FULL_OUT_KEYS:
         a, b = out[k].cpu().numpy(), g["on_" + k]
+        if k in ("status", "n_iter_drag", "drag_converged"):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,design", [
+    ("semi_wind_coarse", "design_semi_wind_bem_coarse.json"),
+    ("semi_wind_wamit", "design_semi_wind_wamit.json")])
+def test_bem_on_card_matches_goldens(cuda, name, design, tmp_path,
+                                     monkeypatch):
+    """The full evaluator on a potential-flow design's golden rows on the
+    card, FUSED on, float64: the coarse panel-solver copy (solved on the
+    host into a fresh cache) and the WAMIT-file design."""
+    monkeypatch.setenv("RAFT_TPU_BEM_DIR", str(tmp_path))
+    model = Model(os.path.join(FIX, design))
+    g = np.load(os.path.join(FIX, f"golden_bem_{name}.npz"))
+    before = linsolve.KERNEL_LAUNCHES
+    out = make_full_evaluator(model, device=cuda)(
+        **{k: g["h1_" + k] for k in ENV_KEYS + SEA_KEYS})
+    assert linsolve.KERNEL_LAUNCHES > before
+    for k in FULL_OUT_KEYS:
+        a, b = out[k].cpu().numpy(), g["h1_on_" + k]
         if k in ("status", "n_iter_drag", "drag_converged"):
             np.testing.assert_array_equal(a, b, err_msg=k)
         else:

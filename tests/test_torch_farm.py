@@ -179,15 +179,15 @@ def _unit_refusals():
 @pytest.mark.parametrize("variant", sorted(_unit_refusals()))
 def test_array_refusals(variant):
     """What the reference's farm evaluator refuses still raises, naming
-    its ROADMAP item: potential flow (A11), an external QTF (A13) and
-    line dynamics (A10) when the array is built; beam (flexible) units
-    (A11) build, and the farm evaluator refuses them, as the
-    reference's does."""
+    its ROADMAP item: an external QTF (A13) and line dynamics (A10) when
+    the array is built; beam (flexible) units and potential-flow units
+    (A11) build, and the farm evaluator refuses them, as the reference's
+    does (the potential-flow units without running the panel solver)."""
     d = copy.deepcopy(design("spar3"))
     _unit_refusals()[variant](d)
     item = {"beam": "A11", "pot_mod": "A11", "qtf": "A13",
             "moor_mod": "A10"}[variant]
-    if variant == "beam":
+    if variant in ("beam", "pot_mod"):
         model = Model(d, base_dir=FIX)
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tapi.make_farm_evaluator(model, device="cpu")

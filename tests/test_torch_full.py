@@ -190,15 +190,16 @@ def test_design_case_rows_evaluate():
 
 
 def test_refusals_by_message():
-    """What the full path still refuses: potential-flow (BEM) members
-    and coefficient files, external QTFs, beams, arrays (which the farm
-    evaluator takes), and gradients through the aero stage's inputs."""
+    """What the full path still refuses: the geometry axis of a design
+    with coefficient files (the reference's ValueError), external QTFs,
+    beams, arrays (which the farm evaluator takes), and gradients
+    through the aero stage's inputs."""
     d = design("spar")
     bem = copy.deepcopy(d)
-    bem["platform"]["potModMaster"] = 0
-    bem["platform"]["members"][0]["potMod"] = True
-    with pytest.raises(NotImplementedError, match=r"BEM.*ROADMAP A11"):
-        Model(bem)
+    bem["platform"]["potFirstOrder"] = 1
+    bem["platform"]["hydroPath"] = "spar_bem"
+    with pytest.raises(ValueError, match=r"WAMIT files.*hydroPath"):
+        tapi.make_full_evaluator(Model(bem), device="cpu", geometry=True)
     qtf = copy.deepcopy(d)
     qtf["platform"]["potSecOrder"] = 2
     qtf["platform"]["hydroPath"] = "spar_bem"

@@ -220,17 +220,29 @@ def test_precomputed_geometry_constants():
     hold(both, {k: v.numpy() for k, v in ref.items()}, "", tol=0.0)
 
 
-def test_refusals():
+def test_refusals(tmp_path, monkeypatch):
     """geom needs geometry=True; unknown keys raise; a potential-flow
-    design is refused by the builder, naming its ROADMAP item."""
+    design builds, and its geometry axis refuses a d_scale that differs
+    between members and one that requires grad (ROADMAP A12)."""
     with pytest.raises(TypeError):
         evaluator("spar", geometry=False)(geom={"d_scale": 1.0}, Hs=6, Tp=12)
     with pytest.raises(TypeError):
         evaluator("spar")(geom={"diameter": 1.0}, Hs=6, Tp=12)
     d = design("spar")
     d["platform"]["potModMaster"] = 2      # every member potential flow
-    with pytest.raises(NotImplementedError, match="A11"):
-        Model(d)
+    # a small mesh at three BEM frequencies
+    d["settings"].update(nAz_BEM=6, dz_BEM=12.0, dw_BEM=0.4, wMax_BEM=1.2)
+    monkeypatch.setenv("RAFT_TPU_BEM_DIR", str(tmp_path))
+    geo = tapi.make_full_evaluator(Model(d, base_dir=str(tmp_path)),
+                                   device="cpu", geometry=True)
+    assert geo.bem is not None
+    ds = np.ones((1, geo.n_members))
+    ds[0, -1] = 1.05
+    with pytest.raises(ValueError, match="uniform d_scale"):
+        geo(geom={"d_scale": ds}, Hs=6, Tp=12)
+    s = torch.ones(1, dtype=torch.float64, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
+        geo(geom={"d_scale": s}, Hs=6, Tp=12)
 
 
 @pytest.mark.slow
