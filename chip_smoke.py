@@ -152,7 +152,24 @@ Phases, each printing one line (the last line is the result object):
              the golden d_scale rows (held), then BEM_GEOMETRY_ROWS (1024)
              rows with d_scale uniform over D_SCALE_BOX, geometry-evals/s,
              launches against the trips run.
-19. kernels - one JSON object listing both entries of the solve kernel,
+19. qtf     - second-order forces: make_full_evaluator on
+             design_semi_wind_qtf.json (semi_wind with the external QTF
+             semi_wind_qtf.12d): the golden rows (held against
+             golden_semi_wind_qtf.npz), then QTF_ROWS (4096) semi_wind
+             operating rows with them first: full-evals/s, stage ms with
+             the second_order stage (the QTF forces) and the drift stage
+             (the second equilibrium under the mean drift), Newton iterations per chunk of both equilibria, the
+             solve kernel's launches against the trips run (the drift
+             launches none); the two-heading golden rows; the geometry
+             axis' golden rows and QTF_GEOMETRY_ROWS (1024) rows; the
+             slender-body QTF of design_semi_wind_slender.json at its
+             40-bin grid, fixed and RAO-driven, held against
+             golden_qtf_slender.npz; the slender-body QTF on
+             SLOW_DRIFT_GRID (200 bins, 20,100 pairs): member_qtf's device
+             ms over all members (CUDA events), the pair chunk and peak
+             memory, kim_yue_correction's host s, the same bits at two
+             chunk sizes, hermitian off the diagonal.
+20. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path and the adjoint
              with its launches on the grad path, each with its N = 12
              (one-lane-per-row) figures.
@@ -229,6 +246,15 @@ BEM_COEF_TOL = 1e-10
 #: the golden rows
 FLEX_KAPPA_K = 2.80e9
 FLEX_KAPPA_Z = 2.72e10
+#: the second-order phase: operating rows of the external-QTF design and
+#: of its geometry axis, their seeds; the slow-drift grid of the
+#: slender-body QTF [Hz] (200 bins, 20,100 pairs)
+QTF_ROWS = 4096
+QTF_SEED = 20261028
+QTF_GEOMETRY_ROWS = 1024
+QTF_GEOMETRY_SEED = 20261029
+SLOW_DRIFT_GRID = dict(min_freq2nd=0.00125, df_freq2nd=0.00125,
+                       max_freq2nd=0.25)
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -2047,16 +2073,34 @@ def _bem_hold(got, gold, tag):
     return worst
 
 
-def _bem_timed_rows(ev, p, tag, geom=None):
-    """``p`` (and ``geom``) through ``ev`` with stage events, the statics
-    iterations counted and the solve kernel's launches counted from 0:
-    (numpy outputs, wall s, stage ms, Newton iterations per chunk,
-    launches, expected launches)."""
+class DriftCounter(MooringCounter):
+    """A :class:`MooringCounter` that also splits the evaluations of the
+    second equilibrium (the mean drift) per chunk, between the
+    "response" and "drift" marks."""
+
+    def __init__(self):
+        super().__init__()
+        self.drift = []
+
+    def mark(self, stage):
+        super().mark(stage)
+        if stage == "response":
+            self._d0 = self.n
+        elif stage == "drift":
+            self.drift.append(self.n - self._d0)
+
+
+def _timed_full_rows(ev, p, tag, geom=None):
+    """``p`` (and ``geom``) through the full evaluator ``ev`` with stage
+    events, the statics iterations counted and the solve kernel's
+    launches counted from 0: (numpy outputs, wall s, stage ms, Newton
+    iterations per chunk, those of the drift equilibrium per chunk
+    (empty without a QTF), launches, expected launches)."""
     from raft_tpu_torch.ops import linsolve
     from raft_tpu_torch.utils import config
 
     timer = StageTimer()
-    with MooringCounter() as moor:
+    with DriftCounter() as moor:
         def mark(stage):
             moor.mark(stage)
             timer(stage)
@@ -2079,15 +2123,14 @@ def _bem_timed_rows(ev, p, tag, geom=None):
                             config.get("FUSED") == "on" and ev.nWaves == 1)
     check(launches == exp, f"{tag}: solve kernel launched {launches} times, "
           f"expected {exp}")
-    for k in ("X0", "Xi", "PSD"):
+    for k in ("X0", "Xi", "PSD", "F_2nd_mean"):
         check(np.all(np.isfinite(out[k])), f"{tag}: non-finite {k}")
     chunks = timer.chunks()
-    stages = [s for s in ("geometry", "aero", "statics", "excitation",
-                          "fixed_point", "response")
-              if any(s in c for c in chunks)]
-    stage_ms = {s: sum(c.get(s, 0.0) for c in chunks) for s in stages}
-    return (out, wall, stage_ms, [e - 1 for e in moor.per_chunk], launches,
-            exp)
+    check(all(set(c) == set(ev.stages) for c in chunks),
+          f"{tag}: a chunk's stages are not {ev.stages}")
+    stage_ms = {s: sum(c.get(s, 0.0) for c in chunks) for s in ev.stages}
+    return (out, wall, stage_ms, [e - 1 for e in moor.per_chunk],
+            [e - 1 for e in moor.drift], launches, exp)
 
 
 def phase_bem(out_dir, card):
@@ -2173,7 +2216,7 @@ def phase_bem(out_dir, card):
         worst = hold_goldens(out, {"semi_wind_bem": np.arange(n_gold)}, ref,
                              pfx, "bem", keys=FULL_OUT_KEYS)
         p = full_rows("semi_wind", g1, BEM_ROWS, BEM_SEED)
-        out, wall, stage_ms, newton, launches, exp = _bem_timed_rows(
+        out, wall, stage_ms, newton, _, launches, exp = _timed_full_rows(
             ev, p, "bem")
         main = hold_goldens(out, {"semi_wind_bem": np.arange(n_gold)}, ref,
                             pfx, "bem", keys=FULL_OUT_KEYS)
@@ -2226,7 +2269,7 @@ def phase_bem(out_dir, card):
         pg = full_rows("semi_wind", gg, BEM_GEOMETRY_ROWS, BEM_GEOMETRY_SEED)
         dsg = np.concatenate([ds, rng.uniform(*D_SCALE_BOX,
                                               BEM_GEOMETRY_ROWS - len(ds))])
-        out, gwall, gstage, gnewton, glaunch, gexp = _bem_timed_rows(
+        out, gwall, gstage, gnewton, _, glaunch, gexp = _timed_full_rows(
             geo, pg, "bem geometry", geom=dict(d_scale=dsg))
         main = hold_goldens(out, {"semi_wind_bem": np.arange(len(ds))}, gref,
                             pfx, "bem geometry", keys=FULL_OUT_KEYS)
@@ -2328,6 +2371,215 @@ def phase_flex_geometry(model, card):
     return res
 
 
+def _qtf_gold(g, tag):
+    """The golden set ``tag`` of a second-order golden file in the
+    layout full_rows and hold_goldens read: the rows, the geometry
+    scales as geom_*, the outputs under on_/off_."""
+    n = len(tag) + 1
+    return {k[n:]: v for k, v in g.items() if k.startswith(tag + "_")}
+
+
+def _slow_drift(gold, card):
+    """The slender-body QTF of semi_wind_slender on SLOW_DRIFT_GRID,
+    moving with the golden RAO: member_qtf of every member timed with
+    CUDA events, kim_yue_correction on the host, peak device memory, the
+    whole Model.qtf_slender per stage, hermitian off the diagonal."""
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.physics import qtf_slender as qs
+
+    with open(os.path.join(FIX, "design_semi_wind_slender.json")) as f:
+        d = json.load(f)
+    d["platform"].update(SLOW_DRIFT_GRID)
+    m = Model(d)
+    fs, fh = m.fowtList[0], m.hydro[0]
+    w2, k2 = m.w1_2nd, m.k1_2nd
+    nw2 = len(w2)
+    beta = float(gold["beta"])
+    Xi = torch.as_tensor(np.stack([
+        np.interp(w2, m.w, gold["Xi0"][i], left=0, right=0)
+        for i in range(fs.nDOF)]), device=DEVICE)
+    a_i = fh.hc0["a_i"]
+    args = []
+    ofs = 0
+    for mem in fs.members:
+        args.append((mem, a_i[ofs:ofs + mem.ns], Xi, beta, w2, k2, fs.depth,
+                     fs.rho_water, fs.g))
+        ofs += mem.ns
+    for a in args:                                    # warm-up
+        qs.member_qtf(*a)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    parts = [qs.member_qtf(*a) for a in args]
+    ev[1].record()
+    torch.cuda.synchronize()
+    member_ms = ev[0].elapsed_time(ev[1])
+    peak_mib = (torch.cuda.max_memory_allocated() - base) / 2**20
+    t0 = time.time()
+    for a in args:
+        qs.kim_yue_correction(a[0], beta, w2, k2, fs.depth, fs.rho_water,
+                              fs.g)
+    ky_s = time.time() - t0
+    a = qs.member_qtf(*args[1], pair_chunk=997)
+    check(torch.equal(a, parts[1]), "slow drift: member_qtf differs between "
+          f"pair chunks of 997 and {qs.PAIR_CHUNK}")
+    timer = StageTimer()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    q = m.qtf_slender(beta, Xi0=gold["Xi0"], device=DEVICE, timer=timer)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    stage_ms = timer.chunks()[0]
+    q = q[:, :, 0, :]
+    off = ~torch.eye(nw2, dtype=torch.bool, device=q.device)
+    herm = torch.equal(q[off], torch.conj(q.transpose(0, 1))[off])
+    check(herm, "slow drift: the QTF is not hermitian off the diagonal")
+    check(bool(torch.all(torch.isfinite(torch.view_as_real(q)))),
+          "slow drift: non-finite QTF")
+    res = dict(bins=nw2, pairs=nw2 * (nw2 + 1) // 2,
+               pair_chunk=qs.PAIR_CHUNK, members=len(args),
+               member_qtf_ms=member_ms, member_peak_mib=peak_mib,
+               kim_yue_host_s=ky_s, qtf_slender_wall_s=wall,
+               qtf_slender_stage_ms=stage_ms, hermitian=herm,
+               max_abs=float(q.abs().max()))
+    print(f"  slow-drift slender QTF on {card}: {nw2} bins "
+          f"({res['pairs']:,} pairs, chunks of {qs.PAIR_CHUNK}), "
+          f"member_qtf of {len(args)} members {member_ms:.1f} device ms, "
+          f"peak {peak_mib:.0f} MiB; kim_yue_correction {ky_s:.3f} host s; "
+          f"Model.qtf_slender {wall:.2f} s wall (stage ms " + ", ".join(
+              f"{k} {v:.1f}" for k, v in stage_ms.items())
+          + "); hermitian off the diagonal, bits equal at chunks of 997")
+    return res
+
+
+def phase_qtf(card):
+    """Second-order forces (module docstring, phase 19): the
+    external-QTF full evaluator on semi_wind_qtf (golden rows held, then
+    QTF_ROWS operating rows with them first, timed per stage with the
+    drift stage, Newton iterations of both equilibria, launches against
+    the trips run), its two-heading golden rows, its geometry axis
+    (golden rows held, QTF_GEOMETRY_ROWS rows); the slender-body QTF at
+    the fixture grid held against the JAX goldens on the card; the
+    slender-body QTF on the slow-drift grid (:func:`_slow_drift`)."""
+    from raft_tpu_torch.api import (ENV_KEYS, FULL_OUT_KEYS, SEA_KEYS,
+                                    make_full_evaluator)
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.utils import config
+
+    pfx = "on_" if config.get("FUSED") == "on" else "off_"
+    g = dict(np.load(os.path.join(FIX, "golden_semi_wind_qtf.npz")))
+    m = Model(os.path.join(FIX, "design_semi_wind_qtf.json"))
+    t0 = time.time()
+    ev = make_full_evaluator(m, device=DEVICE)
+    build_s = time.time() - t0
+    check(ev.qtf is not None, "qtf: the design's .12d was not read")
+    gold = _qtf_gold(g, "h1")
+    n_gold = len(gold["Hs"])
+    where = {"semi_wind_qtf": np.arange(n_gold)}
+    out = {k: v.cpu().numpy() for k, v in ev(**full_rows(
+        "semi_wind", gold, n_gold, QTF_SEED)).items()}
+    worst = hold_goldens(out, where, {"semi_wind_qtf": gold}, pfx, "qtf",
+                         keys=FULL_OUT_KEYS)
+    out, wall, stage_ms, newton, newton_drift, launches, exp = \
+        _timed_full_rows(ev, full_rows("semi_wind", gold, QTF_ROWS, QTF_SEED),
+                         "qtf")
+    for k, v in hold_goldens(out, where, {"semi_wind_qtf": gold}, pfx, "qtf",
+                             keys=FULL_OUT_KEYS).items():
+        worst[k] = max(worst[k], v)
+    st = out["status"]
+    total = sum(stage_ms.values())
+    res = dict(rows=QTF_ROWS, build_s=build_s, wall_s=wall,
+               evals_per_s=QTF_ROWS / wall,
+               device_evals_per_s=QTF_ROWS / (total / 1e3),
+               stage_ms=stage_ms, drift_share=stage_ms["drift"] / total,
+               second_order_share=stage_ms["second_order"] / total,
+               statics_share=(stage_ms["statics"] + stage_ms["drift"]) / total,
+               newton_per_chunk=newton, drift_newton_per_chunk=newton_drift,
+               launches=launches, expected_launches=exp,
+               status_shares=_status_shares(st),
+               F_2nd_mean_surge_max=float(np.abs(
+                   out["F_2nd_mean"][..., 0]).max()),
+               worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()})
+    print(f"qtf semi_wind_qtf on {card}: {QTF_ROWS} rows, nWaves 1, "
+          f"{len(newton)} chunks in {wall:.2f} s = {res['evals_per_s']:.1f} "
+          "full-evals/s; stage ms " + ", ".join(
+              f"{s} {v:.1f}" for s, v in stage_ms.items())
+          + f" (QTF forces {100 * res['second_order_share']:.2f}%, drift "
+          f"{100 * res['drift_share']:.1f}%, both equilibria "
+          f"{100 * res['statics_share']:.1f}%); Newton iterations per chunk "
+          f"{newton}, drift {newton_drift}; solve kernel launches "
+          f"{launches} (expected {exp}: trips + 1 per chunk); status-bit "
+          f"shares {res['status_shares']}")
+    print(f"  semi_wind_qtf goldens (gate {SLICE_TOL:g} x max; status, "
+          "n_iter_drag, drag_converged equal): " + ", ".join(
+              f"{k} {v:.1e}" for k, v in res["worst_rel"].items()))
+
+    # two headings (one inside the QTF's span, one clipped), golden rows
+    ev2 = make_full_evaluator(m, nWaves=2, device=DEVICE)
+    gold2 = _qtf_gold(g, "h2")
+    out = {k: v.cpu().numpy() for k, v in ev2(
+        **{k: gold2[k] for k in ENV_KEYS + SEA_KEYS}).items()}
+    res["h2_worst_rel"] = max(hold_goldens(
+        out, where, {"semi_wind_qtf": gold2}, pfx, "qtf h2",
+        keys=FULL_OUT_KEYS).values())
+
+    # the geometry axis: the design's QTF for every row
+    geo = make_full_evaluator(m, device=DEVICE, geometry=True)
+    goldg = _qtf_gold(g, "geo")
+    nm = geo.n_members
+    out = {k: v.cpu().numpy() for k, v in geo(
+        geom=geometry_rows(nm, n_gold, QTF_GEOMETRY_SEED, goldg),
+        **full_rows("semi_wind", goldg, n_gold, QTF_GEOMETRY_SEED)).items()}
+    gw = hold_goldens(out, where, {"semi_wind_qtf": goldg}, pfx,
+                      "qtf geometry", keys=FULL_OUT_KEYS)
+    out, gwall, gstage, gnewton, gdrift, glaunch, gexp = _timed_full_rows(
+        geo, full_rows("semi_wind", goldg, QTF_GEOMETRY_ROWS,
+                       QTF_GEOMETRY_SEED), "qtf geometry",
+        geom=geometry_rows(nm, QTF_GEOMETRY_ROWS, QTF_GEOMETRY_SEED, goldg))
+    for k, v in hold_goldens(out, where, {"semi_wind_qtf": goldg}, pfx,
+                             "qtf geometry", keys=FULL_OUT_KEYS).items():
+        gw[k] = max(gw[k], v)
+    res["geometry"] = dict(
+        rows=QTF_GEOMETRY_ROWS, wall_s=gwall,
+        evals_per_s=QTF_GEOMETRY_ROWS / gwall, stage_ms=gstage,
+        newton_per_chunk=gnewton, drift_newton_per_chunk=gdrift,
+        launches=glaunch, expected_launches=gexp,
+        worst_rel=max(gw.values()))
+    print(f"  qtf geometry axis: {QTF_GEOMETRY_ROWS} rows in {gwall:.2f} s "
+          f"= {res['geometry']['evals_per_s']:.1f} geometry-evals/s; stage "
+          "ms " + ", ".join(f"{s} {v:.1f}" for s, v in gstage.items())
+          + f"; Newton iterations per chunk {gnewton}, drift {gdrift}; "
+          f"launches {glaunch} (expected {gexp}); goldens worst "
+          f"{res['geometry']['worst_rel']:.1e}, two-heading goldens worst "
+          f"{res['h2_worst_rel']:.1e}")
+
+    # the slender-body QTF at the fixture grid, held
+    sg = dict(np.load(os.path.join(FIX, "golden_qtf_slender.npz")))
+    sm = Model(os.path.join(FIX, "design_semi_wind_slender.json"))
+    slender = {}
+    for which, Xi0 in (("fixed", None), ("rao", sg["Xi0"])):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        q = sm.qtf_slender(float(sg["beta"]), Xi0=Xi0, device=DEVICE)
+        q = q.cpu().numpy()
+        wall_s = time.time() - t0
+        ref = sg[f"{which}_qtf"]
+        scale = float(np.abs(ref).max())
+        err = float(np.abs(q - ref).max())
+        check(err <= SLICE_TOL * scale, f"qtf slender {which}: {err:.3e} > "
+              f"{SLICE_TOL:g} x {scale:.3e}")
+        slender[which] = dict(worst_rel=err / scale, wall_s=wall_s)
+    res["slender"] = slender
+    print(f"  slender QTF at the fixture grid ({len(sm.w1_2nd)} bins) on "
+          f"{card}: fixed body {slender['fixed']['worst_rel']:.1e}, "
+          f"RAO-driven {slender['rao']['worst_rel']:.1e} x max|qtf| of the "
+          f"JAX goldens (gate {SLICE_TOL:g})")
+    res["slow_drift"] = _slow_drift(sg, card)
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
@@ -2383,6 +2635,7 @@ def main():
                                     farm_ev, farm_p)
         rec["flex"] = timed("flex", phase_flex, rec["card"])
         rec["bem"] = timed("bem", phase_bem, args.out, rec["card"])
+        rec["qtf"] = timed("qtf", phase_qtf, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2395,7 +2648,9 @@ def main():
         grad=rec["grad"]["fwd_launches"],
         grad_adjoint=rec["grad"]["adj_launches"],
         farm=rec["farm"]["launches"], bem=rec["bem"]["launches"],
-        bem_geometry=rec["bem"]["geometry"]["launches"])
+        bem_geometry=rec["bem"]["geometry"]["launches"],
+        qtf=rec["qtf"]["launches"],
+        qtf_geometry=rec["qtf"]["geometry"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -2407,7 +2662,9 @@ def main():
                   + rec["geometry"]["launches"]
                   + rec["grad"]["fwd_launches"] + rec["farm"]["launches"]
                   + rec["bem"]["launches"]
-                  + rec["bem"]["geometry"]["launches"]),
+                  + rec["bem"]["geometry"]["launches"]
+                  + rec["qtf"]["launches"]
+                  + rec["qtf"]["geometry"]["launches"]),
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

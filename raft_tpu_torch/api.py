@@ -25,6 +25,7 @@ import torch
 from torch import nn
 
 from raft_tpu_torch.models.statics_solve import solve_equilibrium
+from raft_tpu_torch.ops import waves as wv
 from raft_tpu_torch.physics import morison
 from raft_tpu_torch.structure import members_traced
 from raft_tpu_torch.utils import config, health
@@ -69,7 +70,7 @@ class CaseEvaluator(nn.Module):
     displaced pose.
     """
 
-    def __init__(self, model, device=None, potential_flow=False):
+    def __init__(self, model, device=None, full=False):
         super().__init__()
         from raft_tpu_torch.structure import bucketing
 
@@ -77,8 +78,7 @@ class CaseEvaluator(nn.Module):
         self.device = device
         self.rdt, self.cdt = compute_dtypes()
         self.fs = model.fowtList[0]
-        sig = bucketing.bucket_signature(model, ladders={},
-                                         potential_flow=potential_flow)
+        sig = bucketing.bucket_signature(model, ladders={}, full=full)
         self.body = bucketing.BucketEvaluator(sig, device)
         self.design = {k: v[None] for k, v in bucketing.packed_from_numpy(
             bucketing.pack_design(model, sig), device).items()}
@@ -207,6 +207,11 @@ FULL_OUT_KEYS = ("X0", "Xi", "RAO", "PSD", "S", "zeta", "f_aero", "A00",
 
 #: the stages a :class:`FullEvaluator` timer is called with, in order
 FULL_STAGES = ("aero", "statics", "excitation", "fixed_point", "response")
+#: the stages a design with an external QTF adds: its second-order
+#: forces after the excitation, and after the response the second
+#: equilibrium under the mean drift
+SECOND_ORDER_STAGE = "second_order"
+DRIFT_STAGE = "drift"
 #: the stages of the geometry design axis: the per-row geometry
 #: constants (member inertia elements, statics, zero-pose hydro
 #: constants) first
@@ -428,6 +433,63 @@ def _lagrange3(vals, s_nodes, s):
     return l0 * vals[0] + l1 * vals[1] + l2 * vals[2]
 
 
+def _qtf_model_grid(qtf_data, w, device, cdt):
+    """The external QTF on the model grid for :func:`_hydro_force_2nd_rows`
+    (build time): per heading node (nh, nw, nw, 6), bilinear and zero
+    outside the QTF's grid (:func:`~raft_tpu_torch.physics.secondorder.
+    qtf_model_grid`), gathered on the device as its superdiagonals
+    ``sup[h, mu, j] = Q[h, j, min(j + mu, nw - 1)]`` and its diagonal
+    ``diag[h, j] = Q[h, j, j]``, with the heading nodes [rad]."""
+    from raft_tpu_torch.physics.secondorder import qtf_model_grid
+
+    Qm = torch.as_tensor(qtf_model_grid(qtf_data, w)).to(device=device,
+                                                         dtype=cdt)
+    nw = Qm.shape[1]
+    j = torch.arange(nw, device=device)
+    col = j[None, :] + j[:, None]                # (mu, j) -> j + mu
+    colc = torch.clamp(col, max=nw - 1)
+    return dict(sup=Qm[:, j[None, :], colc, :], diag=Qm[:, j, j, :],
+                valid=col < nw, colc=colc,
+                heads=torch.as_tensor(np.asarray(qtf_data["heads_rad"],
+                                                 dtype=float),
+                                      device=device))
+
+
+def _hydro_force_2nd_rows(qm, beta, S, dw):
+    """Difference-frequency forces of rows of seas from the external QTF
+    (the reference's ``_hydro_force_2nd_traced``, its 'qtf' mode), in
+    its order of operations, batched over rows and headings.
+
+    ``qm`` from :func:`_qtf_model_grid`; beta (R, nH) [rad]; S (R, nH,
+    nw) the wave spectra on the model grid.  The QTF is interpolated
+    linearly between its heading nodes at beta clipped to their span
+    (no wrap, unlike the first-order coefficients); then per difference
+    frequency mu, ``f_mu = 4 sqrt(sum_j S_j S_{j+mu} |Q[j, j+mu]|^2)
+    dw``, shifted down one bin onto the model grid, and ``f_mean = 2
+    sum_j S_j Re Q[j, j] dw``.  Returns (f_mean (R, nH, 6), f (R, nH, 6,
+    nw) real)."""
+    heads = qm["heads"].to(beta.dtype)
+    nh = heads.shape[0]
+    if nh == 1:
+        sup, diag = qm["sup"][0], qm["diag"][0]
+    else:
+        b = torch.clamp(beta, heads[0], heads[-1])
+        i = torch.clamp(torch.searchsorted(heads, b) - 1, 0, nh - 2)
+        f = (b - heads[i]) / (heads[i + 1] - heads[i])
+        fs = f[..., None, None, None]
+        sup = qm["sup"][i] * (1 - fs) + qm["sup"][i + 1] * fs
+        fd = f[..., None, None]
+        diag = qm["diag"][i] * (1 - fd) + qm["diag"][i + 1] * fd
+    Ssh = S[..., qm["colc"]]                         # (R, nH, mu, j)
+    P = S[..., None, :, None] * Ssh[..., None] * torch.abs(sup) ** 2
+    P = torch.where(qm["valid"][..., None], P, 0.0)
+    f_mu = 4.0 * torch.sqrt(torch.sum(P, dim=-2)) * dw     # (R, nH, mu, 6)
+    f_out = torch.cat([f_mu[..., 1:, :], torch.zeros_like(f_mu[..., :1, :])],
+                      dim=-2)
+    f_mean = 2.0 * torch.sum(S[..., None] * diag.real, dim=-2) * dw
+    return f_mean, f_out.transpose(-1, -2)
+
+
 class FullEvaluator(CaseEvaluator):
     """Batched full-physics evaluator of one rigid single-FOWT design
     (the reference's ``make_full_evaluator``).
@@ -462,9 +524,26 @@ class FullEvaluator(CaseEvaluator):
     heading_adjust) mod 360`` (:func:`_interp_heading_rows`) times the
     array phase and the wave amplitudes to every heading's excitation.
 
-    ``F_2nd_mean`` is zero: the builder refuses every second-order
-    source.  ``timer(stage)``, when given, is called with "start" and
-    then with each of :data:`FULL_STAGES` per chunk.
+    A design with an external QTF (``potSecOrder: 2``, a WAMIT ``.12d``
+    file through ``hydroPath``, :attr:`~raft_tpu_torch.models.model.
+    Model.qtf`) adds its difference-frequency forces: the QTF on the
+    model grid at build, then in :meth:`BucketEvaluator.respond`, from
+    each row's and heading's spectrum, :func:`_hydro_force_2nd_rows`
+    (the QTF interpolated at the heading, clipped to its nodes' span)
+    gives the force amplitudes, which join
+    every heading's excitation after the first-order ones (the fixed
+    point's with the first heading's), and the mean drift
+    ``F_2nd_mean`` (R, nWaves, 6).  After the response a second
+    equilibrium under the environmental mean load plus the drift summed
+    over the headings gives the reported X0, its status bits OR'd into
+    the row's; Xi is not solved again (the reference's order).  Without
+    a QTF, ``F_2nd_mean`` is zero.  The geometry axis keeps the design's
+    QTF for every row.
+
+    ``timer(stage)``, when given, is called with "start" and then with
+    each of :data:`FULL_STAGES` per chunk; a QTF adds
+    :data:`SECOND_ORDER_STAGE` after "excitation" and :data:`DRIFT_STAGE`
+    last (the stages of an evaluator: :attr:`stages`).
 
     With ``geometry=True`` (the geometry design axis) each row may also
     carry geometry scales, ``forward(geom={...}, **rows)`` with the keys
@@ -508,7 +587,7 @@ class FullEvaluator(CaseEvaluator):
                 "panel solver: coefficients read from WAMIT files "
                 f"(hydroPath {fs.hydroPath!r}) cannot be re-solved per "
                 "geometry")
-        super().__init__(model, device, potential_flow=pot)
+        super().__init__(model, device, full=True)
         from raft_tpu_torch.physics.aero import rotor_tensors
         from raft_tpu_torch.physics.statics import node_T
 
@@ -547,6 +626,15 @@ class FullEvaluator(CaseEvaluator):
         self.bem = model.bem if pot else None
         if self.bem is not None:
             self._init_bem(model)
+        qtf = model.qtf
+        self.qtf = (None if qtf is None else
+                    _qtf_model_grid(qtf, model.w, device, self.cdt))
+        stages = FULL_STAGES
+        if self.qtf is not None:
+            i = stages.index("excitation") + 1
+            stages = (stages[:i] + (SECOND_ORDER_STAGE,) + stages[i:]
+                      + (DRIFT_STAGE,))
+        self.stages = (("geometry",) if self.geometry else ()) + stages
 
     def _init_bem(self, model):
         """The design's potential-flow coefficients on the device, and on
@@ -800,17 +888,31 @@ class FullEvaluator(CaseEvaluator):
         if pot is not None:
             lin.update(A=pot["A"], X=pot["X"],
                        B=aero["B_aero"] + pot["B"] + aero["B_gyro"][..., None])
+        if self.qtf is not None:
+            lin["qtf"] = self.qtf
         out = self.body.respond(
             d, X0, st_status, C_moor, p["Hs"], p["Tp"],
             p["beta_deg"] * (math.pi / 180), mark, gamma=p["gamma"],
             lin=lin, input_clipped=aero["input_clipped"])
         Xi = out["Xi"]
+        if self.qtf is not None:
+            # the mean drift moves the reported offsets; Xi stays
+            X0, _, _, _, st2, _ = solve_equilibrium(
+                self.fs, ms, d["K_h"], d["F_und"],
+                F_current + aero["f_aero0"]
+                + torch.sum(out["F_2nd_mean"], dim=1), C_elast=C_elast)
+            finite = torch.all(torch.isfinite(X0), dim=-1)
+            out["status"] = health.set_bit(
+                out["status"] | st2, health.NONFINITE_INTERMEDIATE,
+                (~finite).to(torch.int32))
+            out["X0"] = X0
+            mark(DRIFT_STAGE)
         out.update(
             Xi=torch.cat([Xi, torch.zeros((R, 1) + Xi.shape[2:],
                                           dtype=Xi.dtype,
                                           device=Xi.device)], dim=1),
-            F_2nd_mean=torch.zeros((R, self.nWaves, 6), dtype=self.rdt,
-                                   device=X0.device),
+            F_2nd_mean=out.get("F_2nd_mean", torch.zeros(
+                (R, self.nWaves, 6), dtype=self.rdt, device=X0.device)),
             **{k: aero[k] for k in ("f_aero", "A00", "B00", "f_aero0",
                                     "Omega_rpm", "pitch_deg")})
         return {k: out[k] for k in FULL_OUT_KEYS}
@@ -962,6 +1064,12 @@ class FarmEvaluator(nn.Module):
                 "coefficients) in an array: the reference's farm "
                 "evaluator refuses them (ROADMAP A11; its orchestrated "
                 "path, A10, takes them)")
+        if model.qtf_path() is not None:
+            raise NotImplementedError(
+                "second-order forces from an external QTF in an array: the "
+                "reference's farm evaluator refuses them (ROADMAP A13 "
+                "ported them to make_full_evaluator only; its orchestrated "
+                "path, A10, is still to port)")
         self.nT = 6 * nF
         self.nWaves = int(nWaves)
         if self.nWaves < 1:
@@ -1170,7 +1278,6 @@ class FarmEvaluator(nn.Module):
                                                     system_response)
         from raft_tpu_torch.models.statics_solve import \
             solve_equilibrium_general
-        from raft_tpu_torch.ops import waves as wv
         from raft_tpu_torch.physics.statics import node_T, platform_kinematics
         from raft_tpu_torch.structure import bucketing
 
@@ -1376,6 +1483,12 @@ class FlexibleEvaluator(nn.Module):
             raise NotImplementedError(
                 "potential-flow coefficients on a flexible structure: the "
                 "reference's flexible evaluator refuses them (ROADMAP A11)")
+        if model.qtf_path() is not None:
+            raise NotImplementedError(
+                "second-order forces from an external QTF on a flexible "
+                "structure: the reference's flexible evaluator refuses them "
+                "(ROADMAP A13 ported them to make_full_evaluator only; its "
+                "orchestrated path, A10, is still to port)")
         device = resolve_device(device)
         self.device = device
         self.rdt, self.cdt = compute_dtypes()
@@ -1505,7 +1618,6 @@ class FlexibleEvaluator(nn.Module):
                                                     system_response)
         from raft_tpu_torch.models.statics_solve import (
             single_ms_closures, solve_equilibrium_general)
-        from raft_tpu_torch.ops import waves as wv
 
         R, n, nw = p["Hs"].shape[0], self.n, self.nw
         mark("start")

@@ -8,13 +8,13 @@ loads and the joint topology, as the reference RAFT ``FOWT.__init__``
 state: the object is immutable after construction.
 
 A submerged rotor with blades gets its blades' hydro summary
-(:func:`raft_tpu_torch.physics.aero.blade_hydro`) at build time.  What
-the port does not build raises ``NotImplementedError`` naming its
-ROADMAP item, before anything is half-built: external QTF files (A13).
-Potential-flow members (``potMod``) and first-order coefficient files
-(``hydroPath`` with ``potFirstOrder: 1``) build; their coefficients are
-the model's (:attr:`raft_tpu_torch.models.model.Model.bem_list`), and
-the evaluators that do not take them refuse them.  A flexible
+(:func:`raft_tpu_torch.physics.aero.blade_hydro`) at build time.
+Potential-flow members (``potMod``), first-order coefficient files
+(``hydroPath`` with ``potFirstOrder: 1``) and external QTF files
+(``potSecOrder: 2``) build; their coefficients are the model's
+(:attr:`raft_tpu_torch.models.model.Model.bem_list`,
+:attr:`~raft_tpu_torch.models.model.Model.qtf`), and the evaluators that
+do not take them refuse them.  A flexible
 (``type: beam``) member gets one node per strip, chained in the topology;
 whether the structure reduces to one rigid 6-DOF body is
 ``is_single_body``, which picks the evaluator (the full and farm
@@ -136,10 +136,6 @@ class FOWTStructure:
                     self.members.append(build_member(mem, part_of="nacelle"))
 
         self.nplatmems = sum(1 for m in self.members if m.part_of == "platform")
-        if self.hydroPath and self.potSecOrder == 2:
-            raise NotImplementedError(
-                "second-order forces from an external QTF (hydroPath "
-                f"{self.hydroPath!r}) are not ported (ROADMAP A13)")
 
         # ---- rotors ----
         self.rotors: list[RotorProps] = []

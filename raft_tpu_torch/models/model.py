@@ -11,7 +11,9 @@ each with an inline catenary mooring, a MoorDyn-file mooring or none;
 an array may add a shared-mooring network from its ``array_mooring``
 MoorDyn file.  Rotors get their blade-element models
 (:attr:`Model.rotor_aero`), potential-flow members or WAMIT files their
-coefficients (:attr:`Model.bem_list`, :meth:`Model.run_bem`).  Line
+coefficients (:attr:`Model.bem_list`, :meth:`Model.run_bem`), an
+external ``.12d`` file its QTF (:attr:`Model.qtf`); a slender-body QTF
+is computed on demand (:meth:`Model.qtf_slender`).  Line
 dynamics (``moorMod`` 1 or 2, ROADMAP A10) raise
 ``NotImplementedError`` naming their ROADMAP item.
 """
@@ -63,6 +65,19 @@ class Model:
         # the reference's loose 1e-3 dispersion solve, so every stage
         # downstream sees its wave numbers
         self.k = wave_number_ref(self.w, self.depth)
+        # the slender-body QTF's frequency grid (``min_freq2nd``,
+        # ``max_freq2nd``, ``df_freq2nd`` [Hz] of the first platform)
+        platform0 = (design.get("platform")
+                     or (design.get("platforms") or [{}])[0])
+        if "min_freq2nd" in platform0 and "max_freq2nd" in platform0:
+            mf2 = platform0["min_freq2nd"]
+            Mf2 = platform0["max_freq2nd"]
+            df2 = platform0.get("df_freq2nd", mf2)
+            self.w1_2nd = np.arange(mf2, Mf2 + 0.5 * mf2, df2) * 2 * np.pi
+            self.k1_2nd = wave_number_ref(self.w1_2nd, self.depth)
+        else:
+            self.w1_2nd = None
+            self.k1_2nd = None
         self.cases = parse_cases(design)
 
         self.fowtList, self.ms_list = [], []
@@ -133,6 +148,50 @@ class Model:
             if any(os.path.exists(cand + s) for s in suffixes):
                 return cand
         return os.path.join(self.base_dir, path)
+
+    def qtf_path(self):
+        """The first FOWT's external QTF file (``hydroPath`` + ``.12d``
+        with ``potSecOrder: 2``) when it exists, else None; the file is
+        not read."""
+        fs = self.fowtList[0]
+        if fs.potSecOrder != 2 or not fs.hydroPath:
+            return None
+        path = self._resolve_data_path(fs.hydroPath, (".12d",)) + ".12d"
+        return path if os.path.exists(path) else None
+
+    @property
+    def qtf(self):
+        """The first FOWT's external difference-frequency QTF (read on
+        first use by :func:`~raft_tpu_torch.physics.secondorder.
+        read_qtf_12d`), or None when the design has none or its file is
+        absent, as in the reference."""
+        if not hasattr(self, "_qtf"):
+            from raft_tpu_torch.physics.secondorder import read_qtf_12d
+
+            path = self.qtf_path()
+            fs = self.fowtList[0]
+            self._qtf = (None if path is None
+                         else read_qtf_12d(path, rho=fs.rho_water, g=fs.g))
+        return self._qtf
+
+    def qtf_slender(self, beta, Xi0=None, ifowt=0, device=None,
+                    timer=None):
+        """The slender-body difference-frequency QTF of one FOWT
+        (``potSecOrder: 1``) on the grid :attr:`w1_2nd`: an (nw2, nw2, 1,
+        nDOF) complex128 tensor on the device, hermitian
+        (:func:`~raft_tpu_torch.physics.qtf_slender.fowt_qtf_slender`).
+
+        ``beta`` is the wave heading [rad].  The reference's entry takes
+        a heading index and reads the heading its hydro object kept from
+        the last case's excitation; the port's :class:`FOWTHydro` keeps
+        no case, so the heading is an argument.  ``Xi0`` (nDOF, nw) are
+        motion RAOs on the model grid (None: a fixed body).  Runs on
+        ``device`` (default: the current CUDA device; raises without
+        one); ``timer(stage)`` marks its stages."""
+        from raft_tpu_torch.physics.qtf_slender import fowt_qtf_slender
+
+        return fowt_qtf_slender(self, beta, Xi0=Xi0, ifowt=ifowt,
+                                device=device, timer=timer)
 
     @property
     def hydro(self):

@@ -27,7 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from raft_tpu_torch.api import _case_status, _policy_cdt
+from raft_tpu_torch.api import (_case_status, _hydro_force_2nd_rows,
+                                _policy_cdt)
 from raft_tpu_torch.models.dynamics import (fused_response_enabled,
                                             solve_dynamics_fowt,
                                             system_response)
@@ -128,11 +129,11 @@ def _axis_pad(n, axis, ladders=None):
     return r
 
 
-def _check_bucketable(model, potential_flow=False):
+def _check_bucketable(model, full=False):
     """The reference's refusals (some already raise when the port's
-    Model is built).  ``potential_flow=True`` lets potential-flow
-    designs through: the full evaluator, which adds their coefficients
-    to the bucket's stages, packs them."""
+    Model is built).  ``full=True`` lets potential-flow designs and
+    external QTFs through: the full evaluator, which adds their
+    coefficients and forces to the bucket's stages, packs them."""
     if model.nFOWT != 1:
         raise UnbucketableDesignError(
             "bucketing covers single-FOWT models: an array runs through "
@@ -141,14 +142,17 @@ def _check_bucketable(model, potential_flow=False):
     if not fs.is_single_body:
         raise UnbucketableDesignError(
             "bucketing covers rigid single-body (6-DOF) FOWTs")
-    if not potential_flow and has_potential_flow(fs):
+    if not full and has_potential_flow(fs):
         # the design's flags, not model.bem_list: that would run the
         # panel solver just to refuse the design
         raise UnbucketableDesignError(
             "potential-flow coefficients are design-shaped host data: "
             "potMod and hydroPath designs run through make_full_evaluator")
-    if fs.potSecOrder == 2 and fs.hydroPath:
-        raise UnbucketableDesignError("external QTFs are not bucketed")
+    if not full and fs.potSecOrder == 2 and fs.hydroPath:
+        # the flags again: the file is not read
+        raise UnbucketableDesignError(
+            "external QTFs are not bucketed: potSecOrder 2 designs run "
+            "through make_full_evaluator (ROADMAP A13)")
     if fs.x_ref or fs.y_ref:
         raise UnbucketableDesignError("array-positioned units not bucketed")
     ms = model.ms
@@ -167,14 +171,14 @@ def has_potential_flow(fs):
                 or any(m.potMod for m in fs.members))
 
 
-def bucket_signature(model, ladders=None, potential_flow=False):
+def bucket_signature(model, ladders=None, full=False):
     """Hashable static-shape signature of a model's bucket: padded
     strip / node / line counts under the pad ladders (default: the
     ``RAFT_TPU_BUCKET_STEPS`` flag), the frequency grid verbatim and the
     fixed point's budget.  ``ladders={}`` gives the unpadded signature,
-    every axis at its real size.  A potential-flow design raises unless
-    ``potential_flow`` (the full evaluator's packing)."""
-    _check_bucketable(model, potential_flow)
+    every axis at its real size.  A potential-flow or external-QTF
+    design raises unless ``full`` (the full evaluator's packing)."""
+    _check_bucketable(model, full)
     fs = model.fowtList[0]
     ms = model.ms
     ss = model.hydro[0].strips
@@ -461,8 +465,15 @@ class BucketEvaluator(nn.Module):
         and added mass, and ``X`` (R, nH, 6, nw) complex, the
         first-order excitation per unit wave amplitude, so that
         F = X zeta is added to every heading's excitation, the fixed
-        point's included (the reference's ``F_BEM``);
-        ``input_clipped`` (R,) bool sets INPUT_CLIPPED in the status."""
+        point's included (the reference's ``F_BEM``), and ``qtf``, an
+        external QTF on the model grid (:func:`raft_tpu_torch.api.
+        _qtf_model_grid`): from it and each heading's spectrum,
+        :func:`raft_tpu_torch.api._hydro_force_2nd_rows` gives the
+        second-order forces added to every heading's excitation after
+        the first-order ones (the reference's ``F_2nd``; marked
+        "second_order") and the mean drift, returned as ``F_2nd_mean``
+        (R, nH, 6); ``input_clipped`` (R,) bool sets INPUT_CLIPPED in
+        the status."""
         K_h = d["K_h"]
         rdt = _compute_dtype(K_h)
         R = K_h.shape[0]
@@ -490,6 +501,13 @@ class BucketEvaluator(nn.Module):
                                         beta[:, ih], w, d["k"], Tn, r_nodes)
                for ih in range(nH)]
         mark("excitation")
+        qtf = None if lin is None else lin.get("qtf")
+        F_2 = None
+        if qtf is not None:
+            F_2nd_mean, F_2 = _hydro_force_2nd_rows(qtf, beta, S_spec,
+                                                    self.dw)
+            F_2 = F_2.to(zeta.dtype)
+            mark("second_order")
 
         # ---- drag-linearised impedance solve, driven by the first heading
         M_lin = (d["M_struc"] + hc["A_hydro"])[..., None].expand(
@@ -508,6 +526,8 @@ class BucketEvaluator(nn.Module):
         F_lin = exc[0]["F_hydro_iner"]
         if F_pot is not None:
             F_lin = F_pot[:, 0] + F_lin
+        if F_2 is not None:
+            F_lin = F_lin + F_2[:, 0]
         Z, Xi_fused, Bmat, dyn_diag = solve_dynamics_fowt(
             fsb, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin, F_lin, w, Tn,
             r_nodes, n_iter=self.n_iter, Xi_start=self.Xi_start,
@@ -521,6 +541,8 @@ class BucketEvaluator(nn.Module):
                 + morison.drag_excitation(fsb, ss, hc, Bmat, exc[ih]["u"],
                                           Tn, r_nodes)
                 for ih in range(nH)], dim=1)
+            if F_2 is not None:
+                F_waves = F_waves + F_2
             Xi = system_response(Z[:, None], F_waves)
 
         out = dict(
@@ -532,6 +554,8 @@ class BucketEvaluator(nn.Module):
             status=_case_status(st_status, dyn_diag, X0, Xi,
                                 input_clipped=input_clipped),
         )
+        if qtf is not None:
+            out["F_2nd_mean"] = F_2nd_mean
         mark("response")
         return out
 

@@ -117,7 +117,20 @@ For potential flow (the panel solver and WAMIT files) it writes:
   of ``run_bem`` (panel sets), and the JAX full evaluator over
   :data:`BEM_ROWS` (``h1_*``), over :data:`BEM_ROWS2` with two headings
   (``h2_*``, coarse) and, with ``geometry=True``, over the rows with
-  :data:`BEM_D_SCALE` (``geo_*``, panel sets), FUSED on and off.
+  :data:`BEM_D_SCALE` (``geo_*``, panel sets), FUSED on and off;
+* ``design_semi_wind_slender.json``: semi_wind with a slender-body QTF
+  (``potSecOrder: 1``, a 40-bin grid of 0.005-0.2 Hz, MacCamy-Fuchs
+  outer columns), and ``golden_qtf_slender.npz``: the JAX
+  ``fowt_qtf_slender`` at :data:`SLENDER_BETA_DEG`, fixed and driven by
+  the RAO of a golden full-evaluator row, with that RAO's per-member
+  ``member_qtf``, ``kim_yue_correction`` and ``pinkster_iv``;
+* ``semi_wind_qtf.12d``: that design's fixed-body QTF at
+  :data:`QTF_HEADS_DEG`, written by the JAX ``write_qtf_12d``;
+  ``design_semi_wind_qtf.json`` (semi_wind reading it, ``potSecOrder:
+  2``) and ``design_semi_wind_bem_coarse_qtf.json`` (the coarse
+  potential-flow copy reading it), and their goldens
+  ``golden_semi_wind_qtf.npz`` (one and two headings, geometry rows)
+  and ``golden_semi_wind_bem_coarse_qtf.npz``, FUSED on and off.
 
 Run from the repository root::
 
@@ -126,6 +139,7 @@ Run from the repository root::
         [geometry] [grad] [grad_design]
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --flex
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --bem
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --qtf
 
 It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
 geometry and gradient goldens, or the named parts of them).
@@ -134,9 +148,10 @@ sources are unchanged since c7d9048).  Not collected by pytest (the
 file name does not start with ``test_``); the slow tests
 ``tests/test_torch_bucket.py::test_fixtures_regenerate``,
 ``tests/test_torch_full.py::test_full_fixtures_regenerate``,
-``tests/test_torch_geometry.py::test_geometry_fixtures_regenerate`` and
-``tests/test_torch_grad.py::test_grad_fixtures_regenerate`` re-run the
-builders here and compare with the files.
+``tests/test_torch_geometry.py::test_geometry_fixtures_regenerate``,
+``tests/test_torch_grad.py::test_grad_fixtures_regenerate`` and
+``tests/test_torch_secondorder.py::test_qtf_fixtures_regenerate`` re-run
+the builders here and compare with the files.
 """
 
 from __future__ import annotations
@@ -1431,6 +1446,208 @@ def write_bem_fixtures():
         shutil.rmtree(cache, ignore_errors=True)
 
 
+# ------------------------------------------------------------ second order
+
+#: the slender-body QTF grid of the slender design [Hz] (40 bins, the
+#: model grid's span)
+SLENDER_FREQ2ND = dict(min_freq2nd=0.005, max_freq2nd=0.2, df_freq2nd=0.005)
+#: the heading of the slender goldens and the heading nodes of the
+#: external QTF file [deg] (the span of the operating tables' headings)
+SLENDER_BETA_DEG = 30.0
+QTF_HEADS_DEG = (0.0, 45.0, 90.0, 135.0, 180.0)
+#: the golden full-evaluator row whose RAO drives the slender QTF (the
+#: rated-wind row of golden_full_semi_wind)
+SLENDER_RAO_ROW = 3
+#: the external-QTF evaluator rows: semi_wind's (headings on and
+#: between the QTF's nodes over its 0-180 deg span), with two headings
+#: BEM_ROWS2 (a second heading below, above and far past the span, so
+#: the clip runs)
+QTF_ROWS = SEMI_WIND_ROWS
+QTF_ROWS2 = BEM_ROWS2
+QTF_DESIGN_FILES = {"semi_wind_slender": "design_semi_wind_slender.json",
+                    "semi_wind_qtf": "design_semi_wind_qtf.json",
+                    "semi_wind_bem_coarse_qtf":
+                        "design_semi_wind_bem_coarse_qtf.json"}
+
+
+def semi_wind_slender_design():
+    """semi_wind with a slender-body QTF (``potSecOrder: 1``) on a 40-bin
+    grid and MacCamy-Fuchs outer columns (surface-piercing, so the Kim
+    & Yue correction runs)."""
+    d = semi_wind_design()
+    d["name"] = ("semi_wind_slender - raft_tpu_torch fixture of semi_wind "
+                 "with a slender-body QTF")
+    d["platform"].update(potSecOrder=1, **SLENDER_FREQ2ND)
+    for m in d["platform"]["members"]:
+        if m["name"] == "offset_column":
+            m["MCF"] = True
+    return d
+
+
+def semi_wind_qtf_design():
+    """semi_wind (Morison strips) with the external QTF
+    ``semi_wind_qtf.12d`` (``potSecOrder: 2``)."""
+    d = semi_wind_design()
+    d["name"] = ("semi_wind_qtf - raft_tpu_torch fixture of semi_wind with "
+                 "an external QTF")
+    d["platform"].update(potSecOrder=2, hydroPath="semi_wind_qtf")
+    return d
+
+
+def semi_wind_bem_coarse_qtf_design():
+    """The coarse potential-flow semi_wind with the same external QTF
+    (its name, and so its coefficient cache, the coarse design's)."""
+    d = semi_wind_bem_design(coarse=True)
+    d["platform"].update(potSecOrder=2, hydroPath="semi_wind_qtf")
+    return d
+
+
+QTF_DESIGNS = {"semi_wind_slender": semi_wind_slender_design,
+               "semi_wind_qtf": semi_wind_qtf_design,
+               "semi_wind_bem_coarse_qtf": semi_wind_bem_coarse_qtf_design}
+
+
+def qtf_model(name):
+    """The JAX model of a second-order set (read from its fixture file,
+    so ``hydroPath`` resolves against the fixtures)."""
+    _jax()
+    import raft_tpu
+
+    return raft_tpu.Model(os.path.join(OUT_DIR, QTF_DESIGN_FILES[name]))
+
+
+def slender_qtf(model, beta_deg, Xi0=None):
+    """The JAX ``fowt_qtf_slender`` of ``model`` at one heading [deg]."""
+    import numpy as np
+
+    from raft_tpu.physics.qtf_slender import fowt_qtf_slender
+
+    model.hydro[0].beta = np.deg2rad(np.atleast_1d(float(beta_deg)))
+    return np.asarray(fowt_qtf_slender(model, 0, Xi0=Xi0))
+
+
+def build_slender_golden():
+    """The ``golden_qtf_slender.npz`` dict: the fixed-body QTF at
+    :data:`SLENDER_BETA_DEG`; driven by the RAO of golden_full_semi_wind
+    row :data:`SLENDER_RAO_ROW`, the QTF, each member's ``member_qtf``
+    (its upper triangle as pairs), the MacCamy-Fuchs members'
+    ``kim_yue_correction`` (pairs) and ``pinkster_iv``."""
+    import numpy as np
+
+    from raft_tpu.physics.qtf_slender import (kim_yue_correction,
+                                              member_qtf, pinkster_iv)
+
+    model = qtf_model("semi_wind_slender")
+    fs, fh = model.fowtList[0], model.hydro[0]
+    beta = float(np.deg2rad(SLENDER_BETA_DEG))
+    rao = np.load(os.path.join(OUT_DIR, "golden_full_semi_wind.npz"))[
+        "on_RAO"][SLENDER_RAO_ROW]
+    w2, k2 = model.w1_2nd, model.k1_2nd
+    i1, i2 = np.triu_indices(len(w2))
+    gd = dict(beta=np.float64(beta), w1_2nd=w2, k1_2nd=k2, Xi0=rao,
+              fixed_qtf=slender_qtf(model, SLENDER_BETA_DEG),
+              rao_qtf=slender_qtf(model, SLENDER_BETA_DEG, Xi0=rao))
+    Xi = np.stack([np.interp(w2, model.w, rao[i], left=0, right=0)
+                   for i in range(fs.nDOF)])
+    F1st = np.asarray(model.statics()["M_struc"]) @ (-(w2 ** 2) * Xi)
+    gd.update(Xi=Xi, F1st=F1st, pinkster=pinkster_iv(Xi, F1st)[i1, i2])
+    a_i = np.asarray(fh.hc0["a_i"])
+    ofs = 0
+    for im, mem in enumerate(fs.members):
+        mq = np.asarray(member_qtf(mem, a_i[ofs:ofs + mem.ns], Xi, beta, w2,
+                                   k2, fs.depth, fs.rho_water, fs.g))
+        ofs += mem.ns
+        gd[f"member_{im}"] = mq[i1, i2]
+        if mem.MCF:
+            gd[f"kim_yue_{im}"] = kim_yue_correction(
+                mem, beta, w2, k2, fs.depth, fs.rho_water, fs.g)[i1, i2]
+    return gd
+
+
+def write_qtf_12d_fixture():
+    """``semi_wind_qtf.12d``: the slender design's fixed-body QTF at
+    :data:`QTF_HEADS_DEG`, written by the JAX ``write_qtf_12d``."""
+    import numpy as np
+
+    from raft_tpu.physics.secondorder import write_qtf_12d
+
+    model = qtf_model("semi_wind_slender")
+    fs = model.fowtList[0]
+    qtf = np.concatenate([slender_qtf(model, h) for h in QTF_HEADS_DEG],
+                         axis=2)
+    write_qtf_12d(os.path.join(OUT_DIR, "semi_wind_qtf.12d"), qtf,
+                  model.w1_2nd, np.deg2rad(QTF_HEADS_DEG),
+                  rho=fs.rho_water, g=fs.g)
+
+
+def golden_qtf_rows(name, rows, nWaves, fused, geom=None):
+    """JAX full-evaluator outputs of a second-order set over ``rows``
+    (with ``geom`` the geometry axis)."""
+    jax = _jax()
+    import numpy as np
+
+    from raft_tpu.api import make_full_evaluator
+
+    def run():
+        ev = make_full_evaluator(qtf_model(name), nWaves=nWaves,
+                                 geometry=geom is not None)
+        r = dict(rows) if geom is None else dict(rows, geom=geom)
+        out = jax.jit(jax.vmap(ev))(r)
+        return {k: np.asarray(out[k]) for k in FULL_OUT_KEYS}
+    return _with_fused(fused, run)
+
+
+def build_qtf_golden(name):
+    """The ``golden_qtf_<name>.npz`` dict: h1 rows (:data:`QTF_ROWS`), on
+    semi_wind_qtf also h2 (:data:`QTF_ROWS2`) and geometry rows
+    (``geo``, :func:`geometry_rows`), FUSED on and off."""
+    import numpy as np
+
+    runs = [("h1", QTF_ROWS, 1, False)]
+    if name == "semi_wind_qtf":
+        runs += [("h2", QTF_ROWS2, 2, False), ("geo", QTF_ROWS, 1, True)]
+    gd = {}
+    for tag, rows, nW, geometry in runs:
+        r = {k: np.asarray(v, dtype=float) for k, v in rows.items()}
+        gd.update({f"{tag}_{k}": v for k, v in r.items()})
+        geom = None
+        if geometry:
+            geom = geometry_rows(len(qtf_model(name).fowtList[0].members))
+            gd.update({f"{tag}_geom_{k}": v for k, v in geom.items()})
+        for fused in ("on", "off"):
+            out = golden_qtf_rows(name, r, nW, fused, geom)
+            gd.update({f"{tag}_{fused}_{k}": v for k, v in out.items()})
+        print(f"qtf {name} {tag}: status_on={gd[f'{tag}_on_status'].tolist()}"
+              f" n_iter_on={gd[f'{tag}_on_n_iter_drag'].tolist()}",
+              flush=True)
+    return gd
+
+
+def write_qtf_fixtures():
+    """Write the second-order designs, ``semi_wind_qtf.12d`` and the
+    ``golden_qtf_*`` files (about 10 min on 8 cores)."""
+    import json
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    for name, fn in QTF_DESIGNS.items():
+        with open(os.path.join(OUT_DIR, QTF_DESIGN_FILES[name]), "w") as f:
+            f.write(json.dumps(fn(), indent=1) + "\n")
+    write_qtf_12d_fixture()
+    np.savez_compressed(os.path.join(OUT_DIR, "golden_qtf_slender.npz"),
+                        **build_slender_golden())
+    cache = tempfile.mkdtemp(prefix="bem_cache_")
+    os.environ["RAFT_TPU_BEM_DIR"] = cache
+    try:
+        for name in ("semi_wind_qtf", "semi_wind_bem_coarse_qtf"):
+            np.savez_compressed(os.path.join(OUT_DIR, f"golden_{name}.npz"),
+                                **build_qtf_golden(name))
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+
+
 def main():
     import numpy as np
 
@@ -1446,6 +1663,9 @@ def main():
         return
     if sys.argv[1:] == ["--bem"]:
         write_bem_fixtures()
+        return
+    if sys.argv[1:] == ["--qtf"]:
+        write_qtf_fixtures()
         return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
@@ -1466,6 +1686,7 @@ def main():
     write_farm_fixtures()
     write_flex_fixtures()
     write_bem_fixtures()
+    write_qtf_fixtures()
 
 
 if __name__ == "__main__":

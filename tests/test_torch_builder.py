@@ -154,7 +154,8 @@ def test_unsupported_designs_raise(variant):
     the rigid full evaluator, naming make_flexible_evaluator;
     potential-flow members and coefficient files by the bucket path
     (the case, design and sweep paths), without running the panel
-    solver; an array of potential-flow units by the farm evaluator."""
+    solver; an array of potential-flow units by the farm evaluator; an
+    external QTF by the bucket path, without reading its file."""
     from raft_tpu_torch.api import make_farm_evaluator, make_full_evaluator
 
     d = copy.deepcopy(design("spar"))
@@ -179,7 +180,16 @@ def test_unsupported_designs_raise(variant):
             make_farm_evaluator(model, device="cpu")
         assert model._bem_list is None
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A1[013]"):
+    if variant == "qtf":
+        # builds; the bucket path (case, design, sweep) refuses an
+        # external QTF on the design's flags, reading no file
+        model = Model(d)
+        with pytest.raises(tb.UnbucketableDesignError,
+                           match=r"QTF.*ROADMAP A13"):
+            tb.bucket_signature(model)
+        assert not hasattr(model, "_qtf")
+        return
+    with pytest.raises(NotImplementedError, match=r"ROADMAP A1[01]"):
         Model(d)
 
 

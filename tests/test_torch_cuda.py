@@ -12,7 +12,8 @@ bit-equal (both designs follow the plain version's operation order under
 adjoint entry alike); the slice, the design, the full and the geometry
 evaluator and the farm evaluator within 1e-10 x max of the JAX
 goldens with ``status`` and ``n_iter_drag`` equal (the full evaluator
-on the potential-flow designs too); reverse-mode gradients within 1e-9 x
+on the potential-flow and external-QTF designs too); the slender-body
+QTF within 1e-10 x max|qtf|; reverse-mode gradients within 1e-9 x
 each key's max|g| of the JAX goldens.
 """
 
@@ -230,6 +231,64 @@ def test_bem_on_card_matches_goldens(cuda, name, design, tmp_path,
             np.testing.assert_array_equal(a, b, err_msg=k)
         else:
             assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k
+
+
+QTF_CASES = {"h1": ("semi_wind_qtf", 1, False),
+             "h2": ("semi_wind_qtf", 2, False),
+             "geo": ("semi_wind_qtf", 1, True),
+             "bem_h1": ("semi_wind_bem_coarse_qtf", 1, False)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(QTF_CASES))
+def test_qtf_on_card_matches_goldens(cuda, case, tmp_path, monkeypatch):
+    """The full evaluator with an external QTF on the card, FUSED on,
+    float64: one and two headings, geometry rows, and the coarse
+    potential-flow design with the same file."""
+    monkeypatch.setenv("RAFT_TPU_BEM_DIR", str(tmp_path))
+    name, nW, geometry = QTF_CASES[case]
+    tag = case.split("_")[-1]
+    g = np.load(os.path.join(FIX, f"golden_{name}.npz"))
+    ev = make_full_evaluator(Model(os.path.join(FIX, f"design_{name}.json")),
+                             nWaves=nW, device=cuda, geometry=geometry)
+    kw = {k: g[f"{tag}_{k}"] for k in ENV_KEYS + SEA_KEYS}
+    if geometry:
+        kw["geom"] = {k[len(tag) + 6:]: g[k] for k in g.files
+                      if k.startswith(f"{tag}_geom_")}
+    out = ev(**kw)
+    for k in FULL_OUT_KEYS:
+        a, b = out[k].cpu().numpy(), g[f"{tag}_on_{k}"]
+        if k in ("status", "n_iter_drag", "drag_converged"):
+            np.testing.assert_array_equal(a, b, err_msg=k)
+        else:
+            assert np.max(np.abs(a - b)) <= 1e-10 * np.max(np.abs(b)), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["fixed", "rao"])
+def test_qtf_slender_on_card_matches_goldens(cuda, which):
+    """Model.qtf_slender at the 40-bin fixture grid on the card within
+    1e-10 x max|qtf| of the JAX goldens, and member_qtf's bits the same
+    at two pair-chunk sizes."""
+    from raft_tpu_torch.physics import qtf_slender as qs
+
+    g = np.load(os.path.join(FIX, "golden_qtf_slender.npz"))
+    m = Model(os.path.join(FIX, "design_semi_wind_slender.json"))
+    Xi0 = g["Xi0"] if which == "rao" else None
+    got = m.qtf_slender(float(g["beta"]), Xi0=Xi0, device=cuda)
+    assert got.is_cuda
+    ref = g[f"{which}_qtf"]
+    got = got.cpu().numpy()
+    assert np.max(np.abs(got - ref)) <= 1e-10 * np.max(np.abs(ref))
+    fs = m.fowtList[0]
+    mem = fs.members[1]
+    a_i = m.hydro[0].hc0["a_i"][fs.members[0].ns:][:mem.ns]
+    args = (mem, a_i, torch.as_tensor(g["Xi"], device=cuda),
+            float(g["beta"]), m.w1_2nd, m.k1_2nd, fs.depth, fs.rho_water,
+            fs.g)
+    a = qs.member_qtf(*args, pair_chunk=97)
+    b = qs.member_qtf(*args, pair_chunk=4096)
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -168,7 +168,7 @@ def _unit_refusals():
 
     def qtf(d):
         d["platform"]["potSecOrder"] = 2
-        d["platform"]["hydroPath"] = "spar_bem"
+        d["platform"]["hydroPath"] = "semi_wind_qtf"
 
     def moor_mod(d):
         d["mooring"]["moorMod"] = 2
@@ -179,18 +179,20 @@ def _unit_refusals():
 @pytest.mark.parametrize("variant", sorted(_unit_refusals()))
 def test_array_refusals(variant):
     """What the reference's farm evaluator refuses still raises, naming
-    its ROADMAP item: an external QTF (A13) and line dynamics (A10) when
-    the array is built; beam (flexible) units and potential-flow units
-    (A11) build, and the farm evaluator refuses them, as the reference's
-    does (the potential-flow units without running the panel solver)."""
+    its ROADMAP item: line dynamics (A10) when the array is built; beam
+    (flexible) units and potential-flow units (A11) and an external QTF
+    (A13) build, and the farm evaluator refuses them, as the reference's
+    does (the potential-flow units without running the panel solver, the
+    QTF without reading its file)."""
     d = copy.deepcopy(design("spar3"))
     _unit_refusals()[variant](d)
     item = {"beam": "A11", "pot_mod": "A11", "qtf": "A13",
             "moor_mod": "A10"}[variant]
-    if variant in ("beam", "pot_mod"):
+    if variant in ("beam", "pot_mod", "qtf"):
         model = Model(d, base_dir=FIX)
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             tapi.make_farm_evaluator(model, device="cpu")
+        assert not hasattr(model, "_qtf")
         return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         Model(d, base_dir=FIX)

@@ -191,9 +191,12 @@ def test_design_case_rows_evaluate():
 
 def test_refusals_by_message():
     """What the full path still refuses: the geometry axis of a design
-    with coefficient files (the reference's ValueError), external QTFs,
-    beams, arrays (which the farm evaluator takes), and gradients
-    through the aero stage's inputs."""
+    with coefficient files (the reference's ValueError), beams, arrays
+    (which the farm evaluator takes), and gradients through the aero
+    stage's inputs; an external QTF, which the full path takes, is
+    refused by the case path without reading its file."""
+    from raft_tpu_torch.structure import bucketing as tb
+
     d = design("spar")
     bem = copy.deepcopy(d)
     bem["platform"]["potFirstOrder"] = 1
@@ -202,9 +205,11 @@ def test_refusals_by_message():
         tapi.make_full_evaluator(Model(bem), device="cpu", geometry=True)
     qtf = copy.deepcopy(d)
     qtf["platform"]["potSecOrder"] = 2
-    qtf["platform"]["hydroPath"] = "spar_bem"
-    with pytest.raises(NotImplementedError, match=r"QTF.*ROADMAP A13"):
-        Model(qtf)
+    qtf["platform"]["hydroPath"] = "semi_wind_qtf"
+    qtf_model = Model(qtf, base_dir=FIX)
+    with pytest.raises(tb.UnbucketableDesignError, match=r"QTF.*ROADMAP A13"):
+        tapi.make_case_evaluator(qtf_model, device="cpu")
+    assert not hasattr(qtf_model, "_qtf")
     beam = copy.deepcopy(d)
     beam["platform"]["members"][0]["type"] = "beam"
     with pytest.raises(NotImplementedError,
