@@ -169,8 +169,30 @@ Phases, each printing one line (the last line is the result object):
              ms over all members (CUDA events), the pair chunk and peak
              memory, kim_yue_correction's host s, the same bits at two
              chunk sizes, hermitian off the diagonal.
-20. kernels - one JSON object listing both entries of the solve kernel,
-             the forward with its launches on every path and the adjoint
+20. analyze - the orchestrated path: each of ORCH_SETS' 13 designs (the
+             three demos, semi_wind with a 4-case table, mhk_tidal with
+             and without cpmin polars, semi_wind_flex, the first case of
+             the two-unit farm's 2-case table through run_farm, the
+             WAMIT-file design, the external and slender-body QTF
+             designs, semi_wind with moorMod 1 and 2) through drivers.run
+             on the card, held against golden_orch_*.npz by the CPU
+             tests' own gates (imported from
+             tests/test_torch_orchestrated.py: case metrics, mean
+             offsets, status words, drag diagnostics, the CSV;
+             calc_outputs' properties and eigen);
+             per design cases/s, the per-case wall split (statics,
+             dynamics with second-order forces and line dynamics,
+             outputs), Newton iterations and the solve kernel's launches
+             on the path against the fixed-point solves run (each FOWT's
+             trips plus its final solve at N <= 12, plus the system
+             response at N <= 12); one `python -m raft_tpu_torch
+             design_spar.json --csv` run on the card, its CSV held; the
+             kernel on the captured system responses (Z, F) of the spar
+             (N = 6, the thread-per-system entry) and the farm (N = 12,
+             the lane-per-row entry) bit-equal to its plain version.
+21. kernels - one JSON object listing both entries of the solve kernel,
+             the forward with its launches on every path (the analyze
+             path's also as analyze_launches) and the adjoint
              with its launches on the grad path, each with its N = 12
              (one-lane-per-row) figures.
 
@@ -2580,6 +2602,211 @@ def phase_qtf(card):
     return res
 
 
+#: the analyze phase's designs: golden set -> (design file, run_farm,
+#: the cases run: None for the whole table, n for its first n)
+ORCH_SETS = {
+    "spar": ("design_spar.json", False, None),
+    "semi": ("design_semi.json", False, None),
+    "mhk": ("design_mhk.json", False, None),
+    "semi_wind_cases": ("design_semi_wind_cases.json", False, None),
+    "mhk_tidal": ("design_mhk_tidal.json", False, None),
+    "mhk_tidal_cav": ("design_mhk_tidal_cav.json", False, None),
+    "semi_wind_flex": ("design_semi_wind_flex.json", False, None),
+    # a farm case pays its network solves at one row (45-56 s a case in
+    # runs Z-AB): the first of its two cases keeps the script inside its
+    # limit at the earlier phases' full depth
+    "farm_semi_wind": ("design_farm_semi_wind_cases.json", True, 1),
+    "semi_wind_wamit": ("design_semi_wind_wamit.json", False, None),
+    "semi_wind_qtf": ("design_semi_wind_qtf.json", False, None),
+    "semi_wind_slender": ("design_semi_wind_slender.json", False, None),
+    "semi_wind_moor1": ("design_semi_wind_moor1.json", False, None),
+    "semi_wind_moor2": ("design_semi_wind_moor2.json", False, None),
+}
+#: the designs whose system response is captured: the kernel is held
+#: bit-equal to its plain version on it (N = 6 and N = 12)
+ORCH_CAPTURE = ("spar", "farm_semi_wind")
+
+
+def _sync():
+    if str(DEVICE).startswith("cuda"):
+        torch.cuda.synchronize()
+
+
+def _orch_gates():
+    """tests/test_torch_orchestrated.py, imported by its path (on some
+    machines a site package named ``tests`` shadows the repository's):
+    the CPU tests' goldens and gates, which the analyze phase holds the
+    card to."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "test_torch_orchestrated",
+        os.path.join(HERE, "tests", "test_torch_orchestrated.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _held(what, fn, *a, **k):
+    """A gate of the CPU tests, its assertion a phase failure here."""
+    try:
+        return fn(*a, **k)
+    except AssertionError as e:
+        raise PhaseError(f"analyze {what}: {e}") from None
+
+
+def phase_analyze(out_dir, card):
+    """The orchestrated path (module docstring, phase 20): every
+    orchestrated design through drivers.run (run_farm for the farm) on
+    the card, held against golden_orch_*.npz by the CPU tests' own gates
+    (tests/test_torch_orchestrated.py); per design cases/s, the per-case
+    statics / dynamics / outputs wall split, Newton iterations and the
+    solve kernel's launches on the path against the fixed-point solves
+    run; then calc_outputs held (properties, eigen); one CLI run on the
+    card, its CSV held; the kernel on the captured system responses
+    (N = 6 and N = 12) bit-equal to its plain version."""
+    import raft_tpu_torch.models.dynamics as dyn
+    from raft_tpu_torch import drivers
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    orch = _orch_gates()
+    res = dict(designs={}, launches=0, row_launches=0)
+    captured = {}
+    system_response = dyn.system_response
+
+    def capture(tag):
+        def response(Z, F):
+            captured.setdefault(tag, (Z.clone(), F.clone()))
+            return system_response(Z, F)
+        return response
+
+    chunk = max(1, config.get("SCAN_CHUNK"))
+    t_phase = time.time()
+    for name, (fn, farm, n_cases) in ORCH_SETS.items():
+        g = orch.golden(name)
+        src = os.path.join(FIX, fn)
+        flex = name.endswith("flex")
+        if name == "semi_wind_slender" or n_cases is not None:
+            with open(src) as f:
+                src = json.load(f)
+            if name == "semi_wind_slender":
+                src["platform"]["outFolderQTF"] = os.path.join(out_dir, "qtf")
+            if n_cases is not None:
+                src["cases"]["data"] = src["cases"]["data"][:n_cases]
+                g = orch.golden_cases(g, n_cases)
+            if "file" in src.get("array_mooring", {}):
+                # a design given as a dict resolves no relative data path
+                src["array_mooring"]["file"] = os.path.join(
+                    FIX, src["array_mooring"]["file"])
+        if name in ORCH_CAPTURE:
+            dyn.system_response = capture(name)
+        linsolve.reset_launches()
+        _sync()
+        t0 = time.time()
+        model = (drivers.run_farm if farm else drivers.run)(src,
+                                                            device=DEVICE)
+        _sync()
+        wall = time.time() - t0
+        launches = linsolve.KERNEL_LAUNCHES
+        rows = linsolve.ROW_KERNEL_LAUNCHES
+        dyn.system_response = system_response
+        stats = model.case_stats
+        # kernel solves the path must have made: each FOWT's fixed-point
+        # solves at N <= 12 and the system response at N <= 12
+        exp = sum(sum(s for s, fs in zip(c["fixed_point_solves"],
+                                         model.fowtList) if fs.nDOF <= 12)
+                  + (c["system_n"] <= 12) for c in stats)
+        check(launches == exp, f"analyze {name}: solve kernel launched "
+              f"{launches} times, expected {exp}")
+        exp_rows = sum(7 <= c["system_n"] <= 12 for c in stats)
+        check(rows == exp_rows, f"analyze {name}: the N = 7-12 design "
+              f"launched {rows} times, expected {exp_rows}")
+        # the trips a lone row runs: whole blocks of SCAN_CHUNK up to its
+        # n_iter_drag (one fixed point per FOWT without a slender QTF)
+        if model.w1_2nd is None:
+            for c, dd in zip(stats, model.results["dyn_diag"]):
+                for s, d_i in zip(c["fixed_point_solves"], dd):
+                    cap = model.nIter + 1 + model.nIterExtra
+                    trips = min(-(-d_i["n_iter_drag"] // chunk) * chunk, cap)
+                    check(s == trips + 1, f"analyze {name}: {s} fixed-point "
+                          f"solves, expected {trips + 1}")
+        worst = _held(name, orch.hold_results, model, g, flex=flex)
+        csv = os.path.join(out_dir, f"analyze_{name}.csv")
+        drivers.save_responses(model, csv)
+        with open(csv) as f:
+            _held(f"{name} CSV", orch.hold_csv, f.read(), g["csv"].item())
+        out_s = None
+        if not farm:
+            t1 = time.time()
+            model.calc_outputs(device=DEVICE)
+            out_s = time.time() - t1
+            worst = max(worst, _held(f"{name} outputs", orch.hold_outputs,
+                                     model, g, flex=flex))
+        n = len(stats)
+        split = {k: float(np.mean([c[k] for c in stats]))
+                 for k in ("statics_s", "dynamics_s", "outputs_s")}
+        r = dict(cases=n, wall_s=wall, cases_per_s=n / wall,
+                 per_case_s=split,
+                 newton_iterations=[c["newton_iterations"] for c in stats],
+                 fixed_point_solves=[c["fixed_point_solves"] for c in stats],
+                 system_n=stats[0]["system_n"], launches=launches,
+                 expected_launches=exp, row_launches=rows,
+                 calc_outputs_s=out_s, worst_rel=worst)
+        res["designs"][name] = r
+        res["launches"] += launches
+        res["row_launches"] += rows
+        print(f"analyze {name} on {card}: {n} case(s) in {wall:.2f} s = "
+              f"{r['cases_per_s']:.2f} cases/s; per case statics "
+              f"{split['statics_s']:.2f} s, dynamics {split['dynamics_s']:.2f}"
+              f" s, outputs {split['outputs_s']:.2f} s; Newton iterations "
+              f"{r['newton_iterations']}; solve kernel launches {launches} "
+              f"(expected {exp}: the fixed-point solves "
+              f"{r['fixed_point_solves']} at N <= 12 + the system response "
+              f"at N = {r['system_n']}{' (library)' if r['system_n'] > 12 else ''}"
+              f"), {rows} on the N = 7-12 design; worst {worst:.1e} of "
+              f"the golden gates")
+
+    # the CLI on the card, its CSV held
+    csv = os.path.join(out_dir, "cli_spar.csv")
+    t0 = time.time()
+    cli = subprocess.run(
+        [sys.executable, "-m", "raft_tpu_torch",
+         os.path.join(FIX, "design_spar.json"), "--csv", csv], cwd=HERE,
+        capture_output=True, text=True, timeout=600)
+    res["cli_s"] = time.time() - t0
+    check(cli.returncode == 0, f"analyze CLI: exit {cli.returncode}: "
+          f"{cli.stderr[-800:]}")
+    with open(csv) as f:
+        _held("CLI CSV", orch.hold_csv, f.read(),
+              orch.golden("spar")["csv"].item())
+
+    # the kernel on the captured cases: bit-equal to its plain version,
+    # the thread-per-system entry at N = 6, the lane-per-row one at 12
+    res["captured"] = {}
+    for tag, solve in (("spar", linsolve._cuda_solve),
+                       ("farm_semi_wind", linsolve._cuda_solve_rows)):
+        Z, F = captured[tag]
+        Ft = F.transpose(-1, -2).contiguous()
+        x_k = solve(Z, Ft)
+        x_p = linsolve._native_solve(Z, Ft)
+        check(torch.equal(x_k, x_p), f"analyze: the kernel on the captured "
+              f"{tag} case (N = {Z.shape[-1]}) is not bit-equal to its "
+              "plain version")
+        res["captured"][tag] = [list(Z.shape), list(F.shape)]
+    res["phase_s"] = time.time() - t_phase
+    total = sum(r["cases"] for r in res["designs"].values())
+    print(f"  analyze: {total} cases over {len(ORCH_SETS)} designs in "
+          f"{res['phase_s']:.1f} s; solve kernel launches on the path "
+          f"{res['launches']} ({res['row_launches']} on the N = 7-12 "
+          f"design); CLI spar on the card {res['cli_s']:.1f} s, CSV held; "
+          "captured system responses " + ", ".join(
+              f"{t} Z {tuple(z)} / F {tuple(f)}"
+              for t, (z, f) in res["captured"].items())
+          + ": kernel bit-equal to the plain version")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
@@ -2636,6 +2863,8 @@ def main():
         rec["flex"] = timed("flex", phase_flex, rec["card"])
         rec["bem"] = timed("bem", phase_bem, args.out, rec["card"])
         rec["qtf"] = timed("qtf", phase_qtf, rec["card"])
+        rec["analyze"] = timed("analyze", phase_analyze, args.out,
+                               rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2650,7 +2879,8 @@ def main():
         farm=rec["farm"]["launches"], bem=rec["bem"]["launches"],
         bem_geometry=rec["bem"]["geometry"]["launches"],
         qtf=rec["qtf"]["launches"],
-        qtf_geometry=rec["qtf"]["geometry"]["launches"])
+        qtf_geometry=rec["qtf"]["geometry"]["launches"],
+        analyze=rec["analyze"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -2664,7 +2894,9 @@ def main():
                   + rec["bem"]["launches"]
                   + rec["bem"]["geometry"]["launches"]
                   + rec["qtf"]["launches"]
-                  + rec["qtf"]["geometry"]["launches"]),
+                  + rec["qtf"]["geometry"]["launches"]
+                  + rec["analyze"]["launches"]),
+        analyze_launches=rec["analyze"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],
@@ -2672,7 +2904,8 @@ def main():
         n12_plain_ms=k12["plain_ms"], n12_bound_ms=k12["bound_ms"],
         n12_library_ms=k12["library_ms"],
         n12_max_abs_err=k12["max_abs_err"],
-        n12_launches=rec["farm"]["row_launches"]), dict(
+        n12_launches=(rec["farm"]["row_launches"]
+                      + rec["analyze"]["row_launches"])), dict(
         name="ge_solve_adj", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
         replaces="raft_tpu/ops/linsolve.py:277",

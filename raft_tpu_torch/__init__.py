@@ -1,5 +1,5 @@
-"""PyTorch/CUDA port of raft_tpu's rigid-FOWT, flexible-FOWT and farm
-evaluators.
+"""PyTorch/CUDA port of raft_tpu: its orchestrated analysis path and
+its rigid-FOWT, flexible-FOWT and farm evaluators.
 
 The JAX package :mod:`raft_tpu` is the reference; this package mirrors
 its module paths (``raft_tpu_torch/ops/linsolve.py`` is the counterpart
@@ -8,9 +8,18 @@ anything of :mod:`raft_tpu`.
 
 Entry points:
 
+* :func:`raft_tpu_torch.drivers.run` / :func:`~raft_tpu_torch.drivers.
+  run_farm` and ``python -m raft_tpu_torch design.json [--csv out.csv]
+  [--device cpu]`` — a design's whole case table through
+  :meth:`~raft_tpu_torch.models.model.Model.analyze_cases` (the
+  reference's runRAFT), its channel statistics as CSV;
 * :class:`raft_tpu_torch.models.model.Model` — one design (a dict or a
-  ``.json``/``.yaml`` path) built on the host: structure, mooring,
-  statics, strips and zero-pose hydro constants;
+  ``.json``/``.yaml`` path) built on the host: structure, mooring
+  (quasi-static catenary, networks, and the lumped-mass line dynamics of
+  ``moorMod`` 1 and 2), statics, strips and zero-pose hydro constants;
+  its orchestrated path, one case at a time: ``solve_statics``,
+  ``solve_dynamics``, ``solve_eigen``, ``calc_outputs``,
+  ``write_modes_json`` and ``analyze_cases``;
 * :func:`raft_tpu_torch.structure.bucketing.bucket_signature` /
   :func:`~raft_tpu_torch.structure.bucketing.pack_design` — a model's
   bucket and its padded numpy leaves;

@@ -1057,19 +1057,19 @@ class FarmEvaluator(nn.Module):
         if not all(fs.is_single_body for fs in fowts):
             raise NotImplementedError(
                 "the farm evaluator covers rigid 6-DOF units (flexible "
-                "units: ROADMAP A11)")
+                "units: ROADMAP A11); Model.analyze_cases takes them")
         if any(bucketing.has_potential_flow(fs) for fs in fowts):
             raise NotImplementedError(
                 "potential-flow units (potMod members or hydroPath "
                 "coefficients) in an array: the reference's farm "
-                "evaluator refuses them (ROADMAP A11; its orchestrated "
-                "path, A10, takes them)")
+                "evaluator refuses them (ROADMAP A11); Model.analyze_cases "
+                "takes them")
         if model.qtf_path() is not None:
             raise NotImplementedError(
                 "second-order forces from an external QTF in an array: the "
                 "reference's farm evaluator refuses them (ROADMAP A13 "
-                "ported them to make_full_evaluator only; its orchestrated "
-                "path, A10, is still to port)")
+                "ported them to make_full_evaluator only); "
+                "Model.analyze_cases takes them")
         self.nT = 6 * nF
         self.nWaves = int(nWaves)
         if self.nWaves < 1:
@@ -1482,13 +1482,14 @@ class FlexibleEvaluator(nn.Module):
         if has_potential_flow(fs):
             raise NotImplementedError(
                 "potential-flow coefficients on a flexible structure: the "
-                "reference's flexible evaluator refuses them (ROADMAP A11)")
+                "reference's flexible evaluator refuses them (ROADMAP A11); "
+                "Model.analyze_cases takes them")
         if model.qtf_path() is not None:
             raise NotImplementedError(
                 "second-order forces from an external QTF on a flexible "
                 "structure: the reference's flexible evaluator refuses them "
-                "(ROADMAP A13 ported them to make_full_evaluator only; its "
-                "orchestrated path, A10, is still to port)")
+                "(ROADMAP A13 ported them to make_full_evaluator only); "
+                "Model.analyze_cases takes them")
         device = resolve_device(device)
         self.device = device
         self.rdt, self.cdt = compute_dtypes()

@@ -75,18 +75,25 @@ class _FixedPointRoot(torch.autograd.Function):
 
 def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
                         r_nodes, n_iter=15, Xi_start=0.1, n_iter_extra=0,
-                        timer=None):
+                        timer=None, Z_extra=None):
     """Iterative drag-linearised impedance solve for a batch of rows.
 
     M_lin, B_lin : (R, n, n, nw); C_lin : (R, n, n); F_lin : (R, n, nw)
     complex; u0 : (R, S, 3, nw) strip wave velocities; w : (nw,).  The
     compute dtypes follow ``RAFT_TPU_DTYPE``, else the inputs.
+    ``Z_extra`` (R, nw, n, n) complex, or None, is added to the base
+    impedance after its cast, as the reference adds it: the
+    frequency-dependent lumped-mass mooring impedance of ``moorMod`` 2,
+    which then stands in for the quasi-static mooring stiffness in
+    C_lin.
 
     Returns (Z (R, nw, n, n), Xi (R, n, nw), Bmat (R, S, 3, 3), diag)
     with diag holding drag_resid, drag_converged, n_iter_drag (int32),
-    cond_Z and the int32 status word, each per row, and the final
-    linearisation point Xi_lin (R, n, nw).  ``timer``, when
-    given, is called with a stage name at the end of the fixed point.
+    cond_Z and the int32 status word, each per row, the final
+    linearisation point Xi_lin (R, n, nw) and ``trips``, the number of
+    fixed-point trips run (one solve each, before the final one).
+    ``timer``, when given, is called with a stage name at the end of
+    the fixed point.
     """
     R, nDOF, nw = F_lin.shape
     rdt, cdt = compute_dtypes(M_lin, F_lin, w)
@@ -99,6 +106,8 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     pre = morison.drag_lin_precompute(fs, ss, hc, u0, Tn, r_nodes, w,
                                       dtype=(rdt, cdt))
     Z0 = impedance(w, M_lin, B_lin, C_lin).to(cdt)
+    if Z_extra is not None:
+        Z0 = Z0 + Z_extra.to(cdt)
     iw = (1j * w).to(cdt)
 
     def update(XiLast):
@@ -164,7 +173,8 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     return Z, Xi, Bmat, dict(drag_resid=tolCheck,
                              drag_converged=drag_converged,
                              n_iter_drag=n_real, cond_Z=cond_Z,
-                             status=status, Xi_lin=XiLast.detach())
+                             status=status, Xi_lin=XiLast.detach(),
+                             trips=it)
 
 
 def system_response(Z_sys, F_waves):

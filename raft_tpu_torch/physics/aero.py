@@ -47,7 +47,7 @@ from raft_tpu_torch.ops import transforms as tf
 from raft_tpu_torch.ops.dual import Dual
 from raft_tpu_torch.ops.interp import interp
 from raft_tpu_torch.structure.schema import coerce
-from raft_tpu_torch.utils.dtypes import compute_dtypes
+from raft_tpu_torch.utils.dtypes import compute_dtypes, resolve_device
 
 RAD2DEG = 57.29577951308232
 RPM2RADPS = 0.1047  # the reference's conversion constant
@@ -960,3 +960,236 @@ def calc_aero_traced(rot, rprops, w, speed, heading_rad, TI,
 
     return (f0, f6.movedim(1, -1), a6.movedim(1, -1), b6.movedim(1, -1),
             B_gyro, q, Om, pit)
+
+
+# ------------------------------------------- case-setup aero (untraced)
+
+def kaimal_rot_psd(w, V_ref, turbulence, hub_height, R_rot):
+    """Rotor-averaged IEC Kaimal PSD of the longitudinal turbulence
+    [(m/s)^2/(rad/s)] at the frequencies ``w`` (numpy), the reference's
+    ``kaimal_rot_psd``: host numpy and scipy's special functions (``iv``,
+    ``modstruve``), as the case setup of the orchestrated path takes it.
+    ``turbulence`` is a TI fraction or an IEC class string such as
+    ``"IB_NTM"``."""
+    from scipy.special import iv, modstruve
+
+    f = np.asarray(w) / 2 / np.pi
+    HH = abs(hub_height)
+    V_ref_cls = 50.0
+    I_ref = 0.16
+    TurbMod = "NTM"
+    if isinstance(turbulence, str):
+        cls = ""
+        for ch in turbulence:
+            if ch in ("I", "V"):
+                cls += ch
+            else:
+                break
+        if not cls:
+            turbulence = float(turbulence)
+        else:
+            I_ref = {"A+": 0.18, "A": 0.16, "B": 0.14, "C": 0.12}[ch]
+            V_ref_cls = {"I": 50.0, "II": 42.5, "III": 37.5, "IV": 30.0}[cls]
+            TurbMod = turbulence.split("_")[1]
+    if isinstance(turbulence, (int, float)):
+        I_ref = float(turbulence)
+        TurbMod = "NTM"
+
+    if TurbMod == "NTM":
+        sigma_1 = I_ref * (0.75 * V_ref + 5.6)
+    elif TurbMod == "ETM":
+        V_ave = V_ref_cls * 0.2
+        sigma_1 = 2 * I_ref * (0.072 * (V_ave / 2 + 3) * (V_ref / 2 - 4) + 10)
+    elif TurbMod == "EWM":
+        sigma_1 = 0.11 * V_ref
+    else:
+        raise ValueError(f"unsupported turbulence model {TurbMod}")
+
+    L_1 = 0.7 * HH if HH <= 60 else 42.0
+    L_u = 8.1 * L_1
+    U = (4 * L_u / V_ref) * sigma_1 ** 2 / (
+        (1 + 6 * f * L_u / V_ref) ** (5.0 / 3.0))
+    kappa = 12 * np.sqrt((f / V_ref) ** 2 + (0.12 / L_u) ** 2)
+    x = 2 * R_rot * kappa
+    with np.errstate(all="ignore"):
+        Rot = (2 * U / (R_rot * kappa) ** 3) * (
+            modstruve(1, x) - iv(1, x) - 2 / np.pi
+            + R_rot * kappa * (-2 * modstruve(-2, x) + 2 * iv(2, x) + 1))
+    Rot[np.isnan(Rot)] = 0
+    return Rot
+
+
+def _row(x, device):
+    return torch.tensor([float(x)], dtype=torch.float64, device=device)
+
+
+def _np_rotation(x3, x2, x1):
+    return tf.rotation_matrix(*(torch.tensor(float(a), dtype=torch.float64)
+                                for a in (x3, x2, x1))).numpy()
+
+
+def calc_aero(rot, rprops, case, w, speed=None, platform_heading=0.0,
+              current=False, device=None):
+    """Aero-servo coefficients of one rotor about its node in the global
+    frame for one load case (the reference's untraced ``calc_aero``, the
+    case setup of the orchestrated path): yaw modes 0-3, ``aeroServoMod``
+    1 (thrust slope) and 2 (the PI pitch/torque control transfer
+    functions), the rotor channels' transfer-function data and the shift
+    from the hub to the rotor node.
+
+    The blade-element solve and its derivatives run as one row of
+    :func:`rotor_loads_and_derivs` on ``device`` (default: the current
+    CUDA device; raises without one); the rest is host
+    numpy, per frequency as the reference loops.  A submerged rotor
+    (``current``) sees the case's current, others its wind.  Returns
+    (f0 (6,), f (6, nw) complex, a (6, 6, nw), b (6, 6, nw), info) as
+    numpy, info holding the loads, derivatives, operating point, the
+    rotor-averaged inflow amplitudes V_w, R_q, q and the channel data
+    C, kp_*, ki_*, aero_torque and aero_power."""
+    w = np.asarray(w, dtype=float)
+    nw = len(w)
+    if current:
+        if speed is None:
+            speed = float(coerce(case, "current_speed", shape=0, default=1.0))
+        heading = float(coerce(case, "current_heading", shape=0,
+                               default=0.0))
+    else:
+        if speed is None:
+            speed = float(coerce(case, "wind_speed", shape=0, default=10))
+        heading = float(coerce(case, "wind_heading", shape=0, default=0.0))
+    yaw_command = float(coerce(case, "yaw_misalign", shape=0, default=0.0))
+    turbine_heading = float(coerce(case, "turbine_heading", shape=0,
+                                   default=0.0))
+    yaw_mode = getattr(rprops, "yaw_mode", 0)
+    inflow_heading = np.radians(heading)
+    if yaw_mode == 0:
+        yaw = inflow_heading - platform_heading + np.radians(yaw_command)
+    elif yaw_mode == 1:
+        yaw = np.radians(turbine_heading) - platform_heading
+    elif yaw_mode == 2:
+        yaw = np.radians(yaw_command)
+    elif yaw_mode == 3:
+        yaw = np.radians(yaw_command) - platform_heading
+    else:
+        raise ValueError("unsupported yaw_mode")
+
+    R_q = _np_rotation(0.0, -rprops.shaft_tilt, rprops.shaft_toe + yaw)
+    q = R_q @ np.array([1.0, 0.0, 0.0])
+    yaw_misalign = np.arctan2(q[1], q[0]) - inflow_heading
+    turbine_tilt = np.arctan2(q[2], np.hypot(q[0], q[1]))
+
+    device = resolve_device(device)
+    rt = rotor_tensors(rot, device)
+    U = _row(speed, device)
+    Om_t, pit_t = operating_point(rt, U)
+    Om, pit = float(Om_t[0]), float(pit_t[0])
+    loads, dT, dQ = rotor_loads_and_derivs(
+        rt, U, _row(Om, device), _row(pit, device),
+        _row(-turbine_tilt, device), _row(yaw_misalign, device))
+    loads, dT, dQ = (x[0].cpu().numpy() for x in (loads, dT, dQ))
+
+    dT_dU, dT_dOm, dT_dPi = dT[0], dT[1] / RPM2RADPS, dT[2] * RAD2DEG
+    dQ_dU, dQ_dOm, dQ_dPi = dQ[0], dQ[1] / RPM2RADPS, dQ[2] * RAD2DEG
+
+    f0 = np.zeros(6)
+    f0[:3] = R_q @ loads[:3]
+    f0[3:] = R_q @ loads[3:]
+
+    turbulence = (case.get("current_turbulence", 0.0) if current
+                  else case.get("turbulence", 0.0))
+    S_rot = kaimal_rot_psd(w, speed, turbulence, rprops.Zhub, rot.Rtip)
+    V_w = np.sqrt(2 * S_rot * (w[1] - w[0])).astype(np.complex128)
+
+    a = np.zeros((6, 6, nw))
+    b = np.zeros((6, 6, nw))
+    f = np.zeros((6, nw), dtype=np.complex128)
+    chan = dict(C=np.zeros(nw, dtype=np.complex128), kp_beta=0.0,
+                ki_beta=0.0, kp_tau=0.0, ki_tau=0.0,
+                aero_torque=float(loads[3]),
+                aero_power=float(loads[3] * Om * 2 * np.pi / 60.0))
+    Rq_t = torch.as_tensor(R_q)
+    if rprops.aeroServoMod == 1:
+        b_in = np.zeros((nw, 6, 6))
+        b_in[:, 0, 0] = dT_dU
+        b = np.moveaxis(tf.rotate_matrix_6(torch.as_tensor(b_in),
+                                           Rq_t).numpy(), 0, -1).copy()
+        f_in = np.zeros((6, nw), dtype=np.complex128)
+        f_in[0, :] = dT_dU * V_w
+        f[:3, :] = R_q @ f_in[:3, :]
+    elif rprops.aeroServoMod == 2:
+        kp_beta = -np.interp(speed, rot.U_sched, rot.kp_0)
+        ki_beta = -np.interp(speed, rot.U_sched, rot.ki_0)
+        kp_tau = rot.kp_tau * (kp_beta == 0)
+        ki_tau = rot.ki_tau * (ki_beta == 0)
+        zhub = rprops.Zhub
+        Dden = (rot.I_drivetrain * w ** 2
+                + (dQ_dOm + kp_beta * dQ_dPi - rot.Ng * kp_tau) * 1j * w
+                + ki_beta * dQ_dPi - rot.Ng * ki_tau)
+        chan.update(
+            C=1j * w * (dQ_dU - rot.k_float * dQ_dPi / zhub) / Dden,
+            kp_beta=float(kp_beta), ki_beta=float(ki_beta),
+            kp_tau=float(kp_tau), ki_tau=float(ki_tau))
+        H_QT = ((dT_dOm + kp_beta * dT_dPi) * 1j * w
+                + ki_beta * dT_dPi) / Dden
+        f2 = (dT_dU - H_QT * dQ_dU) * V_w
+        resp = (dT_dU - rot.k_float * dT_dPi / zhub
+                - H_QT * (dQ_dU - rot.k_float * dQ_dPi / zhub))
+        b2 = np.real(resp)
+        a2 = np.real(resp / (1j * w))
+        for iw in range(nw):
+            a[:3, :3, iw] = R_q @ np.diag([a2[iw], 0, 0]) @ R_q.T
+            b[:3, :3, iw] = R_q @ np.diag([b2[iw], 0, 0]) @ R_q.T
+            f[:3, iw] = R_q @ np.array([f2[iw], 0, 0])
+
+    # shift from the hub to the rotor node
+    r_off = torch.as_tensor(q * rprops.overhang)
+    f0 = tf.transform_force_6(torch.as_tensor(f0), r_off).numpy()
+    a = np.moveaxis(tf.translate_matrix_6to6(
+        torch.as_tensor(np.moveaxis(a, -1, 0)), r_off).numpy(), 0, -1)
+    b = np.moveaxis(tf.translate_matrix_6to6(
+        torch.as_tensor(np.moveaxis(b, -1, 0)), r_off).numpy(), 0, -1)
+    f = tf.transform_force_6(torch.as_tensor(f.T), r_off.to(
+        torch.complex128)).numpy().T
+    return f0, f, a, b, dict(loads=loads, dT=dT, dQ=dQ, Omega_rpm=Om,
+                             pitch_deg=pit, V_w=V_w, R_q=R_q, q=q, **chan)
+
+
+def calc_cavitation(rot, rprops, case, Patm=101325.0, Pvap=2300.0,
+                    rho=1025.0, g=9.81, device=None):
+    """Cavitation margin per (azimuth, element) of a submerged rotor at
+    the case's current (the reference's ``calc_cavitation``):
+    ``sigma_crit = (Patm + rho g |z| - Pvap) / (0.5 rho W^2)`` plus the
+    element's ``cpmin`` at its angle of attack; negative means
+    cavitation.  The inflow roots run as one row of the blade-element
+    solve on ``device`` (every azimuth and element at once; default:
+    the current CUDA device, raising without one).  None
+    without ``cpmin`` polars (the fifth column of the airfoil tables);
+    else (nSector, nr) numpy."""
+    if rot.cpmin is None:
+        return None
+    speed = float(coerce(case, "current_speed", shape=0, default=1.0))
+    device = resolve_device(device)
+    rt = rotor_tensors(rot, device)
+    Om_t, pit_t = operating_point(rt, _row(speed, device))
+    Om, pit = float(Om_t[0]), float(pit_t[0])
+    Omega = Om * np.pi / 30.0
+    Vx, Vy = _wind_components(rt, _row(speed, device), _row(Omega, device),
+                              rt.azimuths, _row(-rprops.shaft_tilt, device),
+                              _row(0.0, device))
+    el = _elements(rt, _row(pit, device))
+    phi = _solve_phi_primal(Vx, Vy, el)
+    a, ap, _, _ = _induction(phi, el)
+    Vx, Vy, phi, a, ap = (x[0].cpu().numpy() for x in (Vx, Vy, phi, a, ap))
+    W2 = (Vx * (1 - a)) ** 2 + (Vy * (1 + ap)) ** 2
+    alpha = np.degrees(phi) - (rot.theta_deg + pit)
+    cpmin = np.stack([
+        np.interp(alpha[:, ie], rot.aoa_deg, rot.cpmin[ie])
+        for ie in range(len(rot.r))], axis=1)
+    _, _, z_az, _, _ = _curvature(rot.r, rot.precurve, rot.presweep,
+                                  rot.precone)
+    az = np.arange(rot.nSector) * 2 * np.pi / rot.nSector
+    zrel = z_az[None, :] * np.cos(az)[:, None] * np.cos(rprops.shaft_tilt)
+    depth = np.abs(rprops.Zhub + zrel)
+    sigma_crit = (Patm + rho * g * depth - Pvap) / (
+        0.5 * rho * np.maximum(W2, 1e-9))
+    return sigma_crit + cpmin

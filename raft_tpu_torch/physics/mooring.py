@@ -39,6 +39,7 @@ its loop, so the two gradients agree to the catenary's convergence.
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -70,8 +71,8 @@ class MooringSystem:
     EA: object              # (nL,) axial stiffness [N]
     depth: float
     moorMod: int = 0
-    # line-dynamics properties a MoorDyn file carries (parse_moordyn_
-    # system); read by nothing on the quasi-static path
+    # line-dynamics properties (``moorMod`` 1 or 2, read by
+    # physics/mooring_dynamics.py); the quasi-static path reads none
     m_lin: object = None    # (nL,) mass per length
     d_vol: object = None    # (nL,) volume-equivalent diameter
     Cd: object = None       # transverse drag
@@ -85,12 +86,12 @@ class MooringSystem:
         return self.r_anchor.shape[0]
 
     def to(self, device, dtype=torch.float64):
-        """The same system with every line array a tensor on ``device``."""
+        """The same system with every catenary array a tensor on
+        ``device`` (the line-dynamics columns stay host numpy)."""
         kw = dict(dtype=dtype, device=device)
-        return MooringSystem(
-            **{k: torch.as_tensor(np.asarray(getattr(self, k)), **kw)
-               for k in ("r_anchor", "r_fair0", "L", "w", "EA")},
-            depth=self.depth, moorMod=self.moorMod)
+        return dataclasses.replace(self, **{
+            k: torch.as_tensor(np.asarray(getattr(self, k)), **kw)
+            for k in ("r_anchor", "r_fair0", "L", "w", "EA")})
 
 
 def build_mooring(mooring, rho_water=1025.0, g=9.81, x_ref=0.0, y_ref=0.0,
@@ -102,17 +103,17 @@ def build_mooring(mooring, rho_water=1025.0, g=9.81, x_ref=0.0, y_ref=0.0,
     Submerged weight per length w = (m' - rho pi/4 d^2) g with d the
     volume-equivalent diameter (MoorPy convention).  ``x_ref/y_ref`` and
     ``heading_adjust`` move the anchors to the FOWT's array position.
-    Line dynamics (``moorMod`` 1 or 2) are not ported and raise."""
+    The line-dynamics columns (mass, diameter, drag and added-mass
+    coefficients, internal damping ``damping``) ride along for
+    ``moorMod`` 1 and 2 (:mod:`raft_tpu_torch.physics.mooring_dynamics`)."""
     moorMod = int(coerce(mooring, "moorMod", default=0, dtype=int))
-    if moorMod != 0:
-        raise NotImplementedError(
-            f"moorMod {moorMod}: mooring line dynamics are not ported "
-            "(ROADMAP A10); only the quasi-static catenary (moorMod 0) is")
     depth = float(coerce(mooring, "water_depth", default=600.0))
     types = {lt["name"]: lt for lt in mooring["line_types"]}
     points = {p["name"]: p for p in mooring["points"]}
 
     r_anchor, r_fair, L, w, EA = [], [], [], [], []
+    dyn = {k: [] for k in ("m_lin", "d_vol", "Cd", "Ca", "CdAx", "CaAx",
+                           "BA")}
     for line in mooring["lines"]:
         pA = points[line["endA"]]
         pB = points[line["endB"]]
@@ -129,6 +130,15 @@ def build_mooring(mooring, rho_water=1025.0, g=9.81, x_ref=0.0, y_ref=0.0,
         L.append(float(line["length"]))
         w.append((m_lin - rho_water * np.pi / 4 * d**2) * g)
         EA.append(float(lt["stiffness"]))
+        for k, v in (("m_lin", m_lin), ("d_vol", d),
+                     ("Cd", coerce(lt, "transverse_drag", default=1.2)),
+                     ("Ca", coerce(lt, "transverse_added_mass",
+                                   default=1.0)),
+                     ("CdAx", coerce(lt, "tangential_drag", default=0.05)),
+                     ("CaAx", coerce(lt, "tangential_added_mass",
+                                     default=0.0)),
+                     ("BA", coerce(lt, "damping", default=0.0))):
+            dyn[k].append(float(v))
 
     r_anchor = np.array(r_anchor)
     r_fair = np.array(r_fair)
@@ -141,7 +151,8 @@ def build_mooring(mooring, rho_water=1025.0, g=9.81, x_ref=0.0, y_ref=0.0,
     # fairleads stay body-local (the body pose carries x_ref/y_ref)
     return MooringSystem(r_anchor=np.array(r_anchor), r_fair0=np.array(r_fair),
                          L=np.array(L), w=np.array(w), EA=np.array(EA),
-                         depth=depth, moorMod=moorMod)
+                         depth=depth, moorMod=moorMod,
+                         **{k: np.array(v) for k, v in dyn.items()})
 
 
 def _grounded(VF, L, w, can_ground):

@@ -133,7 +133,9 @@ def _check_bucketable(model, full=False):
     """The reference's refusals (some already raise when the port's
     Model is built).  ``full=True`` lets potential-flow designs and
     external QTFs through: the full evaluator, which adds their
-    coefficients and forces to the bucket's stages, packs them."""
+    coefficients and forces to the bucket's stages, packs them, and
+    line-dynamics designs (``moorMod`` 1 or 2) with their quasi-static
+    catenary."""
     if model.nFOWT != 1:
         raise UnbucketableDesignError(
             "bucketing covers single-FOWT models: an array runs through "
@@ -159,7 +161,10 @@ def _check_bucketable(model, full=False):
     if ms is not None and not isinstance(ms, MooringSystem):
         raise UnbucketableDesignError(
             "network/file moorings with free points are not bucketed")
-    if ms is not None and int(getattr(ms, "moorMod", 0) or 0) != 0:
+    if not full and ms is not None and int(getattr(ms, "moorMod", 0)
+                                           or 0) != 0:
+        # the full evaluator, as the reference's, never reads moorMod:
+        # it takes such a design with its quasi-static catenary
         raise UnbucketableDesignError("moorMod 1/2 line dynamics not bucketed")
 
 

@@ -47,3 +47,23 @@ def set_bit(status, mask, cond):
 def any_bit(status, mask=SEVERE):
     """Does ``status`` carry any bit of ``mask``?"""
     return (status & np.int32(mask)) != 0
+
+
+def describe(status):
+    """A host status value as text: ``"ok"`` for 0, else the names of
+    its bits joined by ``|`` (an unknown bit as ``bit<N>``)."""
+    s = int(status)
+    if s == 0:
+        return "ok"
+    names = [name for name, mask in MASKS.items() if s & mask]
+    known = 0
+    for mask in MASKS.values():
+        known |= mask
+    unknown = s & ~known
+    bit = 0
+    while unknown:
+        if unknown & 1:
+            names.append(f"bit{bit}")
+        unknown >>= 1
+        bit += 1
+    return "|".join(names)

@@ -132,6 +132,21 @@ For potential flow (the panel solver and WAMIT files) it writes:
   ``golden_semi_wind_qtf.npz`` (one and two headings, geometry rows)
   and ``golden_semi_wind_bem_coarse_qtf.npz``, FUSED on and off.
 
+For the orchestrated path (``Model.analyze_cases``) and the drivers it
+writes:
+
+* ``design_semi_wind_cases.json`` (semi_wind with the 4-case table
+  :data:`SEMI_WIND_CASES`), ``design_mhk_tidal_cav.json`` (mhk_tidal
+  with the cpmin column of :func:`cpmin_polar`),
+  ``design_farm_semi_wind_cases.json`` (the farm with
+  :data:`FARM_CASES`) and ``design_semi_wind_moor1.json`` / ``_moor2``
+  (semi_wind's mooring at ``moorMod`` 1 and 2);
+* ``golden_orch_<set>.npz`` for every set of :data:`ORCH_DESIGN_FILES`:
+  the JAX ``analyze_cases`` and ``calc_outputs`` (:func:`build_orch_golden`);
+* ``golden_drivers.npz``: the JAX ``adjust_ballast`` of the spar and
+  the farm's ``WakeCoupling`` curves, equilibrium and AEP
+  (:func:`build_drivers_golden`).
+
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
@@ -140,6 +155,9 @@ Run from the repository root::
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --flex
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --bem
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --qtf
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py \
+        --orchestrated [set ...]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --drivers
 
 It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
 geometry and gradient goldens, or the named parts of them).
@@ -149,8 +167,10 @@ file name does not start with ``test_``); the slow tests
 ``tests/test_torch_bucket.py::test_fixtures_regenerate``,
 ``tests/test_torch_full.py::test_full_fixtures_regenerate``,
 ``tests/test_torch_geometry.py::test_geometry_fixtures_regenerate``,
-``tests/test_torch_grad.py::test_grad_fixtures_regenerate`` and
-``tests/test_torch_secondorder.py::test_qtf_fixtures_regenerate`` re-run
+``tests/test_torch_grad.py::test_grad_fixtures_regenerate``,
+``tests/test_torch_secondorder.py::test_qtf_fixtures_regenerate``,
+``tests/test_torch_orchestrated.py::test_orch_golden_regenerates`` and
+``tests/test_torch_drivers.py::test_drivers_golden_regenerates`` re-run
 the builders here and compare with the files.
 """
 
@@ -1648,6 +1668,342 @@ def write_qtf_fixtures():
         shutil.rmtree(cache, ignore_errors=True)
 
 
+# ------------------------------------------------------ orchestrated path
+
+#: the case-table keys of the orchestrated designs (the demos')
+CASE_KEYS = ["wind_speed", "wind_heading", "turbulence", "turbine_status",
+             "yaw_misalign", "wave_spectrum", "wave_period", "wave_height",
+             "wave_heading", "current_speed", "current_heading"]
+#: design_semi_wind_cases.json: two operating cases with yaw and current
+#: (a numeric TI, then an IEC class string), an idle case, and a
+#: two-heading case whose wind and current repeat the first case's (the
+#: aero cache serves it)
+SEMI_WIND_CASES = [
+    [10.59, 0.0, 0.1, "operating", 5.0, "JONSWAP", 10.0, 4.0, 0.0, 0.6,
+     30.0],
+    [16.0, 20.0, "IB_NTM", "operating", -6.0, "JONSWAP", 12.0, 6.0, 30.0,
+     0.3, 200.0],
+    [30.0, 0.0, 0.12, "idle", 0.0, "JONSWAP", 14.0, 9.0, 0.0, 0.0, 0.0],
+    [10.59, 0.0, 0.1, "operating", 5.0, ["JONSWAP", "JONSWAP"],
+     [10.0, 7.0], [4.0, 2.0], [0.0, 60.0], 0.6, 30.0],
+]
+#: the farm's two cases (one wind speed for both units; current on one)
+FARM_CASES = [
+    [10.0, 0.0, 0.1, "operating", 0.0, "JONSWAP", 12.0, 6.0, 0.0, 0.0, 0.0],
+    [14.0, 10.0, 0.12, "operating", 3.0, "JONSWAP", 9.0, 3.0, 20.0, 0.5,
+     45.0],
+]
+#: every orchestrated golden set -> its design file
+ORCH_DESIGN_FILES = {
+    "spar": "design_spar.json", "semi": "design_semi.json",
+    "mhk": "design_mhk.json",
+    "semi_wind_cases": "design_semi_wind_cases.json",
+    "mhk_tidal": "design_mhk_tidal.json",
+    "mhk_tidal_cav": "design_mhk_tidal_cav.json",
+    "semi_wind_flex": "design_semi_wind_flex.json",
+    "farm_semi_wind": "design_farm_semi_wind_cases.json",
+    "semi_wind_wamit": "design_semi_wind_wamit.json",
+    "semi_wind_qtf": "design_semi_wind_qtf.json",
+    "semi_wind_slender": "design_semi_wind_slender.json",
+    "semi_wind_moor1": "design_semi_wind_moor1.json",
+    "semi_wind_moor2": "design_semi_wind_moor2.json",
+}
+#: the sets run through run_farm (case metrics only)
+ORCH_FARMS = ("farm_semi_wind",)
+
+
+def semi_wind_cases_design():
+    """semi_wind with the 4-case table :data:`SEMI_WIND_CASES`."""
+    d = semi_wind_design()
+    d["name"] = ("semi_wind_cases - raft_tpu_torch fixture of semi_wind "
+                 "with a 4-case table")
+    d["cases"] = dict(keys=CASE_KEYS, data=SEMI_WIND_CASES)
+    return d
+
+
+def cpmin_polar(t_rel):
+    """:func:`analytic_polar` with a fifth column, a synthetic minimum
+    pressure coefficient ``cpmin = -(1 + 0.5 cl^2 + 3 sin^2 a)`` (-3 for
+    the cylinder, the potential-flow value at its shoulders)."""
+    import numpy as np
+
+    rows = analytic_polar(t_rel)
+    out = []
+    for aoa, cl, cd, cm in rows:
+        a = np.deg2rad(aoa)
+        cp = -3.0 if t_rel >= 1.0 else -(1.0 + 0.5 * cl ** 2
+                                         + 3.0 * np.sin(a) ** 2)
+        out.append([aoa, cl, cd, cm, float(cp)])
+    return out
+
+
+def mhk_tidal_cav_design():
+    """mhk_tidal whose airfoil tables carry the cpmin column of
+    :func:`cpmin_polar`, for the cavitation margins."""
+    d = mhk_tidal_design()
+    d["name"] = ("mhk_tidal_cav - raft_tpu_torch fixture of mhk_tidal with "
+                 "cpmin polars")
+    for af in d["turbine"]["airfoils"]:
+        af["data"] = cpmin_polar(af["relative_thickness"])
+    return d
+
+
+def farm_semi_wind_cases_design():
+    """design_farm_semi_wind.json with the 2-case table
+    :data:`FARM_CASES`."""
+    d = farm_semi_wind_design()
+    d["name"] = ("farm_semi_wind_cases - raft_tpu_torch fixture of the "
+                 "semi_wind farm with a 2-case table")
+    d["cases"] = dict(keys=CASE_KEYS, data=FARM_CASES)
+    return d
+
+
+def semi_wind_moor_design(mod):
+    """semi_wind's inline mooring with ``moorMod`` ``mod`` (1: lumped-mass
+    tensions, 2: also the lumped-mass mooring impedance)."""
+    d = semi_wind_design()
+    d["name"] = (f"semi_wind_moor{mod} - raft_tpu_torch fixture of semi_wind "
+                 f"with moorMod {mod}")
+    d["mooring"]["moorMod"] = mod
+    return d
+
+
+#: the designs this part writes: set name -> the function that makes it
+ORCH_NEW_DESIGNS = {
+    "semi_wind_cases": semi_wind_cases_design,
+    "mhk_tidal_cav": mhk_tidal_cav_design,
+    "farm_semi_wind": farm_semi_wind_cases_design,
+    "semi_wind_moor1": lambda: semi_wind_moor_design(1),
+    "semi_wind_moor2": lambda: semi_wind_moor_design(2),
+}
+
+
+def orch_model(name, qtf_dir=None):
+    """The JAX Model of an orchestrated set, from its fixture file (so
+    data paths resolve against the fixtures); ``qtf_dir`` sets the
+    slender design's ``outFolderQTF``."""
+    import json
+
+    _jax()
+    import raft_tpu
+
+    with open(os.path.join(OUT_DIR, ORCH_DESIGN_FILES[name])) as f:
+        d = json.load(f)
+    if qtf_dir is not None:
+        d["platform"]["outFolderQTF"] = qtf_dir
+    return raft_tpu.Model(d, base_dir=OUT_DIR)
+
+
+class _CaseMetrics(dict):
+    """A case's channel dict that also answers the telemetry calls."""
+
+    class _Noop:
+        def inc(self, *a, **k):
+            pass
+
+        observe = inc
+
+    def counter(self, name):
+        return self._Noop()
+
+    histogram = counter
+
+
+class _metrics_shadow_guard:
+    """The JAX ``Model.analyze_cases`` binds each case's channel dict to
+    the local name of its telemetry module (``metrics``), so from the
+    second case on its ``metrics.counter(...)`` calls land on that dict
+    and raise.  While this guard is open its ``turbine_outputs`` returns
+    a dict that answers them (doing nothing), so a multi-case table runs
+    through the unchanged JAX code."""
+
+    def __enter__(self):
+        from raft_tpu.models import outputs
+
+        self._orig = outputs.turbine_outputs
+        orig = self._orig
+        outputs.turbine_outputs = lambda *a, **k: _CaseMetrics(orig(*a, **k))
+        return self
+
+    def __exit__(self, *exc):
+        from raft_tpu.models import outputs
+
+        outputs.turbine_outputs = self._orig
+        return False
+
+
+def build_orch_golden(name):
+    """The ``golden_orch_<name>.npz`` dict: the JAX ``analyze_cases`` of
+    the set's design (a farm: ``run_farm``'s scope, case metrics only;
+    else also ``calc_outputs``), float64 on the CPU:
+
+    * ``m<case>_<fowt>_<key>``: every ``case_metrics`` key;
+    * ``mean_offsets`` (nCase, nDOF), ``statics_status`` (nCase,) of each
+      case's first equilibrium, and per case and FOWT the drag
+      linearisation's ``dyn_status``, ``n_iter_drag``,
+      ``drag_converged``, ``drag_resid``;
+    * ``prop_<name>`` for every property, ``eig_frequencies`` and
+      ``eig_modes`` (not for a farm);
+    * ``csv``: the text ``save_responses`` writes; ``modes_json``: the
+      text of ``write_modes_json`` (not for a farm);
+    * for the slender design, ``ckpt_<file>``: the text of each ``.4``
+      and ``.12d`` checkpoint written to ``outFolderQTF``."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from raft_tpu.drivers import save_responses
+
+    tmp = tempfile.mkdtemp(prefix="orch_")
+    try:
+        qdir = (os.path.join(tmp, "qtf") if name == "semi_wind_slender"
+                else None)
+        model = orch_model(name, qtf_dir=qdir)
+        status, diags = [], []
+        solve_statics, solve_dynamics = model.solve_statics, \
+            model.solve_dynamics
+
+        def statics(case=None, extra_force=None):
+            X = solve_statics(case, extra_force=extra_force)
+            if case is not None and extra_force is None:
+                status.append(model.statics_status)
+            return X
+
+        def dynamics(case, X0=None):
+            Xi, info = solve_dynamics(case, X0=X0)
+            diags.append([inf["dyn_diag"] for inf in info["infos"]])
+            return Xi, info
+
+        model.solve_statics, model.solve_dynamics = statics, dynamics
+        with _metrics_shadow_guard():
+            res = model.analyze_cases()
+        gd = {}
+        for ic, per in res["case_metrics"].items():
+            for i, met in per.items():
+                for k, v in met.items():
+                    gd[f"m{ic}_{i}_{k}"] = np.asarray(v)
+        gd["mean_offsets"] = np.stack([np.asarray(x)
+                                       for x in res["mean_offsets"]])
+        gd["statics_status"] = np.asarray(status, dtype=np.int32)
+        for k, dt in (("status", np.int32), ("n_iter_drag", np.int32),
+                      ("drag_converged", bool), ("drag_resid", float)):
+            gd["dyn_status" if k == "status" else k] = np.asarray(
+                [[np.asarray(dd[k]).astype(dt) for dd in per]
+                 for per in diags])
+        csv = os.path.join(tmp, "out.csv")
+        save_responses(model, csv)
+        with open(csv) as f:
+            gd["csv"] = np.asarray(f.read())
+        if name not in ORCH_FARMS:
+            model.calc_outputs()
+            for k, v in model.results["properties"].items():
+                gd[f"prop_{k}"] = np.asarray(v)
+            gd["eig_frequencies"] = np.asarray(
+                model.results["eigen"]["frequencies"])
+            gd["eig_modes"] = np.asarray(model.results["eigen"]["modes"])
+            mj = os.path.join(tmp, "modes.json")
+            model.write_modes_json(mj)
+            with open(mj) as f:
+                gd["modes_json"] = np.asarray(f.read())
+        if qdir is not None:
+            for fn in sorted(os.listdir(qdir)):
+                with open(os.path.join(qdir, fn)) as f:
+                    gd[f"ckpt_{fn}"] = np.asarray(f.read())
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"orch {name}: statics_status={gd['statics_status'].tolist()} "
+          f"n_iter_drag={gd['n_iter_drag'].tolist()}", flush=True)
+    return gd
+
+
+def write_orch_fixtures(names=None):
+    """Write the orchestrated designs (:data:`ORCH_NEW_DESIGNS`) and the
+    ``golden_orch_*`` files (about 10 min on 8 cores)."""
+    import json
+
+    import numpy as np
+
+    for name, fn in ORCH_NEW_DESIGNS.items():
+        with open(os.path.join(OUT_DIR, ORCH_DESIGN_FILES[name]), "w") as f:
+            f.write(json.dumps(fn(), indent=1) + "\n")
+    for name in names or ORCH_DESIGN_FILES:
+        np.savez_compressed(os.path.join(OUT_DIR, f"golden_orch_{name}.npz"),
+                            **build_orch_golden(name))
+
+
+#: adjust_ballast's arguments on the spar (golden_drivers.npz)
+BALLAST_ARGS = dict(target_heave=-1.0, heave_tol=0.05)
+#: the wake coupling's power/thrust grid, the farm case and iterations
+#: of its equilibrium, and calc_aep's wind states (below cut-in, waked
+#: at 30 deg, above cut-out) and iterations
+WAKE_GRID = [4.0, 8.0, 10.59, 14.0, 20.0]
+WAKE_CASE = 0
+WAKE_EQ_ITER = 3
+AEP_STATES = dict(windspeeds=[2.0, 9.0, 26.0], winddirs=[0.0, 30.0, 0.0],
+                  probabilities=[0.2, 0.5, 0.3])
+AEP_ITER = 2
+
+
+def build_drivers_golden():
+    """The ``golden_drivers.npz`` dict, from the JAX package on the CPU:
+
+    * ``bal_scale``, ``bal_l_fill_<member>`` and ``bal_X0``: the JAX
+      ``adjust_ballast`` of the spar at :data:`BALLAST_ARGS`, its fill
+      lengths and the rebuilt design's unloaded equilibrium;
+    * ``wake_Ct_<fowt>``, ``wake_power_<fowt>``: the JAX
+      ``WakeCoupling`` curves of the two-unit farm on :data:`WAKE_GRID`;
+      ``eq_winds``, ``eq_xs``, ``eq_ys``, ``eq_powers``: its
+      ``find_equilibrium`` histories on the farm's case
+      :data:`WAKE_CASE` over :data:`WAKE_EQ_ITER` iterations;
+      ``aep_powers``, ``aep_states``, ``aep_total``: its ``calc_aep`` over
+      :data:`AEP_STATES` at :data:`AEP_ITER` iterations a state."""
+    import json
+
+    import numpy as np
+
+    _jax()
+    import raft_tpu
+    from raft_tpu.drivers import adjust_ballast
+    from raft_tpu.physics.wake import WakeCoupling
+
+    gd = {}
+    with open(os.path.join(OUT_DIR, "design_spar.json")) as f:
+        spar = json.load(f)
+    model, scale = adjust_ballast(spar, **BALLAST_ARGS)
+    gd["bal_scale"] = np.asarray(scale)
+    for i, mi in enumerate(model.design["platform"]["members"]):
+        if "l_fill" in mi:
+            gd[f"bal_l_fill_{i}"] = np.asarray(mi["l_fill"], dtype=float)
+    gd["bal_X0"] = np.asarray(model.solve_statics(None))
+
+    farm = raft_tpu.Model(os.path.join(OUT_DIR,
+                                       ORCH_DESIGN_FILES["farm_semi_wind"]))
+    wc = WakeCoupling(farm, u_grid=np.asarray(WAKE_GRID))
+    for i, c in enumerate(wc.curves):
+        gd[f"wake_Ct_{i}"] = np.asarray(c["Ct"])
+        gd[f"wake_power_{i}"] = np.asarray(c["power"])
+    keys = farm.design["cases"]["keys"]
+    case = dict(zip(keys, farm.design["cases"]["data"][WAKE_CASE]))
+    for k, v in zip(("eq_winds", "eq_xs", "eq_ys", "eq_powers"),
+                    wc.find_equilibrium(case, n_iter=WAKE_EQ_ITER)):
+        gd[k] = np.asarray(v)
+    powers, per_state, total = wc.calc_aep(**AEP_STATES, n_iter=AEP_ITER)
+    gd["aep_powers"] = np.asarray(powers)
+    gd["aep_states"] = np.asarray(per_state)
+    gd["aep_total"] = np.asarray(total)
+    print(f"drivers: ballast scale {scale!r}, AEP {total!r} Wh", flush=True)
+    return gd
+
+
+def write_drivers_fixtures():
+    """Write ``golden_drivers.npz`` (about 3 min)."""
+    import numpy as np
+
+    np.savez_compressed(os.path.join(OUT_DIR, "golden_drivers.npz"),
+                        **build_drivers_golden())
+
+
 def main():
     import numpy as np
 
@@ -1666,6 +2022,12 @@ def main():
         return
     if sys.argv[1:] == ["--qtf"]:
         write_qtf_fixtures()
+        return
+    if sys.argv[1:2] == ["--orchestrated"]:
+        write_orch_fixtures(sys.argv[2:])
+        return
+    if sys.argv[1:] == ["--drivers"]:
+        write_drivers_fixtures()
         return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
@@ -1687,6 +2049,8 @@ def main():
     write_flex_fixtures()
     write_bem_fixtures()
     write_qtf_fixtures()
+    write_orch_fixtures()
+    write_drivers_fixtures()
 
 
 if __name__ == "__main__":

@@ -125,7 +125,8 @@ def _refusals():
         d["platform"]["hydroPath"] = "spar_bem"
 
     def file_mooring(d):
-        # a MoorDyn-file mooring with line dynamics
+        # a MoorDyn-file mooring with line dynamics (the file is written
+        # by the test, see _spar_moordyn)
         d["mooring"] = {"water_depth": 320, "file": "lines.dat", "moorMod": 1}
 
     def moor_mod(d):
@@ -146,8 +147,48 @@ def _refusals():
                                     file_mooring, moor_mod, array, qtf)}
 
 
+def _spar_moordyn(d):
+    """The spar's inline mooring as a MoorDyn v2 text (vessel-to-anchor
+    lines; MoorDyn's default line coefficients)."""
+    mo = d["mooring"]
+    lt = mo["line_types"][0]
+    pts = {p["name"]: (i + 1, p) for i, p in enumerate(mo["points"])}
+    rows = ["--- LINE TYPES ---",
+            "Name Diam MassDen EA BA/-zeta EI Cd Ca CdAx CaAx",
+            "(name) (m) (kg/m) (N) (N-s/-) (N-m^2) (-) (-) (-) (-)",
+            f"{lt['name']} {lt['diameter']} "
+            f"{lt['mass_density']} {float(lt['stiffness'])} -1.0 0.0 1.2 1.0 "
+            "0.05 0.0", "--- POINTS ---", "ID Attachment X Y Z M V CdA Ca",
+            "(#) (-) (m) (m) (m) (kg) (m3) (m2) (-)"]
+    for i, p in pts.values():
+        kind = "Fixed" if p["type"] == "fixed" else "Vessel"
+        x, y, z = p["location"]
+        rows.append(f"{i} {kind} {x} {y} {z} 0 0 0 0")
+    rows += ["--- LINES ---", "ID LineType AttachA AttachB UnstrLen NumSegs "
+             "Outputs", "(#) (name) (#) (#) (m) (-) (-)"]
+    for i, ln in enumerate(mo["lines"]):
+        rows.append(f"{i + 1} {ln['type']} {pts[ln['endA']][0]} "
+                    f"{pts[ln['endB']][0]} {ln['length']} 20 -")
+    rows += ["--- OPTIONS ---", "320 depth", "END"]
+    return "\n".join(rows) + "\n"
+
+
+def _same_full_rows(model, model0):
+    """The full evaluator of ``model`` gives the bits of ``model0``'s on
+    two rows with current and two headings."""
+    from raft_tpu_torch.api import make_full_evaluator
+
+    rows = dict(current_speed=[0.0, 0.8], current_heading_deg=[0.0, 40.0],
+                Hs=[[6.0, 2.0], [3.0, 1.0]], Tp=[[12.0, 8.0], [9.0, 6.0]],
+                beta_deg=[[0.0, 90.0], [30.0, 200.0]])
+    out = make_full_evaluator(model, nWaves=2, device="cpu")(**rows)
+    ref = make_full_evaluator(model0, nWaves=2, device="cpu")(**rows)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
+
+
 @pytest.mark.parametrize("variant", sorted(_refusals()))
-def test_unsupported_designs_raise(variant):
+def test_unsupported_designs_raise(variant, tmp_path):
     """Each variant of the spar the port does not build raises, naming
     its ROADMAP item, before any Model exists.  What builds is refused
     where the reference refuses it: a beam member (the flexible path) by
@@ -155,10 +196,16 @@ def test_unsupported_designs_raise(variant):
     potential-flow members and coefficient files by the bucket path
     (the case, design and sweep paths), without running the panel
     solver; an array of potential-flow units by the farm evaluator; an
-    external QTF by the bucket path, without reading its file."""
+    external QTF by the bucket path, without reading its file.  Line
+    dynamics (moorMod 1, an inline or a MoorDyn-file mooring) build:
+    the bucket path refuses them, as the reference's does, and the full
+    evaluator, which never reads moorMod, gives the bits of the same
+    design at moorMod 0 (their lumped-mass physics runs in
+    Model.analyze_cases)."""
     from raft_tpu_torch.api import make_farm_evaluator, make_full_evaluator
 
     d = copy.deepcopy(design("spar"))
+    text = _spar_moordyn(d)
     _refusals()[variant](d)
     if variant == "beam":
         model = Model(d)
@@ -189,8 +236,16 @@ def test_unsupported_designs_raise(variant):
             tb.bucket_signature(model)
         assert not hasattr(model, "_qtf")
         return
-    with pytest.raises(NotImplementedError, match=r"ROADMAP A1[01]"):
-        Model(d)
+    assert variant in ("file_mooring", "moor_mod")
+    (tmp_path / "lines.dat").write_text(text)
+    model = Model(copy.deepcopy(d), base_dir=str(tmp_path))
+    assert model.ms.moorMod == 1 and model.ms.m_lin is not None
+    with pytest.raises(tb.UnbucketableDesignError, match="moorMod"):
+        tb.bucket_signature(model)
+    d["mooring"]["moorMod"] = 0
+    model0 = Model(d, base_dir=str(tmp_path))
+    assert model0.ms.moorMod == 0
+    _same_full_rows(model, model0)
 
 
 def test_mcf_strips_match_jax():

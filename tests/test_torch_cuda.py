@@ -14,7 +14,8 @@ evaluator and the farm evaluator within 1e-10 x max of the JAX
 goldens with ``status`` and ``n_iter_drag`` equal (the full evaluator
 on the potential-flow and external-QTF designs too); the slender-body
 QTF within 1e-10 x max|qtf|; reverse-mode gradients within 1e-9 x
-each key's max|g| of the JAX goldens.
+each key's max|g| of the JAX goldens; the orchestrated path's case
+metrics at the gates of ``tests/test_torch_orchestrated.py``.
 """
 
 import json
@@ -465,3 +466,26 @@ def test_solve_dispatch_above_12_goes_to_the_library(cuda):
     assert (linsolve.KERNEL_LAUNCHES, linsolve.ADJ_KERNEL_LAUNCHES,
             linsolve.ROW_KERNEL_LAUNCHES) == before
     assert torch.equal(x, torch.linalg.solve(Z, F[..., None])[..., 0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spar", "semi_wind_moor2"])
+def test_analyze_cases_on_card_matches_golden(cuda, name):
+    """drivers.run on the card: the JAX Model's case metrics within 1e-10
+    x each key's family scale (as tests/test_torch_orchestrated.py holds
+    them), the status words and n_iter_drag equal, and the solve kernel
+    launched once per fixed-point solve and once for the response."""
+    import sys
+
+    from raft_tpu_torch import drivers
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_orchestrated import golden, hold_results
+
+    linsolve.reset_launches()
+    model = drivers.run(os.path.join(FIX, f"design_{name}.json"),
+                        device=cuda)
+    launches = linsolve.KERNEL_LAUNCHES
+    hold_results(model, golden(name))
+    st = model.case_stats
+    assert launches == sum(sum(c["fixed_point_solves"]) + 1 for c in st)

@@ -179,23 +179,32 @@ def _unit_refusals():
 @pytest.mark.parametrize("variant", sorted(_unit_refusals()))
 def test_array_refusals(variant):
     """What the reference's farm evaluator refuses still raises, naming
-    its ROADMAP item: line dynamics (A10) when the array is built; beam
-    (flexible) units and potential-flow units (A11) and an external QTF
-    (A13) build, and the farm evaluator refuses them, as the reference's
-    does (the potential-flow units without running the panel solver, the
-    QTF without reading its file)."""
+    its ROADMAP item and Model.analyze_cases, which takes such arrays:
+    beam (flexible) units and potential-flow units (A11) and an external
+    QTF (A13) build, and the farm evaluator refuses them, as the
+    reference's does (the potential-flow units without running the panel
+    solver, the QTF without reading its file).  Units with line dynamics
+    (moorMod 2) build and the farm evaluator, which never reads moorMod,
+    gives the bits of the same array at moorMod 0."""
     d = copy.deepcopy(design("spar3"))
     _unit_refusals()[variant](d)
-    item = {"beam": "A11", "pot_mod": "A11", "qtf": "A13",
-            "moor_mod": "A10"}[variant]
     if variant in ("beam", "pot_mod", "qtf"):
+        item = {"beam": "A11", "pot_mod": "A11", "qtf": "A13"}[variant]
         model = Model(d, base_dir=FIX)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+        with pytest.raises(NotImplementedError,
+                           match=f"ROADMAP {item}.*analyze_cases"):
             tapi.make_farm_evaluator(model, device="cpu")
         assert not hasattr(model, "_qtf")
         return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        Model(d, base_dir=FIX)
+    assert variant == "moor_mod"
+    m2 = Model(d, base_dir=FIX)
+    assert all(ms.moorMod == 2 for ms in m2.ms_list)
+    g = golden("spar3")
+    rows = {k: g[k][:2] for k in ROW_KEYS}
+    out = tapi.make_farm_evaluator(m2, nWaves=2, device="cpu")(**rows)
+    ref = evaluator("spar3")(**rows)
+    for k in ref:
+        assert torch.equal(out[k], ref[k]), k
 
 
 def test_farm_raises_without_cuda_and_is_forward_only(monkeypatch):

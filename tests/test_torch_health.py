@@ -26,3 +26,10 @@ def test_helpers_on_tensors_match_numpy():
     np.testing.assert_array_equal(s_t.numpy(), s_np)
     np.testing.assert_array_equal(th.any_bit(s_t).numpy(),
                                   jh.any_bit(s_np))
+
+
+def test_describe_matches_jax():
+    """The status text the statics warning prints equals the JAX
+    package's for every single bit, a combination and unknown bits."""
+    for s in [0, *jh.MASKS.values(), jh.SEVERE, jh.SEVERE | (1 << 9)]:
+        assert th.describe(s) == jh.describe(s)

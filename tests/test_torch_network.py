@@ -126,7 +126,8 @@ def test_shared_file_matches_jax():
 def test_model_reads_a_moordyn_file(tmp_path):
     """A single unit's MoorDyn-file mooring: a vessel-to-anchor file
     becomes the JAX Model's catenary system, a file with free points its
-    network; moorMod 1 or 2 raises naming ROADMAP A10."""
+    network; with moorMod 1 or 2 the file's system carries that moorMod
+    and the line-dynamics columns, as the JAX Model's does."""
     import raft_tpu
 
     path = _write(tmp_path, "lines.dat", SIMPLE.format(**FORMATS["v2"]))
@@ -144,8 +145,12 @@ def test_model_reads_a_moordyn_file(tmp_path):
                   raft_tpu.Model(copy.deepcopy(d)).ms)
     for mod in (1, 2):
         d["mooring"] = {"water_depth": 200, "file": path, "moorMod": mod}
-        with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-            Model(copy.deepcopy(d))
+        t = Model(copy.deepcopy(d)).ms
+        j = raft_tpu.Model(copy.deepcopy(d)).ms
+        assert t.moorMod == j.moorMod == mod
+        for k in SYSTEM_FIELDS:
+            np.testing.assert_array_equal(getattr(t, k), getattr(j, k),
+                                          err_msg=k)
 
 
 def _golden():
