@@ -190,9 +190,26 @@ Phases, each printing one line (the last line is the result object):
              kernel on the captured system responses (Z, F) of the spar
              (N = 6, the thread-per-system entry) and the farm (N = 12,
              the lane-per-row entry) bit-equal to its plain version.
-21. kernels - one JSON object listing both entries of the solve kernel,
+21. omdao  - the design-optimisation surface: DesignEvaluation on the
+             card for OMDAO_SETS (the spar: first call, a repeat that
+             hits the result cache, the mooring-length override, then
+             use_traced=False; semi_wind; semi_wind at moorMod 1;
+             semi_wind_flex), each held against golden_omdao_*.npz by
+             the gates of tests/test_torch_omdao.py (imported by path),
+             its route (full, flexible or host) the reference's, its
+             result cache's counters equal; the solve kernel's launches
+             per call against the evaluator's trips, analyze_cases'
+             fixed-point solves or none (N = 168), 0 and no evaluator
+             call on every repeat; per set the wall s of each call.
+             Then RAFT_OMDAO_Core on weis_semi_wind.json (build_design
+             exactly the reference's, compute held, its launches
+             counted) and the spar's catenary polylines of
+             plotting._catenary_points held against
+             golden_omdao_plotting.npz.
+22. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path (the analyze
-             path's also as analyze_launches) and the adjoint
+             and omdao paths' also as analyze_launches and
+             omdao_launches) and the adjoint
              with its launches on the grad path, each with its N = 12
              (one-lane-per-row) figures.
 
@@ -2632,27 +2649,30 @@ def _sync():
         torch.cuda.synchronize()
 
 
-def _orch_gates():
-    """tests/test_torch_orchestrated.py, imported by its path (on some
-    machines a site package named ``tests`` shadows the repository's):
-    the CPU tests' goldens and gates, which the analyze phase holds the
-    card to."""
+def _test_module(name):
+    """tests/<name>.py, imported by its path (on some machines a site
+    package named ``tests`` shadows the repository's): the CPU tests'
+    goldens and gates, which the analyze and omdao phases hold the card
+    to."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
-        "test_torch_orchestrated",
-        os.path.join(HERE, "tests", "test_torch_orchestrated.py"))
+        name, os.path.join(HERE, "tests", f"{name}.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
 
 
-def _held(what, fn, *a, **k):
+def _orch_gates():
+    return _test_module("test_torch_orchestrated")
+
+
+def _held(what, fn, *a, phase="analyze", **k):
     """A gate of the CPU tests, its assertion a phase failure here."""
     try:
         return fn(*a, **k)
     except AssertionError as e:
-        raise PhaseError(f"analyze {what}: {e}") from None
+        raise PhaseError(f"{phase} {what}: {e}") from None
 
 
 def phase_analyze(out_dir, card):
@@ -2807,6 +2827,160 @@ def phase_analyze(out_dir, card):
     return res
 
 
+#: the omdao phase's DesignEvaluation sets (of tests/test_torch_omdao.py
+#: SETS): the spar (first call, repeat, override) and its host route, and
+#: the rotor, moorMod 1 and flexible designs.  The farm, the 4-case table
+#: and the WAMIT-file design are held by the CPU tests only: a farm case
+#: pays its network solves at one row (about 36 s a chunk, PERF.md §5)
+OMDAO_SETS = ("spar", "spar_host", "semi_wind", "semi_wind_moor1",
+              "semi_wind_flex")
+
+
+def _host_launches(model):
+    """Solve-kernel launches an analyze_cases run must have made: each
+    FOWT's fixed-point solves at N <= 12 and the system response at
+    N <= 12, per case (as the analyze phase counts them)."""
+    return sum(sum(s for s, fs in zip(c["fixed_point_solves"],
+                                      model.fowtList) if fs.nDOF <= 12)
+               + (c["system_n"] <= 12) for c in model.case_stats)
+
+
+def phase_omdao(card):
+    """The design-optimisation surface (module docstring, phase 21): each
+    set of OMDAO_SETS through DesignEvaluation on the card (compute, a
+    repeat that must hit the result cache, the spar's override), held
+    against golden_omdao_*.npz by the gates of tests/test_torch_omdao.py
+    (imported by path), its route the golden's; the solve kernel's
+    launches per call against the evaluator's trips (full route), none
+    (flexible route, N = 168) or analyze_cases' fixed-point solves (host
+    route and override), 0 on every cache-hit repeat with no evaluator
+    call; then RAFT_OMDAO_Core on weis_semi_wind (build_design exactly,
+    compute at the gates, launches against its analyze_cases) and the
+    spar's catenary points against golden_omdao_plotting.npz."""
+    from raft_tpu_torch import plotting
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    gates = _test_module("test_torch_omdao")
+    res = dict(sets={}, launches=0)
+    chunk = max(1, config.get("SCAN_CHUNK"))
+    fused = config.get("FUSED") == "on"
+    t_phase = time.time()
+
+    def timed(fn, *a):
+        linsolve.reset_launches()
+        _sync()
+        t0 = time.time()
+        out = fn(*a)
+        _sync()
+        return out, time.time() - t0, linsolve.KERNEL_LAUNCHES
+
+    for name in OMDAO_SETS:
+        g = gates.golden(name)
+        ev = gates.evaluation(name, device=DEVICE)
+        (model, evaluate, route), build_s, n0 = timed(ev._fast_model)
+        check(route == str(g["route"]), f"omdao {name}: route {route}, the "
+              f"reference took {g['route']}")
+        check(n0 == 0, f"omdao {name}: {n0} launches building the model")
+        trips = []
+        if evaluate is not None:
+            def counted(evaluate=evaluate, **rows):
+                out = evaluate(**rows)
+                trips.append(int(out["n_iter_drag"][0]))
+                return out
+            ev._fast = (model, counted, route)
+        _, _, override = gates.SETS[name]
+        calls = [("first", None), ("repeat", None)]
+        if override:
+            calls.append(("override", override))
+        r = dict(route=route, build_s=build_s, calls={})
+        for tag, ov in calls:
+            n_ev = ev.n_evaluations
+            del trips[:]
+            out, wall, launches = timed(ev.compute, ov)
+            _held(f"{name} {tag}", gates.hold_compute, out, g, tag,
+                  flex=name.endswith("flex"), phase="omdao")
+            _held(f"{name} {tag} diag", gates.hold_diag, ev.diag, g, tag,
+                  phase="omdao")
+            if tag == "override":
+                exp = _host_launches(ev.model)
+            elif tag == "repeat":
+                exp = 0
+                check(ev.n_evaluations == n_ev, f"omdao {name}: the repeat "
+                      "call ran the evaluator")
+            elif route == "full":
+                cap = evaluate.body.n_iter * max(
+                    int(config.get("ITER_SCALE")), 1) + 1 \
+                    + max(int(evaluate.body.n_iter_extra), 0)
+                exp = sum(expected_launches([n], 1, cap, min(chunk, cap),
+                                            fused) for n in trips)
+            elif route == "flexible":
+                exp = 0
+            else:
+                exp = _host_launches(model)
+            check(launches == exp, f"omdao {name} {tag}: solve kernel "
+                  f"launched {launches} times, expected {exp}")
+            r["calls"][tag] = dict(wall_s=wall, launches=launches,
+                                   evaluations=ev.n_evaluations - n_ev,
+                                   n_iter_drag=list(trips))
+            res["launches"] += launches
+        res["sets"][name] = r
+        print(f"omdao {name} on {card}: route {route}; " + ", ".join(
+            f"{t} {c['wall_s']:.2f} s ({c['launches']} launches, "
+            f"{c['evaluations']} evaluator calls)"
+            for t, c in r["calls"].items())
+            + f"; model + evaluator build {build_s:.2f} s; held, diag "
+            "equal")
+
+    # the WEIS flat-I/O core
+    s = gates.weis_set("weis_semi_wind")
+    g = gates.golden("weis_semi_wind")
+    core = gates.weis_core(s, device=DEVICE)
+    design, build_s, _ = timed(core.build_design, s["inputs"],
+                               s["discrete_inputs"])
+    _held("weis build_design", gates.hold_weis_design, design,
+          core.case_mask, g, phase="omdao")
+    out, wall, launches = timed(core.compute, s["inputs"],
+                                s["discrete_inputs"])
+    _held("weis compute", gates.hold_weis_compute, out, g, phase="omdao")
+    exp = _host_launches(core.model)
+    check(launches == exp, f"omdao weis_semi_wind: solve kernel launched "
+          f"{launches} times, expected {exp}")
+    res["launches"] += launches
+    res["weis"] = dict(build_s=build_s, compute_s=wall, launches=launches,
+                       cases=len(core.model.cases))
+    print(f"omdao weis_semi_wind on {card}: build_design {build_s * 1e3:.1f}"
+          f" ms (exactly the reference's), compute {wall:.2f} s over "
+          f"{len(core.model.cases)} cases ({launches} launches); held")
+
+    # the spar's catenary points (tests/test_torch_plotting.py holds
+    # them within 1e-10 x the polyline's largest coordinate; that module
+    # imports matplotlib, which this machine may lack)
+    gp = np.load(os.path.join(FIX, "golden_omdao_plotting.npz"))
+    from raft_tpu_torch.models.model import Model
+
+    m = Model(os.path.join(FIX, "design_spar.json"))
+    fs, ms = m.fowtList[0], m.ms_list[0]
+    off = np.array([fs.x_ref, fs.y_ref, 0.0])
+    t0 = time.time()
+    for il in range(ms.n_lines):
+        pts = plotting._catenary_points(ms.r_anchor[il], off + ms.r_fair0[il],
+                                        ms.L[il], ms.w[il], ms.EA[il],
+                                        device=DEVICE)
+        want = gp[f"spar_line{il}"]
+        err = float(np.max(np.abs(pts - want)))
+        check(pts.shape == want.shape and err <= SLICE_TOL * float(
+            np.max(np.abs(want))), f"omdao: the spar's line {il} catenary "
+            f"points off by {err:.3e}")
+    res["catenary_points_s"] = time.time() - t0
+    res["phase_s"] = time.time() - t_phase
+    print(f"  omdao: {len(OMDAO_SETS)} sets and the WEIS core in "
+          f"{res['phase_s']:.1f} s; solve kernel launches "
+          f"{res['launches']}; the spar's {ms.n_lines} catenary polylines "
+          f"held in {res['catenary_points_s']:.2f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
@@ -2865,6 +3039,7 @@ def main():
         rec["qtf"] = timed("qtf", phase_qtf, rec["card"])
         rec["analyze"] = timed("analyze", phase_analyze, args.out,
                                rec["card"])
+        rec["omdao"] = timed("omdao", phase_omdao, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2880,7 +3055,8 @@ def main():
         bem_geometry=rec["bem"]["geometry"]["launches"],
         qtf=rec["qtf"]["launches"],
         qtf_geometry=rec["qtf"]["geometry"]["launches"],
-        analyze=rec["analyze"]["launches"])
+        analyze=rec["analyze"]["launches"],
+        omdao=rec["omdao"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -2895,8 +3071,10 @@ def main():
                   + rec["bem"]["geometry"]["launches"]
                   + rec["qtf"]["launches"]
                   + rec["qtf"]["geometry"]["launches"]
-                  + rec["analyze"]["launches"]),
+                  + rec["analyze"]["launches"]
+                  + rec["omdao"]["launches"]),
         analyze_launches=rec["analyze"]["launches"],
+        omdao_launches=rec["omdao"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

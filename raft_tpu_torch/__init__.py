@@ -20,6 +20,18 @@ Entry points:
   its orchestrated path, one case at a time: ``solve_statics``,
   ``solve_dynamics``, ``solve_eigen``, ``calc_outputs``,
   ``write_modes_json`` and ``analyze_cases``;
+* :class:`raft_tpu_torch.omdao.DesignEvaluation` — the optimizer-loop
+  surface: a design in, flat metrics out (properties, per-case channel
+  statistics, natural periods, WEIS aggregates), an unchanged design's
+  cases through the farm, full or flexible evaluator behind a
+  content-addressed result cache (:mod:`raft_tpu_torch.serve.cache`,
+  :func:`raft_tpu_torch.aot.bank.content_fingerprint`), overrides and
+  other designs through ``analyze_cases``;
+  :class:`~raft_tpu_torch.omdao.RAFT_OMDAO_Core` — WEIS's flat inputs
+  rebuilt into a design, analysed and flattened into WEIS's outputs;
+* :mod:`raft_tpu_torch.plotting` — ``plot_system``, ``plot2d``,
+  ``plot_responses`` and ``plot_responses_extended`` (matplotlib,
+  imported by each plot function only);
 * :func:`raft_tpu_torch.structure.bucketing.bucket_signature` /
   :func:`~raft_tpu_torch.structure.bucketing.pack_design` — a model's
   bucket and its padded numpy leaves;

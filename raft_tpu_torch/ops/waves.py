@@ -1,5 +1,6 @@
 """Linear (Airy) wave ops: dispersion, JONSWAP spectrum, kinematics,
-RAO (batch-first torch counterparts of ``raft_tpu/ops/waves.py``).
+RAO, RMS and PSD (batch-first torch counterparts of
+``raft_tpu/ops/waves.py``).
 
 The guards of the reference are kept exactly: ``_kh_ratios`` clamps
 the ``sinh``/``cosh`` arguments before evaluating them, so the untaken
@@ -148,6 +149,36 @@ def wave_kinematics(zeta0, beta, w, k, h, r, rho, g):
     rg = (rho * g)[:, None, None]
     p = torch.where(sub, rg * zeta * COSHc, 0.0)
     return u, ud, p
+
+
+def get_kinematics(r, Xi, w):
+    """Point displacement, velocity and acceleration amplitudes from
+    6-DOF motion amplitudes (the reference's ``getKinematics``).
+
+    r : (..., 3) point about the reference; Xi : (..., 6, nw) complex;
+    w : (nw,).  Returns (dr, v, a), each (..., 3, nw)."""
+    from raft_tpu_torch.ops.transforms import cross
+
+    th = Xi[..., 3:, :]
+    rr = torch.as_tensor(r)[..., :, None].expand(th.shape)
+    dr = Xi[..., :3, :] + cross(th, rr, dim=-2)
+    v = 1j * w * dr
+    a = 1j * w * v
+    return dr, v, a
+
+
+def get_rms(xi):
+    """sqrt(0.5 sum |xi|^2) over every axis."""
+    return torch.sqrt(0.5 * torch.sum(torch.abs(xi) ** 2))
+
+
+def get_psd(xi, dw, axis=None):
+    """Response PSD 0.5 |xi|^2 / dw, summed over ``axis`` (the
+    excitation sources) when given."""
+    psd = 0.5 * torch.abs(xi) ** 2 / dw
+    if axis is not None:
+        psd = torch.sum(psd, dim=axis)
+    return psd
 
 
 def get_rao(Xi, zeta, eps=1e-6):

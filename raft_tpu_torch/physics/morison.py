@@ -520,6 +520,17 @@ def drag_lin_iter(pre, Xi):
     return dict(B_hydro_drag=B_red, Bmat=Bmat, F_hydro_drag=F_drag)
 
 
+def hydro_linearization(fs, ss, hc, u_ih, Xi, w, Tn, r_nodes):
+    """The stochastic drag linearisation of one sea state in one call:
+    :func:`drag_lin_precompute` then :func:`drag_lin_iter` (the fixed
+    point calls the two stages itself, so that the precompute runs once
+    per chunk).  u_ih (R, S, 3, nw): the wave velocity of the
+    linearisation heading; Xi (R, n, nw): the response amplitudes in
+    reduced DOFs.  Returns B_hydro_drag, Bmat and F_hydro_drag."""
+    pre = drag_lin_precompute(fs, ss, hc, u_ih, Tn, r_nodes, w)
+    return drag_lin_iter(pre, Xi)
+
+
 def drag_excitation(fs, ss, hc, Bmat, u_ih, Tn, r_nodes):
     """F = Bmat @ u per strip and frequency, reduced to (R, 6, nw): the
     staged drag excitation the FUSED=off oracle uses."""

@@ -1,8 +1,8 @@
 """The port's registry of ``RAFT_TPU_*`` environment flags.
 
-Main-path flags only, under the same environment names and defaults as
-``raft_tpu/utils/config.py`` so that one environment drives both
-packages in the parity tests.  Flags are re-read on every :func:`get`
+Main-path flags and the result cache's byte budget, under the same
+environment names and defaults as ``raft_tpu/utils/config.py`` so that
+one environment drives both packages in the parity tests.  Flags are re-read on every :func:`get`
 (tests change them mid-process).
 
 ``SOLVER`` has no ``pallas`` choice here: on a CUDA tensor ``native``
@@ -110,4 +110,7 @@ _register(
     Flag("BEM_DIR", "str", "",
          help="panel-solver coefficient cache directory (default: "
               "_bem_cache in the working directory)"),
+    Flag("SERVE_CACHE_MB", "float", 64.0,
+         help="byte budget of the content-addressed result cache "
+              "(design hash + case + out_keys -> outputs, LRU)"),
 )

@@ -147,6 +147,21 @@ writes:
   the farm's ``WakeCoupling`` curves, equilibrium and AEP
   (:func:`build_drivers_golden`).
 
+For the design-optimisation surface it writes:
+
+* ``weis_semi_wind.json`` and ``weis_branches.json``: WEIS's option
+  dicts and flat inputs (``RAFT_OMDAO_Core``'s arguments, arrays as
+  lists) made from semi_wind by :func:`weis_flat`, the inverse of
+  ``build_design`` (:func:`weis_semi_wind_set`, :func:`weis_branches_set`);
+* ``golden_omdao_<set>.npz``: the JAX ``DesignEvaluation`` of every
+  set of :data:`OMDAO_SETS` (:func:`build_omdao_golden`: its route, the
+  outputs and ``diag`` of a first and a repeat call and the spar's
+  override, the design fingerprint and each case's traced row and
+  cache key), the JAX ``RAFT_OMDAO_Core`` of the two WEIS sets
+  (:func:`build_weis_golden`), the wave and drag helpers
+  (``golden_omdao_helpers.npz``) and the plotting geometry and line
+  counts (``golden_omdao_plotting.npz``).
+
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
@@ -158,6 +173,8 @@ Run from the repository root::
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py \
         --orchestrated [set ...]
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --drivers
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py \
+        --omdao [set ...]
 
 It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
 geometry and gradient goldens, or the named parts of them).
@@ -169,8 +186,9 @@ file name does not start with ``test_``); the slow tests
 ``tests/test_torch_geometry.py::test_geometry_fixtures_regenerate``,
 ``tests/test_torch_grad.py::test_grad_fixtures_regenerate``,
 ``tests/test_torch_secondorder.py::test_qtf_fixtures_regenerate``,
-``tests/test_torch_orchestrated.py::test_orch_golden_regenerates`` and
-``tests/test_torch_drivers.py::test_drivers_golden_regenerates`` re-run
+``tests/test_torch_orchestrated.py::test_orch_golden_regenerates``,
+``tests/test_torch_drivers.py::test_drivers_golden_regenerates`` and
+``tests/test_torch_omdao.py::test_omdao_golden_regenerates`` re-run
 the builders here and compare with the files.
 """
 
@@ -2004,6 +2022,621 @@ def write_drivers_fixtures():
                         **build_drivers_golden())
 
 
+# ------------------------------------------------ design-optimisation
+
+#: the DesignEvaluation golden sets: set name -> (design file,
+#: use_traced, whether the override call runs)
+OMDAO_SETS = {
+    "spar": ("design_spar.json", True, True),
+    "semi_wind": ("design_semi_wind.json", True, False),
+    "semi_wind_moor1": ("design_semi_wind_moor1.json", True, False),
+    "semi_wind_wamit": ("design_semi_wind_wamit.json", True, False),
+    "semi_wind_cases": ("design_semi_wind_cases.json", True, False),
+    "semi_wind_flex": ("design_semi_wind_flex.json", True, False),
+    "farm_semi_wind_cases": ("design_farm_semi_wind_cases.json", True,
+                             False),
+    "spar_host": ("design_spar.json", False, False),
+}
+#: the override of the ``spar`` set's third call (it takes the host route)
+OMDAO_OVERRIDE = {"mooring.lines.0.length": 920.0}
+#: the WEIS flat-input sets: weis_semi_wind is analysed, weis_branches
+#: only rebuilt
+WEIS_SETS = ("weis_semi_wind", "weis_branches")
+#: weis_semi_wind's case table: two spectral-wind cases (an IEC NTM and
+#: an ETM class) and a numeric-TI case that the case filter drops
+WEIS_DLCS = [
+    [10.59, 0.0, "IB_NTM", "operating", 0.0, "JONSWAP", 10.0, 4.0, 0.0,
+     0.5, 0.0],
+    [9.0, 0.0, 0.12, "operating", 0.0, "JONSWAP", 8.0, 2.0, 0.0, 0.0, 0.0],
+    [14.0, 10.0, "IB_ETM", "operating", 4.0, "JONSWAP", 12.0, 6.0, 30.0,
+     0.3, 200.0],
+]
+#: seeds of the wave / drag helpers' inputs and of the plotting rows
+HELPER_SEED = 20261030
+#: the sets whose geometry the plotting goldens hold
+PLOT_SETS = ("spar", "semi_wind")
+
+
+def _route_of(ev):
+    """The route a JAX DesignEvaluation took: its evaluator's kind, or
+    "host" where it built none."""
+    model, evaluate = ev._fast
+    if evaluate is None:
+        return "host"
+    if model.nFOWT > 1:
+        return "farm"
+    return "full" if model.fowtList[0].is_single_body else "flexible"
+
+
+def _flat_outputs(gd, tag, out):
+    """A compute() result into the golden dict: each value under
+    ``<tag>__<key>`` and its Python type (float or ndarray) under
+    ``types__<tag>``."""
+    import json
+
+    import numpy as np
+
+    types = {}
+    for k, v in out.items():
+        types[k] = "float" if isinstance(v, float) else type(v).__name__
+        gd[f"{tag}__{k}"] = np.asarray(v)
+    gd[f"types__{tag}"] = np.asarray(json.dumps(types))
+
+
+def build_omdao_golden(name):
+    """The ``golden_omdao_<name>.npz`` dict: the JAX DesignEvaluation of
+    a set (its design read from the fixtures, run with the fixtures as
+    the working directory so its data paths resolve), float64 on the
+    CPU:
+
+    * ``route``: the route it took;
+    * ``first__<key>`` / ``repeat__<key>``: the outputs of compute() and
+      of a repeat compute(), ``types__<tag>`` their types; for ``spar``
+      also ``override__<key>`` (:data:`OMDAO_OVERRIDE`);
+    * ``diag__<tag>``: ``ev.diag`` after each call, as JSON;
+    * ``design_fp``: ``content_fingerprint`` of the design;
+      ``row<i>__<key>``: ``case_to_traced`` of each case;
+      ``cache_key<i>``: its ``result_cache_key`` (a row per wave heading
+      of the case)."""
+    import json
+
+    import numpy as np
+
+    _jax()
+    from raft_tpu.aot.bank import content_fingerprint
+    from raft_tpu.api import case_to_traced
+    from raft_tpu.omdao import DesignEvaluation
+    from raft_tpu.serve.cache import result_cache_key
+
+    fn, traced, override = OMDAO_SETS[name]
+    with open(os.path.join(OUT_DIR, fn)) as f:
+        base = json.load(f)
+    cwd = os.getcwd()
+    os.chdir(OUT_DIR)
+    gd = {}
+    try:
+        ev = DesignEvaluation(base, use_traced=traced)
+        calls = [("first", None), ("repeat", None)]
+        if override:
+            calls.append(("override", OMDAO_OVERRIDE))
+        with _metrics_shadow_guard():
+            for tag, ov in calls:
+                _flat_outputs(gd, tag, ev.compute(ov))
+                gd[f"diag__{tag}"] = np.asarray(json.dumps(ev.diag))
+        gd["route"] = np.asarray(_route_of(ev))
+        model = ev._fast[0]
+    finally:
+        os.chdir(cwd)
+    fp = content_fingerprint(base)
+    gd["design_fp"] = np.asarray(fp)
+    for i, case in enumerate(model.cases):
+        row = case_to_traced(case, nWaves=np.size(case.get("wave_heading",
+                                                           0.0)))
+        for k, v in row.items():
+            gd[f"row{i}__{k}"] = np.asarray(v)
+        gd[f"cache_key{i}"] = np.asarray(result_cache_key(
+            fp, row, DesignEvaluation._CACHE_KEYS))
+    print(f"omdao {name}: route {gd['route']}, "
+          f"diag {json.loads(str(gd['diag__repeat']))}", flush=True)
+    return gd
+
+
+def _member_flat(i, m, ext=(0.0, 0.0), per_station=False, rings=None,
+                 caps=None):
+    """(inputs, member options) of WEIS platform member ``i`` from a
+    design member ``m``: its axis extended by ghost segments of ``ext``
+    metres at each end (so ``build_design`` trims them again), its
+    diameter, thickness and coefficients scalar or, with
+    ``per_station``, tapered per station, ring stiffeners ``rings``
+    (spacing, t, h, in station units) and bulkheads ``caps`` (stations,
+    t)."""
+    import numpy as np
+
+    mn = f"platform_member{i + 1}_"
+    rA, rB = np.asarray(m["rA"], float), np.asarray(m["rB"], float)
+    L = float(np.linalg.norm(rB - rA))
+    q = (rB - rA) / L
+    L0 = L + ext[0] + ext[1]
+    sA, sB = ext[0] / L0, (ext[0] + L) / L0
+    st = np.asarray(m["stations"], float)
+    s_in = sA + (st - st[0]) / (st[-1] - st[0]) * (sB - sA)
+    s0 = np.unique(np.r_[0.0, s_in, 1.0])
+    rect = m["shape"] == "rect"
+    taper = 1.0 + 0.05 * (s0 - 0.5) if per_station else np.ones_like(s0)
+    d = np.asarray(m["d"], float)
+    if per_station:
+        dd = np.broadcast_to(d.reshape(-1)[:2] if rect else d.reshape(-1)[0],
+                             (len(s0), 2) if rect else (len(s0),))
+        d_in = dd * (taper[:, None] if rect else taper)
+        t_in = float(np.atleast_1d(m["t"])[0]) * taper
+
+        def coef(c):
+            c = np.atleast_1d(np.asarray(c, float))
+            if rect:
+                return np.stack([np.full(len(s0), c[0]),
+                                 np.full(len(s0), c[-1])], axis=1) \
+                    * taper[:, None]
+            return np.full(len(s0), c[0]) * taper
+    else:
+        d_in = d.reshape(-1)[:2] if rect else d.reshape(-1)[:1]
+        t_in = np.atleast_1d(float(np.atleast_1d(m["t"])[0]))
+
+        def coef(c):
+            c = np.atleast_1d(np.asarray(c, float))
+            return np.r_[c[0], c[-1]] if rect else c[:1]
+    inputs = {
+        mn + "rA": rA - ext[0] * q, mn + "rB": rB + ext[1] * q,
+        mn + "s_ghostA": [sA], mn + "s_ghostB": [sB], mn + "stations": s0,
+        mn + "gamma": [0.0], mn + "rho_shell": [float(m["rho_shell"])],
+        mn + "d": d_in, mn + "t": t_in,
+    }
+    for c in ("Cd", "Ca"):
+        inputs[mn + c] = coef(m[c])
+    for c in ("CdEnd", "CaEnd"):
+        cv = np.atleast_1d(np.asarray(m[c], float))[:1]
+        inputs[mn + c] = (np.full(len(s0), cv[0]) * taper if per_station
+                          else cv)
+    heading = m.get("heading")
+    if heading is not None:
+        inputs[mn + "heading"] = np.atleast_1d(np.asarray(heading, float))
+    if "l_fill" in m:
+        # fill lengths in the station units: WEIS's run over the whole
+        # (ghost-extended) axis, 0 to 1
+        inputs[mn + "l_fill"] = (np.atleast_1d(np.asarray(m["l_fill"], float))
+                                 * L / (st[-1] - st[0]) / L0)
+        inputs[mn + "rho_fill"] = np.atleast_1d(
+            np.asarray(m["rho_fill"], float))
+    if rings is not None:
+        inputs[mn + "ring_spacing"] = [rings[0]]
+        inputs[mn + "ring_t"] = [rings[1]]
+        inputs[mn + "ring_h"] = [rings[2]]
+    if caps is not None or rings is not None:
+        cs, ct = caps if caps is not None else ([0.0], [0.1])
+        inputs[mn + "cap_stations"] = np.asarray(cs, float)
+        inputs[mn + "cap_t"] = np.asarray(ct, float)
+    opts = dict(
+        shape=m["shape"], scalar_d=not per_station, scalar_t=not per_station,
+        scalar_c=not per_station, potMod=bool(m.get("potMod", False)),
+        nreps=0 if heading is None else len(np.atleast_1d(heading)),
+        npts_lfill=len(np.atleast_1d(m["l_fill"])) if "l_fill" in m else 0,
+        ncaps=0 if caps is None else len(caps[0]))
+    return inputs, opts
+
+
+def weis_flat(design, members, dlcs, rigid_bodies=(), bem_dir=None,
+              orientation="upwind", tower_scalar=False, rated=None,
+              n_blades=None):
+    """WEIS's option dicts and flat inputs (``RAFT_OMDAO_Core``'s
+    arguments) that ``build_design`` turns back into a design: the site,
+    turbine, tower, blade, airfoils, controls, power curve and mooring of
+    ``design``, the platform members given as :func:`_member_flat`
+    argument tuples, the case table ``dlcs`` (``CASE_KEYS``), rigid
+    bodies (node, mass, inertia), ``potential_model_override`` 3 with
+    ``bem_dir``, the rotor ``orientation``, the tower scalar
+    (``tower_scalar``) or per station, ``rated_rotor_speed`` and
+    ``n_blades`` as a discrete input.  Arrays as lists (JSON)."""
+    import numpy as np
+
+    t = design["turbine"]
+    sgn = -1.0 if orientation == "upwind" else 1.0
+    site = design["site"]
+    inputs = {
+        "rho_air": [float(site["rho_air"])],
+        "rho_water": [float(site["rho_water"])],
+        "mu_air": [float(site["mu_air"])],
+        "shear_exp": [float(site["shearExp"])],
+        "mooring_water_depth": [float(site["water_depth"])],
+        "turbine_mRNA": [float(t["mRNA"])],
+        "turbine_IxRNA": [float(t["IxRNA"])],
+        "turbine_IrRNA": [float(t["IrRNA"])],
+        "turbine_xCG_RNA": [float(t["xCG_RNA"])],
+        "turbine_hHub": [float(t["hHub"])],
+        "turbine_overhang": [float(t["overhang"]) * sgn],
+        "turbine_Fthrust": [0.0],
+        "turbine_yaw_stiffness": [0.0],
+        "gear_ratio": [float(t["gear_ratio"])],
+        "tilt": [float(t["shaft_tilt"]) * sgn],
+        "precone": [float(t["precone"]) * sgn],
+        "wind_reference_height": [float(t["Zhub"])],
+        "hub_radius": [float(t["Rhub"])],
+        "rotor_inertia": [float(t["I_drivetrain"])],
+        "rotor_orientation": orientation,
+    }
+    tow = t["tower"]
+    inputs.update({
+        "turbine_tower_rA": tow["rA"], "turbine_tower_rB": tow["rB"],
+        "turbine_tower_gamma": [0.0],
+        "turbine_tower_stations": tow["stations"],
+        "turbine_tower_rho_shell": [float(tow["rho_shell"])]})
+    n_st = len(tow["stations"])
+    for key in ("d", "t"):
+        v = np.atleast_1d(np.asarray(tow[key], float))
+        inputs[f"turbine_tower_{key}"] = (
+            [float(v[0])] if tower_scalar else np.resize(v, n_st))
+    for key in ("Cd", "Ca", "CdEnd", "CaEnd"):
+        v = float(np.atleast_1d(tow[key])[0])
+        inputs[f"turbine_tower_{key}"] = (
+            [v] * n_st if tower_scalar else [v])
+    geo = np.asarray(t["blade"]["geometry"], float)
+    for j, key in enumerate(("r", "chord", "theta", "precurve",
+                             "presweep")):
+        inputs[f"blade_{key}"] = geo[:, j]
+    for key in ("Rtip", "precurveTip", "presweepTip"):
+        inputs[f"blade_{key}"] = [float(t["blade"][key])]
+    afs = {a["name"]: a for a in t["airfoils"]}
+    used = [nm for _, nm in t["blade"]["airfoils"]]
+    inputs["airfoils_position"] = [float(p) for p, _ in
+                                   t["blade"]["airfoils"]]
+    tab = [np.asarray(afs[nm]["data"], float) for nm in used]
+    inputs["airfoils_aoa"] = tab[0][:, 0]
+    for j, key in ((1, "cl"), (2, "cd"), (3, "cm")):
+        # (n_af, n_aoa, n_Re = 1), as WEIS hands them
+        inputs[f"airfoils_{key}"] = np.stack([a[:, j] for a in tab])[..., None]
+    inputs["airfoils_r_thick"] = [float(afs[nm]["relative_thickness"])
+                                  for nm in used]
+    pc, tc, ops = t["pitch_control"], t["torque_control"], t["wt_ops"]
+    inputs.update({
+        "rotor_PC_GS_angles": pc["GS_Angles"], "rotor_PC_GS_Kp": pc["GS_Kp"],
+        "rotor_PC_GS_Ki": pc["GS_Ki"], "Fl_Kp": [float(pc["Fl_Kp"])],
+        "rotor_TC_VS_Kp": [float(tc["VS_KP"])],
+        "rotor_TC_VS_Ki": [float(tc["VS_KI"])],
+        "rotor_powercurve_v": ops["v"],
+        "rotor_powercurve_omega_rpm": ops["omega_op"],
+        "rotor_powercurve_pitch": ops["pitch_op"]})
+    if rated is not None:
+        inputs["rated_rotor_speed"] = [rated]
+
+    member_opt = {"nmembers": len(members), "shape": [],
+                  "scalar_diameters": [], "scalar_thicknesses": [],
+                  "scalar_coefficients": [], "nreps": [], "npts_lfill": [],
+                  "ncaps": []}
+    for i, args in enumerate(members):
+        m_in, o = _member_flat(i, *args[:1], **args[1])
+        inputs.update(m_in)
+        member_opt["shape"].append(o["shape"])
+        member_opt["scalar_diameters"].append(o["scalar_d"])
+        member_opt["scalar_thicknesses"].append(o["scalar_t"])
+        member_opt["scalar_coefficients"].append(o["scalar_c"])
+        member_opt[f"platform_member{i + 1}_potMod"] = o["potMod"]
+        for k in ("nreps", "npts_lfill", "ncaps"):
+            member_opt[k].append(o[k])
+
+    mo = design["mooring"]
+    mooring_opt = {"nconnections": len(mo["points"]),
+                   "nlines": len(mo["lines"]),
+                   "nline_types": len(mo["line_types"])}
+    for i, pt in enumerate(mo["points"]):
+        pn = f"mooring_point{i + 1}_"
+        mooring_opt[pn + "name"] = pt["name"]
+        mooring_opt[pn + "type"] = pt["type"]
+        inputs[pn + "location"] = pt["location"]
+    for i, ln in enumerate(mo["lines"]):
+        lp = f"mooring_line{i + 1}_"
+        for k in ("endA", "endB", "type"):
+            mooring_opt[lp + k] = ln[k]
+        inputs[lp + "length"] = [float(ln["length"])]
+    for i, lt in enumerate(mo["line_types"]):
+        tp = f"mooring_line_type{i + 1}_"
+        mooring_opt[tp + "name"] = lt["name"]
+        extra = dict(breaking_load=2.0e7, cost=0.0,
+                     transverse_added_mass=1.0, tangential_added_mass=0.0,
+                     transverse_drag=1.6, tangential_drag=0.1)
+        for k in ("diameter", "mass_density", "stiffness", *extra):
+            inputs[tp + k] = [float(lt.get(k, extra.get(k)))]
+
+    modeling = {
+        "xi_start": float(design["settings"].get("XiStart", 0.1)),
+        "min_freq": float(design["settings"]["min_freq"]),
+        "max_freq": float(design["settings"]["max_freq"]),
+        "nIter": int(design["settings"].get("nIter", 15)),
+        "potential_model_override": 0 if bem_dir is None else 3,
+        "dls_max": 5.0,
+        "raft_dlcs_keys": CASE_KEYS,
+        "raft_dlcs": dlcs,
+        "floating": {"rigid_bodies": {"n_bodies": len(rigid_bodies)}},
+    }
+    if bem_dir is not None:
+        modeling["BEM_dir"] = bem_dir
+    for k, (node, mass, inertia) in enumerate(rigid_bodies):
+        inputs[f"rigid_body_{k}_node"] = node
+        inputs[f"rigid_body_{k}_mass"] = [mass]
+        inputs[f"rigid_body_{k}_inertia"] = inertia
+    turbine_opt = {"shape": tow["shape"], "scalar_diameters": tower_scalar,
+                   "scalar_thicknesses": tower_scalar,
+                   "scalar_coefficients": not tower_scalar,
+                   "af_used_names": used, "n_af": len(used)}
+    discrete = {} if n_blades is None else {"nBlades": n_blades}
+    return _jsonable(dict(
+        modeling_options=modeling,
+        analysis_options={"general": {"fname_output": design["name"]}},
+        turbine_options=turbine_opt, mooring_options=mooring_opt,
+        member_options=member_opt, inputs=inputs,
+        discrete_inputs=discrete))
+
+
+def _jsonable(o):
+    """numpy arrays and scalars inside ``o`` as lists and Python
+    numbers."""
+    import numpy as np
+
+    if isinstance(o, dict):
+        return {k: _jsonable(v) for k, v in o.items()}
+    if isinstance(o, (list, tuple)):
+        return [_jsonable(v) for v in o]
+    if isinstance(o, np.ndarray):
+        return o.tolist()
+    if isinstance(o, np.generic):
+        return o.item()
+    return o
+
+
+def weis_semi_wind_set():
+    """semi_wind's WEIS flat inputs: the main column carried on 6 m of
+    ghost segment below its keel (trimmed again), the offset columns
+    tapered per station (d, t and coefficients), the base columns with
+    ring stiffeners every quarter of their height and end bulkheads,
+    ``rated_rotor_speed`` 7.56 rpm, and :data:`WEIS_DLCS`."""
+    d = semi_wind_design()
+    d["name"] = "weis_semi_wind"
+    main, offset, base = d["platform"]["members"]
+    members = [(main, dict(ext=(6.0, 0.0))),
+               (offset, dict(per_station=True)),
+               (base, dict(rings=(0.25, 0.02, 0.5), caps=([0.0], [0.1])))]
+    return weis_flat(d, members, WEIS_DLCS, rated=7.56)
+
+
+def weis_branches_set():
+    """A build-only WEIS input set over ``build_design``'s other
+    branches: a rect pontoon with scalar sides and coefficients; a rect
+    brace on ghost segments at both ends, tapered per station, with ring
+    stiffeners and bulkheads; a circular column on ghost segments at both
+    ends, tapered, with bulkheads; two rigid bodies;
+    ``potential_model_override`` 3; a downwind two-bladed rotor; the
+    tower scalar with per-station coefficients."""
+    d = semi_wind_design()
+    d["name"] = "weis_branches"
+    common = dict(rho_shell=7850, Cd=[0.8, 0.9], Ca=[1.0, 0.7], CdEnd=0.6,
+                  CaEnd=0.6)
+    pontoon = dict(common, shape="rect", rA=[5.0, 0.0, -17.0],
+                   rB=[45.0, 0.0, -17.0], stations=[0, 1], d=[12.0, 7.0],
+                   t=0.04, potMod=True)
+    brace = dict(common, shape="rect", rA=[0.0, 5.0, -10.0],
+                 rB=[0.0, 45.0, 10.0], stations=[0.0, 0.5, 1.0],
+                 d=[[3.0, 2.0]] * 3, t=0.02)
+    column = dict(common, shape="circ", rA=[-40.0, 0.0, -20.0],
+                  rB=[-40.0, 0.0, 12.0], stations=[-20.0, -5.0, 12.0],
+                  d=9.0, t=0.03, Cd=0.8, Ca=1.0)
+    members = [(pontoon, {}),
+               (brace, dict(ext=(2.0, 3.0), per_station=True,
+                            rings=(0.2, 0.015, 0.3),
+                            caps=([0.05, 0.5, 0.97], [0.05, 0.06, 0.07]))),
+               (column, dict(ext=(1.5, 2.5), per_station=True,
+                             caps=([0.0, 0.3, 1.0], [0.1, 0.08, 0.1])))]
+    bodies = (([10.0, 0.0, -15.0], 2.0e5, [1.0e6, 1.1e6, 9.0e5]),
+              ([-10.0, 5.0, -12.0], 5.0e4, [2.0e5, 2.0e5, 1.0e5]))
+    return weis_flat(d, members, WEIS_DLCS, rigid_bodies=bodies,
+                     bem_dir="weis_bem", orientation="downwind",
+                     tower_scalar=True, n_blades=2)
+
+
+WEIS_WRITERS = {"weis_semi_wind": weis_semi_wind_set,
+                "weis_branches": weis_branches_set}
+
+
+def design_to_json(o):
+    """A nested design dict as plain JSON data that keeps every type:
+    an array as ``{"__array__": list, "dtype": str, "shape": list}``, a
+    tuple as ``{"__tuple__": list}``; Python floats, ints, bools, strings
+    and None as themselves.  Equal output means an exactly equal design
+    (keys, Python types, array dtypes, shapes and values)."""
+    import numpy as np
+
+    if isinstance(o, dict):
+        return {str(k): design_to_json(v) for k, v in o.items()}
+    if isinstance(o, list):
+        return [design_to_json(v) for v in o]
+    if isinstance(o, tuple):
+        return {"__tuple__": [design_to_json(v) for v in o]}
+    if isinstance(o, np.ndarray):
+        return {"__array__": o.tolist(), "dtype": str(o.dtype),
+                "shape": list(o.shape)}
+    if isinstance(o, np.generic):
+        return {"__scalar__": o.item(), "dtype": str(o.dtype)}
+    return o
+
+
+def build_weis_golden(name):
+    """``golden_omdao_<name>.npz``: the JAX ``RAFT_OMDAO_Core`` on the
+    set's flat inputs (``weis_<name>.json``): ``design`` (the
+    ``build_design`` output through :func:`design_to_json`, as JSON),
+    ``case_mask`` and, for weis_semi_wind, the outputs of ``compute``
+    (``out__<key>``, ``types__out``)."""
+    import json
+
+    import numpy as np
+
+    _jax()
+    from raft_tpu.omdao import RAFT_OMDAO_Core
+
+    with open(os.path.join(OUT_DIR, f"{name}.json")) as f:
+        s = json.load(f)
+    core = RAFT_OMDAO_Core(s["modeling_options"], s["analysis_options"],
+                           s["turbine_options"], s["mooring_options"],
+                           s["member_options"])
+    design = core.build_design(s["inputs"], s["discrete_inputs"])
+    gd = {"design": np.asarray(json.dumps(design_to_json(design))),
+          "case_mask": np.asarray(core.case_mask)}
+    if name == "weis_semi_wind":
+        with _metrics_shadow_guard():
+            _flat_outputs(gd, "out", core.compute(s["inputs"],
+                                                  s["discrete_inputs"]))
+    print(f"omdao {name}: case_mask {core.case_mask}", flush=True)
+    return gd
+
+
+def build_helpers_golden():
+    """``golden_omdao_helpers.npz``: seeded inputs and the JAX outputs
+    of ``get_kinematics`` (``kin_*``), ``get_rms`` and ``get_psd`` (over
+    every axis and summed over the first), and the spar demo's
+    ``hydro_linearization`` at its zero pose for its first case's wave
+    velocities (``lin_u``) and a seeded response (``lin_Xi``)."""
+    import json
+
+    import jax.numpy as jnp
+    import numpy as np
+
+    _jax()
+    import raft_tpu
+    from raft_tpu.ops import waves as jwv
+
+    rng = np.random.default_rng(HELPER_SEED)
+    nw = 40
+    gd = {}
+    r = rng.normal(size=(4, 3)) * 20.0
+    Xi = (rng.normal(size=(4, 6, nw)) + 1j * rng.normal(size=(4, 6, nw)))
+    w = np.linspace(0.05, 2.0, nw)
+    gd.update(kin_r=r, kin_Xi=Xi, kin_w=w)
+    for k, v in zip(("dr", "v", "a"), jwv.get_kinematics(
+            jnp.asarray(r), jnp.asarray(Xi), jnp.asarray(w))):
+        gd[f"kin_{k}"] = np.asarray(v)
+    xi = rng.normal(size=(3, 6, nw)) + 1j * rng.normal(size=(3, 6, nw))
+    gd["psd_xi"] = xi
+    gd["psd_dw"] = np.asarray(0.05)
+    gd["rms"] = np.asarray(jwv.get_rms(jnp.asarray(xi)))
+    gd["psd"] = np.asarray(jwv.get_psd(jnp.asarray(xi), 0.05))
+    gd["psd_sum0"] = np.asarray(jwv.get_psd(jnp.asarray(xi), 0.05, axis=0))
+
+    with open(os.path.join(OUT_DIR, "design_spar.json")) as f:
+        model = raft_tpu.Model(json.load(f))
+    fh = model.hydro[0]
+    fh.hydro_excitation(model.cases[0])
+    XiL = (rng.normal(size=(6, model.nw))
+           + 1j * rng.normal(size=(6, model.nw))) * 0.5
+    out = fh.hydro_linearization(XiL)
+    gd["lin_u"] = np.asarray(fh.u[0])
+    gd["lin_Xi"] = XiL
+    for k in ("B_hydro_drag", "Bmat", "F_hydro_drag"):
+        gd[f"lin_{k}"] = np.asarray(out[k])
+    return gd
+
+
+def build_plotting_golden():
+    """``golden_omdao_plotting.npz``: the JAX plotting geometry of
+    :data:`PLOT_SETS` and of the two-unit farm: ``<set>_poly<m>_<k>``,
+    polyline k of member m (the nacelle's left out, as the renderers
+    do); ``<set>_line<l>``, the catenary points of each mooring line;
+    ``farm_net<l>``, the farm's network line profiles at its units'
+    array positions; ``counts``: the lines each plot function draws
+    (Agg backend) on each set, ``plot_responses`` and
+    ``plot_responses_extended`` after the spar's ``analyze_cases``, as
+    JSON."""
+    import json
+
+    import jax.numpy as jnp
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+    import numpy as np
+
+    _jax()
+    import raft_tpu
+    from raft_tpu import plotting
+
+    gd, counts = {}, {}
+    models = {}
+    for name in PLOT_SETS + ("farm_semi_wind",):
+        fn = ORCH_DESIGN_FILES.get(name, f"design_{name}.json")
+        with open(os.path.join(OUT_DIR, fn)) as f:
+            models[name] = raft_tpu.Model(json.load(f), base_dir=OUT_DIR)
+    for name in PLOT_SETS:
+        model = models[name]
+        fs = model.fowtList[0]
+        off = np.array([fs.x_ref, fs.y_ref, 0.0])
+        for im, mem in enumerate(fs.members):
+            if mem.part_of == "nacelle":
+                continue
+            for k, pts in enumerate(plotting._member_polylines(mem, off)):
+                gd[f"{name}_poly{im}_{k}"] = pts
+        ms = model.ms_list[0]
+        for il in range(ms.n_lines):
+            gd[f"{name}_line{il}"] = plotting._catenary_points(
+                ms.r_anchor[il], off + ms.r_fair0[il], ms.L[il], ms.w[il],
+                ms.EA[il])
+    farm = models["farm_semi_wind"]
+    net = farm.ms_array
+    r6 = np.stack([[f.x_ref, f.y_ref, 0, 0, 0, 0] for f in farm.fowtList])
+    _, info = net.body_forces(jnp.asarray(r6, dtype=float))
+    pos = np.asarray(net._point_positions(jnp.asarray(r6, dtype=float),
+                                          info["r_free"]))
+    for il, ((a, b), L, w_l, EA) in enumerate(zip(net.l_ends, net.l_L,
+                                                  net.l_w, net.l_EA)):
+        gd[f"farm_net{il}"] = plotting._catenary_points(pos[a], pos[b], L,
+                                                        w_l, EA)
+    for name, model in models.items():
+        ax = plotting.plot_system(model)
+        fig, ax2 = plotting.plot2d(model)
+        counts[name] = dict(plot_system=len(ax.lines),
+                            plot2d=len(ax2.lines))
+        plt.close("all")
+    spar = models["spar"]
+    with _metrics_shadow_guard():
+        spar.analyze_cases()
+    for fn in ("plot_responses", "plot_responses_extended"):
+        fig, axs = getattr(plotting, fn)(spar)
+        counts["spar"][fn] = [len(a.lines) for a in axs]
+        plt.close("all")
+    gd["counts"] = np.asarray(json.dumps(counts))
+    print(f"omdao plotting: {counts}", flush=True)
+    return gd
+
+
+def write_omdao_fixtures(parts=None):
+    """Write the design-optimisation fixtures (about 15 min):
+    ``weis_<set>.json`` (:data:`WEIS_WRITERS`) and ``golden_omdao_*.npz``
+    of every DesignEvaluation set (:data:`OMDAO_SETS`), the WEIS sets,
+    ``helpers`` and ``plotting``; ``parts`` names a subset."""
+    import json
+
+    import numpy as np
+
+    names = parts or (list(OMDAO_SETS) + list(WEIS_SETS)
+                      + ["helpers", "plotting"])
+    for name in names:
+        if name in WEIS_SETS:
+            with open(os.path.join(OUT_DIR, f"{name}.json"), "w") as f:
+                f.write(json.dumps(WEIS_WRITERS[name](), indent=1) + "\n")
+            gd = build_weis_golden(name)
+        elif name == "helpers":
+            gd = build_helpers_golden()
+        elif name == "plotting":
+            gd = build_plotting_golden()
+        else:
+            gd = build_omdao_golden(name)
+        np.savez_compressed(os.path.join(OUT_DIR, f"golden_omdao_{name}.npz"),
+                            **gd)
+
+
 def main():
     import numpy as np
 
@@ -2029,6 +2662,9 @@ def main():
     if sys.argv[1:] == ["--drivers"]:
         write_drivers_fixtures()
         return
+    if sys.argv[1:2] == ["--omdao"]:
+        write_omdao_fixtures(sys.argv[2:])
+        return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
         np.savez_compressed(os.path.join(OUT_DIR, f"packed_{name}.npz"), **pk)
@@ -2051,6 +2687,7 @@ def main():
     write_qtf_fixtures()
     write_orch_fixtures()
     write_drivers_fixtures()
+    write_omdao_fixtures()
 
 
 if __name__ == "__main__":

@@ -489,3 +489,54 @@ def test_analyze_cases_on_card_matches_golden(cuda, name):
     hold_results(model, golden(name))
     st = model.case_stats
     assert launches == sum(sum(c["fixed_point_solves"]) + 1 for c in st)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["spar", "spar_host", "semi_wind_flex"])
+def test_design_evaluation_on_card_matches_golden(cuda, name):
+    """DesignEvaluation on the card: the reference's route, each call
+    held at the gates of tests/test_torch_omdao.py with the result
+    cache's counters equal; the solve kernel launched by the first call
+    (and the spar's override) only, none on the cache-hit repeat and
+    none on the flexible route (N = 168 goes to the library)."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_omdao import evaluation, run_set
+
+    ev = evaluation(name, device=cuda)
+    linsolve.reset_launches()
+    first = run_set(name, ev)
+    launches = linsolve.KERNEL_LAUNCHES
+    assert first["repeat"][2] == 0
+    if ev.route == "flexible":
+        assert launches == 0
+    else:
+        assert launches > 0
+    linsolve.reset_launches()
+    ev.compute()
+    assert linsolve.KERNEL_LAUNCHES == 0, "a cache-hit repeat launched"
+
+
+@pytest.mark.cuda
+def test_weis_core_on_card_matches_golden(cuda):
+    """RAFT_OMDAO_Core on weis_semi_wind on the card: build_design
+    exactly the reference's, compute at the CPU tests' gates, the solve
+    kernel launched once per fixed-point solve and system response."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_omdao import (golden, hold_weis_compute,
+                                  hold_weis_design, weis_core, weis_set)
+
+    s = weis_set("weis_semi_wind")
+    g = golden("weis_semi_wind")
+    core = weis_core(s, device=cuda)
+    hold_weis_design(core.build_design(s["inputs"], s["discrete_inputs"]),
+                     core.case_mask, g)
+    linsolve.reset_launches()
+    out = core.compute(s["inputs"], s["discrete_inputs"])
+    launches = linsolve.KERNEL_LAUNCHES
+    hold_weis_compute(out, g)
+    st = core.model.case_stats
+    assert launches == sum(sum(c["fixed_point_solves"]) + 1 for c in st)

@@ -249,3 +249,26 @@ def test_impedance_layout():
                        torch.as_tensor(B), torch.as_tensor(C))
     for i in range(2):
         close(Z[i], jdyn.impedance(jnp.asarray(w), M[i], B[i], C[i]))
+
+
+def test_hydro_linearization_matches_golden():
+    """hydro_linearization (drag_lin_precompute then drag_lin_iter) on
+    the spar demo's strips at its zero pose, for the golden's wave
+    velocities and seeded response, against the JAX package's within
+    1e-10 x each output's max."""
+    import json
+
+    from raft_tpu_torch.models.model import Model
+
+    g = np.load(os.path.join(FIX, "golden_omdao_helpers.npz"))
+    with open(os.path.join(FIX, "design_spar.json")) as f:
+        model = Model(json.load(f))
+    fh = model.hydro[0]
+    cpu = torch.device("cpu")
+    pose = fh.pose(np.zeros(6), cpu)
+    d = fh._on(cpu)
+    out = tmor.hydro_linearization(
+        d["site"], d["ss"], pose.hc, torch.as_tensor(g["lin_u"])[None],
+        torch.as_tensor(g["lin_Xi"])[None], d["w"], pose.Tn, pose.r_nodes)
+    for k in ("B_hydro_drag", "Bmat", "F_hydro_drag"):
+        close(out[k][0], g[f"lin_{k}"], tol=1e-10)

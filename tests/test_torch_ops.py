@@ -99,3 +99,43 @@ def test_wave_kinematics_and_rao(rng):
     zeta[0, :5] = 1e-8                                    # guarded bins
     close(twv.get_rao(torch.as_tensor(Xi), torch.as_tensor(zeta)[:, None]),
           jwv.get_rao(jnp.asarray(Xi), jnp.asarray(zeta)[:, None]))
+
+
+def _helpers_golden():
+    import os
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures", "torch_port")
+    return dict(np.load(os.path.join(fix, "golden_omdao_helpers.npz")))
+
+
+def test_kinematics_rms_psd_match_golden():
+    """get_kinematics, get_rms and get_psd (over every axis and summed
+    over the sources) against the JAX package's on the golden's seeded
+    inputs, within 1e-10 x max."""
+    g = _helpers_golden()
+    t = {k: torch.as_tensor(g[k]) for k in ("kin_r", "kin_Xi", "kin_w",
+                                            "psd_xi")}
+    for k, v in zip(("dr", "v", "a"), twv.get_kinematics(
+            t["kin_r"], t["kin_Xi"], t["kin_w"])):
+        close(v, g[f"kin_{k}"], rtol=1e-10)
+    dw = float(g["psd_dw"])
+    close(twv.get_rms(t["psd_xi"]), g["rms"], rtol=1e-10)
+    close(twv.get_psd(t["psd_xi"], dw), g["psd"], rtol=1e-10)
+    close(twv.get_psd(t["psd_xi"], dw, axis=0), g["psd_sum0"], rtol=1e-10)
+
+
+def test_get_kinematics_broadcasts_as_jax(rng):
+    """One point against one motion and against a batch of motions, as
+    the reference broadcasts the point to the motions' shape."""
+    nw = 9
+    w = np.linspace(0.1, 1.5, nw)
+    Xi = rng.normal(size=(5, 6, nw)) + 1j * rng.normal(size=(5, 6, nw))
+    r = rng.normal(size=(3,))
+    for r_, X_ in ((r, Xi), (r, Xi[0])):
+        got = twv.get_kinematics(torch.as_tensor(r_), torch.as_tensor(X_),
+                                 torch.as_tensor(w))
+        ref = jwv.get_kinematics(jnp.asarray(r_), jnp.asarray(X_),
+                                 jnp.asarray(w))
+        for a, b in zip(got, ref):
+            close(a, b)

@@ -87,7 +87,7 @@ def test_flags_mirror_the_jax_registry(monkeypatch):
 
     for name in ("SOLVER", "FUSED", "DTYPE", "SCAN_CHUNK", "ITER_SCALE",
                  "COND_CHECK", "COND_THRESHOLD", "BUCKET_ROWS",
-                 "BUCKET_STEPS"):
+                 "BUCKET_STEPS", "SERVE_CACHE_MB"):
         monkeypatch.delenv("RAFT_TPU_" + name, raising=False)
         assert tcfg.FLAGS[name].env == jcfg.FLAGS[name].env
         assert tcfg.get(name) == jcfg.get(name), name
@@ -122,21 +122,64 @@ def test_entry_points_raise_without_cuda_and_device(monkeypatch):
     from raft_tpu_torch.parallel.sweep import sweep_heterogeneous
     from raft_tpu_torch.structure import bucketing as tb
 
+    from raft_tpu_torch.omdao import DesignEvaluation, RAFT_OMDAO_Core
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     fix = os.path.join(ROOT, "tests", "fixtures", "torch_port")
     p = tb.load_packed(os.path.join(fix, "packed_mhk.npz"))
     with open(os.path.join(fix, "design_mhk.json")) as f:
         m = Model(json.load(f))
+    with open(os.path.join(fix, "weis_semi_wind.json")) as f:
+        weis = json.load(f)
+    core = RAFT_OMDAO_Core(*(weis[k] for k in (
+        "modeling_options", "analysis_options", "turbine_options",
+        "mooring_options", "member_options")))
     for call in (lambda: tb.BucketEvaluator(p.sig),
                  lambda: tb.packed_from_numpy(p.leaves),
                  lambda: sweep_heterogeneous([p], [2.0], [8.0], [0.0]),
                  lambda: sweep_heterogeneous([m], [2.0], [8.0], [0.0]),
                  lambda: make_case_evaluator(m),
-                 lambda: make_design_evaluator(m)):
+                 lambda: make_design_evaluator(m),
+                 lambda: DesignEvaluation(
+                     os.path.join(fix, "design_spar.json")).compute(),
+                 lambda: core.compute(weis["inputs"],
+                                      weis["discrete_inputs"])):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             call()
     # an explicit device is honoured
     assert tb.BucketEvaluator(p.sig, device="cpu").w.device.type == "cpu"
+
+
+def test_plotting_imports_without_matplotlib():
+    """With matplotlib blocked, raft_tpu_torch.plotting imports, its
+    geometry helpers run, and a plot function raises ImportError naming
+    matplotlib."""
+    code = r"""
+import json, sys
+sys.modules["matplotlib"] = None
+sys.modules["matplotlib.pyplot"] = None
+from raft_tpu_torch import plotting
+from raft_tpu_torch.models.model import Model
+with open("tests/fixtures/torch_port/design_spar.json") as f:
+    m = Model(json.load(f))
+fs, ms = m.fowtList[0], m.ms_list[0]
+polys = plotting._member_polylines(fs.members[0], [0.0, 0.0, 0.0])
+pts = plotting._catenary_points(ms.r_anchor[0], ms.r_fair0[0], ms.L[0],
+                                ms.w[0], ms.EA[0], device="cpu")
+assert pts.shape == (30, 3) and len(polys) > 0
+try:
+    plotting.plot_system(m, device="cpu")
+except ImportError as e:
+    assert "matplotlib" in str(e), e
+else:
+    raise AssertionError("plot_system ran without matplotlib")
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
 
 
 def test_chip_smoke_refuses_without_cuda():
