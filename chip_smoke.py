@@ -89,7 +89,9 @@ Phases, each printing one line (the last line is the result object):
 14. farm    - the farm evaluator (make_farm_evaluator, float64) on
              design_farm_semi_wind.json, two units with their own
              catenaries and a shared line over a free buoy (nT = 12):
-             warm-up on the golden rows alone, then FARM_ROWS (1024)
+             warm-up on the golden rows alone (differentiable: the
+             gradient of the response metric at the gradient golden's
+             rows, reported by grad_paths), then FARM_ROWS (1024)
              seeded operating rows (free-stream wind for the upstream
              unit, a wake deficit of 0-35% for the downstream one) with
              the golden rows first, held against golden_farm_semi_wind.npz;
@@ -152,6 +154,26 @@ Phases, each printing one line (the last line is the result object):
              the golden d_scale rows (held), then BEM_GEOMETRY_ROWS (1024)
              rows with d_scale uniform over D_SCALE_BOX, geometry-evals/s,
              launches against the trips run.
+    grad_paths - reverse mode through every other evaluator, on golden
+             rows held against the jax.grad goldens by the CPU tests'
+             gate (tests/test_torch_grad.py hold_grads: 1e-9 x each
+             key's max|g|; the flexible path at 1e-7, the gate of
+             tests/test_torch_grad_flex.py): the full
+             evaluator's aero inputs on the full phase's semi_wind and
+             mhk_tidal evaluators (golden_grad_aero_*.npz: the response
+             metric by every row input, sum |f_aero|^2 by the rotor
+             speeds, TI and yaw); d_scale and the rows through the bem
+             phase's geometry evaluator, its off-unit panel solves
+             reused (golden_grad_bem_semi_wind.npz); the farm's every
+             row input on the farm phase's warm-up call (its golden
+             rows, one chunk: the coupled statics' launch storm is paid
+             once), held at golden_grad_farm_semi_wind.npz's two rows,
+             with the adjoint launches of its backward per entry, the
+             N = 12 one (the system response's, on the one-lane-per-row
+             design) against the count the code gives; semi_wind_flex's
+             rows and its struct_params leaves
+             (golden_grad_flex_semi_wind.npz).  Per path: gradient
+             rows/s, backward/forward time, peak memory of the chunk.
 19. qtf     - second-order forces: make_full_evaluator on
              design_semi_wind_qtf.json (semi_wind with the external QTF
              semi_wind_qtf.12d): the golden rows (held against
@@ -210,8 +232,9 @@ Phases, each printing one line (the last line is the result object):
              the forward with its launches on every path (the analyze
              and omdao paths' also as analyze_launches and
              omdao_launches) and the adjoint
-             with its launches on the grad path, each with its N = 12
-             (one-lane-per-row) figures.
+             with its launches on the grad and grad_paths paths, each
+             with its N = 12 (one-lane-per-row) figures (the adjoint's
+             from the farm's backward).
 
 Exits non-zero, before printing any result, without CUDA, outside the
 repository, or when any phase misses its tolerance.  Measurements go to
@@ -221,6 +244,7 @@ repository, or when any phase misses its tolerance.  Measurements go to
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import math
 import os
@@ -260,7 +284,8 @@ GEOM_BOX = dict(d_scale=(0.9, 1.1), t_scale=(0.9, 1.1),
                 Cd_scale=(0.5, 2.0), Ca_scale=(0.5, 1.5),
                 L_moor_scale=(0.98, 1.02), EA_moor_scale=(0.8, 1.2))
 GRAD_ROWS = 512                        # rows of the grad phase (one chunk)
-GRAD_TOL = 1e-9                        # x each key's max |golden gradient|
+#: the grad_paths phase's aero golden sets
+GRAD_AERO_SETS = ("semi_wind", "mhk_tidal")
 FARM_ROWS = 1024                       # rows of the farm phase (2 chunks)
 FARM_SEED = 20261023
 FLEX_DESIGN = "semi_wind"
@@ -1407,27 +1432,18 @@ def phase_geometry(model, card):
 
 
 def _metric(out):
-    return (out["Xi"][:, 0].abs() ** 2).flatten(1).sum(-1) \
-        + (out["X0"] ** 2).sum(-1)
+    return _test_module("test_torch_grad").metric(out)
 
 
-def _hold_grads(val, grads, gold, pfx, tag, n):
-    """The first ``n`` rows' metric and gradients against the golden's:
-    the metric within 1e-12, each key within GRAD_TOL x its max|g|."""
-    b = gold[pfx + "metric"]
-    a = val[:n].detach().cpu().numpy()
-    check(np.max(np.abs(a - b)) <= 1e-12 * np.max(np.abs(b)),
-          f"{tag}: metric {a} != {b}")
-    worst = {}
-    for k, g in grads.items():
-        b = gold[f"{pfx}g_{k}"]
-        a = g[:n].cpu().numpy()
-        scale = float(np.max(np.abs(b)))
-        err = float(np.max(np.abs(a - b)))
-        check(err <= GRAD_TOL * scale, f"{tag} {k}: {err:.3e} > "
-              f"{GRAD_TOL:g} x {scale:.3e}")
-        worst[k] = err / scale
-    return worst
+def _hold_grads(val, grads, gold, pfx, tag, n, **tols):
+    """The first ``n`` rows' metric and gradients held by the CPU tests'
+    gate (tests/test_torch_grad.py ``hold_grads``: the metric within
+    1e-12, each key finite and within 1e-9 x its max|g|, or ``tols``);
+    each key's error over that scale."""
+    gates = _test_module("test_torch_grad")
+    return _held("gradients", gates.hold_grads, val[:n],
+                 {k: g[:n] for k, g in grads.items()}, gold, pfx,
+                 phase=tag, **tols)
 
 
 def phase_grad(geo_ev, demo_models, card):
@@ -1542,7 +1558,7 @@ def phase_grad(geo_ev, demo_models, card):
           f"{adj_launches} (expected {exp_adj}: {dynamics.NEUMANN_STEPS} "
           f"Neumann + 2 per chunk), forward launches {fwd_launches}; golden "
           f"rows within {max(worst.values()):.1e} x max|g| (gate "
-          f"{GRAD_TOL:g}); design gradients on the demos within "
+          f"{_test_module('test_torch_grad').TOL:g}); design gradients on the demos within "
           f"{max(worst_design.values()):.1e}")
     print(f"  adjoint entry, 20,480 systems N=6 f64: kernel {t['ms']:.4f} ms,"
           f" wrapper {t['wrapper_ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
@@ -1585,9 +1601,95 @@ def _farm(name):
     return model, gold["Hs"].shape[1], gold
 
 
+def _farm_warm_grad(ev, p0):
+    """The farm phase's warm-up: the golden rows ``p0`` through ``ev``
+    with every row input requiring grad, then the backward of the
+    response metric of golden_grad_farm_semi_wind.npz's rows (FARM_ROWS
+    rows 2-3, found among ``p0``'s), held against it: (numpy outputs,
+    the gradient record, the forward's s).  The adjoint entry's launches
+    of the backward are counted from 0, the N = 12 one (the system
+    response's, on the lane-per-row design) against the count the code
+    gives."""
+    from raft_tpu_torch.api import ENV_KEYS, SEA_KEYS
+    from raft_tpu_torch.models import dynamics
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    gold = dict(np.load(os.path.join(FIX, "golden_grad_farm_semi_wind.npz")))
+    keys = ENV_KEYS + SEA_KEYS
+    n = len(gold["Hs"])
+    idx = [i for i in range(len(p0["Hs"])) if all(
+        any(np.array_equal(p0[k][i], gold[k][j]) for j in range(n))
+        for k in keys)]
+    check(len(idx) == n and all(np.array_equal(p0[k][idx], gold[k])
+                                for k in keys),
+          "farm: the gradient golden's rows are not among the golden rows")
+    x = {k: torch.tensor(p0[k], dtype=torch.float64, device=DEVICE,
+                         requires_grad=True) for k in keys}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    out = ev(**x)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    val = _metric(out)[idx]
+    # CUDA events around each launch of the lane-per-row design in the
+    # backward (the system response's N = 12 adjoint)
+    rows_fn, n12 = linsolve._cuda_solve_rows, []
+
+    def timed_rows(Z, F, adjoint=False):
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        lam = rows_fn(Z, F, adjoint=adjoint)
+        ev1.record()
+        n12.append((ev0, ev1, tuple(Z.shape)))
+        return lam
+
+    linsolve.reset_launches()
+    linsolve._cuda_solve_rows = timed_rows
+    try:
+        grads = dict(zip(keys, torch.autograd.grad(
+            val.sum(), list(x.values()), allow_unused=True,
+            materialize_grads=True)))
+    finally:
+        linsolve._cuda_solve_rows = rows_fn
+    torch.cuda.synchronize()
+    t2 = time.time()
+    adj = linsolve.ADJ_KERNEL_LAUNCHES
+    row_adj = linsolve.ROW_KERNEL_LAUNCHES
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    rows = len(p0["Hs"])
+    chunks = math.ceil(rows / (int(config.get("BUCKET_ROWS")) or rows))
+    # per chunk: the system response's adjoint at N = nT on the
+    # lane-per-row design; the units' fixed point's NEUMANN_STEPS
+    # Neumann steps and its pull-back at N = 6 (the final update's
+    # solve is unused: the farm takes Z and Bmat from it, not Xi)
+    exp_row = chunks
+    exp_adj = chunks * (dynamics.NEUMANN_STEPS + 2)
+    check(row_adj == exp_row, f"farm: the N = {ev.nT} adjoint entry "
+          f"launched {row_adj} times in the backward, expected {exp_row}")
+    check(adj == exp_adj, f"farm: adjoint launches {adj}, expected "
+          f"{exp_adj}")
+    np_out = {k: v.detach().cpu().numpy() for k, v in out.items()}
+    _hold_exact({k: v[idx] for k, v in out.items()}, gold, "",
+                "grad_paths farm")
+    worst = _hold_grads(val, {k: g[idx] for k, g in grads.items()}, gold,
+                        "", "grad_paths farm", n)
+    rec = _grad_record(
+        n, t1 - t0, t2 - t1, peak, worst=max(worst.values()), nT=ev.nT,
+        rows_evaluated=rows, chunks=chunks, adj_launches=adj,
+        expected_adj_launches=exp_adj, row_adj_launches=row_adj,
+        expected_row_adj_launches=exp_row, adj_n6_launches=adj - row_adj,
+        n12_adj_ms=sum(a.elapsed_time(b) for a, b, _ in n12),
+        n12_adj_shapes=[z for _, _, z in n12])
+    return np_out, rec, t1 - t0
+
+
 def phase_farm(card, rows=FARM_ROWS):
     """The farm evaluator on the two-unit shared-mooring farm: warm-up on
-    the golden rows (held), then ``rows`` operating rows with the golden
+    the golden rows (held, and differentiated: :func:`_farm_warm_grad`),
+    then ``rows`` operating rows with the golden
     rows first, timed per stage, the statics' network evaluations per
     chunk, the kernel's launches against the trips run, status shares;
     then the three-spar farm's golden rows (nT = 18, the library solve),
@@ -1606,9 +1708,7 @@ def phase_farm(card, rows=FARM_ROWS):
     def run(p, timer=None):
         return {k: v.cpu().numpy() for k, v in ev(**p, timer=timer).items()}
 
-    t0 = time.time()
-    out = run(farm_rows(gold, n_gold))
-    warm_s = time.time() - t0
+    out, grad, warm_s = _farm_warm_grad(ev, farm_rows(gold, n_gold))
     worst = hold_goldens(out, {"semi_wind": np.arange(n_gold)},
                          {"semi_wind": gold}, pfx, "farm", keys=FARM_OUT_KEYS)
 
@@ -1663,7 +1763,8 @@ def phase_farm(card, rows=FARM_ROWS):
         launches=launches, expected_launches=exp, row_launches=row_launches,
         n_iter_drag_max=int(out["n_iter_drag"].max()),
         status_shares=_status_shares(st),
-        worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()})
+        worst_rel={k.split(".", 1)[1]: v for k, v in worst.items()},
+        grad=grad)
     print(f"farm semi_wind on {card}: {rows} rows x 2 units (nT {ev.nT}), "
           f"{res['chunks']} chunks in {wall:.2f} s = "
           f"{res['evals_per_s']:.2f} farm-evals/s; stage ms "
@@ -2332,6 +2433,172 @@ def phase_bem(out_dir, card):
             os.environ.pop("RAFT_TPU_BEM_DIR", None)
         else:
             os.environ["RAFT_TPU_BEM_DIR"] = prev
+    return res, geo
+
+
+def _grad_pass(fn, x, metrics):
+    """One differentiable evaluation ``fn(x)`` and the backward of each
+    metric (name -> (metric of the outputs, keys of ``x``)), timed and
+    with the peak device memory above the start: (outputs, {name: (per
+    row values, {key: gradient})}, forward s, backward s, peak MiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.time()
+    out = fn(x)
+    torch.cuda.synchronize()
+    t1 = time.time()
+    res = {}
+    names = list(metrics)
+    for i, name in enumerate(names):
+        f, keys = metrics[name]
+        val = f(out)
+        g = torch.autograd.grad(val.sum(), [x[k] for k in keys],
+                                retain_graph=i + 1 < len(names),
+                                allow_unused=True, materialize_grads=True)
+        res[name] = (val, dict(zip(keys, g)))
+    torch.cuda.synchronize()
+    t2 = time.time()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+    return out, res, t1 - t0, t2 - t1, peak
+
+
+def _grad_record(rows, fwd_s, bwd_s, peak, **kw):
+    return dict(rows=rows, fwd_s=fwd_s, bwd_s=bwd_s,
+                bwd_over_fwd=bwd_s / fwd_s,
+                rows_per_s=rows / (fwd_s + bwd_s), peak_mb=peak, **kw)
+
+
+def _hold_exact(out, gold, pfx, tag):
+    for k in ("status", "n_iter_drag"):
+        a = out[k].cpu().numpy()
+        check(np.array_equal(a, gold[pfx + k]),
+              f"{tag}: {k} {a.tolist()} != {gold[pfx + k].tolist()}")
+
+
+def phase_grad_paths(full_evs, farm_grad, bem_geo, card):
+    """Reverse mode through the aero stage, the potential-flow d_scale
+    and the flexible path on golden rows (module docstring, grad_paths),
+    each held against its jax.grad golden; with the farm's, taken in the
+    farm phase (``farm_grad``, :func:`_farm_warm_grad`)."""
+    from raft_tpu_torch import api
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    keys = api.ENV_KEYS + api.SEA_KEYS
+    kw = dict(dtype=torch.float64, device=DEVICE)
+    pfx = "on_" if config.get("FUSED") == "on" else "off_"
+    mk = _test_module("make_torch_port_fixtures")
+    aero_metric = _test_module("test_torch_grad_aero").aero_metric
+    flex_gates = _test_module("test_torch_grad_flex")
+    res = {}
+    fwd_launches = adj_launches = 0
+
+    def leaves(src, names):
+        return {k: torch.tensor(src[k], **kw, requires_grad=True)
+                for k in names}
+
+    def counted(fn, x, metrics):
+        nonlocal fwd_launches, adj_launches
+        linsolve.reset_launches()
+        out = _grad_pass(fn, x, metrics)
+        fwd_launches += linsolve.KERNEL_LAUNCHES
+        adj_launches += linsolve.ADJ_KERNEL_LAUNCHES
+        return out
+
+    # ---- the aero stage's inputs, the full phase's evaluators
+    for name in GRAD_AERO_SETS:
+        gold = dict(np.load(os.path.join(FIX, f"golden_grad_aero_{name}.npz")))
+        x = leaves(gold, keys)
+        out, g, fwd_s, bwd_s, peak = counted(
+            lambda x: full_evs[name](**x), x,
+            dict(response=(_metric, keys), aero=(
+                aero_metric, mk.GRAD_AERO_METRIC_KEYS)))
+        n = len(gold["Hs"])
+        _hold_exact(out, gold, pfx, f"grad_paths aero {name}")
+        worst = _hold_grads(*g["response"], gold, pfx,
+                            f"grad_paths aero {name}", n)
+        worst.update({f"aero.{k}": v for k, v in _hold_grads(
+            *g["aero"], gold, pfx + "aero_", f"grad_paths aero {name}",
+            n).items()})
+        res[f"aero_{name}"] = _grad_record(n, fwd_s, bwd_s, peak,
+                                           worst=max(worst.values()))
+
+    # ---- d_scale of the potential-flow design: the bem phase's geometry
+    # evaluator, its off-unit panel solves reused
+    gold = dict(np.load(os.path.join(FIX, "golden_grad_bem_semi_wind.npz")))
+    x = leaves(gold, keys + ("d_scale",))
+    solves = []
+    run_bem = bem_geo._run_bem
+    bem_geo._run_bem = lambda **k: solves.append(k) or run_bem(**k)
+    try:
+        out, g, fwd_s, bwd_s, peak = counted(
+            lambda x: bem_geo(geom=dict(d_scale=x["d_scale"]),
+                              **{k: x[k] for k in keys}), x,
+            dict(response=(_metric, keys + ("d_scale",))))
+    finally:
+        bem_geo._run_bem = run_bem
+    check(not solves, f"grad_paths bem: {len(solves)} panel solves, "
+          "expected the bem phase's to be reused")
+    n = len(gold["Hs"])
+    _hold_exact(out, gold, pfx, "grad_paths bem")
+    worst = _hold_grads(*g["response"], gold, pfx, "grad_paths bem", n)
+    res["bem"] = _grad_record(n, fwd_s, bwd_s, peak,
+                              worst=max(worst.values()),
+                              g_d_scale=g["response"][1]["d_scale"].tolist())
+
+    # ---- the farm: its golden gradient rows, taken on the farm phase's
+    # warm-up call (its coupled statics' launch storm paid once)
+    res["farm"] = farm_grad
+    adj_launches += farm_grad["adj_launches"]
+
+    # ---- the flexible path: the rows, then struct_params
+    gold = dict(np.load(os.path.join(FIX, "golden_grad_flex_semi_wind.npz")))
+    model = Model(_flex_design())
+    n = len(gold["Hs"])
+    for tag, geometry in (("flex", False), ("flex_geometry", True)):
+        pre = "geo_" if geometry else ""
+        ev = api.make_flexible_evaluator(model, nWaves=1, device=DEVICE,
+                                         geometry=geometry)
+        x = leaves(gold, keys)
+        if geometry:
+            x.update({k[len(pre):]: torch.tensor(v, **kw,
+                                                 requires_grad=True)
+                      for k, v in gold.items() if k.startswith(pre + "sp.")})
+
+            def fn(x):
+                return ev(struct_params=mk._tree_struct_params(x),
+                          **{k: x[k] for k in keys})
+        else:
+            def fn(x):
+                return ev(**x)
+        out, g, fwd_s, bwd_s, peak = counted(fn, x, dict(
+            response=(_metric, list(x))))
+        _hold_exact(out, gold, pre, f"grad_paths {tag}")
+        worst = _hold_grads(*g["response"], gold, pre, f"grad_paths {tag}",
+                            n, tol=flex_gates.GRAD_GATE,
+                            metric_tol=flex_gates.METRIC_GATE)
+        res[tag] = _grad_record(n, fwd_s, bwd_s, peak,
+                                worst=max(worst.values()), keys=len(x))
+    res.update(fwd_launches=fwd_launches, adj_launches=adj_launches,
+               row_adj_launches=res["farm"]["row_adj_launches"])
+    for tag, r in res.items():
+        if not isinstance(r, dict):
+            continue
+        print(f"grad_paths {tag} on {card}: {r['rows']} rows, forward "
+              f"{r['fwd_s']:.2f} s, backward {r['bwd_s']:.2f} s "
+              f"({r['bwd_over_fwd']:.2f}x) = {r['rows_per_s']:.2f} gradient "
+              f"rows/s; peak memory {r['peak_mb']:.0f} MiB; golden within "
+              f"{r['worst']:.1e} x max|g|")
+    f = res["farm"]
+    print(f"  farm backward adjoint launches: {f['adj_launches']} (expected "
+          f"{f['expected_adj_launches']}), of them on the N = "
+          f"{f['nT']} lane-per-row entry {f['row_adj_launches']} "
+          f"(expected {f['expected_row_adj_launches']}: one system "
+          f"response per chunk; its wrapper {f['n12_adj_ms']:.3f} ms on Z "
+          f"{f['n12_adj_shapes']}), at N = 6 {f['adj_n6_launches']}; bem "
+          f"d metric/d d_scale {res['bem']['g_d_scale']}")
     return res
 
 
@@ -2649,11 +2916,12 @@ def _sync():
         torch.cuda.synchronize()
 
 
+@functools.lru_cache(maxsize=None)
 def _test_module(name):
     """tests/<name>.py, imported by its path (on some machines a site
-    package named ``tests`` shadows the repository's): the CPU tests'
-    goldens and gates, which the analyze and omdao phases hold the card
-    to."""
+    package named ``tests`` shadows the repository's) and once: the CPU
+    tests' goldens and gates, which the grad, grad_paths, analyze and
+    omdao phases hold the card to."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -3035,7 +3303,9 @@ def main():
         rec["profile_farm"] = timed("profile_farm", phase_profile_farm,
                                     farm_ev, farm_p)
         rec["flex"] = timed("flex", phase_flex, rec["card"])
-        rec["bem"] = timed("bem", phase_bem, args.out, rec["card"])
+        rec["bem"], bem_geo = timed("bem", phase_bem, args.out, rec["card"])
+        rec["grad_paths"] = timed("grad_paths", phase_grad_paths, evs,
+                                  rec["farm"]["grad"], bem_geo, rec["card"])
         rec["qtf"] = timed("qtf", phase_qtf, rec["card"])
         rec["analyze"] = timed("analyze", phase_analyze, args.out,
                                rec["card"])
@@ -3051,6 +3321,8 @@ def main():
         geometry=rec["geometry"]["launches"],
         grad=rec["grad"]["fwd_launches"],
         grad_adjoint=rec["grad"]["adj_launches"],
+        grad_paths=rec["grad_paths"]["fwd_launches"],
+        grad_paths_adjoint=rec["grad_paths"]["adj_launches"],
         farm=rec["farm"]["launches"], bem=rec["bem"]["launches"],
         bem_geometry=rec["bem"]["geometry"]["launches"],
         qtf=rec["qtf"]["launches"],
@@ -3068,6 +3340,7 @@ def main():
                   + rec["geometry"]["launches"]
                   + rec["grad"]["fwd_launches"] + rec["farm"]["launches"]
                   + rec["bem"]["launches"]
+                  + rec["grad_paths"]["fwd_launches"]
                   + rec["bem"]["geometry"]["launches"]
                   + rec["qtf"]["launches"]
                   + rec["qtf"]["geometry"]["launches"]
@@ -3087,7 +3360,8 @@ def main():
         name="ge_solve_adj", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",
         replaces="raft_tpu/ops/linsolve.py:277",
-        launches=rec["grad"]["adj_launches"],
+        launches=(rec["grad"]["adj_launches"]
+                  + rec["grad_paths"]["adj_launches"]),
         max_abs_err=a["max_abs_err"], ms=a["ms"], plain_ms=a["plain_ms"],
         bound_ms=a["bound_ms"], bound_by=a["bound_by"],
         library_ms=a["library_ms"],
@@ -3095,7 +3369,8 @@ def main():
         n12_plain_ms=a12["plain_ms"], n12_bound_ms=a12["bound_ms"],
         n12_library_ms=a12["library_ms"],
         n12_max_abs_err=a12["max_abs_err"],
-        n12_launches=rec["grad"]["row_launches"])]
+        n12_launches=(rec["grad"]["row_launches"]
+                      + rec["grad_paths"]["row_adj_launches"]))]
     rec["build"].pop("ptxas")
     rec["total_s"] = time.time() - t_start
     print(f"phases: {rec['total_s']:.1f} s in all; " + ", ".join(

@@ -38,7 +38,7 @@ Entry points:
 * :func:`raft_tpu_torch.api.make_case_evaluator` /
   :func:`~raft_tpu_torch.api.make_design_evaluator` — one design's
   batched sea-state and design-axis (drag / added-mass / mooring-length
-  scales) evaluators, forward only;
+  scales) evaluators;
 * :func:`raft_tpu_torch.api.make_full_evaluator` — one design's batched
   full-physics evaluator (rotor aero-servo with load derivatives,
   submerged-rotor blade hydro, current loads, several wave headings,
@@ -55,13 +55,13 @@ Entry points:
   multibody design's batched evaluator (beam members as FE chains,
   reduced N-DOF structures: general statics, the displaced-pose
   topology replayed in torch over rows, the N-DOF drag linearisation
-  and impedance solves), forward only, with a geometry axis over
+  and impedance solves), with a geometry axis over
   host-rebuilt designs (:func:`~raft_tpu_torch.api.
   flexible_struct_params`);
 * :func:`raft_tpu_torch.api.make_farm_evaluator` — an array design's
   batched farm evaluator (several rigid units, their own moorings and a
   shared-mooring network from a MoorDyn file, the coupled statics and
-  the system response), forward only;
+  the system response);
 * :class:`raft_tpu_torch.structure.bucketing.BucketEvaluator` — one
   bucket signature's batched evaluator (statics, excitation, drag
   fixed point, response);
@@ -71,6 +71,11 @@ Entry points:
 * :func:`raft_tpu_torch.structure.bucketing.load_packed` /
   :func:`~raft_tpu_torch.structure.bucketing.packed_from_numpy` — the
   packed-design seam between the two packages.
+
+Every evaluator is differentiable in reverse mode with respect to its
+row inputs (sea states, wind, current, turbulence, yaw, design and
+geometry scales, a flexible design's ``struct_params``):
+``torch.autograd.grad`` of a metric of the outputs.
 
 They run on the CUDA device unless ``device="cpu"`` is passed; without
 a card and without an explicit device they raise.  The one hand-written

@@ -6,14 +6,19 @@ case-table helpers of the full evaluator (:func:`case_to_traced`,
 :func:`case_in_traced_domain`), and the case-level helpers every
 evaluator shares (``_policy_cdt``, ``_case_status``).
 
-Every evaluator is differentiable in reverse mode with respect to its
-row inputs (sea states, design scales, geometry scales): rows are
+Every evaluator, the farm and flexible ones too, is differentiable in
+reverse mode with respect to its row inputs (sea states, wind, current,
+turbulence intensity, yaw, design scales, geometry scales, a potential-
+flow design's d_scale, a flexible design's ``struct_params``): rows are
 independent, so ``torch.autograd.grad(metric(out).sum(), x)`` gives each
 row's gradient.  Without an input that requires grad the rows run
-under ``no_grad``.  The gradients pass the statics and the drag fixed
-point by their implicit backwards (:mod:`raft_tpu_torch.models.
-statics_solve`, :mod:`raft_tpu_torch.models.dynamics`) and every solve
-by its adjoint (:mod:`raft_tpu_torch.ops.linsolve`)."""
+under ``no_grad``.  The gradients pass every root by its implicit
+rule, never through its iterations: the blade-element inflow angle
+(:mod:`raft_tpu_torch.physics.aero`), the catenary loads and a
+network's free points (:mod:`raft_tpu_torch.physics.mooring`), the
+statics and the drag fixed point (:mod:`raft_tpu_torch.models.
+statics_solve`, :mod:`raft_tpu_torch.models.dynamics`); every solve
+passes by its adjoint (:mod:`raft_tpu_torch.ops.linsolve`)."""
 
 from __future__ import annotations
 
@@ -562,12 +567,14 @@ class FullEvaluator(CaseEvaluator):
     0.92, 1.0, 1.08), the two off-unit scales solved on the first chunk
     with a d_scale other than 1 (the design's coefficients where d_scale
     is 1).  File coefficients (``hydroPath``) cannot be re-solved and
-    refuse ``geometry=True``; a d_scale that requires grad raises
-    (ROADMAP A12).
+    refuse ``geometry=True``.  A d_scale that requires grad always takes
+    the interpolation, at 1 too (its value there is the design's, its
+    derivative is not 0).
 
-    The aero stage enters as constants: gradients with respect to its
-    own inputs (wind, or current for a submerged rotor, TI, yaw) are not
-    ported and raise.
+    Every row input is differentiable, the aero stage's included: the
+    blade-element root enters the graph by its implicit rule
+    (:func:`~raft_tpu_torch.physics.aero.rotor_loads_and_derivs`), and a
+    clamped speed (below 0.1 m/s) has the clamp's derivative, 0.
     """
 
     def __init__(self, model, nWaves=1, turb_static=None, device=None,
@@ -715,7 +722,8 @@ class FullEvaluator(CaseEvaluator):
 
     def _bem_geometry(self, g):
         """The potential-flow coefficients of geometry rows ``g`` (None
-        without potential flow, or where every row's d_scale is 1)."""
+        without potential flow, or where every row's d_scale is 1 and
+        none requires grad)."""
         if self.bem is None:
             return None
         d = g["d_scale"]
@@ -725,12 +733,10 @@ class FullEvaluator(CaseEvaluator):
                 "for every member (the coefficients are interpolated in "
                 "that one scale)")
         s = d[:, 0]
-        if s.requires_grad:
-            raise NotImplementedError(
-                "the gradient with respect to d_scale of a potential-flow "
-                "design (through its interpolated coefficients) is not "
-                "ported (ROADMAP A12)")
-        if not bool(torch.any(s != 1.0)):
+        # at s = 1 the interpolation gives the design's own coefficients
+        # (l1 = 1, l0 = l2 = 0 exactly) but not their derivative: a scale
+        # that requires grad always interpolates
+        if not s.requires_grad and not bool(torch.any(s != 1.0)):
             return None
         tab = self.bem_samples()
         return {k: _lagrange3(tab[k], tab["s"], s) for k in ("A", "B", "X")}
@@ -780,18 +786,6 @@ class FullEvaluator(CaseEvaluator):
             if k in SEA_KEYS and v.dim() == 2 and v.shape[1] != self.nWaves:
                 raise ValueError(f"{k}: shape {tuple(v.shape)}, expected "
                                  f"(R, {self.nWaves})")
-        if torch.is_grad_enabled():
-            aero_in = set()
-            for _, rprops, _, _ in self.rotors:
-                aero_in |= {"TI", "yaw_misalign_deg"} | (
-                    {"current_speed", "current_heading_deg"}
-                    if rprops.Zhub < 0 else {"wind_speed", "wind_heading_deg"})
-            bad = sorted(k for k in aero_in if vals[k].requires_grad)
-            if bad:
-                raise NotImplementedError(
-                    f"gradients with respect to the aero stage's inputs {bad} "
-                    "are not ported (ROADMAP A12: the aero stage's backward); "
-                    "the aero terms enter the gradient as constants")
         lead = [v.shape[:1] for v in vals.values()]
         if geom is not None:
             lead += [torch.as_tensor(v).shape[:1] for v in geom.values()]
@@ -868,8 +862,7 @@ class FullEvaluator(CaseEvaluator):
         R = p["Hs"].shape[0]
         mark("start")
         d, ms, hc0, C_elast, bem = self._structure(p, R, mark)
-        with torch.no_grad():
-            aero = self._aero(p, R)
+        aero = self._aero(p, R)
         mark("aero")
 
         F_current = morison.current_loads(
@@ -949,7 +942,16 @@ class FarmMooring:
     as the reference's closures add them.  C is the units' blocks plus
     the shared network's coupled stiffness; :meth:`parts` gives the two
     apart at a pose (the system impedance takes them apart), and
-    ``calls`` counts the evaluations."""
+    ``calls`` counts the evaluations.
+
+    It speaks the statics' implicit protocol
+    (:class:`~raft_tpu_torch.models.statics_solve.MooringClosure`):
+    :meth:`with_root` evaluates at a pose and keeps its converged state
+    (the lines' loads, each network's free points and line loads), and
+    :meth:`at_root` writes F and C from that state, differentiable in
+    the pose (the loads and free points attached by their implicit
+    rules, nothing solved again).  At the attached equilibrium pose its
+    stiffness parts are kept for :meth:`parts`, with their graph."""
 
     def __init__(self, lines, networks, nF):
         self.lines = lines          # (fair0, anchor, L, w, EA, mask) or None
@@ -957,24 +959,36 @@ class FarmMooring:
         self.nF = nF
         self.calls = 0
         self._last = None
+        self._att = None
 
-    def _evaluate(self, X):
+    def _evaluate(self, X, root=None):
+        """(F (R, nF, 6), C_units (R, nF, 6, 6), Ka (R, nT, nT), the
+        converged state) at X: solved, or with ``root`` written from
+        that state (:meth:`at_root`)."""
+        from raft_tpu_torch.physics import mooring
+
         R, nF = X.shape[0], self.nF
         Xb = X.reshape(R, nF, 6)
         F = torch.zeros_like(Xb)
         C_units = torch.zeros((R, nF, 6, 6), dtype=X.dtype, device=X.device)
         Ka = torch.zeros((R, 6 * nF, 6 * nF), dtype=X.dtype, device=X.device)
+        state = dict(lines=None, nets=[])
         if self.lines is not None:
-            from raft_tpu_torch.physics import mooring
-
             args = [a[None].expand((R,) + a.shape).reshape(
                 (R * nF,) + a.shape[1:]) for a in self.lines]
-            Fl, Cl = mooring.line_forces_and_stiffness(
-                *args, Xb.reshape(R * nF, 6))
+            Xl = Xb.reshape(R * nF, 6)
+            if root is None:
+                Fl, Cl, state["lines"] = mooring.line_forces_and_stiffness(
+                    *args, Xl, root=True)
+            else:
+                Fl, Cl = mooring.line_forces_at_root(*args, Xl,
+                                                     *root["lines"])
             F = F + Fl.reshape(R, nF, 6)
             C_units = C_units + Cl.reshape(R, nF, 6, 6)
-        for net, units, shared in self.networks:
-            out = net.solve(Xb[:, units])
+        for k, (net, units, shared) in enumerate(self.networks):
+            out = net.solve(Xb[:, units],
+                            root=None if root is None else root["nets"][k])
+            state["nets"].append(out["root"])
             F[:, units] += out["F"]
             if shared:
                 idx = torch.as_tensor([6 * u + j for u in units
@@ -983,16 +997,50 @@ class FarmMooring:
             else:
                 C_units[:, units[0]] += out["K"]
         self.calls += 1
-        self._last = (X, C_units, Ka)
-        return F, C_units, Ka
+        if root is None:
+            self._last = (X, C_units, Ka)
+        return F, C_units, Ka, state
 
     def __call__(self, X):
-        F, C_units, Ka = self._evaluate(X)
+        F, C_units, Ka, _ = self._evaluate(X)
         return F.reshape(X.shape), _block_diag(C_units) + Ka
+
+    def with_root(self, X):
+        """(F, C, converged state) at X, forward values only."""
+        with torch.no_grad():
+            F, C_units, Ka, state = self._evaluate(X)
+        state.update(C_units=C_units, Ka=Ka)
+        return F.reshape(X.shape), _block_diag(C_units) + Ka, state
+
+    def at_root(self, X, root):
+        """(F, C) at X written from the converged state ``root`` of that
+        pose, differentiable in X; C keeps the values :meth:`with_root`
+        gave, with the derivatives of the implicit form.  The stiffness
+        parts at X are kept for :meth:`parts`."""
+        F, Cu, Ka, _ = self._evaluate(X, root=root)
+        Cu = root["C_units"] + (Cu - Cu.detach())
+        Ka = root["Ka"] + (Ka - Ka.detach())
+        self._att = (X, Cu, Ka)
+        return F.reshape(X.shape), _block_diag(Cu) + Ka
+
+    def requires_grad(self, X):
+        """The array's mooring has no parameter that requires grad."""
+        return False
 
     def parts(self, X):
         """(C_units (R, nF, 6, 6), the shared network's stiffness
-        (R, nT, nT)) at X: the last evaluation's when it was at X."""
+        (R, nT, nT)) at X: the last evaluation's when it was at X.  A
+        pose that requires grad must be the attached equilibrium pose
+        the statics returned: it gets the parts :meth:`at_root` kept
+        there, with their graph (handed over once, so no graph outlives
+        its chunk)."""
+        if X.requires_grad:
+            att, self._att = self._att, None
+            if att is None or att[0] is not X:
+                raise RuntimeError(
+                    "FarmMooring.parts: a pose that requires grad must be "
+                    "the one the statics attached through at_root")
+            return att[1], att[2]
         last = self._last
         if last is None or last[0].shape != X.shape or not torch.equal(
                 last[0], X):
@@ -1012,7 +1060,7 @@ def _block_diag(blocks):
 
 class FarmEvaluator(nn.Module):
     """Batched full-physics evaluator of a multi-FOWT array (the
-    reference's ``make_farm_evaluator``), forward only.
+    reference's ``make_farm_evaluator``).
 
     ``forward(**rows, timer=None)`` takes R rows of :data:`ENV_KEYS` and
     :data:`SEA_KEYS` as :class:`FullEvaluator` does, except that
@@ -1039,6 +1087,13 @@ class FarmEvaluator(nn.Module):
     The status word ORs every unit's dynamics bits with the coupled
     statics bits and the output guards.  The reference's evaluator has
     no ``RAFT_TPU_FUSED`` path, and neither does this one.
+
+    Every row input is differentiable in reverse mode: the coupled
+    statics by their implicit backward with :class:`FarmMooring`'s
+    state attached (each network's free points by their own implicit
+    rule), so the shared stiffness at X0 carries its pose derivative
+    into the system response, whose backward is the solve's adjoint
+    (at nT <= 12 the kernel's N = 7-12 adjoint entry on the card).
     """
 
     def __init__(self, model, nWaves=1, turb_static=None, device=None):
@@ -1176,7 +1231,9 @@ class FarmEvaluator(nn.Module):
         p, n = self._rows(rows)
         cap = int(config.get("BUCKET_ROWS")) or n
         mark = timer if timer is not None else (lambda stage: None)
-        with torch.no_grad():
+        grad = torch.is_grad_enabled() and any(v.requires_grad
+                                               for v in p.values())
+        with torch.set_grad_enabled(grad):
             outs = [self._chunk({k: v[a:a + cap] for k, v in p.items()}, mark)
                     for a in range(0, n, cap)]
         return {k: torch.cat([o[k] for o in outs]) for k in outs[0]}
@@ -1192,11 +1249,6 @@ class FarmEvaluator(nn.Module):
         kw = dict(dtype=self.rdt, device=self.device)
         vals = {k: torch.as_tensor(rows.get(k, 0.0), **kw)
                 for k in ENV_KEYS + SEA_KEYS}
-        if torch.is_grad_enabled() and any(v.requires_grad
-                                           for v in vals.values()):
-            raise NotImplementedError(
-                "the farm evaluator is forward only: its reverse mode (a "
-                "root rule at the free-point equilibrium) is ROADMAP A11")
         for k, v in vals.items():
             wide = k in SEA_KEYS or k == "wind_speed"
             if v.dim() > (2 if wide else 1):
@@ -1427,7 +1479,7 @@ def flexible_struct_params(model):
 class FlexibleEvaluator(nn.Module):
     """Batched full-physics evaluator of one flexible or multibody FOWT
     (reduced N-DOF structures with beam members; the reference's
-    ``make_flexible_evaluator``), forward only.
+    ``make_flexible_evaluator``).
 
     ``forward(**rows, timer=None)`` takes R rows of :data:`ENV_KEYS`
     and :data:`SEA_KEYS` as :class:`FullEvaluator` does and returns
@@ -1458,8 +1510,12 @@ class FlexibleEvaluator(nn.Module):
     other member d/t (one design for every row, or stacked with a
     leading row axis), which replace K_h, C_elast, F_und, M_struc, the
     zero-pose hydro constants, the strip tables and the mooring's L, EA
-    and w (timer stage "geometry" first).  Inputs that require grad
-    raise: the flexible path's reverse mode is ROADMAP A12.
+    and w (timer stage "geometry" first).
+
+    Every row input and every ``struct_params`` leaf is differentiable
+    in reverse mode (the host rebuild that made the leaves is not, as
+    in the reference); the adjoint solves of the N-DOF systems go to
+    ``torch.linalg.solve``, as the forward's do.
     """
 
     def __init__(self, model, nWaves=1, turb_static=None, device=None,
@@ -1549,12 +1605,9 @@ class FlexibleEvaluator(nn.Module):
         vals = {k: torch.as_tensor(rows.get(k, 0.0), **kw)
                 for k in ENV_KEYS + SEA_KEYS}
         sp = _tree_map(self._param, struct_params)
-        if torch.is_grad_enabled() and any(
-                t.requires_grad for t in list(vals.values())
-                + list(_tree_leaves(sp))):
-            raise NotImplementedError(
-                "the flexible evaluator is forward only: the reverse mode "
-                "of the flexible path is ROADMAP A12")
+        grad = torch.is_grad_enabled() and any(
+            t.requires_grad for t in list(vals.values())
+            + list(_tree_leaves(sp)))
         for k, v in vals.items():
             if v.dim() > (2 if k in SEA_KEYS else 1):
                 raise ValueError(f"{k}: shape {tuple(v.shape)} has too many "
@@ -1579,7 +1632,7 @@ class FlexibleEvaluator(nn.Module):
                 p[k] = v.expand(n)
         mark = timer if timer is not None else (lambda stage: None)
         outs = []
-        with torch.no_grad():
+        with torch.set_grad_enabled(grad):
             for a in range(0, n, FLEX_ROWS):
                 chunk = {k: v[a:a + FLEX_ROWS] for k, v in p.items()}
                 R = chunk["Hs"].shape[0]

@@ -202,8 +202,10 @@ def solve_equilibrium_general(
     # stiffness at the attached pose (so its pose derivative counts)
     if implicit:
         F_moor, C_moor, root = mooring_fn.with_root(X)
-        F_r, _ = mooring_fn.at_root(X, root)
-        F_att = F_moor + (F_r - F_r.detach())
+        F_att = F_moor
+        if mooring_fn.requires_grad(X):
+            F_r, _ = mooring_fn.at_root(X, root)
+            F_att = F_moor + (F_r - F_r.detach())
     else:
         with torch.no_grad():
             F_moor, C_moor = mooring_fn(X)

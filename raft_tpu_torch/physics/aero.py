@@ -741,12 +741,24 @@ def rotor_loads_and_derivs(rot, Uinf, Omega_rpm, pitch_deg, tilt, yaw):
     One residual evaluation with four tangent directions (the three
     parameters and phi itself) gives dR/dp and R'(phi*) at the root;
     ``dphi = -(dR/dp) / floor(R'(phi*))`` then seeds phi's tangents
-    through the load integrals."""
+    through the load integrals.
+
+    Reverse mode: with grad enabled and an inflow input requiring it,
+    the root enters the graph through :class:`_RootPhi`, whose backward
+    is the implicit rule with the reference's slope floor (its
+    ``tangent_solve``), never through the bisection and Newton steps.  Autograd then differentiates the hand tangents as well,
+    through the attached root: the second derivatives of the
+    reference's reverse mode over its ``jacfwd``.  The values are those
+    of the plain path, bit for bit."""
     rt = _as_tensors(rot, Uinf)
     U, Om, pit = (_seed(x, i, 3) for i, x in
                   enumerate((Uinf, Omega_rpm, pitch_deg)))
     Vx, Vy, el = _inflow(rt, U, Om, pit, tilt, yaw)
-    phi = _solve_phi_primal(Vx.v, Vy.v, tuple(du.value(e) for e in el))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (Vx.v, Vy.v, el[0].v)):
+        phi, _ = _RootPhi.apply(Vx.v, Vy.v, el[0].v, el[1:])
+    else:
+        phi = _solve_phi_primal(Vx.v, Vy.v, tuple(du.value(e) for e in el))
 
     # dR/dp (3 directions) and dR/dphi (the 4th) at the root
     phi4 = _seed(phi, 3, 4)
@@ -761,8 +773,11 @@ def rotor_loads_and_derivs(rot, Uinf, Omega_rpm, pitch_deg, tilt, yaw):
 
 class _RootPhi(torch.autograd.Function):
     """The inflow-angle root as a function of (Vx, Vy, theta), with the
-    implicit-function tangent as its forward-mode derivative (the
-    oracle's form)."""
+    implicit-function derivative ``dphi = -(dR/d(Vx, Vy, theta)) /
+    floor(R'(phi*))`` as its forward-mode tangent (the oracle's form)
+    and, transposed, as its backward (the reverse mode's); the floor is
+    the reference's ``tangent_solve`` one, +-1e-8.  The second output
+    holds those four residual derivatives at the root."""
 
     generate_vmap_rule = True
 
@@ -780,6 +795,8 @@ class _RootPhi(torch.autograd.Function):
     @staticmethod
     def setup_context(ctx, inputs, output):
         ctx.save_for_forward(output[1])
+        ctx.save_for_backward(output[1])
+        ctx.theta_shape = inputs[2].shape
 
     @staticmethod
     def jvp(ctx, dVx, dVy, dtheta, _):
@@ -789,6 +806,15 @@ class _RootPhi(torch.autograd.Function):
             if d is not None:
                 rhs = rhs + gi * d
         return -(rhs / _slope_floor(g[3])), torch.zeros_like(g)
+
+    @staticmethod
+    def backward(ctx, phi_bar, _):
+        (g,) = ctx.saved_tensors
+        c = -phi_bar / _slope_floor(g[3])
+        need = ctx.needs_input_grad
+        return (c * g[0] if need[0] else None, c * g[1] if need[1] else None,
+                (c * g[2]).sum_to_size(ctx.theta_shape) if need[2] else None,
+                None)
 
 
 def rotor_loads_and_derivs_jacfwd(rot, Uinf, Omega_rpm, pitch_deg, tilt,

@@ -373,35 +373,51 @@ def line_forces_and_stiffness(r_fair0, r_anchor, L, w, EA, mask, X,
     return (F, C, (HF, VF)) if root else (F, C)
 
 
-def line_forces_at_root(r_fair0, r_anchor, L, w, EA, mask, X, HF, VF):
-    """(F (R, 6), C (R, 6, 6)) written from the converged fairlead loads
-    HF, VF (R, nL) of the pose X, differentiable in X and in the line
-    properties by the implicit rule.
+def catenary_at_root(XF, ZF, L, w, EA, HF, VF, can_ground=True):
+    """:func:`solve_catenary`'s (HF, VF, HA, VA) written from its
+    converged fairlead loads HF, VF, differentiable in the spans and the
+    line properties by the implicit rule (the Newton loop not taped).
 
     With r(H, V) = profile(H, V; L, w, EA) - (XF, ZF) and J its 2 x 2
     Jacobian in (H, V) at the root, the loads are attached as
     ``H* + (c - stop_grad(c))`` with ``c = -J^-1 r`` and J held
     constant: their value is H*, their derivative ``-J^-1 dr``, the
-    implicit derivative.  The pose tangents of (H, V) are
-    ``J^-1 d(XF, ZF)/dX`` with J written from the attached loads, so the
-    stiffness is differentiable too (its derivative is the second
-    derivative of the force at the root)."""
-    XF, ZF, ux, uy, lx, ly, lz = _geometry_duals(r_fair0, r_anchor, X)
+    implicit derivative.  Where XF or ZF is a :class:`Dual`, the loads'
+    tangents are ``J^-1 d(XF, ZF)`` with J written from the attached
+    loads, so the tangents are differentiable too (their derivative is
+    the second derivative of the loads at the root)."""
+    XF = _clamp_min(XF, 1e-6)
     Hs, Vs = HF.detach(), VF.detach()
-    x, z = _profile(Hs, Vs, L, w, EA)
-    r0, r1 = x - XF.v, z - ZF.v
+    x, z = _profile(Hs, Vs, L, w, EA, can_ground)
+    r0, r1 = x - _v(XF), z - _v(ZF)
     with torch.no_grad():
-        j00, j01, j10, j11 = _profile_jacobian(Hs, Vs, L, w, EA)
+        j00, j01, j10, j11 = _profile_jacobian(Hs, Vs, L, w, EA, can_ground)
         det = j00 * j11 - j01 * j10
     cH = -(r0 * j11 - r1 * j01) / det
     cV = -(j00 * r1 - j10 * r0) / det
     H = Hs + (cH - cH.detach())
     V = Vs + (cV - cV.detach())
-    j00, j01, j10, j11 = _profile_jacobian(H, V, L, w, EA)
-    det = j00 * j11 - j01 * j10
-    tH = (j11 * XF.t - j01 * ZF.t) / det
-    tV = (j00 * ZF.t - j10 * XF.t) / det
-    return _force_comps(Dual(H, tH), Dual(V, tV), ux, uy, lx, ly, lz, mask)
+    if isinstance(XF, Dual) or isinstance(ZF, Dual):
+        j00, j01, j10, j11 = _profile_jacobian(H, V, L, w, EA, can_ground)
+        det = j00 * j11 - j01 * j10
+        xt = XF.t if isinstance(XF, Dual) else 0.0
+        zt = ZF.t if isinstance(ZF, Dual) else 0.0
+        H, V = (Dual(H, (j11 * xt - j01 * zt) / det),
+                Dual(V, (j00 * zt - j10 * xt) / det))
+    grounded = _grounded(V, L, w, can_ground)
+    VA = _where(grounded, torch.zeros_like(_v(V)), V - w * L)
+    return H, V, H, VA
+
+
+def line_forces_at_root(r_fair0, r_anchor, L, w, EA, mask, X, HF, VF):
+    """(F (R, 6), C (R, 6, 6)) written from the converged fairlead loads
+    HF, VF (R, nL) of the pose X, differentiable in X and in the line
+    properties: the loads attached at the root by
+    :func:`catenary_at_root`, their pose tangents ``J^-1 d(XF, ZF)/dX``,
+    so the stiffness is differentiable too."""
+    XF, ZF, ux, uy, lx, ly, lz = _geometry_duals(r_fair0, r_anchor, X)
+    H, V, _, _ = catenary_at_root(XF, ZF, L, w, EA, HF, VF)
+    return _force_comps(H, V, ux, uy, lx, ly, lz, mask)
 
 
 def stiffness_jacfwd(r_fair0, r_anchor, L, w, EA, mask, X):
@@ -614,14 +630,19 @@ class MooringNetwork:
         fixed = t["fixed"].expand((R,) + t["fixed"].shape)
         return torch.cat([fixed, pb, r_free], dim=1)[:, t["perm"]]
 
-    def line_end_forces(self, pos, tangents=True):
+    def line_end_forces(self, pos, tangents=True, loads=None):
         """Forces of every line on its end A and end B points,
         (FA, FB) each (R, nL, 3), the tension magnitudes (R, nL, 2) at
-        the lower and the upper end, and with ``tangents`` the blocks
-        (R, nL, 4, 3, 3) of dF_A/dr_A, dF_A/dr_B, dF_B/dr_A, dF_B/dr_B.
+        the lower and the upper end, the fairlead loads (HF, VF) (R, nL)
+        (values), and with ``tangents`` the blocks (R, nL, 4, 3, 3) of
+        dF_A/dr_A, dF_A/dr_B, dF_B/dr_A, dF_B/dr_B.
 
         Each line is solved from its lower end to its upper end (the
-        catenary's anchor and fairlead), with its own ``can_ground``."""
+        catenary's anchor and fairlead), with its own ``can_ground``.
+        With ``loads``, the converged fairlead loads (HF, VF) (R, nL) of
+        these positions, the catenary is not solved again: the loads are
+        attached at that root (:func:`catenary_at_root`), differentiable
+        in the positions, tangents included."""
         t = self._on(pos)
         ra, rb = pos[:, t["a"]], pos[:, t["b"]]
         flip = ra[..., 2] > rb[..., 2]                      # A is the upper
@@ -633,8 +654,13 @@ class MooringNetwork:
         XF = _sqrt(dx * dx + dy * dy)
         XF_safe = _maximum(XF, 1e-8)
         ux, uy = dx / XF_safe, dy / XF_safe
-        HF, VF, HA, VA = solve_catenary(XF, dz, t["L"], t["w"], t["EA"],
-                                        can_ground=t["can_ground"])
+        if loads is None:
+            HF, VF, HA, VA = solve_catenary(XF, dz, t["L"], t["w"], t["EA"],
+                                            can_ground=t["can_ground"])
+        else:
+            HF, VF, HA, VA = catenary_at_root(XF, dz, t["L"], t["w"],
+                                              t["EA"], *loads,
+                                              can_ground=t["can_ground"])
         hi = (-HF * ux, -HF * uy, -VF)                      # on the upper
         lo = (HF * ux, HF * uy, VA)                         # on the lower
         FA = [_where(flip, h, l) for h, l in zip(hi, lo)]
@@ -643,39 +669,43 @@ class MooringNetwork:
                             torch.hypot(_v(HF), _v(VF))], dim=-1)
         vals = (torch.stack([_v(c) for c in FA], dim=-1),
                 torch.stack([_v(c) for c in FB], dim=-1))
+        vals = vals + (tens, (_v(HF).detach(), _v(VF).detach()))
         if not tangents:
-            return vals + (tens,)
+            return vals
         # d/d(span) -> d/dr: the span is r_upper - r_lower
         sA = torch.where(flip, 1.0, -1.0)[..., None, None]
         dA = torch.stack([c.t for c in FA]).permute(2, 3, 0, 1)  # (R,nL,3,3)
         dB = torch.stack([c.t for c in FB]).permute(2, 3, 0, 1)
         blocks = torch.stack([sA * dA, -sA * dA, sA * dB, -sA * dB], dim=2)
-        return vals + (tens, blocks)
+        return vals + (blocks,)
 
-    def _assemble(self, pos, tangents=True):
-        """(net line force on every point (R, nP, 3), tensions, and with
-        ``tangents`` the point stiffness G (R, nP, 3, nP, 3) = dF_p/dr_q)."""
+    def _assemble(self, pos, tangents=True, loads=None):
+        """(net line force on every point (R, nP, 3), tensions, with
+        ``tangents`` the point stiffness G (R, nP, 3, nP, 3) = dF_p/dr_q
+        (else None), and the line loads); ``loads`` as
+        :meth:`line_end_forces` takes them."""
         t = self._on(pos)
         R, nP = pos.shape[:2]
-        out = self.line_end_forces(pos, tangents)
-        FA, FB, tens = out[:3]
+        out = self.line_end_forces(pos, tangents, loads)
+        FA, FB, tens, loads = out[:4]
         F = torch.zeros_like(pos).index_add(1, t["a"], FA).index_add(
             1, t["b"], FB)
         if not tangents:
-            return F, tens, None
+            return F, tens, None, loads
         G = torch.zeros((R, nP * nP, 3, 3), dtype=pos.dtype,
                         device=pos.device)
         G = G.index_add(1, t["pairs"].reshape(-1),
-                        out[3].transpose(1, 2).reshape(R, -1, 3, 3))
+                        out[4].transpose(1, 2).reshape(R, -1, 3, 3))
         G = G.reshape(R, nP, nP, 3, 3).permute(0, 1, 3, 2, 4)
-        return F, tens, G
+        return F, tens, G, loads
 
-    def _free_force_jac(self, X, r_free):
+    def _free_force_jac(self, X, r_free, loads=None):
         """The free points' net force (R, 3 nf) and its Jacobian in their
         positions (R, 3 nf, 3 nf)."""
         t = self._on(X)
         fr = torch.as_tensor(self.free_idx, device=X.device)
-        F, _, G = self._assemble(self.point_positions(X, r_free))
+        F, _, G, _ = self._assemble(self.point_positions(X, r_free),
+                                    loads=loads)
         nf = len(self.free_idx)
         Ff = (F[:, fr] + t["buoy"]).reshape(-1, 3 * nf)
         J = G[:, fr][:, :, :, fr].reshape(-1, 3 * nf, 3 * nf)
@@ -710,18 +740,53 @@ class MooringNetwork:
                           t["body_of"][:, :X.shape[1]])
         return F6, Fb, lever
 
-    def solve(self, X, stiffness=True):
+    def attach_free_points(self, X, r_free, loads):
+        """The free points' equilibrium ``r_free`` (R, nf, 3) of the body
+        poses X, attached to X by the implicit rule: ``r_free + (c -
+        stop_grad(c))`` with ``c = -J^-1 F_free(X, r_free)``, J the
+        free points' stiffness held constant, so the value is r_free and
+        the derivative ``dr_free/dX = -J^-1 dF_free/dX``.  That is the
+        limit of the reference's derivative through its 25 fixed Newton
+        steps, whose damped Jacobian (J - 1e-6 I) contracts the error
+        by about 1e-6 / |lambda(J)| a step.  ``loads`` are the lines'
+        converged loads at (X, r_free); the Newton steps are not
+        taped."""
+        nf = len(self.free_idx)
+        if nf == 0:
+            return r_free
+        r_free = r_free.detach()
+        Ff, J = self._free_force_jac(X, r_free, loads=loads)
+        c = -torch.linalg.solve(J.detach(), Ff[..., None])[..., 0]
+        return r_free + (c - c.detach()).reshape(r_free.shape)
+
+    def solve(self, X, stiffness=True, root=None):
         """Body forces and coupled stiffness at body poses X (R, nB, 6):
         dict(F (R, nB, 6), K (R, 6 nB, 6 nB) with ``stiffness``,
         r_free (R, nf, 3), tensions (R, nL, 2) at the lower and upper
-        end of each line)."""
+        end of each line, and ``root``, the free points and the lines'
+        converged loads (r_free, (HF, VF))).
+
+        Given a ``root`` of the same poses, nothing is solved again:
+        the free points are attached at it
+        (:meth:`attach_free_points`), the line loads too
+        (:func:`catenary_at_root`), and F and K are written from them,
+        differentiable in X (K's derivative is then the second
+        derivative of the force through the free points'
+        equilibrium)."""
         t = self._on(X)
         R, nB = X.shape[:2]
-        r_free = self.solve_free_points(X)
+        if root is None:
+            r_free = self.solve_free_points(X)
+            loads = None
+        else:
+            r_free, loads = root
+            r_free = self.attach_free_points(X, r_free, loads)
         pos = self.point_positions(X, r_free)
-        F, tens, G = self._assemble(pos, tangents=stiffness)
+        F, tens, G, loads = self._assemble(pos, tangents=stiffness,
+                                           loads=loads)
         F6, Fb, lever = self._to_bodies(X, t, F)
-        out = dict(F=F6, r_free=r_free, tensions=tens)
+        out = dict(F=F6, r_free=r_free, tensions=tens,
+                   root=(r_free.detach(), loads))
         if not stiffness:
             return out
         # total dF_P/dr_P of the body points with the free points at

@@ -272,13 +272,27 @@ def strip_frames(ss, R_ptfm, r_nodes, node_rot=None):
     return r, q, p1, p2
 
 
+def _abs_ref(x):
+    """``|x|`` with the reference's derivative at 0: +1, as ``jnp.abs``
+    differentiates (``select(x >= 0, 1, -1)``), where torch's is 0.  It
+    matters where the argument is exactly 0 and its own derivative is
+    not: a strip whose diameter does not change has end area 0, and
+    its derivative in ``drs`` is pi ds.  The value is ``torch.abs``'s,
+    bit for bit."""
+    y = torch.abs(x)
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return y
+    sx = torch.where(x >= 0, 1.0, -1.0) * x
+    return y.detach() + (sx - sx.detach())
+
+
 def _areas(ss):
     """Per-strip reference volumes and areas
     (v_side, v_end, a_end, a_q, a_p1, a_p2), each (R, S)."""
     ds, drs, dls, circ = ss.ds, ss.drs, ss.dls, ss.circ
     v_side = torch.where(circ, 0.25 * math.pi * ds[..., 0] ** 2 * dls,
                          ds[..., 0] * ds[..., 1] * dls)
-    v_end_c = math.pi / 12.0 * torch.abs(
+    v_end_c = math.pi / 12.0 * _abs_ref(
         (ds[..., 0] + drs[..., 0]) ** 3 - (ds[..., 0] - drs[..., 0]) ** 3)
     dmean_p = torch.mean(ds + drs, dim=-1)
     dmean_m = torch.mean(ds - drs, dim=-1)
@@ -405,7 +419,7 @@ def drag_lin_precompute(fs, ss, hc, u_ih, Tn, r_nodes, w, dtype=None):
         p2p2=tf.vec_vec_trans(p2),
         circ=ss.circ, sub=sub,
         cq=c * a_q * ss.Cd_q, cp1=c * a_p1 * ss.Cd_p1,
-        cp2=c * a_p2 * ss.Cd_p2, cEnd=c * torch.abs(a_end) * ss.Cd_End,
+        cp2=c * a_p2 * ss.Cd_p2, cEnd=c * _abs_ref(a_end) * ss.Cd_End,
         Tn=Tn, node=ss.node, r_off=r_off, u=u_ih, iw=1j * w,
     )
     Tn_s = gather_nodes(Tn, ss.node)                         # (R, S, 6, n)
@@ -556,7 +570,7 @@ def current_loads(fs, ss, hc, speed, heading_deg, Zref, shear_exp, Tn,
     rho = fs.rho_water[:, None, None]
     r, q, p1, p2 = hc["r"], hc["q"], hc["p1"], hc["p2"]
     _, _, a_end, a_q, a_p1, a_p2 = _areas(ss)
-    a_end_abs = torch.abs(a_end)
+    a_end_abs = _abs_ref(a_end)
     circ = ss.circ
     sub = hc["sub"]
 

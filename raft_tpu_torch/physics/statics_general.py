@@ -10,7 +10,10 @@ statics.member_inertia` and :func:`~raft_tpu_torch.physics.statics.
 member_hydrostatics` at one row of float64 CPU tensors; beams take the
 FE matrices of :mod:`raft_tpu_torch.physics.beams` and the per-node
 hydrostatics below.  The reduced matrices enter the flexible evaluator
-as constants (:func:`raft_tpu_torch.api.make_flexible_evaluator`).
+as its constants or, rebuilt at other member sizes, as the rows of its
+geometry axis (:func:`raft_tpu_torch.api.make_flexible_evaluator`,
+``struct_params``, differentiable there; this host build stays outside
+the gradient, as in the reference).
 """
 
 from __future__ import annotations

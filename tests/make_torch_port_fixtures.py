@@ -77,6 +77,24 @@ For the geometry design axis and the gradients it writes:
 
 each gradient checked against ``jax.jacfwd`` within 1e-10 x its max.
 
+For the reverse mode of the other evaluators (``--grad-rest``,
+:func:`write_grad_rest_fixtures`) it writes, each gradient checked
+against ``jax.jacfwd`` and all finite, on rows whose reference gradient
+is finite (:data:`GRAD_AERO_ROWS` and its neighbours name those left
+out), the spectrum floored:
+
+* ``golden_grad_aero_<name>.npz`` for semi_wind and mhk_tidal: the
+  response metric by every row input and sum |f_aero|^2 by
+  :data:`GRAD_AERO_METRIC_KEYS`, FUSED on and off;
+* ``golden_grad_bem_<name>.npz`` for semi_wind_coarse and semi_wind:
+  the geometry evaluator by d_scale (0.95, 1.0, 1.05) and every row
+  input, FUSED on and off;
+* ``golden_grad_farm_semi_wind.npz``: the two-unit farm by every row
+  input, per-unit wind speeds included;
+* ``golden_grad_flex_semi_wind.npz``: semi_wind_flex by every row
+  input, and on the geometry axis by every struct_params leaf of a
+  rebuilt tower too (that gradient checked along random directions).
+
 For the flexible (N-DOF beam) evaluator it writes two designs whose
 tower is a ``type: beam`` member of steel (E 200 GPa, G 79.3 GPa; the
 Timoshenko beam needs both):
@@ -167,6 +185,8 @@ Run from the repository root::
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --geometry \
         [geometry] [grad] [grad_design]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --grad-rest \
+        [aero_semi_wind] [aero_mhk_tidal] [bem] [bem_full] [farm] [flex]
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --flex
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --bem
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --qtf
@@ -185,6 +205,9 @@ file name does not start with ``test_``); the slow tests
 ``tests/test_torch_full.py::test_full_fixtures_regenerate``,
 ``tests/test_torch_geometry.py::test_geometry_fixtures_regenerate``,
 ``tests/test_torch_grad.py::test_grad_fixtures_regenerate``,
+``tests/test_torch_grad_aero.py``, ``test_torch_grad_farm.py``,
+``test_torch_grad_flex.py`` and ``test_torch_bem.py``'s
+``*_regenerate(s)`` tests,
 ``tests/test_torch_secondorder.py::test_qtf_fixtures_regenerate``,
 ``tests/test_torch_orchestrated.py::test_orch_golden_regenerates``,
 ``tests/test_torch_drivers.py::test_drivers_golden_regenerates`` and
@@ -929,6 +952,316 @@ def write_geometry_fixtures(parts=("geometry", "grad", "grad_design")):
             os.path.join(OUT_DIR, f"golden_grad_design_{name}.npz"), **gd)
         print(f"grad design {name}: metric_on={gd['on_metric'].tolist()}",
               flush=True)
+
+
+# ------------------------------------------- gradients of every evaluator
+
+#: the gradient goldens of the aero, potential-flow, farm and flexible
+#: paths (``--grad-rest``): the golden rows of each set whose reference
+#: gradient is finite.  Left out: semi_wind's and mhk_tidal's rows 0-1
+#: (no wind, or a speed of 0.05 m/s clipped to 0.1); every row with
+#: current 0, where the reference's current-load derivative is 0 x inf
+#: = NaN (semi_wind row 1, the farm's rows 0 and 4); and mhk_tidal's
+#: rows 2 and 4, whose current heading 0 leaves a strip's transverse
+#: current velocity exactly 0, where the reference's derivative of its
+#: norm is 0 x inf = NaN by current_speed and current_heading_deg (and
+#: jax.jacfwd's NaN by every input)
+GRAD_AERO_ROWS = {"semi_wind": [2, 3, 4, 5], "mhk_tidal": [3, 5, 6, 7]}
+GRAD_FARM_ROWS = slice(2, 4)
+GRAD_FLEX_ROWS = slice(2, 4)
+#: the potential-flow gradient rows: semi_wind's rows 2-4, one uniform
+#: d_scale each, unit scale included (its derivative is not 0)
+GRAD_BEM_ROWS = slice(2, 5)
+GRAD_BEM_D_SCALE = (0.95, 1.0, 1.05)
+#: the host-rebuilt tower (d, t scales) of the flexible geometry rows
+#: (the first of FLEX_GEOMETRY_SCALES)
+GRAD_FLEX_GEOMETRY = (0.9, 1.1)
+#: random directions of the struct_params check (its leaves hold ~10^5
+#: numbers, too many for jax.jacfwd)
+GRAD_FLEX_DIRECTIONS = 2
+#: the inputs of the aero metric's gradient: the rotor speeds, TI and
+#: yaw.  Its derivative in a heading is 0 up to rounding (the heading
+#: rotates f_aero, whose squared norm it leaves alone): no golden
+GRAD_AERO_METRIC_KEYS = ("wind_speed", "TI", "yaw_misalign_deg",
+                         "current_speed")
+GRAD_REST_PARTS = ("aero_semi_wind", "aero_mhk_tidal", "bem", "bem_full",
+                   "farm", "flex")
+
+
+def aero_metric(out):
+    """The aero stage's own metric of one row, sum |f_aero|^2: the only
+    one that holds the turbulence spectrum (TI enters no response)."""
+    import jax.numpy as jnp
+
+    return jnp.sum(jnp.abs(out["f_aero"]) ** 2)
+
+
+def _rows_at(rows, sl):
+    return {k: v[sl] for k, v in rows.items()}
+
+
+def _forward_diag(ev, rows):
+    """status and n_iter_drag of the JAX evaluator's forward."""
+    jax = _jax()
+    import numpy as np
+
+    out = jax.jit(jax.vmap(ev))(rows)
+    return {k: np.asarray(out[k]) for k in ("status", "n_iter_drag")}
+
+
+def build_grad_aero_golden(name):
+    """The ``golden_grad_aero_<name>.npz`` dict: on the set's rows of
+    :data:`GRAD_AERO_ROWS`, FUSED on and off, the response
+    metric and its gradient with respect to every row input, and
+    :func:`aero_metric` and its gradient with respect to
+    :data:`GRAD_AERO_METRIC_KEYS`, the spectrum floored
+    (:func:`_floored_jonswap`)."""
+    _jax()
+    import raft_tpu
+    from raft_tpu.api import make_full_evaluator
+
+    rows = _rows_at(full_rows(name), GRAD_AERO_ROWS[name])
+    gd = dict(rows)
+    for fused in ("on", "off"):
+        def run():
+            ev = make_full_evaluator(raft_tpu.Model(full_design(name)),
+                                     nWaves=FULL_SETS[name])
+            with _floored_jonswap():
+                val, g = _grad_pair(lambda r: response_metric(ev(r)),
+                                    (rows,))
+                env = {k: rows[k] for k in GRAD_AERO_METRIC_KEYS}
+                sea = {k: v for k, v in rows.items() if k not in env}
+                aval, ag = _grad_pair(
+                    lambda e, s: aero_metric(ev(dict(s, **e))), (env, sea))
+                return val, g, aval, ag, _forward_diag(ev, rows)
+        val, g, aval, ag, diag = _with_fused(fused, run)
+        gd[f"{fused}_metric"] = val
+        gd.update({f"{fused}_g_{k}": v for k, v in g.items()})
+        gd[f"{fused}_aero_metric"] = aval
+        gd.update({f"{fused}_aero_g_{k}": v for k, v in ag.items()})
+        gd.update({f"{fused}_{k}": v for k, v in diag.items()})
+    return gd
+
+
+def build_grad_bem_golden(name="semi_wind_coarse"):
+    """The ``golden_grad_bem_<name>.npz`` dict: a potential-flow
+    design's geometry evaluator on rows :data:`GRAD_BEM_ROWS` of
+    semi_wind at the uniform d_scale :data:`GRAD_BEM_D_SCALE`, FUSED on
+    and off: the response metric and its gradient with respect to
+    d_scale and every row input.  The coarse copy's unit-scale
+    coefficients come from ``bem_cache_jax``, the full mesh's are solved
+    here, as are the two off-unit scales of either (JAX's binding with
+    the port's shipped Green table)."""
+    import shutil
+    import tempfile
+
+    _jax()
+    import numpy as np
+
+    from raft_tpu.api import make_full_evaluator
+    from raft_tpu.native import green_table as jgt
+
+    sys.path.insert(0, ROOT)
+    from raft_tpu_torch.native import green_table
+
+    jgt._tables = dict(green_table.build_tables())
+    cache = tempfile.mkdtemp(prefix="bem_cache_")
+    jdir = os.path.join(OUT_DIR, "bem_cache_jax")
+    for f in os.listdir(jdir):
+        shutil.copy(os.path.join(jdir, f), cache)
+    prev = os.environ.get("RAFT_TPU_BEM_DIR")
+    os.environ["RAFT_TPU_BEM_DIR"] = cache
+    try:
+        rows = _rows_at(bem_rows(BEM_ROWS), GRAD_BEM_ROWS)
+        x = dict(rows, d_scale=np.asarray(GRAD_BEM_D_SCALE, dtype=float))
+        gd = dict(x)
+        model = bem_model(name)
+        for fused in ("on", "off"):
+            def run():
+                ev = make_full_evaluator(model, nWaves=1, geometry=True)
+                ev.geometry_constants(dict(d_scale=1.0))
+
+                def case(x):
+                    c = {k: v for k, v in x.items() if k != "d_scale"}
+                    c["geom"] = dict(d_scale=x["d_scale"])
+                    return c
+
+                with _floored_jonswap():
+                    val, g = _grad_pair(
+                        lambda x: response_metric(ev(case(x))), (x,))
+                    diag = _forward_diag(lambda x: ev(case(x)), x)
+                return val, g, diag
+            val, g, diag = _with_fused(fused, run)
+            gd[f"{fused}_metric"] = val
+            gd.update({f"{fused}_g_{k}": v for k, v in g.items()})
+            gd.update({f"{fused}_{k}": v for k, v in diag.items()})
+        return gd
+    finally:
+        if prev is None:
+            os.environ.pop("RAFT_TPU_BEM_DIR", None)
+        else:
+            os.environ["RAFT_TPU_BEM_DIR"] = prev
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def build_grad_farm_golden():
+    """The ``golden_grad_farm_semi_wind.npz`` dict: the two-unit farm on
+    rows :data:`GRAD_FARM_ROWS`: the response metric and its gradient
+    with respect to every row input (per-unit wind speeds included),
+    the spectrum floored.  The farm evaluator has no FUSED path: one
+    evaluation."""
+    _jax()
+    from raft_tpu.api import make_farm_evaluator
+
+    rows = _rows_at(farm_rows("semi_wind"), GRAD_FARM_ROWS)
+    ev = make_farm_evaluator(farm_model("semi_wind"),
+                             nWaves=FARM_SETS["semi_wind"])
+    with _floored_jonswap():
+        val, g = _grad_pair(lambda r: response_metric(ev(r)), (rows,))
+        diag = _forward_diag(ev, rows)
+    gd = dict(rows, metric=val)
+    gd.update({f"g_{k}": v for k, v in g.items()})
+    gd.update(diag)
+    return gd
+
+
+def _flat_struct_params(sp, prefix="sp."):
+    """A ``struct_params`` tree as flat real leaves ``sp.<path>``, each
+    complex leaf (Imat, the inertia coefficients Cm) as ``<path>.re`` and
+    ``<path>.im``: ``jax.grad`` and torch differ in their complex
+    convention, real parts do not."""
+    import numpy as np
+
+    out = {}
+    for k, v in sp.items():
+        if isinstance(v, dict):
+            out.update(_flat_struct_params(v, f"{prefix}{k}."))
+        elif np.iscomplexobj(v):
+            out[f"{prefix}{k}.re"] = np.real(v).copy()
+            out[f"{prefix}{k}.im"] = np.imag(v).copy()
+        else:
+            out[f"{prefix}{k}"] = np.asarray(v, dtype=float)
+    return out
+
+
+def _tree_struct_params(flat):
+    """The inverse of :func:`_flat_struct_params` (the ``sp.`` keys of
+    ``flat``)."""
+    tree = {}
+    for key, v in flat.items():
+        if not key.startswith("sp."):
+            continue
+        path = key[3:].split(".")
+        if path[-1] in ("re", "im"):
+            if path[-1] == "im":
+                continue
+            v = v + 1j * flat[key[:-3] + ".im"]
+            path = path[:-1]
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = v
+    return tree
+
+
+def _grad_directional(metric, x, n_dir, seed=GEOM_SEED):
+    """Per-row jax.grad of ``metric`` over the rows of the flat dict
+    ``x``, checked against jax.jvp along ``n_dir`` random directions
+    within 1e-10 x the directional derivative's scale, all finite."""
+    jax = _jax()
+    import numpy as np
+
+    val = np.asarray(jax.jit(jax.vmap(metric))(x))
+    grev = jax.jit(jax.vmap(jax.grad(metric)))(x)
+    out = {k: np.asarray(v) for k, v in grev.items()}
+    for k, a in out.items():
+        assert np.all(np.isfinite(a)), k
+    rng = np.random.default_rng(seed)
+    jvp = jax.jit(jax.vmap(lambda p, t: jax.jvp(metric, (p,), (t,))[1]))
+    for _ in range(n_dir):
+        t = {k: rng.normal(size=np.shape(v)) for k, v in x.items()}
+        fwd = np.asarray(jvp(x, t))
+        rev = sum(np.sum((out[k] * t[k]).reshape(len(val), -1), axis=1)
+                  for k in out)
+        scale = sum(np.sum(np.abs(out[k] * t[k]).reshape(len(val), -1),
+                           axis=1) for k in out)
+        err = np.abs(rev - fwd)
+        assert np.all(err <= 1e-10 * scale), (err, scale)
+    return val, out
+
+
+def build_grad_flex_golden():
+    """The ``golden_grad_flex_semi_wind.npz`` dict: semi_wind_flex on
+    rows :data:`GRAD_FLEX_ROWS`: the response metric and its gradient
+    with respect to every row input (``jax.jacfwd``-checked), and the
+    same rows through the geometry evaluator with the struct_params of
+    the tower rebuilt at :data:`GRAD_FLEX_GEOMETRY` (``geo_*``): the
+    gradient with respect to the row inputs and every struct_params leaf
+    (``geo_g_sp.<path>``, complex leaves as real and imaginary parts),
+    checked along random directions.  The flexible evaluator has no
+    FUSED path."""
+    _jax()
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.api import flexible_struct_params, make_flexible_evaluator
+
+    rows = _rows_at(full_rows("semi_wind"), GRAD_FLEX_ROWS)
+    model = raft_tpu.Model(semi_wind_flex_design())
+    ev = make_flexible_evaluator(model, nWaves=1)
+    gd = dict(rows)
+    with _floored_jonswap():
+        val, g = _grad_pair(lambda r: response_metric(ev(r)), (rows,))
+        gd.update(metric=val, **{f"g_{k}": v for k, v in g.items()})
+        gd.update(_forward_diag(ev, rows))
+        sp = flexible_struct_params(raft_tpu.Model(
+            semi_wind_flex_design(*GRAD_FLEX_GEOMETRY)))
+        n = len(rows["Hs"])
+        flat = {k: np.stack([v] * n)
+                for k, v in _flat_struct_params(sp).items()}
+        geo = make_flexible_evaluator(model, nWaves=1, geometry=True)
+
+        def case(x):
+            c = {k: v for k, v in x.items() if not k.startswith("sp.")}
+            c["struct_params"] = _tree_struct_params(x)
+            return c
+
+        x = dict(rows, **flat)
+        gval, gg = _grad_directional(
+            lambda x: response_metric(geo(case(x))), x,
+            GRAD_FLEX_DIRECTIONS)
+        gdiag = _forward_diag(lambda x: geo(case(x)), x)
+    gd.update({f"geo_{k}": v for k, v in flat.items()})
+    gd["geo_metric"] = gval
+    gd.update({f"geo_g_{k}": v for k, v in gg.items()})
+    gd.update({f"geo_{k}": v for k, v in gdiag.items()})
+    return gd
+
+
+def write_grad_rest_fixtures(parts=GRAD_REST_PARTS):
+    """Write the gradient goldens of the aero, potential-flow, farm and
+    flexible paths (of ``parts``)."""
+    import numpy as np
+
+    builders = {
+        "aero_semi_wind": ("golden_grad_aero_semi_wind.npz",
+                           lambda: build_grad_aero_golden("semi_wind")),
+        "aero_mhk_tidal": ("golden_grad_aero_mhk_tidal.npz",
+                           lambda: build_grad_aero_golden("mhk_tidal")),
+        "bem": ("golden_grad_bem_semi_wind_coarse.npz",
+                build_grad_bem_golden),
+        "bem_full": ("golden_grad_bem_semi_wind.npz",
+                     lambda: build_grad_bem_golden("semi_wind")),
+        "farm": ("golden_grad_farm_semi_wind.npz", build_grad_farm_golden),
+        "flex": ("golden_grad_flex_semi_wind.npz", build_grad_flex_golden),
+    }
+    for part in parts:
+        fname, build = builders[part]
+        gd = build()
+        np.savez_compressed(os.path.join(OUT_DIR, fname), **gd)
+        metrics = {k: np.asarray(v).tolist() for k, v in gd.items()
+                   if k.endswith("metric")}
+        print(f"grad {part}: {metrics}", flush=True)
 
 
 # ------------------------------------------------------- farm fixtures
@@ -2644,6 +2977,9 @@ def main():
     if sys.argv[1:] and sys.argv[1] == "--geometry":
         write_geometry_fixtures(*([sys.argv[2:]] if sys.argv[2:] else []))
         return
+    if sys.argv[1:2] == ["--grad-rest"]:
+        write_grad_rest_fixtures(*([sys.argv[2:]] if sys.argv[2:] else []))
+        return
     if sys.argv[1:] == ["--farm"]:
         write_farm_fixtures()
         return
@@ -2684,6 +3020,7 @@ def main():
     write_farm_fixtures()
     write_flex_fixtures()
     write_bem_fixtures()
+    write_grad_rest_fixtures()
     write_qtf_fixtures()
     write_orch_fixtures()
     write_drivers_fixtures()

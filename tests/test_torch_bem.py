@@ -26,6 +26,9 @@ Fast tier (CPU):
   d_scale geometry axis) and on the WAMIT-file design against the JAX
   goldens, FUSED on and off: every key within 1e-10 x max, ``status``,
   ``n_iter_drag`` and ``drag_converged`` bit-equal;
+* the geometry axis' reverse mode: the gradient with respect to d_scale
+  (unit scale included) and every row input against jax.grad
+  (``golden_grad_bem_semi_wind_coarse.npz``) within 1e-9 x max|g|;
 * what the reference refuses.
 
 Slow tier: the Green table rebuilt equals the shipped one; the full
@@ -596,6 +599,33 @@ def test_evaluator_matches_goldens(case, coarse, wamit_model, monkeypatch):
         hold(ev(**kw), g, f"{tag}_{fused}_")
 
 
+def test_d_scale_gradient_matches_golden(coarse, monkeypatch):
+    """The geometry axis' gradient with respect to d_scale (0.95, 1.0,
+    1.05: the unit row interpolates too, its derivative is not 0) and
+    every row input against jax.grad (``golden_grad_bem_semi_wind_
+    coarse.npz``), FUSED on and off, within 1e-9 x each key's max|g|;
+    the metric within 1e-12; status and n_iter_drag equal."""
+    g = dict(np.load(os.path.join(FIX,
+                                  "golden_grad_bem_semi_wind_coarse.npz")))
+    geo = tapi.make_full_evaluator(coarse[0], device="cpu", geometry=True)
+    for fused in ("on", "off"):
+        monkeypatch.setenv("RAFT_TPU_FUSED", fused)
+        x = {k: torch.tensor(g[k], requires_grad=True)
+             for k in ROW_KEYS + ("d_scale",)}
+        out = geo(geom=dict(d_scale=x["d_scale"]),
+                  **{k: x[k] for k in ROW_KEYS})
+        for k in ("status", "n_iter_drag"):
+            np.testing.assert_array_equal(out[k].numpy(),
+                                          g[f"{fused}_{k}"], err_msg=k)
+        val = (out["Xi"][:, 0].abs() ** 2).flatten(1).sum(-1) \
+            + (out["X0"] ** 2).sum(-1)
+        near(val.detach().numpy(), g[f"{fused}_metric"], 1e-12, "metric")
+        gr = torch.autograd.grad(val.sum(), list(x.values()),
+                                 allow_unused=True, materialize_grads=True)
+        for k, a in zip(x, gr):
+            near(a.numpy(), g[f"{fused}_g_{k}"], 1e-9, k)
+
+
 def test_bem_terms_enter_the_evaluator(coarse):
     """The coefficients move the response (a design whose excitation is
     the BEM's): zeroing them changes every row's Xi; geometry rows at
@@ -618,9 +648,9 @@ def test_bem_terms_enter_the_evaluator(coarse):
 
 def test_bem_refusals(coarse, wamit_model):
     """What the reference refuses: geometry with file coefficients, a
-    d_scale that differs between members, bad sample scales; the
-    gradient with respect to d_scale (ROADMAP A12); the bucket, case and
-    design paths."""
+    d_scale that differs between members, bad sample scales; the bucket,
+    case and design paths.  A d_scale that requires grad (refused until
+    its gradient was ported) gives a finite gradient, nonzero at 1."""
     from raft_tpu_torch.structure import bucketing as tb
 
     m = coarse[0]
@@ -633,8 +663,9 @@ def test_bem_refusals(coarse, wamit_model):
     with pytest.raises(ValueError, match="uniform d_scale"):
         geo(geom=dict(d_scale=ds), Hs=4.0, Tp=10.0)
     d = torch.ones(2, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        geo(geom=dict(d_scale=d), Hs=4.0, Tp=10.0)
+    out = geo(geom=dict(d_scale=d), Hs=4.0, Tp=10.0)
+    g, = torch.autograd.grad((out["Xi"][:, 0].abs() ** 2).sum(), d)
+    assert bool(torch.isfinite(g).all()) and bool(torch.all(g != 0))
     for scales in ((0.9, 1.0), (0.9, 1.0, 1.0)):
         bad = copy.copy(m)
         bad.design = dict(m.design, settings=dict(m.design["settings"],
@@ -696,3 +727,22 @@ def test_full_mesh_matches_live_jax(tmp_path, monkeypatch):
     ref = jax.jit(jax.vmap(jmake(jm)))(rows)
     out = tapi.make_full_evaluator(m, device="cpu")(**rows)
     hold(out, {k: np.asarray(v) for k, v in ref.items()}, "")
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("name", ["semi_wind_coarse", "semi_wind"])
+def test_grad_bem_fixture_regenerates(name):
+    """The d_scale gradient goldens (the coarse copy's, held here, and
+    the full mesh's, held by chip_smoke.py), rebuilt through jax.grad
+    (and checked against jax.jacfwd), equal the checked-in files (the
+    full mesh's about 25 min: three JAX panel solves)."""
+    import sys
+
+    sys.path.insert(0, HERE)
+    import make_torch_port_fixtures as mk
+
+    new = mk.build_grad_bem_golden(name)
+    old = dict(np.load(os.path.join(FIX, f"golden_grad_bem_{name}.npz")))
+    assert sorted(new) == sorted(old)
+    for k in old:
+        np.testing.assert_array_equal(new[k], old[k], err_msg=k)

@@ -540,3 +540,64 @@ def test_weis_core_on_card_matches_golden(cuda):
     hold_weis_compute(out, g)
     st = core.model.case_stats
     assert launches == sum(sum(c["fixed_point_solves"]) + 1 for c in st)
+
+
+def _grad_gates():
+    """tests/test_torch_grad.py's gradient gate and metric, and the aero
+    metric's keys of the golden writer."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import make_torch_port_fixtures as mk
+    from test_torch_grad import hold_grads, metric
+    return hold_grads, metric, mk.GRAD_AERO_METRIC_KEYS
+
+
+@pytest.mark.cuda
+def test_farm_gradient_on_card_matches_golden(cuda):
+    """The two-unit farm's gradient with respect to every row input on
+    the card (golden_grad_farm_semi_wind.npz); the backward grows
+    ROW_KERNEL_LAUNCHES by one, the system response's N = 12 adjoint
+    (the kernel's lane-per-row adjoint entry)."""
+    with open(os.path.join(FIX, "design_farm_semi_wind.json")) as f:
+        model = Model(json.load(f), base_dir=FIX)
+    hold_grads, metric, _ = _grad_gates()
+    g = np.load(os.path.join(FIX, "golden_grad_farm_semi_wind.npz"))
+    x = {k: torch.tensor(g[k], device=cuda, requires_grad=True)
+         for k in ENV_KEYS + SEA_KEYS}
+    out = make_farm_evaluator(model, device=cuda)(**x)
+    for k in ("status", "n_iter_drag"):
+        np.testing.assert_array_equal(out[k].cpu().numpy(), g[k], err_msg=k)
+    val = metric(out)
+    rows0, adj0 = linsolve.ROW_KERNEL_LAUNCHES, linsolve.ADJ_KERNEL_LAUNCHES
+    grads = torch.autograd.grad(val.sum(), list(x.values()),
+                                allow_unused=True, materialize_grads=True)
+    assert linsolve.ROW_KERNEL_LAUNCHES - rows0 == 1
+    assert linsolve.ADJ_KERNEL_LAUNCHES - adj0 == \
+        dynamics.NEUMANN_STEPS + 2
+    hold_grads(val, dict(zip(x, grads)), g, "")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,nWaves", [("semi_wind", 1), ("mhk_tidal", 2)])
+def test_aero_gradient_on_card_matches_golden(cuda, name, nWaves):
+    """The full evaluator's gradient with respect to every row input,
+    the aero stage's included, on the card (golden_grad_aero_*.npz),
+    and sum |f_aero|^2's with respect to the rotor speeds, TI and yaw."""
+    hold_grads, metric, aero = _grad_gates()
+    with open(os.path.join(FIX, f"design_{name}.json")) as f:
+        model = Model(json.load(f))
+    g = np.load(os.path.join(FIX, f"golden_grad_aero_{name}.npz"))
+    keys = ENV_KEYS + SEA_KEYS
+    x = {k: torch.tensor(g[k], device=cuda, requires_grad=True)
+         for k in keys}
+    out = make_full_evaluator(model, nWaves=nWaves, device=cuda)(**x)
+    val = metric(out)
+    grads = torch.autograd.grad(val.sum(), list(x.values()),
+                                retain_graph=True, allow_unused=True,
+                                materialize_grads=True)
+    hold_grads(val, dict(zip(x, grads)), g, "on_")
+    aval = (out["f_aero"].abs() ** 2).flatten(1).sum(-1)
+    grads = torch.autograd.grad(aval.sum(), [x[k] for k in aero],
+                                allow_unused=True, materialize_grads=True)
+    hold_grads(aval, dict(zip(aero, grads)), g, "on_aero_")

@@ -209,14 +209,18 @@ def test_array_refusals(variant):
 
 def test_farm_raises_without_cuda_and_is_forward_only(monkeypatch):
     """No card and no device: the farm evaluator raises naming
-    device="cpu"; an input that requires grad raises (forward only)."""
+    device="cpu".  An input that requires grad (refused while the farm
+    was forward only) gives a finite gradient, here through the three
+    units' system response at nT = 18 (the library's solve and its
+    adjoint)."""
     with monkeypatch.context() as m:
         m.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match='device="cpu"'):
             tapi.make_farm_evaluator(model("spar3"))
     Hs = torch.tensor([2.0, 3.0], dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="forward only"):
-        evaluator("spar3")(Hs=Hs[:, None].expand(2, 2), Tp=8.0)
+    out = evaluator("spar3")(Hs=Hs[:, None].expand(2, 2), Tp=8.0)
+    g, = torch.autograd.grad((out["Xi"][:, 0].abs() ** 2).sum(), Hs)
+    assert bool(torch.isfinite(g).all()) and bool(torch.all(g > 0))
 
 
 @pytest.mark.slow

@@ -452,9 +452,10 @@ def test_struct_params_of_the_model_reproduce_the_model():
 
 
 def test_flexible_refusals(monkeypatch):
-    """A rigid model, an array, struct_params without the geometry axis,
-    an input that requires grad (ROADMAP A12) and no CUDA without
-    device="cpu" each raise."""
+    """A rigid model, an array, struct_params without the geometry axis
+    and no CUDA without device="cpu" each raise; an input that requires
+    grad (refused until the flexible reverse mode was ported) gives a
+    finite gradient."""
     from raft_tpu_torch.models.model import Model as M
 
     with open(os.path.join(FIX, "design_spar.json")) as f:
@@ -465,8 +466,9 @@ def test_flexible_refusals(monkeypatch):
     with pytest.raises(TypeError, match="geometry=True"):
         ev(Hs=2.0, Tp=8.0, struct_params={})
     Hs = torch.tensor([[2.0, 1.0]], dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        ev(Hs=Hs, Tp=8.0)
+    out = ev(Hs=Hs, Tp=8.0)
+    g, = torch.autograd.grad((out["Xi"][:, 0].abs() ** 2).sum(), Hs)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
     with monkeypatch.context() as mp:
         mp.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match='device="cpu"'):

@@ -192,9 +192,9 @@ def test_design_case_rows_evaluate():
 def test_refusals_by_message():
     """What the full path still refuses: the geometry axis of a design
     with coefficient files (the reference's ValueError), beams, arrays
-    (which the farm evaluator takes), and gradients through the aero
-    stage's inputs; an external QTF, which the full path takes, is
-    refused by the case path without reading its file."""
+    (which the farm evaluator takes); an external QTF, which the full
+    path takes, is refused by the case path without reading its file.
+    Gradients through the aero stage's inputs, once refused, flow."""
     from raft_tpu_torch.structure import bucketing as tb
 
     d = design("spar")
@@ -221,9 +221,12 @@ def test_refusals_by_message():
                     "data": [[1, 1, 1, 1, 0, 0], [2, 1, 1, 1, 2000, 0]]}
     with pytest.raises(ValueError, match=r"array.*make_farm_evaluator"):
         tapi.make_full_evaluator(Model(arr), device="cpu")
+    # the aero stage's inputs are differentiable (they once raised here)
     U = torch.tensor([8.0], dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match=r"aero.*ROADMAP A12"):
-        evaluator("semi_wind")(wind_speed=U, Hs=4.0, Tp=9.0)
+    out = evaluator("semi_wind")(wind_speed=U, Hs=4.0, Tp=9.0)
+    g, = torch.autograd.grad((out["Xi"][:, 0].abs() ** 2).sum()
+                             + (out["X0"] ** 2).sum(), U)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
 
 
 def test_no_device_without_cuda_raises(monkeypatch):

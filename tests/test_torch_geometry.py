@@ -223,7 +223,9 @@ def test_precomputed_geometry_constants():
 def test_refusals(tmp_path, monkeypatch):
     """geom needs geometry=True; unknown keys raise; a potential-flow
     design builds, and its geometry axis refuses a d_scale that differs
-    between members and one that requires grad (ROADMAP A12)."""
+    between members; one that requires grad (refused before the d_scale
+    gradient was ported) gives at 1 the design's own response and a
+    finite, nonzero gradient (the interpolation's derivative)."""
     with pytest.raises(TypeError):
         evaluator("spar", geometry=False)(geom={"d_scale": 1.0}, Hs=6, Tp=12)
     with pytest.raises(TypeError):
@@ -241,8 +243,12 @@ def test_refusals(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="uniform d_scale"):
         geo(geom={"d_scale": ds}, Hs=6, Tp=12)
     s = torch.ones(1, dtype=torch.float64, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        geo(geom={"d_scale": s}, Hs=6, Tp=12)
+    out = geo(geom={"d_scale": s}, Hs=6, Tp=12)
+    ref = geo(geom={"d_scale": 1.0}, Hs=6, Tp=12)
+    for k in ("X0", "Xi"):
+        assert torch.equal(out[k].detach(), ref[k]), k
+    g, = torch.autograd.grad((out["Xi"][:, 0].abs() ** 2).sum(), s)
+    assert bool(torch.isfinite(g).all()) and float(g.abs().sum()) > 0
 
 
 @pytest.mark.slow
