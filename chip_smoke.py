@@ -89,9 +89,11 @@ Phases, each printing one line (the last line is the result object):
 14. farm    - the farm evaluator (make_farm_evaluator, float64) on
              design_farm_semi_wind.json, two units with their own
              catenaries and a shared line over a free buoy (nT = 12):
-             warm-up on the golden rows alone (differentiable: the
-             gradient of the response metric at the gradient golden's
-             rows, reported by grad_paths), then FARM_ROWS (1024)
+             warm-up on the golden rows alone (in forward and reverse
+             mode: one jvp, its tangent held against
+             golden_jvp_farm_semi_wind.npz, and the gradient of the
+             response metric at the gradient golden's rows, reported by
+             grad_paths), then FARM_ROWS (1024)
              seeded operating rows (free-stream wind for the upstream
              unit, a wake deficit of 0-35% for the downstream one) with
              the golden rows first, held against golden_farm_semi_wind.npz;
@@ -174,6 +176,31 @@ Phases, each printing one line (the last line is the result object):
              rows and its struct_params leaves
              (golden_grad_flex_semi_wind.npz).  Per path: gradient
              rows/s, backward/forward time, peak memory of the chunk.
+    fwd     - forward mode (torch.func.jvp and jacfwd) through every
+             evaluator on golden rows, held by the gates of
+             tests/test_torch_fwd.py (each float key's tangent within
+             1e-9 x its max|tangent|, the flexible path 1e-7; every
+             output under the transform within 1e-10 x max of the plain
+             call, the flexible keys past its solves at their kappa
+             eps, status and n_iter_drag equal; bit-equal on the CPU):
+             jacfwd of the response metric by the six inputs of the
+             demos' design evaluators (golden_grad_design_*.npz); both
+             directions of golden_jvp_{geometry_semi_wind,aero_semi_wind,
+             aero_mhk_tidal,bem_semi_wind,flex_semi_wind}.npz at once
+             (torch.func.vmap over jvp) on the geometry, full and bem
+             phases' evaluators (the panel solves reused) and
+             semi_wind_flex by its rows and struct_params.  Per path
+             forward-mode s over the plain forward's, and the forward
+             entry's launches: the plain call's plus the tangent work
+             the code makes (per chunk the differentiable update at the
+             fixed point and its tangent, NEUMANN_STEPS Neumann tangent
+             solves, the final update's tangent, a staged response's
+             tangent), the same for jacfwd's six directions as for one.
+             The farm's forward mode rides on the farm phase's warm-up:
+             one jvp over its golden rows, which require grad, gives the
+             primal (held), the tangent (golden_jvp_farm_semi_wind.npz)
+             and the reverse gradient (grad_paths), its forward launches
+             counted against the trips and the tangent work.
 19. qtf     - second-order forces: make_full_evaluator on
              design_semi_wind_qtf.json (semi_wind with the external QTF
              semi_wind_qtf.12d): the golden rows (held against
@@ -259,6 +286,8 @@ import torch
 HERE = os.path.dirname(os.path.abspath(__file__))
 FIX = os.path.join(HERE, "tests", "fixtures", "torch_port")
 DESIGNS = ("spar", "semi", "mhk")
+#: the design evaluator's row inputs
+DESIGN_KEYS = ("Hs", "Tp", "beta", "Cd_scale", "Ca_scale", "L_moor_scale")
 #: the design DoE's box: each parameter uniform over its range
 DOE_BOX = dict(Hs=(1.0, 12.0), Tp=(4.0, 20.0), beta=(0.0, math.pi),
                Cd_scale=(0.5, 2.0), Ca_scale=(0.5, 1.5),
@@ -1035,8 +1064,9 @@ def full_rows(name, gold, n, seed):
 
 class MooringCounter:
     """Counts the statics' mooring force + stiffness evaluations (one per
-    Newton iteration plus one at the returned pose) while installed, and
-    splits them per chunk at the timer's "start" and "statics" marks."""
+    Newton iteration, the last of them at the returned pose; one more
+    where a row hits the iteration cap) while installed, and splits them
+    per chunk at the timer's "start" and "statics" marks."""
 
     def __init__(self):
         from raft_tpu_torch.physics import mooring
@@ -1125,7 +1155,7 @@ def phase_full(models, rows, card):
         stage_ms = {s: sum(c.get(s, 0.0) for c in chunks)
                     for s in ("aero", "statics", "excitation", "fixed_point",
                               "response")}
-        newton = [e - 1 for e in moor.per_chunk]
+        newton = list(moor.per_chunk)
         st = out["status"]
         res[name] = dict(
             rows=rows, nWaves=nW, wall_s=wall, evals_per_s=rows / wall,
@@ -1401,7 +1431,7 @@ def phase_geometry(model, card):
     chunks = timer.chunks()
     stage_ms = {s: sum(c.get(s, 0.0) for c in chunks)
                 for s in GEOMETRY_STAGES}
-    newton = [e - 1 for e in moor.per_chunk]
+    newton = list(moor.per_chunk)
     pivots = _adjoint_pivots(Z)
     res = dict(design=name, rows=GEOMETRY_ROWS, nWaves=nW, wall_s=wall,
                evals_per_s=GEOMETRY_ROWS / wall,
@@ -1603,36 +1633,53 @@ def _farm(name):
 
 def _farm_warm_grad(ev, p0):
     """The farm phase's warm-up: the golden rows ``p0`` through ``ev``
-    with every row input requiring grad, then the backward of the
-    response metric of golden_grad_farm_semi_wind.npz's rows (FARM_ROWS
-    rows 2-3, found among ``p0``'s), held against it: (numpy outputs,
-    the gradient record, the forward's s).  The adjoint entry's launches
-    of the backward are counted from 0, the N = 12 one (the system
-    response's, on the lane-per-row design) against the count the code
-    gives."""
+    in one ``torch.func.jvp`` over row inputs that require grad, along
+    golden_jvp_farm_semi_wind.npz's first direction at its rows (FARM_ROWS
+    rows 2-3, found among ``p0``'s; zero elsewhere), then the backward of
+    the response metric of golden_grad_farm_semi_wind.npz's rows (the
+    same), both held against their goldens: (numpy outputs, the gradient
+    record, the forward's s).  One forward, the coupled statics' launch
+    storm paid once, gives the primal, the tangent and the gradient.  The
+    forward entry's launches are counted against the trips and the
+    tangent work, the adjoint entry's of the backward from 0, the N = 12
+    ones (the system response's, on the lane-per-row design) against the
+    count the code gives."""
     from raft_tpu_torch.api import ENV_KEYS, SEA_KEYS
     from raft_tpu_torch.models import dynamics
     from raft_tpu_torch.ops import linsolve
     from raft_tpu_torch.utils import config
 
     gold = dict(np.load(os.path.join(FIX, "golden_grad_farm_semi_wind.npz")))
+    gj = dict(np.load(os.path.join(FIX, "golden_jvp_farm_semi_wind.npz")))
+    fwdt = _test_module("test_torch_fwd")
     keys = ENV_KEYS + SEA_KEYS
     n = len(gold["Hs"])
     idx = [i for i in range(len(p0["Hs"])) if all(
         any(np.array_equal(p0[k][i], gold[k][j]) for j in range(n))
         for k in keys)]
     check(len(idx) == n and all(np.array_equal(p0[k][idx], gold[k])
+                                and np.array_equal(p0[k][idx], gj[k])
                                 for k in keys),
-          "farm: the gradient golden's rows are not among the golden rows")
+          "farm: the gradient and jvp goldens' rows are not among the "
+          "golden rows")
     x = {k: torch.tensor(p0[k], dtype=torch.float64, device=DEVICE,
                          requires_grad=True) for k in keys}
+    t = {k: torch.zeros_like(v) for k, v in x.items()}
+    for k, v in fwdt.directions({k: x[k][idx] for k in keys}, 0).items():
+        t[k][idx] = v
+    linsolve.reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.time()
-    out = ev(**x)
+    out, tan = torch.func.jvp(lambda x: ev(**x), (x,), (t,))
     torch.cuda.synchronize()
     t1 = time.time()
+    fwd_launches = linsolve.KERNEL_LAUNCHES
+    fwd_row = linsolve.ROW_KERNEL_LAUNCHES
+    worst_tan = _held("farm tangents", fwdt.hold_tangents,
+                      {k: v[idx] for k, v in tan.items()}, gj, "", 0,
+                      phase="farm")
     val = _metric(out)[idx]
     # CUDA events around each launch of the lane-per-row design in the
     # backward (the system response's N = 12 adjoint)
@@ -1672,6 +1719,19 @@ def _farm_warm_grad(ev, p0):
     check(adj == exp_adj, f"farm: adjoint launches {adj}, expected "
           f"{exp_adj}")
     np_out = {k: v.detach().cpu().numpy() for k, v in out.items()}
+    # the forward's: per chunk the trips and the final update at N = 6
+    # and the system response at N = 12, each solve with its tangent, and
+    # the fixed point's tangent work
+    cap = ev.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
+        + max(int(ev.n_iter_extra), 0)
+    exp_fwd = expected_launches(
+        np_out["n_iter_drag"].max(axis=1), int(config.get("BUCKET_ROWS"))
+        or rows, cap, min(max(1, config.get("SCAN_CHUNK")), cap),
+        fused=True) + chunks * (_tangent_launches(True) + 2)
+    check(fwd_launches == exp_fwd and fwd_row == 2 * chunks,
+          f"farm: forward entry launched {fwd_launches} times, "
+          f"{fwd_row} at N = {ev.nT}, in the warm-up's forward mode; "
+          f"expected {exp_fwd}, {2 * chunks}")
     _hold_exact({k: v[idx] for k, v in out.items()}, gold, "",
                 "grad_paths farm")
     worst = _hold_grads(val, {k: g[idx] for k, g in grads.items()}, gold,
@@ -1682,7 +1742,9 @@ def _farm_warm_grad(ev, p0):
         expected_adj_launches=exp_adj, row_adj_launches=row_adj,
         expected_row_adj_launches=exp_row, adj_n6_launches=adj - row_adj,
         n12_adj_ms=sum(a.elapsed_time(b) for a, b, _ in n12),
-        n12_adj_shapes=[z for _, _, z in n12])
+        n12_adj_shapes=[z for _, _, z in n12], fwd_launches=fwd_launches,
+        expected_fwd_launches=exp_fwd, row_fwd_launches=fwd_row,
+        worst_tangent=max(worst_tan.values()))
     return np_out, rec, t1 - t0
 
 
@@ -1758,7 +1820,7 @@ def phase_farm(card, rows=FARM_ROWS):
         device_evals_per_s=rows / (sum(stage_ms.values()) / 1e3),
         warm_s=warm_s, chunks=len(chunks), stage_ms=stage_ms,
         statics_share=stage_ms["statics"] / sum(stage_ms.values()),
-        newton_per_chunk=[c - 1 for c in calls],
+        newton_per_chunk=calls,
         free_point_steps=MooringNetwork.FREE_STEPS,
         launches=launches, expected_launches=exp, row_launches=row_launches,
         n_iter_drag_max=int(out["n_iter_drag"].max()),
@@ -2107,7 +2169,7 @@ def _flex_run(ev, p, stages, sp=None):
     chunks = timer.chunks()
     stage_ms = {st: sum(c.get(st, 0.0) for c in chunks) for st in stages}
     return dict(out=out, wall=wall, chunks=len(chunks), stage_ms=stage_ms,
-                newton=[e - 1 for e in moor.per_chunk],
+                newton=list(moor.per_chunk),
                 peak_mib=[x / 2 ** 20 for x in peaks],
                 base_mib=[x / 2 ** 20 for x in base], solve=solves.ms())
 
@@ -2269,8 +2331,8 @@ def _timed_full_rows(ev, p, tag, geom=None):
     check(all(set(c) == set(ev.stages) for c in chunks),
           f"{tag}: a chunk's stages are not {ev.stages}")
     stage_ms = {s: sum(c.get(s, 0.0) for c in chunks) for s in ev.stages}
-    return (out, wall, stage_ms, [e - 1 for e in moor.per_chunk],
-            [e - 1 for e in moor.drift], launches, exp)
+    return (out, wall, stage_ms, list(moor.per_chunk),
+            list(moor.drift), launches, exp)
 
 
 def phase_bem(out_dir, card):
@@ -2599,6 +2661,182 @@ def phase_grad_paths(full_evs, farm_grad, bem_geo, card):
           f"response per chunk; its wrapper {f['n12_adj_ms']:.3f} ms on Z "
           f"{f['n12_adj_shapes']}), at N = 6 {f['adj_n6_launches']}; bem "
           f"d metric/d d_scale {res['bem']['g_d_scale']}")
+    print(f"  farm forward mode (the same call, one jvp): tangent within "
+          f"{f['worst_tangent']:.1e} x max|tangent|; forward entry "
+          f"launches {f['fwd_launches']} (expected "
+          f"{f['expected_fwd_launches']}: trips + final update + tangent "
+          f"work at N = 6, the system response and its tangent at N = "
+          f"{f['nT']}), {f['row_fwd_launches']} of them at N = {f['nT']}")
+    return res
+
+
+def _tangent_launches(fused_response):
+    """The forward entry's launches that forward mode adds per chunk,
+    as the code makes them (models/dynamics.py): the differentiable
+    update at the fixed point and its tangent solve, NEUMANN_STEPS
+    Neumann tangent solves, the final update's tangent solve, and the
+    staged response's tangent solve where the response is staged."""
+    from raft_tpu_torch.models import dynamics
+
+    return dynamics.NEUMANN_STEPS + 3 + (0 if fused_response else 1)
+
+
+def phase_fwd(demo_models, full_evs, geo_ev, bem_geo, card):
+    """Forward mode (torch.func.jvp, jacfwd) through every evaluator on
+    golden rows, held by the CPU tests' gates (tests/test_torch_fwd.py);
+    the outputs under the transform against the plain call's (bit-equal
+    on the CPU; here within SLICE_TOL x max, the flexible path's keys
+    past its N = 168 solves at their kappa eps, the integer keys equal:
+    under torch.func's wrappers a library kernel may round otherwise);
+    per path forward-mode s over the plain forward's, and the forward
+    entry's launches against the count the code gives, the same for
+    any number of directions."""
+    from raft_tpu_torch import api
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.utils import config
+
+    fwdt = _test_module("test_torch_fwd")
+    flex_gates = _test_module("test_torch_grad_flex")
+    mk = _test_module("make_torch_port_fixtures")
+    kw = dict(dtype=torch.float64, device=DEVICE)
+    fused = config.get("FUSED") == "on"
+    pfx = "on_" if fused else "off_"
+    keys = api.ENV_KEYS + api.SEA_KEYS
+    res = {}
+    launches = 0
+
+    def counted(fn):
+        nonlocal launches
+        linsolve.reset_launches()
+        _sync()
+        t0 = time.time()
+        out = fn()
+        _sync()
+        s = time.time() - t0
+        n = linsolve.KERNEL_LAUNCHES
+        launches += n
+        return out, s, n
+
+    def held(tag, fn, *a, **k):
+        return _held(tag, fn, *a, phase="fwd", **k)
+
+    def tangents(tag, fn, x, g, pre, staged, tol=fwdt.TOL, solves=True,
+                 primal_tol=SLICE_TOL):
+        """The plain call, then both golden directions at once (vmap of
+        jvp: the evaluator once); the primal bit-equal, the tangents
+        held; launches plain + the tangent work (0 without solves)."""
+        plain, s0, n0 = counted(lambda: fn(x))
+        ts = [fwdt.directions(x, d) for d in range(2)]
+        T = {k: torch.stack([t[k] for t in ts]) for k in x}
+        (prim, tan), s1, n1 = counted(lambda: torch.func.vmap(
+            lambda t: torch.func.jvp(fn, (x,), (t,)))(T))
+        worst = moved = 0.0
+        for d in range(2):
+            moved = max(moved, held(
+                f"{tag} primal", fwdt.hold_primal,
+                {k: v[d] for k, v in prim.items()}, plain, g, pre,
+                primal_tol))
+            w = held(f"{tag} tangents", fwdt.hold_tangents,
+                     {k: v[d] for k, v in tan.items()}, g, pre, d, tol)
+            worst = max([worst] + list(w.values()))
+        exp = n0 + _tangent_launches(not staged) if solves else 0
+        check(n1 == exp, f"fwd {tag}: forward entry launched {n1} times "
+              f"in forward mode, expected {exp} (plain {n0} + the tangent "
+              "work)")
+        res[tag] = dict(rows=len(x[next(iter(x))]), fwd_s=s0, jvp_s=s1,
+                        jvp_over_fwd=s1 / s0, launches=n0,
+                        jvp_launches=n1, directions=2, worst=worst,
+                        primal_moved=moved)
+
+    # ---- the demos' design evaluators: jacfwd by the six inputs (N = 6,
+    # the vmap rule on the kernel), its launches those of one direction
+    for n in DESIGNS:
+        gd = dict(np.load(os.path.join(FIX, f"golden_grad_design_{n}.npz")))
+        ev = api.make_design_evaluator(demo_models[n], DEVICE)
+        x = {k: torch.tensor(gd[k], **kw) for k in DESIGN_KEYS}
+        _, s0, n0 = counted(lambda: ev(**x))
+        J, s2, n2 = counted(lambda: fwdt.row_jacfwd(lambda x: ev(**x), x))
+        held(f"design {n} jacfwd", fwdt.hold_jacfwd, J, gd, pfx)
+        exp = n0 + _tangent_launches(fused)
+        check(n2 == exp, f"fwd design {n}: forward entry launched {n2} "
+              f"times (jacfwd, {len(DESIGN_KEYS)} directions), expected "
+              f"{exp}, as for one")
+        res[f"design_{n}"] = dict(
+            rows=len(gd["Hs"]), fwd_s=s0, jacfwd_s=s2,
+            jacfwd_over_fwd=s2 / s0, launches=n0, jacfwd_launches=n2,
+            directions=len(DESIGN_KEYS))
+
+    # ---- the geometry axis and the rotors, the earlier phases' evaluators
+    g = dict(np.load(os.path.join(FIX, "golden_jvp_geometry_semi_wind.npz")))
+    rows = {k: torch.tensor(g[k], **kw) for k in keys}
+    tangents("geometry_semi_wind", lambda x: geo_ev(geom=x, **rows),
+             {k[5:]: torch.tensor(v, **kw) for k, v in g.items()
+              if k.startswith("geom_")}, g, pfx, staged=not fused)
+    for name in GRAD_AERO_SETS:
+        g = dict(np.load(os.path.join(FIX, f"golden_jvp_aero_{name}.npz")))
+        ev = full_evs[name]
+        tangents(f"aero_{name}", lambda x: ev(**x),
+                 {k: torch.tensor(g[k], **kw) for k in keys}, g, pfx,
+                 staged=not fused or ev.nWaves > 1)
+
+    # ---- d_scale of the potential-flow design, its panel solves reused
+    g = dict(np.load(os.path.join(FIX, "golden_jvp_bem_semi_wind.npz")))
+    solves = []
+    run_bem = bem_geo._run_bem
+    bem_geo._run_bem = lambda **k: solves.append(k) or run_bem(**k)
+    try:
+        tangents("bem_d_scale", lambda x: bem_geo(
+            geom=dict(d_scale=x["d_scale"]), **{k: x[k] for k in keys}),
+            {k: torch.tensor(g[k], **kw) for k in keys + ("d_scale",)}, g,
+            pfx, staged=not fused)
+    finally:
+        bem_geo._run_bem = run_bem
+    check(not solves, f"fwd bem: {len(solves)} panel solves, expected the "
+          "bem phase's to be reused")
+
+    # ---- the flexible path by its rows and by struct_params (N = 168:
+    # torch.linalg.solve and its forward AD, no kernel launch)
+    g = dict(np.load(os.path.join(FIX, "golden_jvp_flex_semi_wind.npz")))
+    gg = dict(np.load(os.path.join(FIX, "golden_grad_flex_semi_wind.npz")))
+    model = Model(_flex_design())
+    for tag, geometry in (("flex", False), ("flex_geometry", True)):
+        ev = api.make_flexible_evaluator(model, nWaves=1, device=DEVICE,
+                                         geometry=geometry)
+        x = {k: torch.tensor(g[k], **kw) for k in keys}
+        if geometry:
+            x.update({k[4:]: torch.tensor(v, **kw) for k, v in gg.items()
+                      if k.startswith("geo_sp.")})
+
+            def fn(x, ev=ev):
+                return ev(struct_params=mk._tree_struct_params(x),
+                          **{k: x[k] for k in keys})
+        else:
+            def fn(x, ev=ev):
+                return ev(**x)
+        tangents(tag, fn, x, g, "geo_" if geometry else "", staged=True,
+                 tol=flex_gates.GRAD_GATE, solves=False,
+                 primal_tol=dict(dict.fromkeys(api.FLEX_OUT_KEYS, SLICE_TOL),
+                                 **_flex_tols()))
+    res["launches"] = launches
+    for tag, r in res.items():
+        if not isinstance(r, dict):
+            continue
+        if "jacfwd_s" in r:
+            print(f"fwd {tag} on {card}: {r['rows']} rows, forward "
+                  f"{r['fwd_s']:.2f} s, jacfwd ({r['directions']} "
+                  f"directions) {r['jacfwd_s']:.2f} s "
+                  f"({r['jacfwd_over_fwd']:.2f}x); forward entry launches "
+                  f"{r['launches']} plain, {r['jacfwd_launches']} in "
+                  "forward mode; the gradient golden held")
+            continue
+        print(f"fwd {tag} on {card}: {r['rows']} rows, forward "
+              f"{r['fwd_s']:.2f} s, jvp ({r['directions']} directions) "
+              f"{r['jvp_s']:.2f} s ({r['jvp_over_fwd']:.2f}x); forward "
+              f"entry launches {r['launches']} plain, {r['jvp_launches']} "
+              f"in forward mode; goldens within {r['worst']:.1e} x "
+              f"max|tangent|; outputs under the transform within "
+              f"{r['primal_moved']:.1e} x max of the plain call's")
     return res
 
 
@@ -3306,6 +3544,8 @@ def main():
         rec["bem"], bem_geo = timed("bem", phase_bem, args.out, rec["card"])
         rec["grad_paths"] = timed("grad_paths", phase_grad_paths, evs,
                                   rec["farm"]["grad"], bem_geo, rec["card"])
+        rec["fwd"] = timed("fwd", phase_fwd, models, evs, geo_ev, bem_geo,
+                           rec["card"])
         rec["qtf"] = timed("qtf", phase_qtf, rec["card"])
         rec["analyze"] = timed("analyze", phase_analyze, args.out,
                                rec["card"])
@@ -3323,6 +3563,8 @@ def main():
         grad_adjoint=rec["grad"]["adj_launches"],
         grad_paths=rec["grad_paths"]["fwd_launches"],
         grad_paths_adjoint=rec["grad_paths"]["adj_launches"],
+        fwd=rec["fwd"]["launches"],
+        farm_warm_fwd=rec["farm"]["grad"]["fwd_launches"],
         farm=rec["farm"]["launches"], bem=rec["bem"]["launches"],
         bem_geometry=rec["bem"]["geometry"]["launches"],
         qtf=rec["qtf"]["launches"],
@@ -3341,6 +3583,8 @@ def main():
                   + rec["grad"]["fwd_launches"] + rec["farm"]["launches"]
                   + rec["bem"]["launches"]
                   + rec["grad_paths"]["fwd_launches"]
+                  + rec["fwd"]["launches"]
+                  + rec["farm"]["grad"]["fwd_launches"]
                   + rec["bem"]["geometry"]["launches"]
                   + rec["qtf"]["launches"]
                   + rec["qtf"]["geometry"]["launches"]
@@ -3356,6 +3600,7 @@ def main():
         n12_library_ms=k12["library_ms"],
         n12_max_abs_err=k12["max_abs_err"],
         n12_launches=(rec["farm"]["row_launches"]
+                      + rec["farm"]["grad"]["row_fwd_launches"]
                       + rec["analyze"]["row_launches"])), dict(
         name="ge_solve_adj", route="cuda",
         source="raft_tpu_torch/csrc/linsolve.cu",

@@ -7,18 +7,28 @@ case-table helpers of the full evaluator (:func:`case_to_traced`,
 evaluator shares (``_policy_cdt``, ``_case_status``).
 
 Every evaluator, the farm and flexible ones too, is differentiable in
-reverse mode with respect to its row inputs (sea states, wind, current,
-turbulence intensity, yaw, design scales, geometry scales, a potential-
-flow design's d_scale, a flexible design's ``struct_params``): rows are
-independent, so ``torch.autograd.grad(metric(out).sum(), x)`` gives each
-row's gradient.  Without an input that requires grad the rows run
-under ``no_grad``.  The gradients pass every root by its implicit
-rule, never through its iterations: the blade-element inflow angle
-(:mod:`raft_tpu_torch.physics.aero`), the catenary loads and a
-network's free points (:mod:`raft_tpu_torch.physics.mooring`), the
-statics and the drag fixed point (:mod:`raft_tpu_torch.models.
-statics_solve`, :mod:`raft_tpu_torch.models.dynamics`); every solve
-passes by its adjoint (:mod:`raft_tpu_torch.ops.linsolve`)."""
+reverse and in forward mode with respect to its row inputs (sea states,
+wind, current, turbulence intensity, yaw, design scales, geometry
+scales, a potential-flow design's d_scale, a flexible design's
+``struct_params``): rows are independent, so
+``torch.autograd.grad(metric(out).sum(), x)`` gives each row's
+gradient, and ``torch.func.jvp`` / ``torch.func.jacfwd`` of a function
+of the outputs give its tangents (``jacfwd`` runs the evaluator once,
+with the directions batched).  Under either transform every output
+keeps the plain call's value, bit for bit; the integer outputs
+(``status``, ``n_iter_drag``) and the bool ``drag_converged`` carry no
+tangent: ``torch.func.jvp`` returns a zero tangent of their dtype and
+``jacfwd`` a zero Jacobian (``has_aux=True`` carries them out as
+values).  Without an input that is being differentiated
+(:func:`raft_tpu_torch.utils.ad.differentiated`) the rows run under
+``no_grad``.  Both modes pass every root by its implicit rule, never
+through its iterations, whose loops run on detached values: the
+blade-element inflow angle (:mod:`raft_tpu_torch.physics.aero`), the
+catenary loads and a network's free points
+(:mod:`raft_tpu_torch.physics.mooring`), the statics and the drag fixed
+point (:mod:`raft_tpu_torch.models.statics_solve`,
+:mod:`raft_tpu_torch.models.dynamics`); every solve passes by its
+adjoint or its tangent solve (:mod:`raft_tpu_torch.ops.linsolve`)."""
 
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ from raft_tpu_torch.models.statics_solve import solve_equilibrium
 from raft_tpu_torch.ops import waves as wv
 from raft_tpu_torch.physics import morison
 from raft_tpu_torch.structure import members_traced
-from raft_tpu_torch.utils import config, health
+from raft_tpu_torch.utils import ad, config, health
 from raft_tpu_torch.utils.dtypes import compute_dtypes, resolve_device
 
 
@@ -104,13 +114,15 @@ class CaseEvaluator(nn.Module):
     def _chunks(self, p, n, timer):
         """Run the n rows of ``p`` in chunks of ``RAFT_TPU_BUCKET_ROWS``
         and concatenate the chunks' outputs; under ``no_grad`` unless an
-        input requires grad (then every chunk keeps its graph)."""
+        input is being differentiated (then every chunk keeps its graph
+        and tangents)."""
         if n == 0:
             raise ValueError("empty batch: no rows to evaluate")
         cap = int(config.get("BUCKET_ROWS")) or n
         mark = timer if timer is not None else (lambda stage: None)
-        grad = torch.is_grad_enabled() and any(
-            getattr(v, "requires_grad", False) for v in p.values())
+        grad = ad.differentiated(*(
+            t for v in p.values() for t in (
+                v.tensors() if isinstance(v, GeometryConstants) else (v,))))
         outs = []
         with torch.set_grad_enabled(grad):
             for a in range(0, n, cap):
@@ -254,11 +266,8 @@ class GeometryConstants:
     def rows(self):
         return self.K_h.shape[0]
 
-    @property
-    def requires_grad(self):
-        return any(t.requires_grad for t in self._tensors())
-
-    def _tensors(self):
+    def tensors(self):
+        """Every tensor the constants hold."""
         yield from (v for v in vars(self.ss).values()
                     if isinstance(v, torch.Tensor))
         if self.ms is not None:
@@ -472,13 +481,21 @@ def _hydro_force_2nd_rows(qm, beta, S, dw):
     frequency mu, ``f_mu = 4 sqrt(sum_j S_j S_{j+mu} |Q[j, j+mu]|^2)
     dw``, shifted down one bin onto the model grid, and ``f_mean = 2
     sum_j S_j Re Q[j, j] dw``.  Returns (f_mean (R, nH, 6), f (R, nH, 6,
-    nw) real)."""
+    nw) real).
+
+    Derivatives: the clip is ``jnp.clip``'s, whose derivative at a bound
+    is 1/2 (a heading exactly on the first or last node), as
+    ``torch.minimum`` / ``torch.maximum`` give it at a tie; where the
+    sum under the root is 0 (the spectrum underflows at both
+    frequencies) the root's derivative is its limit there, 0, where a
+    plain ``sqrt`` gives 0 x inf = NaN (the reference's goldens floor
+    the spectrum, ROADMAP §C).  The values are unchanged."""
     heads = qm["heads"].to(beta.dtype)
     nh = heads.shape[0]
     if nh == 1:
         sup, diag = qm["sup"][0], qm["diag"][0]
     else:
-        b = torch.clamp(beta, heads[0], heads[-1])
+        b = torch.minimum(torch.maximum(beta, heads[0]), heads[-1])
         i = torch.clamp(torch.searchsorted(heads, b) - 1, 0, nh - 2)
         f = (b - heads[i]) / (heads[i + 1] - heads[i])
         fs = f[..., None, None, None]
@@ -488,7 +505,10 @@ def _hydro_force_2nd_rows(qm, beta, S, dw):
     Ssh = S[..., qm["colc"]]                         # (R, nH, mu, j)
     P = S[..., None, :, None] * Ssh[..., None] * torch.abs(sup) ** 2
     P = torch.where(qm["valid"][..., None], P, 0.0)
-    f_mu = 4.0 * torch.sqrt(torch.sum(P, dim=-2)) * dw     # (R, nH, mu, 6)
+    Ps = torch.sum(P, dim=-2)
+    pos = Ps > 0
+    root = torch.where(pos, torch.sqrt(torch.where(pos, Ps, 1.0)), 0.0)
+    f_mu = 4.0 * root * dw                                 # (R, nH, mu, 6)
     f_out = torch.cat([f_mu[..., 1:, :], torch.zeros_like(f_mu[..., :1, :])],
                       dim=-2)
     f_mean = 2.0 * torch.sum(S[..., None] * diag.real, dim=-2) * dw
@@ -567,12 +587,14 @@ class FullEvaluator(CaseEvaluator):
     0.92, 1.0, 1.08), the two off-unit scales solved on the first chunk
     with a d_scale other than 1 (the design's coefficients where d_scale
     is 1).  File coefficients (``hydroPath``) cannot be re-solved and
-    refuse ``geometry=True``.  A d_scale that requires grad always takes
-    the interpolation, at 1 too (its value there is the design's, its
+    refuse ``geometry=True``.  A d_scale being differentiated (it
+    requires grad, or carries a forward-mode tangent) always takes the
+    interpolation, at 1 too (its value there is the design's, its
     derivative is not 0).
 
-    Every row input is differentiable, the aero stage's included: the
-    blade-element root enters the graph by its implicit rule
+    Every row input is differentiable in reverse and forward mode, the
+    aero stage's included: the blade-element root enters by its
+    implicit rule
     (:func:`~raft_tpu_torch.physics.aero.rotor_loads_and_derivs`), and a
     clamped speed (below 0.1 m/s) has the clamp's derivative, 0.
     """
@@ -723,7 +745,7 @@ class FullEvaluator(CaseEvaluator):
     def _bem_geometry(self, g):
         """The potential-flow coefficients of geometry rows ``g`` (None
         without potential flow, or where every row's d_scale is 1 and
-        none requires grad)."""
+        none is being differentiated)."""
         if self.bem is None:
             return None
         d = g["d_scale"]
@@ -735,8 +757,8 @@ class FullEvaluator(CaseEvaluator):
         s = d[:, 0]
         # at s = 1 the interpolation gives the design's own coefficients
         # (l1 = 1, l0 = l2 = 0 exactly) but not their derivative: a scale
-        # that requires grad always interpolates
-        if not s.requires_grad and not bool(torch.any(s != 1.0)):
+        # being differentiated always interpolates
+        if not ad.differentiated(s) and not bool(torch.any(s != 1.0)):
             return None
         tab = self.bem_samples()
         return {k: _lagrange3(tab[k], tab["s"], s) for k in ("A", "B", "X")}
@@ -1023,23 +1045,24 @@ class FarmMooring:
         self._att = (X, Cu, Ka)
         return F.reshape(X.shape), _block_diag(Cu) + Ka
 
-    def requires_grad(self, X):
-        """The array's mooring has no parameter that requires grad."""
+    def differentiated(self, X):
+        """The array's mooring has no parameter to differentiate."""
         return False
 
     def parts(self, X):
         """(C_units (R, nF, 6, 6), the shared network's stiffness
         (R, nT, nT)) at X: the last evaluation's when it was at X.  A
-        pose that requires grad must be the attached equilibrium pose
-        the statics returned: it gets the parts :meth:`at_root` kept
-        there, with their graph (handed over once, so no graph outlives
-        its chunk)."""
-        if X.requires_grad:
+        pose being differentiated (it requires grad, or carries a
+        forward-mode tangent) must be the attached equilibrium pose the
+        statics returned: it gets the parts :meth:`at_root` kept there,
+        with their graph and tangents (handed over once, so no graph
+        outlives its chunk)."""
+        if ad.differentiated(X):
             att, self._att = self._att, None
             if att is None or att[0] is not X:
                 raise RuntimeError(
-                    "FarmMooring.parts: a pose that requires grad must be "
-                    "the one the statics attached through at_root")
+                    "FarmMooring.parts: a pose being differentiated must "
+                    "be the one the statics attached through at_root")
             return att[1], att[2]
         last = self._last
         if last is None or last[0].shape != X.shape or not torch.equal(
@@ -1088,12 +1111,13 @@ class FarmEvaluator(nn.Module):
     statics bits and the output guards.  The reference's evaluator has
     no ``RAFT_TPU_FUSED`` path, and neither does this one.
 
-    Every row input is differentiable in reverse mode: the coupled
-    statics by their implicit backward with :class:`FarmMooring`'s
+    Every row input is differentiable in reverse and forward mode: the
+    coupled statics by their implicit rule with :class:`FarmMooring`'s
     state attached (each network's free points by their own implicit
     rule), so the shared stiffness at X0 carries its pose derivative
-    into the system response, whose backward is the solve's adjoint
-    (at nT <= 12 the kernel's N = 7-12 adjoint entry on the card).
+    into the system response, whose backward is the solve's adjoint and
+    whose tangent one more solve (at nT <= 12 the kernel's N = 7-12
+    adjoint and forward entries on the card).
     """
 
     def __init__(self, model, nWaves=1, turb_static=None, device=None):
@@ -1231,8 +1255,7 @@ class FarmEvaluator(nn.Module):
         p, n = self._rows(rows)
         cap = int(config.get("BUCKET_ROWS")) or n
         mark = timer if timer is not None else (lambda stage: None)
-        grad = torch.is_grad_enabled() and any(v.requires_grad
-                                               for v in p.values())
+        grad = ad.differentiated(*p.values())
         with torch.set_grad_enabled(grad):
             outs = [self._chunk({k: v[a:a + cap] for k, v in p.items()}, mark)
                     for a in range(0, n, cap)]
@@ -1513,9 +1536,9 @@ class FlexibleEvaluator(nn.Module):
     and w (timer stage "geometry" first).
 
     Every row input and every ``struct_params`` leaf is differentiable
-    in reverse mode (the host rebuild that made the leaves is not, as
-    in the reference); the adjoint solves of the N-DOF systems go to
-    ``torch.linalg.solve``, as the forward's do.
+    in reverse and forward mode (the host rebuild that made the leaves
+    is not, as in the reference); the adjoint and tangent solves of the
+    N-DOF systems go to ``torch.linalg.solve``, as the forward's do.
     """
 
     def __init__(self, model, nWaves=1, turb_static=None, device=None,
@@ -1605,9 +1628,7 @@ class FlexibleEvaluator(nn.Module):
         vals = {k: torch.as_tensor(rows.get(k, 0.0), **kw)
                 for k in ENV_KEYS + SEA_KEYS}
         sp = _tree_map(self._param, struct_params)
-        grad = torch.is_grad_enabled() and any(
-            t.requires_grad for t in list(vals.values())
-            + list(_tree_leaves(sp)))
+        grad = ad.differentiated(*vals.values(), *_tree_leaves(sp))
         for k, v in vals.items():
             if v.dim() > (2 if k in SEA_KEYS else 1):
                 raise ValueError(f"{k}: shape {tuple(v.shape)} has too many "

@@ -10,16 +10,22 @@ linearisation point exactly, ``n_iter_drag`` counts each row's own
 trips, and the all-rows-done test, which needs the host, runs once
 every ``RAFT_TPU_SCAN_CHUNK`` trips.
 
-Reverse mode is the implicit backward of the reference's
-``lax.custom_root`` at the fixed point, the transpose of its Neumann
-``tangent_solve``: the trip loop runs without a graph, the graph of one
-``update(XiLast)`` is built, and :class:`_FixedPointRoot` turns a
-cotangent X_bar of the fixed point into ``lam`` by exactly 10 steps of
-``lam <- X_bar + vjp_Xi(update)(lam)`` on that one graph (not to
-convergence: the reference takes 10), then hands ``lam`` to the graph,
-so ``theta_bar = vjp_theta(update)(lam)``.  Each step's vjp passes the
-solve's backward, the adjoint kernel on the card.  The final
-``update`` at the fixed point stays differentiable directly.
+Both modes take the implicit rule of the reference's ``lax.custom_root``
+at the fixed point: the trip loop runs on detached values (no graph, no
+tangent), one differentiable ``update(XiLast)`` is evaluated at the
+detached fixed point, and :class:`_FixedPointRoot` attaches XiLast to
+it.  Forward mode (``torch.func.jvp``, ``jacfwd``) is the reference's
+``tangent_solve``: with ``y`` the tangent of that update (the inputs'
+part, XiLast held), exactly 10 Neumann steps ``x <- y + J x`` (not to
+convergence: the reference takes 10), ``J v`` the update's derivative
+in Xi at the root: a ``torch.func.jvp`` of the drag linearisation and
+one tangent solve with the root's Z (a launch of the kernel's forward
+entry on the card, on the root solve's planes).  Reverse mode is its
+transpose: 10 steps of ``lam <- X_bar + J^T lam``, each one adjoint
+solve with the root's Z (the adjoint kernel on the card) and the
+linearisation's vjp, then ``lam`` handed to the update, so ``theta_bar
+= vjp_theta(update)(lam)``.  The final ``update`` at the fixed point
+stays differentiable directly.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ import torch
 
 from raft_tpu_torch.ops import linsolve
 from raft_tpu_torch.physics import morison
-from raft_tpu_torch.utils import config, health
+from raft_tpu_torch.utils import ad, config, health
 from raft_tpu_torch.utils.dtypes import compute_dtypes
 
 
@@ -49,28 +55,104 @@ def fused_response_enabled():
 #: the drag fixed point's relative-change stopping tolerance (the
 #: reference's)
 TOL = 0.01
-#: Neumann steps of the fixed point's backward (the reference's
+#: Neumann steps of the fixed point's jvp and backward (the reference's
 #: tangent_solve takes 10)
 NEUMANN_STEPS = 10
 
 
+class FixedPointState:
+    """The fixed point's root for :class:`_FixedPointRoot`: the
+    linearisation ``lin(Xi, *params) -> (Z, F, Bmat)`` (pure torch ops,
+    F (R, nw, n) as the solve takes it) and the root solve's kept planes
+    (:class:`~raft_tpu_torch.ops.linsolve.Keep`); bound by the Function
+    to the root Xi*, the linearisation's inputs ``params``, the update's
+    Z and solve output x (R, nw, n) there, as the Function receives them
+    (unwrapped by torch.func, so the kernel can take their data), all
+    detached.  A plain object, which torch.func passes through as it
+    is."""
+
+    def __init__(self, lin, keep, Xi=None, params=(), Z=None, x=None):
+        self.lin, self.keep = lin, keep
+        self.Xi, self.params, self.Z, self.x = Xi, params, Z, x
+
+    def bound(self, Xi, params, Z, x):
+        return FixedPointState(self.lin, self.keep, Xi, params, Z, x)
+
+    def _lin(self, Xi):
+        return self.lin(Xi, *self.params)[:2]
+
+    def jvp_xi(self, v):
+        """``J v``, the update's derivative in Xi at the root along v (R,
+        n, nw): the linearisation's tangent (dZ, dF), then one tangent
+        solve ``Z^-1 (dF - dZ x)`` with the root's Z and planes."""
+        dZ, dF = torch.func.jvp(self._lin, (self.Xi,), (v,))[1]
+        rhs = dF - (dZ @ self.x[..., None])[..., 0]
+        dx = linsolve.solve(self.Z, rhs, keep=linsolve.Keep(self.keep.planes))
+        return dx.transpose(-1, -2)
+
+    def vjp_xi(self):
+        """``lam -> J^T lam`` in torch's complex convention (lam (R, n,
+        nw)): each call one adjoint solve with the root's Z and planes
+        (:func:`~raft_tpu_torch.ops.linsolve.solve_vjp`), then the
+        linearisation's vjp."""
+        _, pull = torch.func.vjp(self._lin, self.Xi)
+
+        def vjp(lam):
+            gZ, gF = linsolve.solve_vjp(self.Z, self.x,
+                                        lam.transpose(-1, -2),
+                                        self.keep.planes)
+            return pull((gZ, gF))[0]
+
+        return vjp
+
+
 class _FixedPointRoot(torch.autograd.Function):
-    """The fixed point XiLast attached to ``Xi_u = update(Xl)``, the one
-    graph of the update at ``Xl`` (a leaf of XiLast's value)."""
+    """The fixed point XiLast attached to ``Xi_u = update(XiLast)``, the
+    one differentiable update at XiLast's detached value (with Z_u, its
+    impedance, and ``params``, the linearisation's inputs, detached).
+    The jvp is the reference's Neumann ``tangent_solve`` from Xi_u's
+    tangent y: ``x <- y + J x``; the backward its transpose, ``lam <-
+    X_bar + J^T lam``, handed to Xi_u (whose graph pulls it back to the
+    inputs); both take J at the root from ``state``
+    (:class:`FixedPointState`), NEUMANN_STEPS steps each."""
 
     @staticmethod
-    def forward(ctx, XiLast, Xi_u, Xl):
-        ctx.graph = (Xi_u, Xl)
+    def forward(XiLast, Xi_u, Z_u, state, *params):
         return XiLast.clone()
 
     @staticmethod
+    def setup_context(ctx, inputs, output):
+        XiLast, Xi_u, Z_u, state = inputs[:4]
+        ctx.n_params = len(inputs) - 4
+        ctx.state = state.bound(XiLast.detach(),
+                                tuple(p.detach() for p in inputs[4:]),
+                                Z_u.detach(),
+                                Xi_u.detach().transpose(-1, -2))
+
+    @staticmethod
+    def jvp(ctx, dXiLast, y, dZ_u, _, *dparams):
+        x = y
+        for _ in range(NEUMANN_STEPS):
+            x = y + ctx.state.jvp_xi(x)
+        return x
+
+    @staticmethod
+    def vmap(info, in_dims, *args):
+        """torch.func calls this only where a primal input is batched
+        (``jacfwd`` batches the tangents, which the jvp takes): the
+        fixed point of a vmapped evaluator, which the state of one root
+        cannot carry."""
+        raise NotImplementedError(
+            "torch.func.vmap over the drag fixed point's own inputs: call "
+            "the evaluator on rows (they are its batch dimension)")
+
+    @staticmethod
     def backward(ctx, X_bar):
-        Xi_u, Xl = ctx.graph
+        vjp = ctx.state.vjp_xi()
         lam = X_bar
         for _ in range(NEUMANN_STEPS):
-            lam = X_bar + torch.autograd.grad(Xi_u, Xl, lam,
-                                              retain_graph=True)[0]
-        return None, lam, None
+            lam = X_bar + vjp(lam)
+        return (None, lam, None, None) + (None,) * ctx.n_params
 
 
 def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
@@ -109,13 +191,20 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     if Z_extra is not None:
         Z0 = Z0 + Z_extra.to(cdt)
     iw = (1j * w).to(cdt)
+    pre_keys = tuple(k for k, v in pre.items() if isinstance(v, torch.Tensor))
+    params = (Z0, F_lin) + tuple(pre[k] for k in pre_keys)
 
-    def update(XiLast):
-        out = morison.drag_lin_iter(pre, XiLast)
+    def lin(XiLast, Z0, F_lin, *pre_t):
+        out = morison.drag_lin_iter(dict(pre, **dict(zip(pre_keys, pre_t))),
+                                    XiLast)
         Z = Z0 + iw[:, None, None] * out["B_hydro_drag"][:, None, :, :]
         F = F_lin + out["F_hydro_drag"]
-        Xi = linsolve.solve(Z, F.transpose(-1, -2))
-        return Xi.transpose(-1, -2), Z, out["Bmat"]
+        return Z, F.transpose(-1, -2), out["Bmat"]
+
+    def update(XiLast, params, keep=None):
+        Z, F, Bmat = lin(XiLast, *params)
+        Xi = linsolve.solve(Z, F, keep=keep)
+        return Xi.transpose(-1, -2), Z, Bmat
 
     iter_scale = max(int(config.get("ITER_SCALE")), 1)
     cap = n_iter * iter_scale + 1 + max(int(n_iter_extra), 0)
@@ -125,10 +214,12 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     done_prev = torch.zeros(R, dtype=torch.bool, device=dev)
     n_real = torch.zeros(R, dtype=torch.int32, device=dev)
     it = 0
+    # the trips run on detached values: no graph, no tangent
+    loop_params = ad.detached(*params)
     with torch.no_grad():
         while it < cap:
             for _ in range(min(chunk, cap - it)):
-                Xi, _, _ = update(XiLast)
+                Xi, _, _ = update(XiLast, loop_params)
                 tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + TOL)
                 done = torch.all((tolCheck < TOL).flatten(1), dim=1)
                 last = it + 1 >= cap
@@ -145,16 +236,15 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     if timer is not None:
         timer("fixed_point")
 
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (Z0, F_lin, *pre.values())
-            if isinstance(t, torch.Tensor)):
-        Xl = XiLast.detach().requires_grad_()
-        Xi_u, _, _ = update(Xl)
-        XiLast = _FixedPointRoot.apply(XiLast, Xi_u, Xl)
-    Xi, Z, Bmat = update(XiLast)
+    if ad.differentiated(*params):
+        keep = linsolve.Keep()
+        Xi_u, Z_u, _ = update(XiLast, params, keep)
+        XiLast = _FixedPointRoot.apply(XiLast, Xi_u, Z_u,
+                                       FixedPointState(lin, keep),
+                                       *loop_params)
+    Xi, Z, Bmat = update(XiLast, params)
     tolCheck = torch.amax((torch.abs(Xi - XiLast)
                            / (torch.abs(Xi) + TOL)).flatten(1), dim=1)
-    tolCheck = tolCheck.detach()
     drag_converged = tolCheck < TOL
     finite = torch.all(torch.isfinite(torch.view_as_real(Xi)).flatten(1),
                        dim=1)

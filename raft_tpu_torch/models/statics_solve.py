@@ -15,14 +15,15 @@ closure ``mooring_fn(X) -> (F_moor, C_moor)`` returning the force and
 the stiffness ``-dF/dX`` at the same pose, since one forward-mode pass
 yields both (the reference takes two closures).
 
-Reverse mode is the implicit-function backward of the reference's
-``lax.custom_root`` (its ``tangent_solve``, transposed): the Newton loop
-runs on detached values, and the pose attaches through
-:class:`_StaticsRoot`, whose backward solves ``K^T lam = X_bar`` with
-``K = K_h + C_elast + C_moor(X*)`` (the Jacobian of the net force is
-``-K``) and pulls ``lam`` back through one differentiable evaluation of
-the net force at X*.  The mooring's derivatives come from its implicit
-form at the converged catenary loads (:class:`MooringClosure`).
+Both modes take the implicit rule of the reference's
+``lax.custom_root``: the Newton loop runs on detached values (no graph,
+no tangent), and the pose attaches through :class:`_StaticsRoot` to one
+differentiable evaluation of the net force f at X*.  Its jvp is the
+reference's ``tangent_solve``, ``dX = K^-1 df`` with ``K = K_h +
+C_elast + C_moor(X*)`` (the Jacobian of the net force is ``-K``); its
+backward the transpose, ``lam = K^-T X_bar`` handed to f.  The
+mooring's derivatives come from its implicit form at the converged
+catenary loads (:class:`MooringClosure`).
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from raft_tpu_torch.physics import mooring
-from raft_tpu_torch.utils import config, health
+from raft_tpu_torch.utils import ad, config, health
 
 
 def make_tolerances(fowtList):
@@ -70,10 +71,11 @@ class MooringClosure:
             *self.args(X[:, :6]), X[:, :6]))
 
     def with_root(self, X):
-        """(F, C, converged loads) at X, forward values only."""
+        """(F, C, converged loads) at X, forward values only (no graph,
+        no tangent)."""
         with torch.no_grad():
             F, C, root = mooring.line_forces_and_stiffness(
-                *self.args(X[:, :6]), X[:, :6], root=True)
+                *ad.detached(*self.args(X[:, :6]), X[:, :6]), root=True)
         return (*self._pad(F, C), root)
 
     def at_root(self, X, root):
@@ -83,8 +85,10 @@ class MooringClosure:
         return self._pad(*mooring.line_forces_at_root(
             *self.args(X[:, :6]), X[:, :6], *root))
 
-    def requires_grad(self, X):
-        return any(t.requires_grad for t in self.args(X[:, :6]))
+    def differentiated(self, X):
+        """True when a line argument is being differentiated
+        (:func:`raft_tpu_torch.utils.ad.differentiated`)."""
+        return ad.differentiated(*self.args(X[:, :6]))
 
 
 def single_ms_closures(ms, nDOF):
@@ -102,13 +106,29 @@ def single_ms_closures(ms, nDOF):
 
 class _StaticsRoot(torch.autograd.Function):
     """X* (R, n) attached to the net force f (R, n) evaluated at X*
-    (its value ~0): the backward returns ``lam = K^-T X_bar`` as f's
-    cotangent, K (R, n, n) the equilibrium stiffness at X*."""
+    (its value ~0), K (R, n, n) the equilibrium stiffness at X*: the
+    jvp carries f's tangent to ``dX = K^-1 df`` (the reference's
+    ``tangent_solve``), the backward returns ``lam = K^-T X_bar`` as
+    f's cotangent.  Both are plain torch ops, so torch.func generates
+    the vmap rule."""
+
+    generate_vmap_rule = True
 
     @staticmethod
-    def forward(ctx, X, f, K):
-        ctx.save_for_backward(K)
+    def forward(X, f, K):
         return X.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[2])
+        ctx.save_for_forward(inputs[2])
+
+    @staticmethod
+    def jvp(ctx, dX, df, dK):
+        K, = ctx.saved_tensors
+        if df is None:
+            return torch.zeros(K.shape[:-1], dtype=K.dtype, device=K.device)
+        return torch.linalg.solve(K, df[..., None])[..., 0]
 
     @staticmethod
     def backward(ctx, X_bar):
@@ -141,32 +161,50 @@ def solve_equilibrium_general(
     pose, the net force at it, the per-row Newton count (int32), the
     stopping-rule verdict, the int32 health word (STATICS_MAX_ITER,
     STATICS_STEP_CAPPED) and the mooring stiffness at the returned pose.
+    The mooring is evaluated once per Newton iteration: where every row
+    stopped, the last iteration's evaluation was at the returned pose
+    and serves it (one more only where a row hit the iteration cap).
     """
     R, n = F_undisplaced.shape
     dev = F_undisplaced.device
     X_ref = torch.as_tensor(X_ref, dtype=F_undisplaced.dtype, device=dev)
-    X = X_ref.expand(R, n).clone() if X0 is None else X0.clone()
+    X = X_ref.expand(R, n).detach().clone() if X0 is None \
+        else X0.detach().clone()
     max_iter_eff = max_iter * max(int(config.get("ITER_SCALE")), 1)
+    implicit = hasattr(mooring_fn, "at_root")
 
-    # the hydrostatic and elastic stiffness act alike on X - X_ref, each
-    # applied on its own (the reference's order of the sum)
-    K_lin = K_hydrostatic if C_elast is None else K_hydrostatic + C_elast
-
-    def net_force(X, F_moor):
+    def net_force(X, F_moor, K_hydrostatic, F_undisplaced, F_env, C_elast,
+                  X_ref):
+        # the hydrostatic and elastic stiffness act alike on X - X_ref,
+        # each applied on its own (the reference's order of the sum)
         dx = (X - X_ref)[..., None]
         F = F_undisplaced - (K_hydrostatic @ dx)[..., 0] + F_env + F_moor
         if C_elast is not None:
             F = F - (C_elast @ dx)[..., 0]
         return F
 
+    params = (K_hydrostatic, F_undisplaced, F_env, C_elast, X_ref)
+    # the Newton loop runs on detached values: no graph, no tangent
+    loop_params = ad.detached(*params)
+    K_lin = loop_params[0] if C_elast is None \
+        else loop_params[0] + loop_params[3]
+
+    def mooring_eval(X):
+        """(F, C, the converged state or None) at X, forward values."""
+        if implicit:
+            return mooring_fn.with_root(X)
+        return (*mooring_fn(X), None)
+
     it = torch.zeros(R, dtype=torch.int32, device=dev)
     capped = torch.zeros(R, dtype=torch.int32, device=dev)
     done = torch.zeros(R, dtype=torch.bool, device=dev)
     active = torch.ones(R, dtype=torch.bool, device=dev)
+    last = None
     with torch.no_grad():
         for _ in range(max_iter_eff):
-            F_moor, C_moor = mooring_fn(X)
-            F = net_force(X, F_moor)
+            ev = mooring_eval(X)
+            F_moor, C_moor = ev[:2]
+            F = net_force(X, F_moor, *loop_params)
             K = K_lin + C_moor
             dX_raw = torch.linalg.solve(K, F[..., None])[..., 0]
             dX = torch.clamp(dX_raw, -step_cap, step_cap)
@@ -180,37 +218,32 @@ def solve_equilibrium_general(
             done = torch.where(active, step_done, done)
             active = active & ~step_done
             if not bool(active.any()):
+                # no row moved in this iteration: its evaluation was at
+                # the returned pose
+                last = ev
                 break
+        if last is None:
+            last = mooring_eval(X)
     status = health.set_bit(torch.zeros(R, dtype=torch.int32, device=dev),
                             health.STATICS_MAX_ITER, (~done).to(torch.int32))
     status = health.set_bit(status, health.STATICS_STEP_CAPPED,
                             (capped > 0).to(torch.int32))
 
-    implicit = hasattr(mooring_fn, "at_root")
-    needs_grad = torch.is_grad_enabled() and (
-        any(t is not None and t.requires_grad for t in
-            (K_hydrostatic, F_undisplaced, F_env, C_elast, X_ref))
-        or (implicit and mooring_fn.requires_grad(X)))
-    if not needs_grad:
+    F_moor, C_moor, root = last
+    moor_diff = implicit and mooring_fn.differentiated(X)
+    if not (ad.differentiated(*params) or moor_diff):
         with torch.no_grad():
-            F_moor, C_moor = mooring_fn(X)
-            F_resid = net_force(X, F_moor)
+            F_resid = net_force(X, F_moor, *loop_params)
         return X, F_resid, it, done, status, C_moor
 
-    # implicit-function backward: f(X*, theta) differentiable in theta at
-    # the detached X*, then X* attached to it, then the mooring
-    # stiffness at the attached pose (so its pose derivative counts)
-    if implicit:
-        F_moor, C_moor, root = mooring_fn.with_root(X)
-        F_att = F_moor
-        if mooring_fn.requires_grad(X):
-            F_r, _ = mooring_fn.at_root(X, root)
-            F_att = F_moor + (F_r - F_r.detach())
-    else:
-        with torch.no_grad():
-            F_moor, C_moor = mooring_fn(X)
-        F_att = F_moor
-    f = net_force(X, F_att)
+    # the implicit rule: f(X*, theta) differentiable in theta at the
+    # detached X*, then X* attached to it, then the mooring stiffness at
+    # the attached pose (so its pose derivative counts)
+    F_att = F_moor
+    if moor_diff:
+        F_r, _ = mooring_fn.at_root(X, root)
+        F_att = F_moor + (F_r - F_r.detach())
+    f = net_force(X, F_att, *params)
     X_att = _StaticsRoot.apply(X, f, (K_lin + C_moor).detach())
     if implicit:
         _, C_r = mooring_fn.at_root(X_att, root)

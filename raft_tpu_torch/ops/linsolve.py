@@ -34,6 +34,13 @@ summed over the broadcast dimensions: the formula of
 ``torch.linalg.solve``'s own backward, in torch's complex convention.
 The reference differentiates through its elimination instead; the two
 agree up to rounding.
+
+Forward mode (``torch.func.jvp`` and ``jacfwd``) takes :class:`_Solve`'s
+``jvp``: the tangent ``dx = Z^-1 (dF - dZ x)`` is one more solve through
+the same dispatch, the kernel's forward entry on the card (at N <= 6 on
+the forward's saved planes of Z, only the right-hand side repacked).
+Its ``vmap`` rule folds the directions of ``jacfwd`` into the batch of
+systems, so k directions cost one launch per solve, whatever k is.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import threading
 
 import torch
 
-from raft_tpu_torch.utils import config
+from raft_tpu_torch.utils import ad, config
 
 MAX_NATIVE_N = 12
 #: the smallest N that takes the kernel's one-lane-per-row design
@@ -82,10 +89,19 @@ def solver_path(n=None):
     return mode
 
 
-def solve(Z, F, path=None):
+def solve(Z, F, path=None, keep=None):
     """Solve ``Z x = F``; Z (..., N, N) complex, F (..., N), batch dims
     broadcast (e.g. Z (nw, N, N) against F (nH, nw, N)).  Differentiable
-    in Z and F (see the module docstring)."""
+    in Z and F (see the module docstring).
+
+    Inputs being differentiated, or inside a torch.func transform (whose
+    wrappers have no data pointers to hand the kernel), go through
+    :class:`_Solve`, which receives them unwrapped.  ``keep``, a
+    :class:`Keep`, routes the call through it whatever its inputs (so
+    ``torch.func.vmap`` takes its vmap rule: the implicit rules' tangent
+    solves, whose right-hand sides may be batched over ``jacfwd``'s
+    directions), reuses the kernel's planes of Z it holds when they
+    match the batch, and is left holding this Z's planes."""
     N = Z.shape[-1]
     if path is None:
         path = solver_path(N)
@@ -95,15 +111,16 @@ def solve(Z, F, path=None):
         path = "lapack"
     if Z.device.type not in ("cuda", "cpu"):
         raise RuntimeError(f"no solve for tensors on {Z.device}")
-    if torch.is_grad_enabled() and any(
-            getattr(t, "requires_grad", False) for t in (Z, F)):
-        return _Solve.apply(Z, F, path)
+    if keep is not None or ad.differentiated(Z, F) or ad.transformed(Z, F):
+        return _Solve.apply(Z, F, path, Keep() if keep is None else keep)
     return _forward(Z, F, path)[0]
 
 
-def _forward(Z, F, path, keep_planes=False):
+def _forward(Z, F, path, keep_planes=False, planes=None):
     """(x, the kernel's SoA planes of Z when ``keep_planes`` and the
-    SoA design ran, else None) by the forward dispatch."""
+    SoA design ran, else None) by the forward dispatch; ``planes``, the
+    SoA planes of this Z from an earlier solve of the same batch, spare
+    their repack (:func:`_cuda_solve`)."""
     if path == "lapack":
         N = Z.shape[-1]
         bshape = torch.broadcast_shapes(Z.shape[:-2], F.shape[:-1])
@@ -111,9 +128,10 @@ def _forward(Z, F, path, keep_planes=False):
                                F.expand(bshape + (N,))[..., None])
         return x[..., 0], None
     if Z.device.type == "cuda":
+        kw = {} if planes is None else dict(planes=planes)
         if keep_planes:
-            return _cuda_solve(Z, F, keep_planes=True)
-        return _cuda_solve(Z, F), None
+            return _cuda_solve(Z, F, keep_planes=True, **kw)
+        return _cuda_solve(Z, F, **kw), None
     return _native_solve(Z, F), None
 
 
@@ -133,6 +151,19 @@ def _adjoint(Z, planes, G, path):
     return _native_solve(Z.mH, G)
 
 
+def solve_vjp(Z, x, G, planes=None, path=None):
+    """The cotangents of ``x = Z^-1 F`` at the solution x, given G of
+    x's shape, in torch's complex convention: ``(Z_bar, F_bar) =
+    (-lam x^H, lam)`` with ``Z^H lam = G``, one adjoint solve
+    (:func:`_adjoint`: the kernel's adjoint entry on the card, on
+    ``planes``, the forward's SoA planes of Z, at N <= 6), each of x's
+    batch shape."""
+    if path is None:
+        path = solver_path(Z.shape[-1])
+    lam = _adjoint(Z, planes, G.contiguous(), path)
+    return -lam[..., :, None] * x.conj()[..., None, :], lam
+
+
 def _sum_to(x, shape):
     """Sum ``x`` over the dimensions that broadcasting added to
     ``shape``."""
@@ -143,29 +174,77 @@ def _sum_to(x, shape):
     return x.sum(dim=keep, keepdim=True) if keep else x
 
 
+class Keep:
+    """The kernel's SoA planes of one Z (N <= 6 on the card; None
+    elsewhere), kept between solves with that Z: :class:`_Solve`'s
+    forward leaves them here.  A plain object, which torch.func passes
+    through as it is."""
+
+    __slots__ = ("planes",)
+
+    def __init__(self, planes=None):
+        self.planes = planes
+
+
 class _Solve(torch.autograd.Function):
-    """``x = Z^-1 F`` with the adjoint-solve backward."""
+    """``x = Z^-1 F`` with the adjoint-solve backward, the tangent-solve
+    jvp and a vmap rule that folds the vmapped dimension into the batch
+    of systems.  The forward leaves the SoA planes of Z in ``keep``
+    (:class:`Keep`, for the backward and the jvp); given planes there,
+    of the same Z and batch, it launches on them."""
 
     @staticmethod
-    def forward(ctx, Z, F, path):
-        x, planes = _forward(Z, F, path, keep_planes=True)
-        ctx.path = path
-        ctx.planes = planes
-        ctx.shapes = (Z.shape, F.shape)
-        ctx.save_for_backward(Z, x)
+    def forward(Z, F, path, keep):
+        x, keep.planes = _forward(Z, F, path, keep_planes=True,
+                                  planes=keep.planes)
         return x
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        Z, F, path, keep = inputs
+        ctx.path = path
+        ctx.planes = keep.planes
+        ctx.shapes = (Z.shape, F.shape)
+        ctx.save_for_backward(Z, output)
+        ctx.save_for_forward(Z, output)
 
     @staticmethod
     def backward(ctx, G):
         Z, x = ctx.saved_tensors
-        lam = _adjoint(Z, ctx.planes, G.contiguous(), ctx.path)
-        gZ = gF = None
-        if ctx.needs_input_grad[0]:
-            gZ = _sum_to(-lam[..., :, None] * x.conj()[..., None, :],
-                         ctx.shapes[0])
-        if ctx.needs_input_grad[1]:
-            gF = _sum_to(lam, ctx.shapes[1])
-        return gZ, gF, None
+        gZ, lam = solve_vjp(Z, x, G, ctx.planes, ctx.path)
+        return (_sum_to(gZ, ctx.shapes[0]) if ctx.needs_input_grad[0]
+                else None,
+                _sum_to(lam, ctx.shapes[1]) if ctx.needs_input_grad[1]
+                else None, None, None)
+
+    @staticmethod
+    def jvp(ctx, dZ, dF, _path, _keep):
+        """``dx = Z^-1 (dF - dZ x)``: one solve with the forward's Z (and
+        its planes), through the forward's dispatch."""
+        Z, x = ctx.saved_tensors
+        rhs = torch.zeros_like(x) if dF is None else dF.expand_as(x)
+        if dZ is not None:
+            rhs = rhs - (dZ @ x[..., None])[..., 0]
+        return _Solve.apply(Z, rhs, ctx.path, Keep(ctx.planes))
+
+    @staticmethod
+    def vmap(info, in_dims, Z, F, path, keep):
+        """The vmapped dimension as the leading batch dimension of the
+        systems (each operand's batch padded to the broadcast rank): one
+        solve, one launch, for all of them."""
+        zd, fd = in_dims[:2]
+        r = max(Z.dim() - 2 - (zd is not None), F.dim() - 1 - (fd is not None))
+
+        def lead(t, d, core):
+            t = t.movedim(d, 0)
+            return t.reshape(t.shape[:1] + (1,) * (r - (t.dim() - 1 - core))
+                             + t.shape[1:])
+
+        if zd is not None:
+            Z = lead(Z, zd, 2)
+        if fd is not None:
+            F = lead(F, fd, 1)
+        return _Solve.apply(Z, F, path, Keep()), 0
 
 
 def cond_estimate(Z, path=None):
@@ -372,7 +451,7 @@ def _check_inputs(Z, F, who, lo=1):
                          f"{tuple(Z.shape)} and {tuple(F.shape)}")
 
 
-def _cuda_solve(Z, F, keep_planes=False):
+def _cuda_solve(Z, F, keep_planes=False, planes=None):
     """Launch the hand-written kernel on ``Z``'s CUDA device.
 
     At N <= 6 it repacks Z and F with :func:`soa_planes` and launches one
@@ -381,6 +460,9 @@ def _cuda_solve(Z, F, keep_planes=False):
     shape or launch the kernel does not take; there is no fallback.
     With ``keep_planes`` it returns ``(x, planes)``, the planes of Z for
     the adjoint entry (None at N = 7-12, whose adjoint reads Z).
+    ``planes``, the SoA planes of this Z from an earlier call on the
+    same broadcast batch (a tangent solve's), are used where they match
+    that batch: only F is repacked.
     """
     global KERNEL_LAUNCHES
     _check_inputs(Z, F, "_cuda_solve")
@@ -388,7 +470,15 @@ def _cuda_solve(Z, F, keep_planes=False):
     if N >= ROW_MIN_N:
         x = _cuda_solve_rows(Z, F)
         return (x, None) if keep_planes else x
-    planes, bshape = soa_planes(Z, F)
+    bshape = torch.broadcast_shapes(Z.shape[:-2], F.shape[:-1])
+    if planes is not None and planes[0].shape == (N * N, math.prod(bshape)) \
+            and planes[0].device == Z.device and \
+            planes[0].dtype == Z.real.dtype:
+        Fb = torch.view_as_real(F.expand(bshape + (N,)).reshape(-1, N))
+        planes = planes[:2] + (Fb[..., 0].T.contiguous(),
+                               Fb[..., 1].T.contiguous())
+    else:
+        planes, bshape = soa_planes(Z, F)
     out_shape = bshape + (N,)
     if math.prod(bshape) == 0:
         x = torch.empty(out_shape, dtype=Z.dtype, device=Z.device)

@@ -47,6 +47,7 @@ from raft_tpu_torch.ops import transforms as tf
 from raft_tpu_torch.ops.dual import Dual
 from raft_tpu_torch.ops.interp import interp
 from raft_tpu_torch.structure.schema import coerce
+from raft_tpu_torch.utils import ad
 from raft_tpu_torch.utils.dtypes import compute_dtypes, resolve_device
 
 RAD2DEG = 57.29577951308232
@@ -743,19 +744,20 @@ def rotor_loads_and_derivs(rot, Uinf, Omega_rpm, pitch_deg, tilt, yaw):
     ``dphi = -(dR/dp) / floor(R'(phi*))`` then seeds phi's tangents
     through the load integrals.
 
-    Reverse mode: with grad enabled and an inflow input requiring it,
-    the root enters the graph through :class:`_RootPhi`, whose backward
-    is the implicit rule with the reference's slope floor (its
-    ``tangent_solve``), never through the bisection and Newton steps.  Autograd then differentiates the hand tangents as well,
+    Reverse and forward mode: with an inflow input being differentiated
+    (it requires grad, or carries a ``torch.func.jvp`` / ``jacfwd``
+    tangent), the root enters through :class:`_RootPhi`, whose backward
+    and jvp are the implicit rule with the reference's slope floor (its
+    ``tangent_solve``), never through the bisection and Newton steps.
+    The transform then differentiates the hand tangents as well,
     through the attached root: the second derivatives of the
-    reference's reverse mode over its ``jacfwd``.  The values are those
-    of the plain path, bit for bit."""
+    reference's reverse or forward mode over its ``jacfwd``.  The values
+    are those of the plain path, bit for bit."""
     rt = _as_tensors(rot, Uinf)
     U, Om, pit = (_seed(x, i, 3) for i, x in
                   enumerate((Uinf, Omega_rpm, pitch_deg)))
     Vx, Vy, el = _inflow(rt, U, Om, pit, tilt, yaw)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (Vx.v, Vy.v, el[0].v)):
+    if ad.differentiated(Vx.v, Vy.v, el[0].v):
         phi, _ = _RootPhi.apply(Vx.v, Vy.v, el[0].v, el[1:])
     else:
         phi = _solve_phi_primal(Vx.v, Vy.v, tuple(du.value(e) for e in el))

@@ -27,14 +27,17 @@ the :class:`Dual` form: the backtracking search, whose output is a step
 length from {1, 1/2, ..., 1/16}, and the finiteness test.  The Newton
 Jacobian of the profile is written out analytically in both.
 
-Reverse mode does not tape the Newton loop.  :func:`line_forces_at_root`
-takes the converged fairlead loads (HF, VF) and attaches them to the
-pose and to L, w, EA by the implicit rule at the root, with the 2 x 2
-profile Jacobian; the force and stiffness written from them have the
-forward's values (to rounding) and exact first derivatives there.
-:func:`line_forces_and_stiffness` returns the forward's values with
-those derivatives whenever an input requires grad.  The reference tapes
-its loop, so the two gradients agree to the catenary's convergence.
+Neither reverse nor forward mode (``torch.func.jvp``, ``jacfwd``) sees
+the Newton loop: it runs on detached inputs.
+:func:`line_forces_at_root` takes the converged fairlead loads (HF, VF)
+and attaches them to the pose and to L, w, EA by the implicit rule at
+the root, with the 2 x 2 profile Jacobian; the force and stiffness
+written from them have the forward's values (to rounding) and exact
+first derivatives there.  :func:`line_forces_and_stiffness` returns the
+forward's values with those derivatives whenever an input is being
+differentiated (:func:`raft_tpu_torch.utils.ad.differentiated`).  The
+reference tapes its loop, so the two agree to the catenary's
+convergence.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ from raft_tpu_torch.ops.dual import tanh as _tanh
 from raft_tpu_torch.ops.dual import value as _v
 from raft_tpu_torch.ops.dual import where as _where
 from raft_tpu_torch.structure.schema import coerce
+from raft_tpu_torch.utils import ad
 
 
 @dataclass(frozen=True)
@@ -358,14 +362,15 @@ def line_forces_and_stiffness(r_fair0, r_anchor, L, w, EA, mask, X,
     as :class:`Dual` tangents, through the whole catenary Newton loop.
     With ``root`` it also returns the converged loads (HF, VF) (R, nL).
 
-    When grad is enabled and an input requires it, F and C keep these
-    values and take their derivatives from :func:`line_forces_at_root`
-    at the converged loads (the Newton loop is not taped).
+    When an input is being differentiated (it requires grad, or carries
+    a forward-mode tangent), F and C keep these values and take their
+    derivatives from :func:`line_forces_at_root` at the converged loads
+    (the Newton loop runs on detached inputs).
     """
     with torch.no_grad():
-        F, C, HF, VF = loop_forces(r_fair0, r_anchor, L, w, EA, mask, X)
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (r_fair0, r_anchor, L, w, EA, X)):
+        F, C, HF, VF = loop_forces(*ad.detached(r_fair0, r_anchor, L, w, EA,
+                                                mask, X))
+    if ad.differentiated(r_fair0, r_anchor, L, w, EA, X):
         F_r, C_r = line_forces_at_root(r_fair0, r_anchor, L, w, EA, mask, X,
                                        HF, VF)
         F = F + (F_r - F_r.detach())
@@ -391,7 +396,8 @@ def catenary_at_root(XF, ZF, L, w, EA, HF, VF, can_ground=True):
     x, z = _profile(Hs, Vs, L, w, EA, can_ground)
     r0, r1 = x - _v(XF), z - _v(ZF)
     with torch.no_grad():
-        j00, j01, j10, j11 = _profile_jacobian(Hs, Vs, L, w, EA, can_ground)
+        j00, j01, j10, j11 = _profile_jacobian(
+            Hs, Vs, *ad.detached(L, w, EA), can_ground)
         det = j00 * j11 - j01 * j10
     cH = -(r0 * j11 - r1 * j01) / det
     cV = -(j00 * r1 - j10 * r0) / det

@@ -30,6 +30,7 @@ import torch
 
 from raft_tpu_torch.ops import transforms as tf
 from raft_tpu_torch.ops import waves as wv
+from raft_tpu_torch.utils import ad
 
 
 @dataclass
@@ -278,9 +279,10 @@ def _abs_ref(x):
     matters where the argument is exactly 0 and its own derivative is
     not: a strip whose diameter does not change has end area 0, and
     its derivative in ``drs`` is pi ds.  The value is ``torch.abs``'s,
-    bit for bit."""
+    bit for bit; the derivative is the reference's in reverse and in
+    forward mode (a tangent takes the same path as a gradient)."""
     y = torch.abs(x)
-    if not (torch.is_grad_enabled() and x.requires_grad):
+    if not ad.differentiated(x):
         return y
     sx = torch.where(x >= 0, 1.0, -1.0) * x
     return y.detach() + (sx - sx.detach())

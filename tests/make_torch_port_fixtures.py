@@ -1264,6 +1264,341 @@ def write_grad_rest_fixtures(parts=GRAD_REST_PARTS):
         print(f"grad {part}: {metrics}", flush=True)
 
 
+# --------------------------------------- forward mode of every evaluator
+
+#: forward-mode directions per golden set, and the numpy seed of the
+#: first (direction d is drawn from seed JVP_SEED + d, one standard
+#: normal per input element, keys in sorted order)
+JVP_DIRECTIONS = 2
+JVP_SEED = 20261101
+JVP_PARTS = ("design_spar", "design_semi", "design_mhk", "geometry_spar",
+             "geometry_semi", "geometry_semi_wind", "aero_semi_wind",
+             "aero_mhk_tidal", "bem", "bem_full", "farm", "flex", "qtf")
+
+
+def jvp_directions(x, d):
+    """Direction ``d`` of the forward-mode goldens over the flat dict of
+    inputs ``x``: a standard normal per element, drawn from the numpy
+    seed ``JVP_SEED + d`` in the sorted order of the keys."""
+    import numpy as np
+
+    rng = np.random.default_rng(JVP_SEED + d)
+    return {k: rng.normal(size=np.shape(x[k])) for k in sorted(x)}
+
+
+def metric_tangent(out, tan):
+    """The tangent of :func:`response_metric` per row from the outputs'
+    primal and tangent (numpy, rows first)."""
+    import numpy as np
+
+    Xi, dXi = np.asarray(out["Xi"]), np.asarray(tan["Xi"])
+    X0, dX0 = np.asarray(out["X0"]), np.asarray(tan["X0"])
+    n = X0.shape[0]
+    return (2.0 * np.sum(np.real(np.conj(Xi[:, 0]) * dXi[:, 0]).reshape(
+        n, -1), axis=1) + 2.0 * np.sum((X0 * dX0).reshape(n, -1), axis=1))
+
+
+def _jvp_golden(fn, x, rest, grad, keys):
+    """Per-row ``jax.jvp`` of ``fn(x, rest)`` (the evaluator's output
+    dict) in ``x`` along :data:`JVP_DIRECTIONS` directions
+    (:func:`jvp_directions`), vmapped over the rows of ``x`` and
+    ``rest``.  Returns the primal of every key of ``keys`` and, per
+    direction d, ``dir{d}_<input>`` and the tangent ``jvp{d}_<key>`` of
+    every float key.  Each direction's metric tangent
+    (:func:`metric_tangent`) is asserted against the reference's
+    ``jax.grad`` of the metric along it, ``grad`` (the gradient golden
+    of the same rows, keyed by input, or None: taken here, per row by
+    ``jax.grad``), within 1e-10 x the sum of |g t|; every tangent
+    finite."""
+    jax = _jax()
+    import jax.numpy as jnp
+    import numpy as np
+
+    def one(x, r, t):
+        out, tan = jax.jvp(lambda x: fn(x, r), (x,), (t,))
+        return out, {k: tan[k] for k in keys
+                     if jnp.issubdtype(out[k].dtype, jnp.inexact)}
+
+    if grad is None:
+        grad = {k: np.asarray(v) for k, v in jax.jit(jax.vmap(jax.grad(
+            lambda x, r: response_metric(fn(x, r)))))(x, rest).items()}
+    f = jax.jit(jax.vmap(one))
+    gd = {}
+    for d in range(JVP_DIRECTIONS):
+        t = jvp_directions(x, d)
+        out, tan = f(x, rest, t)
+        out = {k: np.asarray(out[k]) for k in keys}
+        tan = {k: np.asarray(v) for k, v in tan.items()}
+        if d == 0:
+            gd.update(out)
+        for k, v in out.items():
+            np.testing.assert_array_equal(v, gd[k], err_msg=k)
+        for k, v in tan.items():
+            assert np.all(np.isfinite(v)), (d, k)
+        n = len(np.asarray(out["X0"]))
+        rev = sum(np.sum((grad[k] * t[k]).reshape(n, -1), axis=1)
+                  for k in x)
+        scale = sum(np.sum(np.abs(grad[k] * t[k]).reshape(n, -1), axis=1)
+                    for k in x)
+        err = np.abs(metric_tangent(out, tan) - rev)
+        assert np.all(err <= 1e-10 * scale), (d, err, scale)
+        gd.update({f"dir{d}_{k}": v for k, v in t.items()})
+        gd.update({f"jvp{d}_{k}": v for k, v in tan.items()})
+    return gd
+
+
+def _grad_of(name, pfx, keys):
+    """The gradient golden ``golden_grad_<name>.npz``'s ``<pfx>g_<key>``
+    of every key of ``keys``, keyed by input."""
+    import numpy as np
+
+    g = np.load(os.path.join(OUT_DIR, f"golden_grad_{name}.npz"))
+    return {k: g[f"{pfx}g_{k}"] for k in keys}
+
+
+def build_jvp_design_golden(name):
+    """``golden_jvp_design_<name>.npz``: the design evaluator on
+    :data:`GRAD_DESIGN_ROWS` in its six inputs, FUSED on and off, the
+    spectrum floored (:func:`_floored_jonswap`)."""
+    _jax()
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.api import make_design_evaluator
+
+    params = {k: np.asarray(c, dtype=float) for k, c in
+              zip(DESIGN_KEYS, zip(*GRAD_DESIGN_ROWS))}
+    gd = dict(params)
+    for fused in ("on", "off"):
+        def run():
+            model = raft_tpu.Model(os.path.join(ROOT, "raft_tpu", "designs",
+                                                DESIGNS[name]))
+            ev = make_design_evaluator(model)
+            with _floored_jonswap():
+                return _jvp_golden(
+                    lambda p, r: ev(p), params, {},
+                    _grad_of(f"design_{name}", f"{fused}_", DESIGN_KEYS),
+                    OUT_KEYS)
+        gd.update({f"{fused}_{k}": v for k, v in _with_fused(fused,
+                                                             run).items()})
+    return gd
+
+
+def build_jvp_geometry_golden(name):
+    """``golden_jvp_geometry_<name>.npz``: the geometry evaluator on the
+    rows of ``golden_grad_<name>.npz`` in every geometry key, FUSED on
+    and off."""
+    _jax()
+    rows = {k: v[:GRAD_ROWS] for k, v in full_rows(name).items()}
+    gd = dict(rows)
+    for fused in ("on", "off"):
+        def run():
+            model, ev = _geometry_evaluator(name)
+            geom = {k: v[:GRAD_ROWS] for k, v in geometry_rows(
+                len(model.fowtList[0].members)).items()}
+            gd.update({f"geom_{k}": v for k, v in geom.items()})
+            return _jvp_golden(lambda g, r: ev(dict(r, geom=g)), geom, rows,
+                               _grad_of(name, f"{fused}_", geom),
+                               FULL_OUT_KEYS)
+        gd.update({f"{fused}_{k}": v for k, v in _with_fused(fused,
+                                                             run).items()})
+    return gd
+
+
+def build_jvp_aero_golden(name):
+    """``golden_jvp_aero_<name>.npz``: the full evaluator of a rotor
+    design on :data:`GRAD_AERO_ROWS` in every row input, FUSED on and
+    off, the spectrum floored."""
+    _jax()
+    import raft_tpu
+    from raft_tpu.api import make_full_evaluator
+
+    rows = _rows_at(full_rows(name), GRAD_AERO_ROWS[name])
+    gd = dict(rows)
+    for fused in ("on", "off"):
+        def run():
+            ev = make_full_evaluator(raft_tpu.Model(full_design(name)),
+                                     nWaves=FULL_SETS[name])
+            with _floored_jonswap():
+                return _jvp_golden(
+                    lambda r, _: ev(r), rows, {},
+                    _grad_of(f"aero_{name}", f"{fused}_", rows),
+                    FULL_OUT_KEYS)
+        gd.update({f"{fused}_{k}": v for k, v in _with_fused(fused,
+                                                             run).items()})
+    return gd
+
+
+def build_jvp_bem_golden(name="semi_wind_coarse"):
+    """``golden_jvp_bem_<name>.npz``: a potential-flow design's geometry
+    evaluator on the rows of ``golden_grad_bem_<name>.npz`` in d_scale
+    and every row input, FUSED on and off, the spectrum floored (the
+    coefficients solved as :func:`build_grad_bem_golden` solves
+    them)."""
+    import shutil
+    import tempfile
+
+    _jax()
+    import numpy as np
+
+    from raft_tpu.api import make_full_evaluator
+    from raft_tpu.native import green_table as jgt
+
+    sys.path.insert(0, ROOT)
+    from raft_tpu_torch.native import green_table
+
+    jgt._tables = dict(green_table.build_tables())
+    cache = tempfile.mkdtemp(prefix="bem_cache_")
+    jdir = os.path.join(OUT_DIR, "bem_cache_jax")
+    for f in os.listdir(jdir):
+        shutil.copy(os.path.join(jdir, f), cache)
+    prev = os.environ.get("RAFT_TPU_BEM_DIR")
+    os.environ["RAFT_TPU_BEM_DIR"] = cache
+    try:
+        rows = _rows_at(bem_rows(BEM_ROWS), GRAD_BEM_ROWS)
+        x = dict(rows, d_scale=np.asarray(GRAD_BEM_D_SCALE, dtype=float))
+        gd = dict(x)
+        model = bem_model(name)
+        for fused in ("on", "off"):
+            def run():
+                ev = make_full_evaluator(model, nWaves=1, geometry=True)
+                ev.geometry_constants(dict(d_scale=1.0))
+
+                def case(x, _):
+                    c = {k: v for k, v in x.items() if k != "d_scale"}
+                    c["geom"] = dict(d_scale=x["d_scale"])
+                    return ev(c)
+
+                with _floored_jonswap():
+                    return _jvp_golden(
+                        case, x, {}, _grad_of(f"bem_{name}", f"{fused}_", x),
+                        FULL_OUT_KEYS)
+            gd.update({f"{fused}_{k}": v
+                       for k, v in _with_fused(fused, run).items()})
+        return gd
+    finally:
+        if prev is None:
+            os.environ.pop("RAFT_TPU_BEM_DIR", None)
+        else:
+            os.environ["RAFT_TPU_BEM_DIR"] = prev
+        shutil.rmtree(cache, ignore_errors=True)
+
+
+def build_jvp_farm_golden():
+    """``golden_jvp_farm_semi_wind.npz``: the two-unit farm on
+    :data:`GRAD_FARM_ROWS` in every row input, the spectrum floored (no
+    FUSED path)."""
+    _jax()
+    from raft_tpu.api import make_farm_evaluator
+
+    rows = _rows_at(farm_rows("semi_wind"), GRAD_FARM_ROWS)
+    ev = make_farm_evaluator(farm_model("semi_wind"),
+                             nWaves=FARM_SETS["semi_wind"])
+    with _floored_jonswap():
+        gd = _jvp_golden(lambda r, _: ev(r), rows, {},
+                         _grad_of("farm_semi_wind", "", rows), FARM_OUT_KEYS)
+    return dict(rows, **gd)
+
+
+def build_jvp_flex_golden():
+    """``golden_jvp_flex_semi_wind.npz``: semi_wind_flex on
+    :data:`GRAD_FLEX_ROWS` in every row input, and (``geo_*``) its
+    geometry evaluator on the same rows in the row inputs and every
+    struct_params leaf of the tower rebuilt at
+    :data:`GRAD_FLEX_GEOMETRY` (complex leaves as real and imaginary
+    parts), the spectrum floored (no FUSED path)."""
+    _jax()
+    import numpy as np
+
+    import raft_tpu
+    from raft_tpu.api import flexible_struct_params, make_flexible_evaluator
+
+    rows = _rows_at(full_rows("semi_wind"), GRAD_FLEX_ROWS)
+    model = raft_tpu.Model(semi_wind_flex_design())
+    ev = make_flexible_evaluator(model, nWaves=1)
+    gd = dict(rows)
+    with _floored_jonswap():
+        gd.update(_jvp_golden(lambda r, _: ev(r), rows, {},
+                              _grad_of("flex_semi_wind", "", rows),
+                              FLEX_OUT_KEYS))
+        sp = flexible_struct_params(raft_tpu.Model(
+            semi_wind_flex_design(*GRAD_FLEX_GEOMETRY)))
+        n = len(rows["Hs"])
+        flat = {k: np.stack([v] * n)
+                for k, v in _flat_struct_params(sp).items()}
+        geo = make_flexible_evaluator(model, nWaves=1, geometry=True)
+
+        def case(x, _):
+            c = {k: v for k, v in x.items() if not k.startswith("sp.")}
+            c["struct_params"] = _tree_struct_params(x)
+            return geo(c)
+
+        x = dict(rows, **flat)
+        geo_gd = _jvp_golden(case, x, {},
+                             _grad_of("flex_semi_wind", "geo_", x),
+                             FLEX_OUT_KEYS)
+    # the geometry rows' struct_params leaves are in the gradient golden;
+    # their directions are drawn again from the seed (jvp_directions)
+    gd.update({f"geo_{k}": v for k, v in geo_gd.items()
+               if not (k.startswith("dir") and "_sp." in k)})
+    return gd
+
+
+def build_jvp_qtf_golden():
+    """``golden_jvp_qtf_semi_wind.npz``: the full evaluator of
+    semi_wind_qtf (the external QTF, its drift equilibrium) on
+    :data:`GRAD_AERO_ROWS` of semi_wind in every row input, FUSED on and
+    off, the spectrum floored; no gradient golden has these rows, so
+    ``jax.grad`` is taken here for the check."""
+    _jax()
+    import numpy as np
+
+    from raft_tpu.api import make_full_evaluator
+
+    rows = _rows_at({k: np.asarray(v, dtype=float)
+                     for k, v in QTF_ROWS.items()},
+                    GRAD_AERO_ROWS["semi_wind"])
+    gd = dict(rows)
+    for fused in ("on", "off"):
+        def run():
+            ev = make_full_evaluator(qtf_model("semi_wind_qtf"), nWaves=1)
+            with _floored_jonswap():
+                return _jvp_golden(lambda r, _: ev(r), rows, {}, None,
+                                   FULL_OUT_KEYS)
+        gd.update({f"{fused}_{k}": v for k, v in _with_fused(fused,
+                                                             run).items()})
+    return gd
+
+
+def write_jvp_fixtures(parts=JVP_PARTS):
+    """Write the forward-mode goldens ``golden_jvp_<set>.npz`` (of
+    ``parts``)."""
+    import numpy as np
+
+    builders = {
+        **{f"design_{n}": (lambda n=n: build_jvp_design_golden(n))
+           for n in DESIGNS},
+        **{f"geometry_{n}": (lambda n=n: build_jvp_geometry_golden(n))
+           for n in GRAD_SETS},
+        "aero_semi_wind": lambda: build_jvp_aero_golden("semi_wind"),
+        "aero_mhk_tidal": lambda: build_jvp_aero_golden("mhk_tidal"),
+        "bem": lambda: build_jvp_bem_golden("semi_wind_coarse"),
+        "bem_full": lambda: build_jvp_bem_golden("semi_wind"),
+        "farm": build_jvp_farm_golden,
+        "flex": build_jvp_flex_golden,
+        "qtf": build_jvp_qtf_golden,
+    }
+    files = {"bem": "bem_semi_wind_coarse", "bem_full": "bem_semi_wind",
+             "farm": "farm_semi_wind", "flex": "flex_semi_wind",
+             "qtf": "qtf_semi_wind"}
+    for part in parts:
+        gd = builders[part]()
+        np.savez_compressed(os.path.join(
+            OUT_DIR, f"golden_jvp_{files.get(part, part)}.npz"), **gd)
+        print(f"jvp {part}: {sorted(k for k in gd if 'jvp0_' in k)}",
+              flush=True)
+
+
 # ------------------------------------------------------- farm fixtures
 
 #: the shared line of the two-unit farm: a MoorDyn v2 file, one line in
@@ -2980,6 +3315,9 @@ def main():
     if sys.argv[1:2] == ["--grad-rest"]:
         write_grad_rest_fixtures(*([sys.argv[2:]] if sys.argv[2:] else []))
         return
+    if sys.argv[1:2] == ["--jvp"]:
+        write_jvp_fixtures(*([sys.argv[2:]] if sys.argv[2:] else []))
+        return
     if sys.argv[1:] == ["--farm"]:
         write_farm_fixtures()
         return
@@ -3021,6 +3359,7 @@ def main():
     write_flex_fixtures()
     write_bem_fixtures()
     write_grad_rest_fixtures()
+    write_jvp_fixtures()
     write_qtf_fixtures()
     write_orch_fixtures()
     write_drivers_fixtures()

@@ -14,8 +14,11 @@ evaluator and the farm evaluator within 1e-10 x max of the JAX
 goldens with ``status`` and ``n_iter_drag`` equal (the full evaluator
 on the potential-flow and external-QTF designs too); the slender-body
 QTF within 1e-10 x max|qtf|; reverse-mode gradients within 1e-9 x
-each key's max|g| of the JAX goldens; the orchestrated path's case
-metrics at the gates of ``tests/test_torch_orchestrated.py``.
+each key's max|g| of the JAX goldens, forward-mode tangents within 1e-9
+x each key's max|tangent| (the solve's tangent bit-equal to the plain
+version on its right-hand side, and jacfwd's directions one launch);
+the orchestrated path's case metrics at the gates of
+``tests/test_torch_orchestrated.py``.
 """
 
 import json
@@ -601,3 +604,93 @@ def test_aero_gradient_on_card_matches_golden(cuda, name, nWaves):
     grads = torch.autograd.grad(aval.sum(), [x[k] for k in aero],
                                 allow_unused=True, materialize_grads=True)
     hold_grads(aval, dict(zip(aero, grads)), g, "on_aero_")
+
+
+# ------------------------------------------------------------ forward mode
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [6, 12])
+@pytest.mark.parametrize("dtype,tol", DTYPES)
+def test_solve_jvp_on_card_matches_plain(cuda, N, dtype, tol):
+    """The solve's jvp on the card: its tangent solve ``Z^-1 (dF - dZ x)``
+    through the forward entry (at N = 6 on the forward's saved planes)
+    against the plain version on the same right-hand side, bit-equal in
+    float64 (float32 within 1e-5 x max|x|); one launch for the primal,
+    one for the tangent."""
+    Z, F = systems(N, (4,), 37, 3)
+    Z, F = Z.to(dtype).to(cuda), F.to(dtype).to(cuda)
+    dZ, dF = systems(N, (4,), 37, 4)
+    dZ, dF = 0.1 * dZ.to(dtype).to(cuda), dF.to(dtype).to(cuda)
+    fwd, _, rows = _launches()
+    x, dx = torch.func.jvp(linsolve.solve, (Z, F), (dZ, dF))
+    assert linsolve.KERNEL_LAUNCHES - fwd == 2
+    assert linsolve.ROW_KERNEL_LAUNCHES - rows == (2 if N >= 7 else 0)
+    rhs = dF.expand_as(x) - (dZ @ x[..., None])[..., 0]
+    ref = linsolve._native_solve(Z, rhs)
+    err = float(torch.max(torch.abs(dx - ref)))
+    assert err <= tol * float(torch.max(torch.abs(ref)))
+    assert torch.equal(x, linsolve.solve(Z, F))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [6, 12])
+def test_solve_jacfwd_on_card_is_one_launch(cuda, N):
+    """jacfwd of k directions: the primal and one tangent launch, for k
+    = 3 and k = 8 (the vmap rule folds the directions into the batch of
+    systems), each column within 1e-12 x max of that direction's jvp
+    (the tangent's right-hand side ``dF - dZ x`` is a batched matmul,
+    whose library kernel may round otherwise over k times the batch)."""
+    Z, F = systems(N, (4,), 37, 5)
+    Z, F = Z.to(cuda), F.to(cuda)
+    for k in (3, 8):
+        s0 = torch.linspace(0.9, 1.1, k, dtype=torch.float64, device=cuda)
+
+        def f(s):
+            return torch.view_as_real(linsolve.solve(
+                Z * s[0], F * s[1:].sum() + s[-1]))
+
+        fwd = linsolve.KERNEL_LAUNCHES
+        J = torch.func.jacfwd(f)(s0)
+        assert linsolve.KERNEL_LAUNCHES - fwd == 2
+        for i in range(k):
+            e = torch.zeros(k, dtype=torch.float64, device=cuda)
+            e[i] = 1.0
+            col = torch.func.jvp(f, (s0,), (e,))[1]
+            assert float(torch.max(torch.abs(col - J[..., i]))) <= \
+                1e-12 * float(torch.max(torch.abs(col)))
+
+
+@pytest.mark.cuda
+def test_design_forward_mode_on_card_matches_goldens(cuda):
+    """The spar design evaluator's tangents on the card
+    (golden_jvp_design_spar.npz, 1e-9 x max|tangent|; the outputs under
+    the transform within 1e-10 x max of the plain call's, status and
+    n_iter_drag equal: under torch.func's wrappers a library kernel may
+    round otherwise) and jacfwd of the response metric by its
+    six inputs (golden_grad_design_spar.npz); jacfwd's six directions
+    launch the forward entry as often as one jvp's: the plain call's
+    trips and final solve, plus the fixed point's tangent work."""
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_fwd as fw
+    from test_torch_grad import DESIGN_KEYS
+
+    with open(os.path.join(FIX, "design_spar.json")) as f:
+        ev = make_design_evaluator(Model(json.load(f)), cuda)
+    gj = dict(np.load(os.path.join(FIX, "golden_jvp_design_spar.npz")))
+    gd = dict(np.load(os.path.join(FIX, "golden_grad_design_spar.npz")))
+    x = {k: torch.tensor(gd[k], device=cuda) for k in DESIGN_KEYS}
+    n0 = linsolve.KERNEL_LAUNCHES
+    plain = ev(**x)
+    n0 = linsolve.KERNEL_LAUNCHES - n0
+    n1 = linsolve.KERNEL_LAUNCHES
+    prim, tan = torch.func.jvp(lambda x: ev(**x), (x,),
+                               (fw.directions(x, 0),))
+    n1 = linsolve.KERNEL_LAUNCHES - n1
+    fw.hold_primal(prim, plain, gj, "on_", tol=1e-10)
+    fw.hold_tangents(tan, gj, "on_", 0)
+    n2 = linsolve.KERNEL_LAUNCHES
+    fw.hold_jacfwd(fw.row_jacfwd(lambda x: ev(**x), x), gd, "on_")
+    n2 = linsolve.KERNEL_LAUNCHES - n2
+    assert n1 == n2 == n0 + dynamics.NEUMANN_STEPS + 3
