@@ -4,7 +4,8 @@
 
 Phases, each printing one line (the last line is the result object):
 
-1. device  - the card's name and power limit (nvidia-smi); TF32 off.
+1. device  - the card's name and power limit (nvidia-smi); TF32 off;
+             the host's CPU model and microseconds per kernel launch.
 2. build   - nvcc builds raft_tpu_torch/csrc/linsolve.cu for sm_90a
              afresh, while g++ builds the host panel solver
              raft_tpu_torch/csrc/panel_bem.cpp; the -Xptxas -v report goes to
@@ -255,10 +256,29 @@ Phases, each printing one line (the last line is the result object):
              counted) and the spar's catenary polylines of
              plotting._catenary_points held against
              golden_omdao_plotting.npz.
-22. kernels - one JSON object listing both entries of the solve kernel,
-             the forward with its launches on every path (the analyze
-             and omdao paths' also as analyze_launches and
-             omdao_launches) and the adjoint
+22. sweep   - checkpointed, fault-tolerant sweeps: the full phase's
+             semi_wind evaluator through run_sweep_checkpointed_full
+             over SWEEP_ROWS (2048) seeded rows in shards of
+             SWEEP_SHARD (512), with status among the out keys, on the
+             mesh resolve_mesh gives after its health probe (one card),
+             held against the plain evaluator call on the same rows
+             (bits, else 1e-10 x max; status equal) and its launches
+             against the trips; the same sweep crashed by an injected
+             truncation of shard 2 and resumed (bit-identical to the
+             uninterrupted sweep, only the truncated shard recomputed);
+             a shard under an injected transient fault (retried) and one
+             under an injected OOM (halved); sweep_cases of the three
+             demos over the two-entry mesh [cuda:0, cuda:0], bit-equal
+             to a one-entry mesh; a twin of a CPU-built evaluator on the
+             card, bit-equal to the card's own; qtf_slender_sharded at
+             SLOW_DRIFT_GRID over the two-entry mesh against
+             Model.qtf_slender (1e-10 x max).  Rows/s of the
+             checkpointed sweep against the plain call's, shard write
+             and resume s, launches.
+23. kernels - one JSON object listing both entries of the solve kernel,
+             the forward with its launches on every path (the analyze,
+             omdao and sweep paths' also as analyze_launches,
+             omdao_launches and sweep_launches) and the adjoint
              with its launches on the grad and grad_paths paths, each
              with its N = 12 (one-lane-per-row) figures (the adjoint's
              from the farm's backward).
@@ -275,7 +295,9 @@ import functools
 import json
 import math
 import os
+import platform
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -346,6 +368,10 @@ QTF_ROWS = 4096
 QTF_SEED = 20261028
 QTF_GEOMETRY_ROWS = 1024
 QTF_GEOMETRY_SEED = 20261029
+SWEEP_ROWS = 2048                      # rows of the checkpointed sweep
+SWEEP_SHARD = 512
+SWEEP_SEED = 20261030
+SWEEP_CASE_ROWS = 1024                 # sea states per demo, two-entry mesh
 SLOW_DRIFT_GRID = dict(min_freq2nd=0.00125, df_freq2nd=0.00125,
                        max_freq2nd=0.25)
 BUILD_TOL = 1e-12                      # x each packed leaf's max
@@ -413,6 +439,31 @@ def cuda_time(fn, reps=20, warm=3, queue_ahead=False):
     return a.elapsed_time(b) / reps
 
 
+def host_speed(n=20_000):
+    """The host's CPU model and core count, and the wall microseconds
+    per launch of a one-element add on the card, ``n`` launches
+    synchronized: the launch-bound phases move with it, so a script's
+    time is read beside it (hosts differ)."""
+    model = platform.machine() or "unknown"
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    model = line.split(":", 1)[1].strip()
+                    break
+    except OSError:
+        pass
+    x = torch.zeros(1, device=DEVICE)
+    for _ in range(100):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        x.add_(1.0)
+    torch.cuda.synchronize()
+    return model, os.cpu_count(), (time.perf_counter() - t0) / n * 1e6
+
+
 def phase_device():
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -426,6 +477,9 @@ def phase_device():
     print(f"device: {torch.cuda.get_device_name(0)} x"
           f"{torch.cuda.device_count()}, torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}; TF32 off")
+    cpu, cores, us = host_speed()
+    print(f"host: {cpu}, {cores} cores; {us:.2f} us per launch of a "
+          "one-element add (20,000 launches, synchronized)")
     return card
 
 
@@ -3487,6 +3541,289 @@ def phase_omdao(card):
     return res
 
 
+
+def _jsonl_since(path, start):
+    """Events of a JSONL capture from line ``start`` on, and its length."""
+    with open(path) as f:
+        lines = f.readlines()
+    return [json.loads(x) for x in lines[start:] if x.strip()], len(lines)
+
+
+def _sweep_hold(out, ref, tag, keys):
+    """``out`` against ``ref``: bit-equal (True), or floats within
+    SLICE_TOL x max (False); integer keys always equal."""
+    same = all(np.array_equal(out[k], ref[k]) for k in keys)
+    if not same:
+        for k in keys:
+            a, b = out[k], ref[k]
+            if k in EXACT:
+                check(np.array_equal(a, b), f"sweep {tag}: {k} differs")
+                continue
+            scale = float(np.max(np.abs(b)))
+            err = float(np.max(np.abs(a - b)))
+            check(err <= SLICE_TOL * scale, f"sweep {tag}: {k} off by "
+                  f"{err:.3e} > {SLICE_TOL:g} x {scale:.3e}")
+    return same
+
+
+def phase_sweep(ev, models, out_dir, card):
+    """Checkpointed, fault-tolerant sweeps on the card (module docstring,
+    phase 22); ``ev`` is the full phase's semi_wind evaluator."""
+    from raft_tpu_torch.api import make_case_evaluator
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.parallel import resilience
+    from raft_tpu_torch.parallel import sweep as ts
+    from raft_tpu_torch.utils import config, faults
+
+    t_phase = time.time()
+    fused = config.get("FUSED") == "on"
+    keys = ("PSD", "X0", "status", "n_iter_drag")
+    base = os.path.join(out_dir, "sweep")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    log = os.path.join(base, "events.jsonl")
+    prev_log = os.environ.get("RAFT_TPU_LOG")
+    os.environ["RAFT_TPU_LOG"] = log
+    writes = []
+    atomic_savez = resilience.atomic_savez
+
+    def timed_savez(path, **arrays):
+        t0 = time.time()
+        try:
+            atomic_savez(path, **arrays)
+        finally:
+            writes.append(time.time() - t0)
+
+    resilience.atomic_savez = timed_savez
+    try:
+        gold = dict(np.load(os.path.join(FIX, "golden_full_semi_wind.npz")))
+        p = full_rows("semi_wind", gold, SWEEP_ROWS, SWEEP_SEED)
+        res = dict(rows=SWEEP_ROWS, shard=SWEEP_SHARD)
+
+        # the plain evaluator call on the same rows
+        _sync()
+        t0 = time.time()
+        plain = {k: v.cpu().numpy() for k, v in ev(**p).items()
+                 if k in keys}
+        res["plain_s"] = time.time() - t0
+
+        # 1. the checkpointed sweep on the mesh resolve_mesh gives
+        linsolve.reset_launches()
+        t0 = time.time()
+        mesh = resilience.resolve_mesh(ts.make_mesh)
+        res["resolve_mesh_s"] = time.time() - t0
+        check(mesh.devices.size == torch.cuda.device_count(),
+              f"sweep: resolve_mesh gave {mesh}")
+        if mesh.devices.size > 1:  # one card, as the contract asks
+            mesh = ts.make_mesh(1)
+        del writes[:]
+        t0 = time.time()
+        out1 = ts.run_sweep_checkpointed_full(
+            ev, p, os.path.join(base, "clean"), shard_size=SWEEP_SHARD,
+            mesh=mesh, out_keys=keys)
+        res["sweep_s"] = time.time() - t0
+        res["write_s"] = list(writes)
+        launches = linsolve.KERNEL_LAUNCHES
+        cap = ev.body.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
+            + max(int(ev.body.n_iter_extra), 0)
+        chunk_rows = min(int(config.get("BUCKET_ROWS")) or SWEEP_SHARD,
+                         SWEEP_SHARD)
+        exp = sum(expected_launches(
+            out1["n_iter_drag"][a:a + SWEEP_SHARD], chunk_rows, cap,
+            min(max(1, config.get("SCAN_CHUNK")), cap), fused)
+            for a in range(0, SWEEP_ROWS, SWEEP_SHARD))
+        check(launches == exp, f"sweep: solve kernel launched {launches} "
+              f"times in the checkpointed sweep, expected {exp}")
+        res["bits_equal_plain"] = _sweep_hold(out1, plain, "vs plain", keys)
+        for k in ("PSD", "X0"):
+            check(np.all(np.isfinite(out1[k])), f"sweep: non-finite {k}")
+        res["launches"] = launches
+        res["expected_launches"] = exp
+
+        # 2. a crash by an injected truncation of shard 2, then the resume
+        crash = os.path.join(base, "crash")
+        armed = []
+
+        def arm_truncation(done, total, fresh):
+            if done == 2 and not armed:
+                armed.append(faults.inject("truncate:shard_write:1"))
+                armed[0].__enter__()
+
+        _, n0 = _jsonl_since(log, 0)
+        linsolve.reset_launches()
+        try:
+            ts.run_sweep_checkpointed_full(
+                ev, p, crash, shard_size=SWEEP_SHARD, mesh=mesh,
+                out_keys=keys, on_shard=arm_truncation)
+            raise PhaseError("sweep: the injected truncation did not crash "
+                             "the sweep")
+        except faults.InjectedFault:
+            pass
+        finally:
+            for a in armed:
+                a.__exit__(None, None, None)
+        launches += linsolve.KERNEL_LAUNCHES
+        try:
+            resilience.load_shard(os.path.join(crash, "shard_0002.npz"),
+                                  keys)
+            raise PhaseError("sweep: shard 2 is not truncated")
+        except resilience.ShardCorruptError:
+            pass
+        _, n1 = _jsonl_since(log, n0)
+        linsolve.reset_launches()
+        t0 = time.time()
+        out2 = ts.run_sweep_checkpointed_full(
+            ev, p, crash, shard_size=SWEEP_SHARD, mesh=mesh, out_keys=keys)
+        res["resume_s"] = time.time() - t0
+        launches += linsolve.KERNEL_LAUNCHES
+        evs, _ = _jsonl_since(log, n1)
+        corrupt = [e["shard"] for e in evs if e["event"] == "shard_corrupt"]
+        resumed = [e["shard"] for e in evs if e["event"] == "shard_resume"]
+        ran = [e["shard"] for e in evs if e["event"] == "shard_start"]
+        check(corrupt == [2] and resumed == [0, 1] and ran == [2, 3],
+              f"sweep: the resume found corrupt {corrupt}, resumed "
+              f"{resumed}, ran {ran}")
+        check(all(np.array_equal(out2[k], out1[k]) for k in keys),
+              "sweep: the resumed sweep differs from the uninterrupted one")
+        res["resume"] = dict(corrupt=corrupt, resumed=resumed, ran=ran)
+
+        # 3. a transient fault on shard 0, an OOM on shard 1
+        half = {k: v[:2 * SWEEP_SHARD] for k, v in p.items()}
+        armed = []
+
+        def arm_oom(done, total, fresh):
+            if done == 1 and not armed:
+                armed.append(faults.inject("oom:shard_eval:1"))
+                armed[0].__enter__()
+
+        _, n2 = _jsonl_since(log, 0)
+        linsolve.reset_launches()
+        try:
+            with faults.inject("transient:shard_eval:1"):
+                out3 = ts.run_sweep_checkpointed_full(
+                    ev, half, os.path.join(base, "faults"),
+                    shard_size=SWEEP_SHARD, mesh=mesh, out_keys=keys,
+                    backoff_s=0.05, on_shard=arm_oom)
+        finally:
+            for a in armed:
+                a.__exit__(None, None, None)
+        launches += linsolve.KERNEL_LAUNCHES
+        evs, _ = _jsonl_since(log, n2)
+        retries = [(e["shard"], e["attempt"]) for e in evs
+                   if e["event"] == "shard_retry"]
+        splits = [(e["shard"], e["split"]) for e in evs
+                  if e["event"] == "shard_oom_split"]
+        check(retries == [(0, 1)], f"sweep: retries {retries}")
+        check(splits == [(1, [SWEEP_SHARD // 2] * 2)],
+              f"sweep: OOM splits {splits}")
+        res["faults"] = dict(retries=retries, oom_splits=splits,
+                             bits_equal=_sweep_hold(
+                                 out3, {k: v[:2 * SWEEP_SHARD]
+                                        for k, v in out1.items()},
+                                 "faults", keys))
+
+        # 4. the three demos over a two-entry mesh
+        mesh1 = ts.make_mesh(device=DEVICE)
+        mesh2 = ts.make_mesh(2, device=DEVICE)
+        rng = np.random.default_rng(SWEEP_SEED + 1)
+        res["cases"] = {}
+        res["two_entries"] = [str(d) for d in mesh2.devices.flat]
+        from raft_tpu_torch.structure import bucketing as bk
+
+        linsolve.reset_launches()
+        for n in DESIGNS:
+            ce = make_case_evaluator(models[n], device=DEVICE)
+            lo, hi = DOE_BOX["Hs"], DOE_BOX["Tp"]
+            sea = (rng.uniform(*lo, SWEEP_CASE_ROWS),
+                   rng.uniform(*hi, SWEEP_CASE_ROWS),
+                   rng.uniform(*DOE_BOX["beta"], SWEEP_CASE_ROWS))
+            t0 = time.time()
+            o1 = ts.sweep_cases(ce, *sea, mesh=mesh1, out_keys=bk.OUT_KEYS)
+            t1 = time.time()
+            o2 = ts.sweep_cases(ce, *sea, mesh=mesh2, out_keys=bk.OUT_KEYS)
+            t2 = time.time()
+            check(all(np.array_equal(o1[k], o2[k]) for k in bk.OUT_KEYS),
+                  f"sweep: sweep_cases of {n} on two entries differs from "
+                  "one entry")
+            res["cases"][n] = dict(one_entry_s=t1 - t0, two_entries_s=t2 - t1)
+        launches += linsolve.KERNEL_LAUNCHES
+
+        # a twin of a CPU-built evaluator on the card
+        factory, args, kw = ev._raft_factory
+        cpu_ev = factory(*args, **dict(kw, device="cpu"))
+        twin = ts.bind_evaluator(cpu_ev, torch.device(DEVICE))
+        few = {k: v[:64] for k, v in p.items()}
+        linsolve.reset_launches()
+        a = {k: v.cpu().numpy() for k, v in twin(**few).items()}
+        b = {k: v.cpu().numpy() for k, v in ev(**few).items()}
+        launches += linsolve.KERNEL_LAUNCHES
+        check(twin is not cpu_ev
+              and twin.device.type == torch.device(DEVICE).type
+              and all(np.array_equal(a[k], b[k]) for k in a),
+              "sweep: the twin of a CPU-built evaluator differs from the "
+              "card's own")
+
+        # 5. the sharded slender-body QTF at the slow-drift grid
+        sg = np.load(os.path.join(FIX, "golden_qtf_slender.npz"))
+        with open(os.path.join(FIX, "design_semi_wind_slender.json")) as f:
+            d = json.load(f)
+        d["platform"].update(SLOW_DRIFT_GRID)
+        m = Model(d)
+        beta = float(sg["beta"])
+        _sync()
+        t0 = time.time()
+        ref = m.qtf_slender(beta, Xi0=sg["Xi0"], device=DEVICE).cpu().numpy()
+        t1 = time.time()
+        got = ts.qtf_slender_sharded(m, beta, Xi0=sg["Xi0"], mesh=mesh2)
+        t2 = time.time()
+        scale = float(np.max(np.abs(ref)))
+        err = float(np.max(np.abs(got - ref)))
+        check(got.shape == ref.shape and err <= SLICE_TOL * scale,
+              f"sweep: qtf_slender_sharded off by {err:.3e} > "
+              f"{SLICE_TOL:g} x {scale:.3e}")
+        res["qtf"] = dict(bins=len(m.w1_2nd), unsharded_s=t1 - t0,
+                          sharded_s=t2 - t1, rel_err=err / scale)
+    finally:
+        resilience.atomic_savez = atomic_savez
+        if prev_log is None:
+            os.environ.pop("RAFT_TPU_LOG", None)
+        else:
+            os.environ["RAFT_TPU_LOG"] = prev_log
+    res["launches"] = launches
+    res["rows_per_s"] = SWEEP_ROWS / res["sweep_s"]
+    res["plain_rows_per_s"] = SWEEP_ROWS / res["plain_s"]
+    res["phase_s"] = time.time() - t_phase
+    w = res["write_s"]
+    print(f"sweep on {card}: run_sweep_checkpointed_full of semi_wind, "
+          f"{SWEEP_ROWS} rows in shards of {SWEEP_SHARD}: "
+          f"{res['sweep_s']:.2f} s = {res['rows_per_s']:.1f} rows/s "
+          f"against the plain call's {res['plain_rows_per_s']:.1f} rows/s "
+          f"({res['plain_s']:.2f} s); resolve_mesh (probe) "
+          f"{res['resolve_mesh_s']:.2f} s; shard writes "
+          f"{min(w) * 1e3:.1f}-{max(w) * 1e3:.1f} ms; "
+          f"{'bits equal' if res['bits_equal_plain'] else 'within 1e-10'} "
+          f"to the plain call; launches {res['expected_launches']} "
+          f"(= trips + 1 per shard)")
+    print(f"  sweep on {card}: crash at shard 2 then resume "
+          f"{res['resume_s']:.2f} s (resumed {res['resume']['resumed']}, "
+          f"recomputed {res['resume']['corrupt']}, ran "
+          f"{res['resume']['ran']}), bit-identical; transient retry "
+          f"{res['faults']['retries']}, OOM split "
+          f"{res['faults']['oom_splits']} "
+          f"({'bits equal' if res['faults']['bits_equal'] else 'within 1e-10'}"
+          f"); sweep_cases of the demos on {res['two_entries']} bit-equal "
+          "to one entry (" + ", ".join(
+              f"{n} {c['one_entry_s']:.2f}/{c['two_entries_s']:.2f} s"
+              for n, c in res["cases"].items())
+          + f"); qtf_slender_sharded at {res['qtf']['bins']} bins "
+          f"{res['qtf']['sharded_s']:.2f} s (unsharded "
+          f"{res['qtf']['unsharded_s']:.2f} s), rel err "
+          f"{res['qtf']['rel_err']:.1e}; ge_solve launches "
+          f"{res['launches']}; phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=4096)
@@ -3550,6 +3887,8 @@ def main():
         rec["analyze"] = timed("analyze", phase_analyze, args.out,
                                rec["card"])
         rec["omdao"] = timed("omdao", phase_omdao, rec["card"])
+        rec["sweep"] = timed("sweep", phase_sweep, evs["semi_wind"], models,
+                             args.out, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3570,7 +3909,7 @@ def main():
         qtf=rec["qtf"]["launches"],
         qtf_geometry=rec["qtf"]["geometry"]["launches"],
         analyze=rec["analyze"]["launches"],
-        omdao=rec["omdao"]["launches"])
+        omdao=rec["omdao"]["launches"], sweep=rec["sweep"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -3589,9 +3928,11 @@ def main():
                   + rec["qtf"]["launches"]
                   + rec["qtf"]["geometry"]["launches"]
                   + rec["analyze"]["launches"]
-                  + rec["omdao"]["launches"]),
+                  + rec["omdao"]["launches"]
+                  + rec["sweep"]["launches"]),
         analyze_launches=rec["analyze"]["launches"],
         omdao_launches=rec["omdao"]["launches"],
+        sweep_launches=rec["sweep"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

@@ -68,6 +68,13 @@ Entry points:
 * :func:`raft_tpu_torch.parallel.sweep.sweep_heterogeneous` — mixed
   models or packed designs x sea states, grouped by signature and
   chunked;
+* :func:`raft_tpu_torch.parallel.sweep.run_sweep_checkpointed_full` /
+  :func:`~raft_tpu_torch.parallel.sweep.run_sweep_checkpointed` — an
+  evaluator's rows over a device list (:func:`~raft_tpu_torch.parallel.
+  sweep.make_mesh`) in checkpointed shards, resumable and fault
+  tolerant (:mod:`raft_tpu_torch.parallel.resilience`, reporting
+  through :mod:`raft_tpu_torch.obs`); ``sweep_cases`` /
+  ``sweep_cases_full`` without checkpoints; ``qtf_slender_sharded``;
 * :func:`raft_tpu_torch.structure.bucketing.load_packed` /
   :func:`~raft_tpu_torch.structure.bucketing.packed_from_numpy` — the
   packed-design seam between the two packages.

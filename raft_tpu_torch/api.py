@@ -196,16 +196,25 @@ class DesignEvaluator(CaseEvaluator):
         return d, ms, hydro
 
 
+def _stamped(ev, factory, model, **kwargs):
+    """Stamp ``ev`` with the factory call that made it (the sweeps build
+    its twin on another device from it:
+    :func:`raft_tpu_torch.parallel.sweep.bind_evaluator`)."""
+    ev._raft_factory = (factory, (model,), kwargs)
+    return ev
+
+
 def make_case_evaluator(model, device=None):
     """The batched :class:`CaseEvaluator` of ``model`` on ``device``
     (default: the current CUDA device; raises without one)."""
-    return CaseEvaluator(model, device)
+    return _stamped(CaseEvaluator(model, device), make_case_evaluator, model)
 
 
 def make_design_evaluator(model, device=None):
     """The batched :class:`DesignEvaluator` of ``model`` on ``device``
     (default: the current CUDA device; raises without one)."""
-    return DesignEvaluator(model, device)
+    return _stamped(DesignEvaluator(model, device), make_design_evaluator,
+                    model)
 
 
 # ------------------------------------------------------ full physics
@@ -942,8 +951,11 @@ def make_full_evaluator(model, nWaves=1, turb_static=None, device=None,
     ``geometry=True`` adds the geometry design axis (rigid members; a
     potential-flow design's coefficients are interpolated in one
     uniform ``d_scale`` per row)."""
-    return FullEvaluator(model, nWaves=nWaves, turb_static=turb_static,
-                         device=device, geometry=geometry)
+    return _stamped(FullEvaluator(model, nWaves=nWaves,
+                                  turb_static=turb_static, device=device,
+                                  geometry=geometry),
+                    make_full_evaluator, model, nWaves=nWaves,
+                    turb_static=turb_static, geometry=geometry)
 
 
 # ------------------------------------------------------------------ farm
@@ -1442,8 +1454,10 @@ def make_farm_evaluator(model, nWaves=1, turb_static=None, device=None):
     ``nWaves`` wave headings per row, on ``device`` (default: the current
     CUDA device; raises without one).  ``turb_static`` is the turbulence
     model and class reference speed (default ``("NTM", 50.0)``)."""
-    return FarmEvaluator(model, nWaves=nWaves, turb_static=turb_static,
-                         device=device)
+    return _stamped(FarmEvaluator(model, nWaves=nWaves,
+                                  turb_static=turb_static, device=device),
+                    make_farm_evaluator, model, nWaves=nWaves,
+                    turb_static=turb_static)
 
 
 # -------------------------------------------------------------- flexible
@@ -1788,5 +1802,8 @@ def make_flexible_evaluator(model, nWaves=1, turb_static=None, device=None,
     ``turb_static`` is the turbulence model and class reference speed
     (default ``("NTM", 50.0)``); ``geometry=True`` takes per-row
     ``struct_params`` (:func:`flexible_struct_params`)."""
-    return FlexibleEvaluator(model, nWaves=nWaves, turb_static=turb_static,
-                             device=device, geometry=geometry)
+    return _stamped(FlexibleEvaluator(model, nWaves=nWaves,
+                                      turb_static=turb_static,
+                                      device=device, geometry=geometry),
+                    make_flexible_evaluator, model, nWaves=nWaves,
+                    turb_static=turb_static, geometry=geometry)

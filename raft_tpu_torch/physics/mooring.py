@@ -48,6 +48,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from raft_tpu_torch.ops import scatter
 from raft_tpu_torch.ops import transforms as tf
 from raft_tpu_torch.ops.dual import Dual
 from raft_tpu_torch.ops.dual import abs_ as _abs
@@ -617,6 +618,13 @@ class MooringNetwork:
                 body_of=torch.as_tensor(
                     np.eye(max(self.n_bodies, 1))[self.p_body[self.body_idx]],
                     **kw))
+            t = self._dev[key]
+            # end A then end B of every line, and the one-hot matrices of
+            # the card's point sums (ops/scatter.py), made once
+            t["ends"] = torch.cat([t["a"], t["b"]])
+            t["ends_sum"] = scatter.onehot(t["ends"], nP, like.dtype)
+            t["pairs_sum"] = scatter.onehot(t["pairs"].reshape(-1), nP * nP,
+                                            like.dtype)
         return self._dev[key]
 
     def _body_points(self, X, t):
@@ -694,14 +702,14 @@ class MooringNetwork:
         R, nP = pos.shape[:2]
         out = self.line_end_forces(pos, tangents, loads)
         FA, FB, tens, loads = out[:4]
-        F = torch.zeros_like(pos).index_add(1, t["a"], FA).index_add(
-            1, t["b"], FB)
+        # the same bits on every run, on the card too (ops/scatter.py)
+        F = scatter.index_sum(torch.cat([FA, FB], dim=1), t["ends"], nP,
+                              t["ends_sum"])
         if not tangents:
             return F, tens, None, loads
-        G = torch.zeros((R, nP * nP, 3, 3), dtype=pos.dtype,
-                        device=pos.device)
-        G = G.index_add(1, t["pairs"].reshape(-1),
-                        out[4].transpose(1, 2).reshape(R, -1, 3, 3))
+        G = scatter.index_sum(out[4].transpose(1, 2).reshape(R, -1, 3, 3),
+                              t["pairs"].reshape(-1), nP * nP,
+                              t["pairs_sum"])
         G = G.reshape(R, nP, nP, 3, 3).permute(0, 1, 3, 2, 4)
         return F, tens, G, loads
 

@@ -10,8 +10,10 @@ Two kinds of function live here:
   x sea state per row): hydro constants, excitation and the drag
   linearisation.  The strip -> node map is per-row data, so the
   reference's ``segment_sum`` over it becomes one ``index_add_`` over
-  flattened ``row * N + node`` offsets, and its gathers become index
-  gathers with the same offsets.
+  flattened ``row * N + node`` offsets on the CPU and a one-hot matrix
+  product on the card (:mod:`raft_tpu_torch.ops.scatter`: the same bits
+  on every run), and its gathers become index gathers with the same
+  offsets.
 
 A flexible (beam) member's strips sit on their own structural nodes and
 rotate with their member's first node (``node_rot`` of
@@ -28,6 +30,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from raft_tpu_torch.ops import scatter
 from raft_tpu_torch.ops import transforms as tf
 from raft_tpu_torch.ops import waves as wv
 from raft_tpu_torch.utils import ad
@@ -241,16 +244,6 @@ def gather_nodes(x, node):
                                                + x.shape[2:])
 
 
-def segment_sum_nodes(x, node, n_nodes):
-    """Sum strip rows onto their nodes: x (R, S, ...) -> (R, N, ...)."""
-    R, S = x.shape[:2]
-    out = torch.zeros((R * n_nodes,) + x.shape[2:], dtype=x.dtype,
-                      device=x.device)
-    out = out.index_add(0, _row_offsets(node, n_nodes),
-                        x.reshape((R * S,) + x.shape[2:]))
-    return out.reshape((R, n_nodes) + x.shape[2:])
-
-
 def strip_frames(ss, R_ptfm, r_nodes, node_rot=None):
     """Strip positions and member axes under the pose (r_strip = r_node
     + q * ls).  R_ptfm (R, 3, 3), r_nodes (R, N, 3) -> (r, q, p1, p2)
@@ -326,7 +319,7 @@ def _submerged_scale(ss, r, v_side):
 def _reduce_force(Tn, node, F6, n_nodes):
     """Sum per-strip 6-forces at their nodes and T-reduce:
     F6 (R, S, 6, nw) -> (R, n, nw)."""
-    Fn = segment_sum_nodes(F6, node, n_nodes)                # (R, N, 6, nw)
+    Fn = scatter.segment_sum_rows(F6, node, n_nodes)          # (R, N, 6, nw)
     return torch.einsum("rnia,rniw->raw", Tn.to(Fn.dtype), Fn)
 
 
@@ -334,7 +327,7 @@ def _reduce_matrix(Tn, node, M3, r_off, n_nodes):
     """Sum per-strip 3x3 matrices translated to their nodes and
     T-reduce: M3 (R, S, 3, 3), r_off (R, S, 3) -> (R, n, n)."""
     M6 = tf.translate_matrix_3to6(M3, r_off)                 # (R, S, 6, 6)
-    Mn = segment_sum_nodes(M6, node, n_nodes)
+    Mn = scatter.segment_sum_rows(M6, node, n_nodes)
     return torch.einsum("rnia,rnij,rnjb->rab", Tn, Mn, Tn)
 
 
@@ -531,7 +524,7 @@ def drag_lin_iter(pre, Xi):
                                H @ Bmat @ H.transpose(-1, -2)], dim=-1)],
                    dim=-2)
     Tn = pre["Tn"]
-    Mn = segment_sum_nodes(M6, pre["node"], Tn.shape[1])     # (R, N, 6, 6)
+    Mn = scatter.segment_sum_rows(M6, pre["node"], Tn.shape[1])  # (R, N, 6, 6)
     B_red = torch.einsum("rnia,rnij,rnjb->rab", Tn, Mn, Tn)
     return dict(B_hydro_drag=B_red, Bmat=Bmat, F_hydro_drag=F_drag)
 
@@ -607,5 +600,5 @@ def current_loads(fs, ss, hc, speed, heading_deg, Zref, shear_exp, Tn,
 
     r_off = r - gather_nodes(r_nodes, ss.node)
     F6 = torch.cat([D, tf.cross(r_off, D)], dim=-1)          # (R, S, 6)
-    Fn = segment_sum_nodes(F6, ss.node, fs.n_nodes)
+    Fn = scatter.segment_sum_rows(F6, ss.node, fs.n_nodes)
     return torch.einsum("rnia,rni->ra", Tn, Fn)

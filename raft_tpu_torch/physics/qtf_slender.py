@@ -113,7 +113,7 @@ def _member_static(mem):
 
 
 def member_qtf(mem, a_i_member, Xi, beta, w2nd, k2nd, depth, rho, g,
-               pair_chunk=None):
+               pair_chunk=None, pair_idx=None):
     """Upper-triangle QTF contribution of one rigid member (6 DOFs about
     the PRP), the reference's ``member_qtf``.
 
@@ -125,15 +125,21 @@ def member_qtf(mem, a_i_member, Xi, beta, w2nd, k2nd, depth, rho, g,
     (default :data:`PAIR_CHUNK`, rounded up to a multiple of
     :data:`PAIR_ALIGN`) at a time; the result does not depend on it.
     Returns (nw2, nw2, 6) complex on Xi's device with the upper triangle
-    filled."""
+    filled; with ``pair_idx=(i1, i2)`` (index arrays of (w1, w2) pairs,
+    one device's block of :func:`fowt_qtf_slender` with ``devices``)
+    the flat (npairs, 6) pair forces of those pairs instead."""
     dev, cdt = Xi.device, Xi.dtype
     rdt = torch.float64 if cdt == torch.complex128 else torch.float32
     kw = dict(dtype=rdt, device=dev)
     nw2 = len(w2nd)
-    i1, i2 = np.triu_indices(nw2)
+    if pair_idx is None:
+        i1, i2 = np.triu_indices(nw2)
+    else:
+        i1, i2 = (np.asarray(a, dtype=np.int64) for a in pair_idx)
     npairs = len(i1)
     if mem.rA0[2] > 0 and mem.rB0[2] > 0:
-        return torch.zeros((nw2, nw2, 6), dtype=cdt, device=dev)
+        shape = (nw2, nw2, 6) if pair_idx is None else (npairs, 6)
+        return torch.zeros(shape, dtype=cdt, device=dev)
     # whole vectors of PAIR_ALIGN pairs: the pair list padded with the
     # first pair, every chunk a multiple of it
     pad = -npairs % PAIR_ALIGN
@@ -292,6 +298,8 @@ def member_qtf(mem, a_i_member, Xi, beta, w2nd, k2nd, depth, rho, g,
 
     n = -(-int(pair_chunk or PAIR_CHUNK) // PAIR_ALIGN) * PAIR_ALIGN
     F = torch.cat([chunk(a, a + n) for a in range(0, len(i1p), n)])[:npairs]
+    if pair_idx is not None:
+        return F
     out = torch.zeros((nw2, nw2, 6), dtype=cdt, device=dev)
     out[i1t[:npairs], i2t[:npairs]] = F
     return out
@@ -444,8 +452,41 @@ def pinkster_iv(Xi, F1st, block=512):
     return out
 
 
+def _pair_blocks(nw2, devices):
+    """The upper-triangle (w1, w2) pairs, and their split over
+    ``devices``: padded to the device count (the first pair repeated)
+    and cut into contiguous blocks, [(device, i1, i2)] one per device."""
+    idx1, idx2 = np.triu_indices(nw2)
+    pad = (-len(idx1)) % len(devices)
+    i1 = np.concatenate([idx1, idx1[:1].repeat(pad)])
+    i2 = np.concatenate([idx2, idx2[:1].repeat(pad)])
+    size = len(i1) // len(devices)
+    return (idx1, idx2), [(d, i1[j * size:(j + 1) * size],
+                           i2[j * size:(j + 1) * size])
+                          for j, d in enumerate(devices)]
+
+
+def _member_term(mem, a_i_m, Xi, beta, w2nd, k2nd, fs, blocks=None,
+                 pair_chunk=None):
+    """One member's (nw2, nw2, 6) pair terms on Xi's device: one
+    :func:`member_qtf` call, or with ``blocks`` (:func:`_pair_blocks`)
+    one call per device on its block of pairs, gathered back."""
+    args = (beta, w2nd, k2nd, fs.depth, fs.rho_water, fs.g)
+    if blocks is None:
+        return member_qtf(mem, a_i_m, Xi, *args, pair_chunk=pair_chunk)
+    (idx1, idx2), parts = blocks
+    F = torch.cat([member_qtf(mem, a_i_m, Xi.to(d), *args,
+                              pair_chunk=pair_chunk, pair_idx=(b1, b2))
+                   .to(Xi.device) for d, b1, b2 in parts])[:len(idx1)]
+    nw2 = len(w2nd)
+    out = torch.zeros((nw2, nw2, 6), dtype=Xi.dtype, device=Xi.device)
+    out[torch.as_tensor(idx1, device=Xi.device),
+        torch.as_tensor(idx2, device=Xi.device)] = F
+    return out
+
+
 def fowt_qtf_slender(model, beta, Xi0=None, ifowt=0, device=None,
-                     timer=None):
+                     timer=None, devices=None, pair_chunk=None):
     """The slender-body QTF of one FOWT (the reference's
     ``fowt_qtf_slender``): (nw2, nw2, 1, nDOF) complex128 tensor on
     ``device`` (default: the current CUDA device; raises without one),
@@ -459,7 +500,14 @@ def fowt_qtf_slender(model, beta, Xi0=None, ifowt=0, device=None,
     hermitian completion.  ``timer(stage)``, when given, is called with
     "start", then "kim_yue" (every member's correction, on the host),
     "pinkster_iv" and "member_qtf" (every member's pair terms, added in
-    the reference's order)."""
+    the reference's order).
+
+    ``devices``, when given, splits every member's pair terms over those
+    devices (contiguous blocks of the upper-triangle pairs, padded to
+    their count: the sharded QTF of
+    :func:`raft_tpu_torch.parallel.sweep.qtf_slender_sharded`); the
+    blocks come back to ``device``, where the assembly goes on in the
+    same order.  ``pair_chunk`` as :func:`member_qtf` takes it."""
     dev = resolve_device(device)
     mark = timer or (lambda stage: None)
     fs = model.fowtList[ifowt]
@@ -491,13 +539,14 @@ def fowt_qtf_slender(model, beta, Xi0=None, ifowt=0, device=None,
     mark("pinkster_iv")
 
     # each member's terms, then its Kim & Yue correction
+    blocks = None if devices is None else _pair_blocks(nw2, list(devices))
     a_i_all = np.asarray(fh.hc0["a_i"])
     ofs = 0
     for mem, ky in zip(fs.members, kys):
         a_i_m = a_i_all[ofs:ofs + mem.ns]
         ofs += mem.ns
-        qtf = qtf + member_qtf(mem, a_i_m, Xi_t, beta, w2nd, k2nd, fs.depth,
-                               fs.rho_water, fs.g)
+        qtf = qtf + _member_term(mem, a_i_m, Xi_t, beta, w2nd, k2nd, fs,
+                                 blocks, pair_chunk)
         qtf = qtf + torch.as_tensor(ky, device=dev)
     mark("member_qtf")
 

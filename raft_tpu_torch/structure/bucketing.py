@@ -21,6 +21,7 @@ checked-in ``.npz`` (leaves plus ``sig_*`` signature entries) and
 
 from __future__ import annotations
 
+import hashlib
 from dataclasses import dataclass
 
 import numpy as np
@@ -129,6 +130,25 @@ def _axis_pad(n, axis, ladders=None):
     return r
 
 
+def tuned_rungs(observed_sizes, max_waste=0.2, floor=None):
+    """The minimal ascending rung list under which every observed axis
+    size pads with at most ``max_waste`` (walk the sizes descending and
+    keep a rung whenever the next-larger kept rung would waste more than
+    the budget); feed it into ``RAFT_TPU_BUCKET_STEPS``."""
+    sizes = sorted({int(s) for s in observed_sizes if int(s) > 0})
+    if not sizes:
+        return ()
+    floor = int(floor if floor is not None else 1)
+    rungs = []
+    last = None
+    for s in reversed(sizes):
+        s = max(s, floor)
+        if last is None or 1.0 - s / last > max_waste:
+            rungs.append(s)
+            last = s
+    return tuple(sorted(set(rungs)))
+
+
 def _check_bucketable(model, full=False):
     """The reference's refusals (some already raise when the port's
     Model is built).  ``full=True`` lets potential-flow designs and
@@ -199,6 +219,12 @@ def bucket_signature(model, ladders=None, full=False):
         tuple(float(x) for x in np.asarray(model.w)),
         int(model.nIter), float(model.XiStart), int(model.nIterExtra),
     )
+
+
+def signature_fingerprint(sig):
+    """Short stable hash of a signature (for keys, file names, logs);
+    the reference's hash of the same signature."""
+    return hashlib.sha256(repr(sig).encode()).hexdigest()[:12]
 
 
 def _pad_rows(a, n, fill=0.0):
@@ -359,6 +385,66 @@ def stack_packed(packed_list, rows=None):
     take = list(range(n)) + [n - 1] * (rows - n)
     return {k: np.stack([packed_list[i][k] for i in take])
             for k in packed_list[0]}
+
+
+def padding_waste_frac(packed_list):
+    """Fraction of padded strip rows that carry no real strip over a
+    batch of packed designs: ``1 - sum(valid) / sum(padded)``."""
+    valid = sum(int(np.asarray(p["strip_mask"]).sum()) for p in packed_list)
+    total = sum(int(np.asarray(p["strip_mask"]).size) for p in packed_list)
+    return 1.0 - valid / total if total else 0.0
+
+
+def axis_counts(model, sig=None):
+    """``{axis: (real, padded)}`` per padded design axis of one model in
+    its bucket (strips, nodes, mooring lines)."""
+    sig = sig or bucket_signature(model)
+    meta = signature_meta(sig)
+    fs = model.fowtList[0]
+    ms = model.ms
+    return {
+        "strips": (int(model.hydro[0].strips.S), int(meta["S"])),
+        "nodes": (int(fs.n_nodes), int(meta["N"])),
+        "lines": (0 if ms is None else int(ms.n_lines), int(meta["L"])),
+    }
+
+
+def waste_by_axis(axis_counts_list):
+    """Row-weighted per-axis padding waste over a batch (one
+    :func:`axis_counts` dict per dispatched row): ``{axis: {valid,
+    padded, waste_frac}}`` with ``waste_frac = 1 - sum(valid) /
+    sum(padded)``."""
+    agg: dict = {}
+    for axes in axis_counts_list:
+        for name, (real, padded) in axes.items():
+            v, t = agg.get(name, (0, 0))
+            agg[name] = (v + int(real), t + int(padded))
+    return {name: {"valid": v, "padded": t,
+                   "waste_frac": round(1.0 - v / t, 6) if t else 0.0}
+            for name, (v, t) in agg.items()}
+
+
+def observe_axis_waste(axis_counts_list, rows_valid=None, rows_padded=None):
+    """Feed the per-axis waste metrics of one dispatched batch: the
+    ``pad_valid_<axis>`` / ``pad_total_<axis>`` counters and a
+    ``pad_waste_<axis>`` histogram of each row's pad fraction; the
+    optional ``rows_valid`` / ``rows_padded`` pair records the batch-row
+    axis (masked repeat rows) the same way."""
+    from raft_tpu_torch.obs import metrics
+
+    for axes in axis_counts_list:
+        for name, (real, padded) in axes.items():
+            if not padded:
+                continue
+            metrics.counter(f"pad_valid_{name}").inc(int(real))
+            metrics.counter(f"pad_total_{name}").inc(int(padded))
+            metrics.histogram(f"pad_waste_{name}").observe(
+                1.0 - real / padded)
+    if rows_padded:
+        metrics.counter("pad_valid_rows").inc(int(rows_valid))
+        metrics.counter("pad_total_rows").inc(int(rows_padded))
+        metrics.histogram("pad_waste_rows").observe(
+            1.0 - rows_valid / rows_padded)
 
 
 def _masked_moor_closures(d):
@@ -603,3 +689,19 @@ def strips_of(d):
         circ=d["circ"], active=d["active"], q0=d["q0"], p10=d["p10"],
         p20=d["p20"], Cd_q=d["Cd_q"], Cd_p1=d["Cd_p1"], Cd_p2=d["Cd_p2"],
         Cd_End=d["Cd_End"])
+
+
+#: process cache of bucket evaluators per (signature, device): an
+#: evaluator holds nothing but its signature's constants
+_EVALUATORS: dict = {}
+
+
+def get_bucket_evaluator(sig, device=None):
+    """The process-cached :class:`BucketEvaluator` of ``sig`` on
+    ``device`` (default: the current CUDA device; raises without one)."""
+    device = resolve_device(device)
+    key = (sig, str(device))
+    ev = _EVALUATORS.get(key)
+    if ev is None:
+        ev = _EVALUATORS[key] = BucketEvaluator(sig, device)
+    return ev

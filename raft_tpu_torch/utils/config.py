@@ -1,9 +1,13 @@
 """The port's registry of ``RAFT_TPU_*`` environment flags.
 
-Main-path flags and the result cache's byte budget, under the same
-environment names and defaults as ``raft_tpu/utils/config.py`` so that
-one environment drives both packages in the parity tests.  Flags are re-read on every :func:`get`
-(tests change them mid-process).
+Main-path flags, the result cache's byte budget, and the flags of the
+checkpointed sweeps and their telemetry (structured log, heartbeat,
+metrics export, flight recorder, fault injection, escalation ladder,
+profiler), under the same environment names, kinds and defaults as
+``raft_tpu/utils/config.py`` so that one environment drives both
+packages in the parity tests.  Flags are re-read on every :func:`get`
+(tests change them mid-process); :func:`raw` is the raw string for the
+modules with their own parsing (fault specs, log sinks, ids).
 
 ``SOLVER`` has no ``pallas`` choice here: on a CUDA tensor ``native``
 is the hand-written kernel (:mod:`raft_tpu_torch.ops.linsolve`).
@@ -22,7 +26,7 @@ class Flag:
     """One registered flag (``name`` is the ``RAFT_TPU_``-less suffix)."""
 
     name: str
-    kind: str = "str"          # str | int | float | bool | choice
+    kind: str = "str"          # str | int | float | bool | choice | raw
     default: object = None
     choices: tuple = ()
     help: str = ""
@@ -44,6 +48,16 @@ def _register(*flags):
         FLAGS[f.name] = f
 
 
+def env_name(name):
+    """The full environment-variable name of a registered flag."""
+    return FLAGS[name].env
+
+
+def raw(name):
+    """Raw string value of a registered flag (None when unset)."""
+    return os.environ.get(FLAGS[name].env)
+
+
 def get(name):
     """Typed, validated value of a registered flag.
 
@@ -53,7 +67,7 @@ def get(name):
     s = os.environ.get(f.env)
     if s is None or (s == "" and f.kind != "str"):
         return f.default
-    if f.kind == "str":
+    if f.kind in ("str", "raw"):
         return s
     if f.kind in ("int", "float"):
         try:
@@ -113,4 +127,64 @@ _register(
     Flag("SERVE_CACHE_MB", "float", 64.0,
          help="byte budget of the content-addressed result cache "
               "(design hash + case + out_keys -> outputs, LRU)"),
+    # -- checkpointed sweeps (raft_tpu_torch.parallel.resilience)
+    Flag("ESCALATE", "choice", "off", choices=("off", "retol", "f64_cpu"),
+         help="escalation ladder for status-flagged sweep rows: 'retol' "
+              "re-solves with ESCALATE_ITER_SCALE x the iteration "
+              "budget, 'f64_cpu' additionally retries under float64 on "
+              "the CPU"),
+    Flag("ESCALATE_ITER_SCALE", "int", 4,
+         help="RAFT_TPU_ITER_SCALE applied by the escalation rungs"),
+    Flag("PROBE_S", "float", 300.0,
+         help="accelerator health-probe timeout (seconds)"),
+    Flag("FAULTS", "raw", "",
+         help="deterministic fault injection: comma list of "
+              "kind:site[:count] specs (see raft_tpu_torch.utils.faults)"),
+    Flag("FABRIC_WORKERS", "int", 0,
+         help="route checkpointed sweeps through N fabric workers (0/1 = "
+              "serial in-process path; the port has no fabric yet)"),
+    Flag("WORKER_ID", "raw", "",
+         help="fabric worker id stamped as 'worker' on every "
+              "structured-log record"),
+    Flag("PROFILE", "str", "",
+         help="when set, a checkpointed sweep writes a torch.profiler "
+              "Chrome trace into this directory; telemetry spans mirror "
+              "onto the profiler timeline as record_function ranges"),
+    # -- telemetry (raft_tpu_torch.obs, raft_tpu_torch.utils.structlog)
+    Flag("LOG", "raw", "",
+         help="structured-log sink: '-' for stderr, a JSONL path, or a "
+              "DIRECTORY (existing, or written with a trailing slash) — "
+              "each process then appends to its own "
+              "<dir>/trace-<pid>.jsonl shard"),
+    Flag("RUN_ID", "raw", "",
+         help="telemetry run id stamped on every structured-log record "
+              "(default: a fresh uuid per process)"),
+    Flag("TRACEPARENT", "raw", "",
+         help="W3C traceparent (00-<trace>-<span>-01) inherited from a "
+              "parent process: the first root span of this process "
+              "joins that trace"),
+    Flag("HEARTBEAT_S", "float", 0.0,
+         help="device-heartbeat sampling period in seconds (0 disables): "
+              "a daemon thread emits per-device allocator bytes and "
+              "shard progress as 'heartbeat' events + gauges"),
+    Flag("METRICS", "str", "",
+         help="when set, the metrics registry is exported in Prometheus "
+              "text format to this path at sweep_done"),
+    Flag("SERVE_WINDOW_S", "float", 60.0,
+         help="sliding-window length of the metrics windows a heartbeat "
+              "reports"),
+    Flag("FLIGHT_RING", "int", 4096,
+         help="flight-recorder ring capacity in records (0 disables)"),
+    Flag("FLIGHT_DIR", "str", "",
+         help="flight-dump shard directory: periodic flushes and "
+              "trigger dumps land there"),
+    Flag("FLIGHT_FLUSH_S", "float", 2.0,
+         help="period of the background flight-ring flush to "
+              "RAFT_TPU_FLIGHT_DIR"),
+    Flag("FLIGHT_SNAP_S", "float", 10.0,
+         help="period of the flight ring's metric-snapshot delta records"),
+    Flag("EXEMPLAR_K", "int", 2,
+         help="exemplars kept per histogram log-bucket (0 disables)"),
+    Flag("EXEMPLAR_MIN_S", "float", 0.0,
+         help="minimum observed value for exemplar admission"),
 )

@@ -180,6 +180,22 @@ For the design-optimisation surface it writes:
   (``golden_omdao_helpers.npz``) and the plotting geometry and line
   counts (``golden_omdao_plotting.npz``).
 
+With ``--sweeps`` (a process of its own: JAX gets 2 CPU devices) it
+writes the checkpointed-sweep goldens, each sweep on a 2-device mesh
+in shards of :data:`SWEEP_SHARD` rows:
+
+* ``golden_sweep_full_<set>.npz``: ``run_sweep_checkpointed_full`` of
+  the spar's and semi_wind's full evaluator over their golden rows;
+* ``golden_sweep_cases_spar.npz``: ``run_sweep_checkpointed`` of the
+  spar's case evaluator over the golden sea states;
+* ``golden_sweep_hetero.npz`` and ``golden_sweep_events.json``:
+  ``sweep_heterogeneous`` over the three demos interleaved, its
+  ``bucket_sweep`` event, each demo's ``axis_counts`` and signature
+  fingerprint, and ``tuned_rungs`` of their real axis sizes;
+* ``golden_sweep_quarantine_spar.npz`` / ``.json``: the escalated sweep
+  of :func:`quarantine_design` (``RAFT_TPU_ESCALATE=retol``) and its
+  ``quarantine.json`` entries (about 5 min in all).
+
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
@@ -195,6 +211,7 @@ Run from the repository root::
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --drivers
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py \
         --omdao [set ...]
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --sweeps
 
 It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
 geometry and gradient goldens, or the named parts of them).
@@ -3305,6 +3322,167 @@ def write_omdao_fixtures(parts=None):
                             **gd)
 
 
+# ------------------------------------------------------------- sweeps
+
+#: the full-evaluator sets of the checkpointed-sweep goldens
+SWEEP_FULL_SETS = ("spar", "semi_wind")
+#: rows per checkpoint shard of every sweep golden: smaller than the 8
+#: rows (ragged last shard) and odd (each 2-device shard pads one row)
+SWEEP_SHARD = 3
+#: out_keys of every sweep golden
+SWEEP_OUT_KEYS = ("PSD", "X0", "status", "n_iter_drag")
+#: the mixed-design sweep: row i is DESIGNS[i % 3] under
+#: GOLDEN_CASES[i % 8]
+SWEEP_HETERO_ROWS = 10
+#: the quarantine golden: the spar with its drag fixed point cut to
+#: nIter 2 (a cap of 3 trips, where the golden rows need 3-6), escalated
+#: with RAFT_TPU_ESCALATE=retol at ESCALATE_ITER_SCALE 2 (a cap of 5):
+#: the rows that need 4-5 trips clear DRAG_CAP_HIT, the two that need 6
+#: keep it
+QUARANTINE_NITER = 2
+QUARANTINE_ITER_SCALE = "2"
+
+
+def _sweep_mesh2():
+    """A 2-device JAX CPU mesh (the process must not have initialised
+    JAX before: the device count is an XLA flag)."""
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + " --xla_force_host_platform_device_count=2").strip()
+    _jax()
+    from raft_tpu.parallel.sweep import make_mesh
+
+    mesh = make_mesh(2)
+    if mesh.devices.size != 2:
+        raise RuntimeError("the sweep goldens need 2 JAX CPU devices: run "
+                           "--sweeps in a process of its own")
+    return mesh
+
+
+def _with_env(env, fn):
+    """``fn()`` with the environment variables of ``env`` set."""
+    prev = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        return fn()
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def quarantine_design():
+    """The spar design of the quarantine golden."""
+    d = design_dict("spar")
+    d["settings"] = dict(d["settings"], nIter=QUARANTINE_NITER)
+    return d
+
+
+def build_sweep_goldens():
+    """``{file name: content}`` of the sweep goldens: the JAX
+    checkpointed drivers on a 2-device CPU mesh, the mixed-design
+    sweep with its ``bucket_sweep`` event, and the quarantine of an
+    escalated sweep."""
+    import json
+    import tempfile
+
+    import numpy as np
+
+    mesh = _sweep_mesh2()
+    import raft_tpu
+    from raft_tpu.api import make_case_evaluator, make_full_evaluator
+    from raft_tpu.parallel import resilience
+    from raft_tpu.parallel.sweep import (run_sweep_checkpointed,
+                                         run_sweep_checkpointed_full,
+                                         sweep_heterogeneous)
+    from raft_tpu.structure import bucketing
+
+    files = {}
+    tmp = tempfile.mkdtemp(prefix="sweep_golden_")
+    for name in SWEEP_FULL_SETS:
+        rows = full_rows(name)
+        ev = make_full_evaluator(raft_tpu.Model(full_design(name)),
+                                 nWaves=FULL_SETS[name])
+        out = run_sweep_checkpointed_full(
+            ev, rows, os.path.join(tmp, f"full_{name}"),
+            shard_size=SWEEP_SHARD, mesh=mesh, out_keys=SWEEP_OUT_KEYS)
+        files[f"golden_sweep_full_{name}.npz"] = dict(
+            rows, **{k: np.asarray(v) for k, v in out.items()})
+
+    Hs, Tp, beta = (np.asarray(c, dtype=float) for c in zip(*GOLDEN_CASES))
+    ev = make_case_evaluator(raft_tpu.Model(design_dict("spar")))
+    out = run_sweep_checkpointed(
+        ev, Hs, Tp, beta, os.path.join(tmp, "cases_spar"),
+        shard_size=SWEEP_SHARD, mesh=mesh, out_keys=SWEEP_OUT_KEYS)
+    files["golden_sweep_cases_spar.npz"] = dict(
+        Hs=Hs, Tp=Tp, beta=beta, **{k: np.asarray(v) for k, v in out.items()})
+
+    names = list(DESIGNS)
+    models = {n: raft_tpu.Model(design_dict(n)) for n in names}
+    idx = np.arange(SWEEP_HETERO_ROWS)
+    row_design = [names[i % len(names)] for i in idx]
+    sea = [GOLDEN_CASES[i % len(GOLDEN_CASES)] for i in idx]
+    hH, hT, hb = (np.asarray(c, dtype=float) for c in zip(*sea))
+    log = os.path.join(tmp, "hetero.jsonl")
+    out = _with_env({"RAFT_TPU_LOG": log}, lambda: sweep_heterogeneous(
+        [models[n] for n in row_design], hH, hT, hb, mesh=mesh,
+        out_keys=SWEEP_OUT_KEYS))
+    files["golden_sweep_hetero.npz"] = dict(
+        Hs=hH, Tp=hT, beta=hb, design=np.asarray(row_design),
+        **{k: np.asarray(v) for k, v in out.items()})
+    with open(log) as f:
+        event = [json.loads(line) for line in f
+                 if '"bucket_sweep"' in line][-1]
+    sigs = {n: bucketing.bucket_signature(m) for n, m in models.items()}
+    axes = {n: bucketing.axis_counts(m, sigs[n]) for n, m in models.items()}
+    files["golden_sweep_events.json"] = {
+        "bucket_sweep": {k: event[k] for k in (
+            "rows", "n_buckets", "n_designs", "padding_waste_frac",
+            "waste_by_axis")},
+        "axis_counts": {n: {a: list(v) for a, v in c.items()}
+                        for n, c in axes.items()},
+        "signature_fingerprint": {n: bucketing.signature_fingerprint(s)
+                                  for n, s in sigs.items()},
+        "tuned_rungs": {a: list(bucketing.tuned_rungs(
+            [axes[n][a][0] for n in names])) for a in
+            ("strips", "nodes", "lines")},
+    }
+
+    rows = full_rows("spar")
+    ev = make_full_evaluator(raft_tpu.Model(quarantine_design()),
+                             nWaves=FULL_SETS["spar"])
+    qdir = os.path.join(tmp, "quarantine_spar")
+    out = _with_env({"RAFT_TPU_ESCALATE": "retol",
+                     "RAFT_TPU_ESCALATE_ITER_SCALE": QUARANTINE_ITER_SCALE},
+                    lambda: run_sweep_checkpointed_full(
+                        ev, rows, qdir, shard_size=SWEEP_SHARD, mesh=mesh,
+                        out_keys=SWEEP_OUT_KEYS))
+    files["golden_sweep_quarantine_spar.npz"] = dict(
+        rows, **{k: np.asarray(v) for k, v in out.items()})
+    files["golden_sweep_quarantine_spar.json"] = {
+        "entries": resilience.load_quarantine(qdir)}
+    return files
+
+
+def write_sweep_fixtures():
+    import json
+
+    import numpy as np
+
+    for fname, content in build_sweep_goldens().items():
+        path = os.path.join(OUT_DIR, fname)
+        if fname.endswith(".json"):
+            with open(path, "w") as f:
+                json.dump(content, f, indent=1, sort_keys=True)
+                f.write("\n")
+        else:
+            np.savez_compressed(path, **content)
+        print(f"wrote {fname}")
+
+
 def main():
     import numpy as np
 
@@ -3339,6 +3517,9 @@ def main():
     if sys.argv[1:2] == ["--omdao"]:
         write_omdao_fixtures(sys.argv[2:])
         return
+    if sys.argv[1:] == ["--sweeps"]:
+        write_sweep_fixtures()
+        return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
         np.savez_compressed(os.path.join(OUT_DIR, f"packed_{name}.npz"), **pk)
@@ -3364,6 +3545,7 @@ def main():
     write_orch_fixtures()
     write_drivers_fixtures()
     write_omdao_fixtures()
+    write_sweep_fixtures()
 
 
 if __name__ == "__main__":

@@ -22,14 +22,17 @@ Fast tier (CPU):
   files and model-grid coefficients within 1e-12 x max of JAX's; the
   files JAX wrote sit in the same cache directory under JAX's names and
   are not served to the port;
-* the full evaluator on the coarse copy (one and two headings, the
-  d_scale geometry axis) and on the WAMIT-file design against the JAX
-  goldens, FUSED on and off: every key within 1e-10 x max, ``status``,
-  ``n_iter_drag`` and ``drag_converged`` bit-equal;
-* the geometry axis' reverse mode: the gradient with respect to d_scale
-  (unit scale included) and every row input against jax.grad
-  (``golden_grad_bem_semi_wind_coarse.npz``) within 1e-9 x max|g|;
+* the full evaluator on the coarse copy (one and two headings) and on
+  the WAMIT-file design against the JAX goldens, FUSED on and off:
+  every key within 1e-10 x max, ``status``, ``n_iter_drag`` and
+  ``drag_converged`` bit-equal;
 * what the reference refuses.
+
+The coarse copy's d_scale geometry axis (its golden rows, and its
+gradient with respect to d_scale, unit scale included, and every row
+input against jax.grad, ``golden_grad_bem_semi_wind_coarse.npz``, within
+1e-9 x max|g|) is held in ``test_torch_bem_geometry.py`` with this
+file's fixtures.
 
 Slow tier: the Green table rebuilt equals the shipped one; the full
 mesh's coefficients and golden rows against live JAX.
@@ -582,10 +585,14 @@ def golden_rows(g, tag):
     return {k: g[f"{tag}_{k}"] for k in ROW_KEYS}
 
 
-@pytest.mark.parametrize("case", sorted(CASES))
-def test_evaluator_matches_goldens(case, coarse, wamit_model, monkeypatch):
-    """FUSED on and off; on the geometry axis each row carries its
-    uniform d_scale (the two off-unit scales solved on first use)."""
+#: the geometry axis' set, held in test_torch_bem_geometry.py
+GEOMETRY_CASES = ("coarse_geometry",)
+
+
+def check_evaluator_case(case, coarse, wamit_model, monkeypatch):
+    """One golden set, FUSED on and off; on the geometry axis each row
+    carries its uniform d_scale (the two off-unit scales solved on first
+    use)."""
     name, tag, nW, geometry = CASES[case]
     m = coarse[0] if name == "semi_wind_coarse" else wamit_model
     g = golden(name)
@@ -599,31 +606,9 @@ def test_evaluator_matches_goldens(case, coarse, wamit_model, monkeypatch):
         hold(ev(**kw), g, f"{tag}_{fused}_")
 
 
-def test_d_scale_gradient_matches_golden(coarse, monkeypatch):
-    """The geometry axis' gradient with respect to d_scale (0.95, 1.0,
-    1.05: the unit row interpolates too, its derivative is not 0) and
-    every row input against jax.grad (``golden_grad_bem_semi_wind_
-    coarse.npz``), FUSED on and off, within 1e-9 x each key's max|g|;
-    the metric within 1e-12; status and n_iter_drag equal."""
-    g = dict(np.load(os.path.join(FIX,
-                                  "golden_grad_bem_semi_wind_coarse.npz")))
-    geo = tapi.make_full_evaluator(coarse[0], device="cpu", geometry=True)
-    for fused in ("on", "off"):
-        monkeypatch.setenv("RAFT_TPU_FUSED", fused)
-        x = {k: torch.tensor(g[k], requires_grad=True)
-             for k in ROW_KEYS + ("d_scale",)}
-        out = geo(geom=dict(d_scale=x["d_scale"]),
-                  **{k: x[k] for k in ROW_KEYS})
-        for k in ("status", "n_iter_drag"):
-            np.testing.assert_array_equal(out[k].numpy(),
-                                          g[f"{fused}_{k}"], err_msg=k)
-        val = (out["Xi"][:, 0].abs() ** 2).flatten(1).sum(-1) \
-            + (out["X0"] ** 2).sum(-1)
-        near(val.detach().numpy(), g[f"{fused}_metric"], 1e-12, "metric")
-        gr = torch.autograd.grad(val.sum(), list(x.values()),
-                                 allow_unused=True, materialize_grads=True)
-        for k, a in zip(x, gr):
-            near(a.numpy(), g[f"{fused}_g_{k}"], 1e-9, k)
+@pytest.mark.parametrize("case", sorted(set(CASES) - set(GEOMETRY_CASES)))
+def test_evaluator_matches_goldens(case, coarse, wamit_model, monkeypatch):
+    check_evaluator_case(case, coarse, wamit_model, monkeypatch)
 
 
 def test_bem_terms_enter_the_evaluator(coarse):

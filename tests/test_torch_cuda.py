@@ -694,3 +694,24 @@ def test_design_forward_mode_on_card_matches_goldens(cuda):
     fw.hold_jacfwd(fw.row_jacfwd(lambda x: ev(**x), x), gd, "on_")
     n2 = linsolve.KERNEL_LAUNCHES - n2
     assert n1 == n2 == n0 + dynamics.NEUMANN_STEPS + 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["semi_wind", "farm_semi_wind"])
+def test_evaluators_repeat_bit_for_bit_on_card(cuda, name):
+    """Two evaluations of the same rows on the card give the same bits
+    (the strip -> node and network scatter-adds are one-hot products,
+    ops/scatter.py, not index_add's atomics): what a resumed
+    checkpointed sweep needs to reproduce the shards it resumes."""
+    with open(os.path.join(FIX, f"design_{name}.json")) as f:
+        model = Model(json.load(f), base_dir=FIX)
+    if name.startswith("farm"):
+        g = np.load(os.path.join(FIX, f"golden_{name}.npz"))
+        ev = make_farm_evaluator(model, nWaves=g["Hs"].shape[1], device=cuda)
+    else:
+        g = np.load(os.path.join(FIX, f"golden_full_{name}.npz"))
+        ev = make_full_evaluator(model, nWaves=1, device=cuda)
+    rows = {k: g[k] for k in ENV_KEYS + SEA_KEYS}
+    a, b = ev(**rows), ev(**rows)
+    for k in a:
+        assert torch.equal(a[k], b[k]), k

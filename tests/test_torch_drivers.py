@@ -1,10 +1,9 @@
 """The port's driver layer against the JAX package's.
 
-* ``drivers.run`` and ``run_farm`` on the CPU against the JAX Model's
-  goldens (``golden_orch_*.npz``) at the gates of
-  ``tests/test_torch_orchestrated.py``, their CSV against the JAX
-  ``save_responses`` text; the farm is two semi_wind units with a shared
-  line over a buoy and a 2-case table (nDOF 12);
+* ``drivers.run`` on the CPU against the JAX Model's golden
+  (``golden_orch_spar.npz``) at the gates of
+  ``tests/test_torch_orchestrated.py``, its CSV against the JAX
+  ``save_responses`` text;
 * ``python -m raft_tpu_torch design_spar.json --csv ... --device cpu``
   in a subprocess, its CSV against the golden; without ``--device`` on a
   host with no card it exits non-zero naming ``device="cpu"``;
@@ -14,10 +13,12 @@
   drivers; ``adjust_ballast`` against the JAX driver's result in
   ``golden_drivers.npz`` (written by ``tests/make_torch_port_fixtures.py
   --drivers``: the fast tier traces no JAX);
-* the wake model's deficit and waked speeds and the coupling's curves
-  against JAX's; the coupling's ``find_equilibrium`` and ``calc_aep`` on
-  the two-unit farm against the JAX coupling's in ``golden_drivers.npz``;
-  the IEC wind events against the JAX copy.
+* the IEC wind events against the JAX copy.
+
+``run_farm`` and the wake coupling are in ``test_torch_drivers_farm.py``,
+``test_torch_drivers_wake.py`` and ``test_torch_drivers_aep.py``: each
+takes about a minute, and in files of their own pytest-xdist's
+``--dist loadfile`` runs them beside the rest.
 
 Slow tier: ``golden_drivers.npz`` rebuilt by the live JAX package.
 """
@@ -47,22 +48,6 @@ def test_run_matches_golden(tmp_path):
     g = golden("spar")
     hold_results(model, g)
     hold_csv(csv.read_text(), g["csv"].item())
-
-
-def test_run_farm_matches_golden(tmp_path):
-    """run_farm on the two-unit semi_wind farm (own moorings, the shared
-    network, a 2-case table): every unit's metrics, the coupled
-    equilibria and each unit's drag diagnostics as the JAX Model's; the
-    system response is N = 12."""
-    csv = tmp_path / "farm.csv"
-    model = drivers.run_farm(
-        os.path.join(FIX, "design_farm_semi_wind_cases.json"),
-        save_csv=str(csv), device="cpu")
-    g = golden("farm_semi_wind")
-    assert model.nFOWT == 2 and model.case_stats[0]["system_n"] == 12
-    hold_results(model, g)
-    hold_csv(csv.read_text(), g["csv"].item())
-    assert "properties" not in model.results
 
 
 def _cli(*args, env=None):
@@ -225,93 +210,6 @@ def test_adjust_wisdem_matches_jax(tmp_path):
             for m in got["components"]["floating_platform"]["members"]
             if m["internal_structure"]]
     assert vols[0] != 1.0 and vols[-1] == 2.0
-
-
-_FARM = {}
-
-
-def _wake():
-    """The port's WakeCoupling of the two-unit farm on the golden's grid
-    (made once)."""
-    if not _FARM:
-        from raft_tpu_torch.models.model import Model
-
-        model = Model(os.path.join(FIX, "design_farm_semi_wind_cases.json"))
-        _FARM["wc"] = model.wake_coupling(
-            u_grid=np.asarray(_mk().WAKE_GRID), device="cpu")
-    return _FARM["wc"]
-
-
-def test_wake_find_equilibrium_matches_jax():
-    """The wake/position fixed point of the farm's first case (the rear
-    unit in the front one's wake), as the JAX WakeCoupling's
-    (golden_drivers.npz): the waked speeds, positions and powers of
-    every iteration within 1e-10 x max."""
-    mk, g, wc = _mk(), drivers_golden(), _wake()
-    for i in range(2):
-        close(wc.curves[i]["Ct"], g[f"wake_Ct_{i}"], TOL, what="Ct")
-        close(wc.curves[i]["power"], g[f"wake_power_{i}"], TOL,
-              what="power")
-    keys = wc.model.design["cases"]["keys"]
-    case = dict(zip(keys, wc.model.design["cases"]["data"][mk.WAKE_CASE]))
-    got = wc.find_equilibrium(case, n_iter=mk.WAKE_EQ_ITER)
-    for a, k in zip(got, ("eq_winds", "eq_xs", "eq_ys", "eq_powers")):
-        close(a, g[k], TOL, what=k)
-    assert got[0][-1][1] < got[0][-1][0]
-
-
-def test_wake_calc_aep_matches_jax():
-    """The probability-weighted AEP over three wind states (below
-    cut-in, waked at 30 deg, above cut-out), as the JAX WakeCoupling's
-    (golden_drivers.npz): the powers per state, the energy per state and
-    the total within 1e-10 x max."""
-    mk, g = _mk(), drivers_golden()
-    powers, per_state, total = _wake().calc_aep(**mk.AEP_STATES,
-                                                n_iter=mk.AEP_ITER)
-    close(powers, g["aep_powers"], TOL, what="powers")
-    close(per_state, g["aep_states"], TOL, what="aep per state")
-    close(total, g["aep_total"], TOL, what="aep")
-    assert np.all(powers[[0, 2]] == 0) and np.all(powers[1] > 0)
-
-
-def test_wake_model_matches_jax():
-    """The Gaussian deficit and the front-to-back waked speeds on a row
-    of three turbines with a lateral offset, as the JAX wake's."""
-    from raft_tpu.physics import wake as jw
-    from raft_tpu_torch.physics import wake as tw
-
-    dx = np.array([-10.0, 50.0, 300.0, 900.0])
-    dy = np.array([0.0, 20.0, -80.0, 150.0])
-    close(tw.gaussian_deficit(dx, dy, 240.0, 0.8, 0.08),
-          jw.gaussian_deficit(dx, dy, 240.0, 0.8, 0.08), TOL, what="deficit")
-    xy = np.array([[0.0, 0.0], [1200.0, 60.0], [2400.0, -40.0]])
-    D = np.full(3, 240.0)
-
-    def ct(U):
-        return 0.8 * np.exp(-((U - 9.0) / 8.0) ** 2)
-
-    got = tw.farm_velocities(xy, D, [ct] * 3, 11.0, 5.0, 0.07)
-    want = jw.farm_velocities(xy, D, [ct] * 3, 11.0, 5.0, 0.07)
-    for a, b in zip(got, want):
-        close(a, b, TOL, what="farm velocities")
-    assert got[0][2] < got[0][0]
-
-
-def test_wake_coupling_curves_match_jax():
-    """The coupling's per-unit power and thrust-coefficient curves on the
-    farm, from the port's power_thrust_curve, as the JAX coupling's."""
-    import raft_tpu
-    from raft_tpu.physics.wake import WakeCoupling as JW
-
-    from raft_tpu_torch.models.model import Model
-
-    path = os.path.join(FIX, "design_farm_semi_wind_cases.json")
-    grid = np.array([4.0, 8.0, 10.59, 14.0, 20.0])
-    got = Model(path).wake_coupling(u_grid=grid, device="cpu")
-    want = JW(raft_tpu.Model(path), u_grid=grid)
-    for a, b in zip(got.curves, want.curves):
-        for k in ("D", "power", "Ct"):
-            close(a[k], b[k], TOL, what=k)
 
 
 def test_iec_wind_matches_jax(tmp_path):

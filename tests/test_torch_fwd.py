@@ -194,15 +194,18 @@ def check_tangents(fn, x, g, pfx, tol=TOL, reverse=True):
 
 @pytest.fixture(autouse=True)
 def one_thread():
-    """Each test of forward mode on one intra-op thread: under the
-    driver's parallel workers, torch's default of one thread per core
-    in every worker oversubscribes the cores (the batched tangents make
-    the ops large enough to fan out); alone, one thread costs these
-    tests about 10%."""
-    n = torch.get_num_threads()
+    """Each test of forward mode on one intra-op thread: under
+    pytest-xdist's parallel workers, torch's default of one thread per
+    core in every worker oversubscribes the cores (the batched tangents
+    make the ops large enough to fan out); alone, one thread costs these
+    tests about 10%.  The count is not raised again afterwards: with the
+    CPU build's MKL, any ``torch.set_num_threads(n)`` with n > 1 after a
+    LAPACK call leaves the process's later multi-threaded solves
+    spinning (eight 168 x 168 ``torch.linalg.solve`` calls from 2 ms to
+    over a minute), which stalled the flexible tests that a worker ran
+    after these; the worker's later tests keep one thread."""
     torch.set_num_threads(1)
     yield
-    torch.set_num_threads(n)
 
 
 def row_jacfwd(fn, x, metric_fn=metric):

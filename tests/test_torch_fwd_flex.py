@@ -13,10 +13,11 @@ in the reference: pivoted LU of two libraries), so they are held at the
 flexible gradients' gate, 1e-7 x each key's max|tangent|
 (``tests/test_torch_grad_flex.py`` GRAD_GATE, ROADMAP §C), not 1e-9:
 the keys past those solves differ by the libraries' rounding times
-kappa(Z), up to 2.72e10 over these rows.  Then ``torch.func.jacfwd`` of
-the response metric by the row inputs against
-``golden_grad_flex_semi_wind.npz`` at the same gate (its struct_params
-leaves, about 65,000 a row, by the jvp golden's directions above)."""
+kappa(Z), up to 2.72e10 over these rows.  ``torch.func.jacfwd`` of
+the response metric by the row inputs is held against
+``golden_grad_flex_semi_wind.npz`` at the same gate in
+``test_torch_fwd_flex_jacfwd.py`` (about two minutes: in a file of its
+own pytest-xdist's ``--dist loadfile`` runs it beside these)."""
 
 import os
 
@@ -25,7 +26,7 @@ import torch
 from raft_tpu_torch import api as tapi
 from raft_tpu_torch.models.model import Model
 from test_torch_fwd import (FIX, check_tangents, golden,  # noqa: F401
-                            hold_jacfwd, one_thread, row_jacfwd)
+                            one_thread)
 from test_torch_grad_flex import GRAD_GATE, mk
 
 ROW_KEYS = tapi.ENV_KEYS + tapi.SEA_KEYS
@@ -63,13 +64,3 @@ def test_flex_geometry_tangents_match_golden():
                   **{k: x[k] for k in ROW_KEYS})
 
     check_tangents(fn, x, g, "geo_", tol=GRAD_GATE)
-
-
-def test_flex_jacfwd():
-    import numpy as np
-
-    m, _ = _model()
-    g = dict(np.load(os.path.join(FIX, "golden_grad_flex_semi_wind.npz")))
-    ev = tapi.make_flexible_evaluator(m, device="cpu")
-    x = {k: torch.tensor(g[k]) for k in ROW_KEYS}
-    hold_jacfwd(row_jacfwd(lambda x: ev(**x), x), g, "", tol=GRAD_GATE)

@@ -25,9 +25,14 @@ Fast tier:
   one-sided difference of the port's forward; a clipped wind speed has
   the clamp's derivative, 0.
 
-The d_scale gradient of a potential-flow design is held in
-``tests/test_torch_bem.py`` (it reuses that file's panel solves).  Slow
-tier: the goldens regenerated through jax.grad.
+The root's backward and the goldens run per design in
+``test_torch_grad_aero_semi.py`` and ``test_torch_grad_aero_mhk.py``
+(:func:`check_root_backward`, :func:`check_aero_gradients`): each
+takes one to two minutes, and in files of their own pytest-xdist's
+``--dist loadfile`` runs them beside the rest.  The d_scale gradient of
+a potential-flow design is held in ``tests/test_torch_bem_geometry.py``
+(it reuses the coarse panel solves).  Slow tier: the goldens
+regenerated through jax.grad.
 """
 
 import json
@@ -95,8 +100,7 @@ def _rotor_args(name, rows=6):
     return rt, [U, Om, pit, tilt, yaw]
 
 
-@pytest.mark.parametrize("name", sorted(SETS))
-def test_root_backward_matches_jacfwd(name):
+def check_root_backward(name):
     """The loads' reverse-mode derivatives in (U, Omega, pitch) against
     rotor_loads_and_derivs_jacfwd; the derivatives of (loads, dT, dQ)
     in all five inputs, against a random cotangent, against forward
@@ -139,8 +143,9 @@ def test_root_backward_matches_jacfwd(name):
 
 # ------------------------------------------------------ end to end goldens
 
-@pytest.mark.parametrize("name", sorted(SETS))
-def test_aero_gradients_match_goldens(name, monkeypatch):
+def check_aero_gradients(name, monkeypatch):
+    """The full evaluator's gradients of one design against its
+    ``jax.grad`` golden, FUSED on and off."""
     g = golden(name)
     ev = tapi.make_full_evaluator(model(name), nWaves=SETS[name],
                                   device="cpu")

@@ -8,14 +8,11 @@ Fast tier:
   (``solve_free_points`` with grad on), within 1e-10; the body forces
   and the coupled stiffness written from the attached state equal the
   solved ones;
-* the two-unit semi_wind farm's gradient against the ``jax.grad``
-  golden (``golden_grad_farm_semi_wind.npz``: ``FARM_ROWS`` rows 2-3,
-  the response metric sum |Xi[0]|^2 + sum X0^2 with respect to every
-  row input, the per-unit wind speeds included) within 1e-9 x each
-  key's max|g|; status and n_iter_drag equal; the adjoint solves of the
-  backward per size: one at N = 12 per chunk (the system response, the
-  kernel's N = 7-12 adjoint entry on the card) and the units' fixed
-  points' at N = 6.
+* the stiffness parts refusing a pose the statics did not attach.
+
+The two-unit farm's gradient against its ``jax.grad`` golden is in
+``test_torch_grad_farm_golden.py`` (about a minute: in a file of its
+own pytest-xdist's ``--dist loadfile`` runs it beside these).
 
 Slow tier: the network stiffness's pose derivative against
 ``torch.func.jvp`` through the whole inner loop, and the golden
@@ -30,13 +27,10 @@ import pytest
 import torch
 
 from raft_tpu_torch import api as tapi
-from raft_tpu_torch.models import dynamics
 from raft_tpu_torch.models.model import Model
-from raft_tpu_torch.ops import linsolve
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
-from test_torch_grad import hold_grads, metric  # noqa: E402
 FIX = os.path.join(HERE, "fixtures", "torch_port")
 ROW_KEYS = tapi.ENV_KEYS + tapi.SEA_KEYS
 ORACLE_TOL = 1e-10
@@ -79,32 +73,6 @@ def test_free_points_attach_matches_taped_newton():
     ref = torch.autograd.grad((u * net.solve_free_points(Xt)).sum(), Xt)[0]
     assert float(torch.max(torch.abs(got - ref))) <= \
         ORACLE_TOL * float(torch.max(torch.abs(ref)))
-
-
-def test_farm_gradient_matches_golden(monkeypatch):
-    """Every row input, one chunk of the two golden rows; the adjoint
-    solves of the backward counted by size."""
-    g = dict(np.load(os.path.join(FIX, "golden_grad_farm_semi_wind.npz")))
-    ev = tapi.make_farm_evaluator(model(), device="cpu")
-    sizes = []
-    plain = linsolve._adjoint
-
-    def counted(Z, *a):
-        sizes.append(Z.shape[-1])
-        return plain(Z, *a)
-
-    monkeypatch.setattr(linsolve, "_adjoint", counted)
-    x = {k: torch.tensor(g[k], requires_grad=True) for k in ROW_KEYS}
-    out = ev(**x)
-    for k in ("status", "n_iter_drag"):
-        np.testing.assert_array_equal(out[k].numpy(), g[k], err_msg=k)
-    val = metric(out)
-    gr = torch.autograd.grad(val.sum(), list(x.values()), allow_unused=True,
-                             materialize_grads=True)
-    hold_grads(val, dict(zip(x, gr)), g, "")
-    assert sizes.count(ev.nT) == 1
-    assert sizes.count(6) == dynamics.NEUMANN_STEPS + 1
-    assert len(sizes) == dynamics.NEUMANN_STEPS + 2
 
 
 def test_parts_refuse_a_pose_the_statics_did_not_attach():

@@ -139,3 +139,82 @@ def test_get_kinematics_broadcasts_as_jax(rng):
                                  jnp.asarray(w))
         for a, b in zip(got, ref):
             close(a, b)
+
+
+def test_scatter_keeps_index_add_on_the_cpu_and_its_card_form_agrees(
+        rng, monkeypatch):
+    """The run-independent scatter-adds of ops/scatter.py: on a CPU
+    tensor index_add's bits; the one-hot form the card takes (run here
+    on CPU tensors) within 1e-15 x max of them, zeros off the index,
+    the same bits with the caller's kept matrix as without."""
+    from raft_tpu_torch.ops import scatter
+
+    x = torch.as_tensor(rng.normal(size=(5, 13, 6, 7))
+                        + 1j * rng.normal(size=(5, 13, 6, 7)))
+    seg = torch.as_tensor(rng.integers(0, 4, size=(5, 13)))
+    a = scatter.segment_sum_rows(x, seg, 6)
+    flat = (torch.arange(5)[:, None] * 6 + seg).reshape(-1)
+    ref = torch.zeros((30, 6, 7), dtype=x.dtype).index_add(
+        0, flat, x.reshape(65, 6, 7)).reshape(5, 6, 6, 7)
+    assert torch.equal(a, ref)
+
+    idx = torch.as_tensor([2, 0, 2, 3, 0])
+    src = torch.as_tensor(rng.normal(size=(3, 5, 3, 2)))
+    ref2 = torch.zeros((3, 4, 3, 2), dtype=src.dtype).index_add(1, idx, src)
+    assert torch.equal(scatter.index_sum(src, idx, 4), ref2)
+
+    monkeypatch.setattr(scatter, "_card_form", lambda t: True)
+    b = scatter.segment_sum_rows(x, seg, 6)
+    assert float((b - ref).abs().max()) <= 1e-15 * float(ref.abs().max())
+    assert not torch.any(b[:, 4:])
+    c = scatter.index_sum(src, idx, 4)
+    assert float((c - ref2).abs().max()) <= 1e-15 * float(ref2.abs().max())
+    kept = scatter.onehot(idx, 4, src.dtype)
+    assert kept.shape == (4, 5)
+    assert torch.equal(scatter.index_sum(src, idx, 4, kept), c)
+
+
+@pytest.mark.parametrize("what", ["full_semi_wind", "network"])
+def test_card_scatter_form_holds_the_goldens(what, monkeypatch):
+    """The card's one-hot sums, run on the CPU through a whole
+    evaluator, against the JAX goldens the CPU form is held to: the
+    full semi_wind evaluator (strip -> node sums; status, n_iter_drag
+    and drag_converged bit-equal) and the farm's shared network (point
+    force and stiffness sums), each at 1e-10 x max."""
+    import json
+    import os
+    import sys
+
+    from raft_tpu_torch.ops import scatter
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    sys.path.insert(0, here)
+    import test_torch_full as tf_full
+
+    calls = []
+
+    def card_form(t):
+        calls.append(1)
+        return True
+
+    monkeypatch.setattr(scatter, "_card_form", card_form)
+    if what == "full_semi_wind":
+        from raft_tpu_torch import api as tapi
+
+        g = tf_full.golden("semi_wind")
+        ev = tapi.make_full_evaluator(tf_full.model("semi_wind"), nWaves=1,
+                                      device="cpu")
+        monkeypatch.setenv("RAFT_TPU_FUSED", "on")
+        tf_full.hold(ev(**tf_full.rows(g)), g, "on_")
+    else:
+        from raft_tpu_torch.models.model import Model
+
+        with open(os.path.join(tf_full.FIX,
+                               "design_farm_semi_wind.json")) as f:
+            net = Model(json.load(f), base_dir=tf_full.FIX).ms_array
+        g = dict(np.load(os.path.join(tf_full.FIX,
+                                      "golden_network_semi_wind.npz")))
+        out = net.solve(torch.as_tensor(g["X"]))
+        for k in ("F", "K", "r_free", "tensions"):
+            close(out[k].numpy(), g[k], rtol=1e-10)
+    assert calls

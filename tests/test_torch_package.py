@@ -18,7 +18,8 @@ PKG = os.path.join(ROOT, "raft_tpu_torch")
 def _sources():
     paths = [os.path.join(base, f) for base, _, files in os.walk(PKG)
              for f in files if f.endswith(".py")]
-    return sorted(paths) + [os.path.join(ROOT, "chip_smoke.py")]
+    return sorted(paths) + [os.path.join(ROOT, "chip_smoke.py"),
+                            os.path.join(ROOT, "time_scatter.py")]
 
 
 def _forbidden(name):
@@ -87,10 +88,25 @@ def test_flags_mirror_the_jax_registry(monkeypatch):
 
     for name in ("SOLVER", "FUSED", "DTYPE", "SCAN_CHUNK", "ITER_SCALE",
                  "COND_CHECK", "COND_THRESHOLD", "BUCKET_ROWS",
-                 "BUCKET_STEPS", "SERVE_CACHE_MB"):
+                 "BUCKET_STEPS", "SERVE_CACHE_MB",
+                 # the checkpointed sweeps and their telemetry
+                 "ESCALATE", "ESCALATE_ITER_SCALE", "PROBE_S", "FAULTS",
+                 "FABRIC_WORKERS", "WORKER_ID", "PROFILE", "LOG", "RUN_ID",
+                 "TRACEPARENT", "HEARTBEAT_S", "METRICS", "SERVE_WINDOW_S",
+                 "FLIGHT_RING", "FLIGHT_DIR", "FLIGHT_FLUSH_S",
+                 "FLIGHT_SNAP_S", "EXEMPLAR_K", "EXEMPLAR_MIN_S"):
         monkeypatch.delenv("RAFT_TPU_" + name, raising=False)
         assert tcfg.FLAGS[name].env == jcfg.FLAGS[name].env
+        assert tcfg.FLAGS[name].kind == jcfg.FLAGS[name].kind, name
+        if name != "SOLVER":  # the port has no 'pallas' choice
+            assert tcfg.FLAGS[name].choices == jcfg.FLAGS[name].choices
         assert tcfg.get(name) == jcfg.get(name), name
+        assert tcfg.raw(name) is jcfg.raw(name) is None
+    for name, val in (("ESCALATE", "F64_CPU"), ("FLIGHT_RING", "16"),
+                      ("LOG", "-"), ("FAULTS", "nan:x:1")):
+        monkeypatch.setenv("RAFT_TPU_" + name, val)
+        assert tcfg.get(name) == jcfg.get(name), name
+        assert tcfg.raw(name) == jcfg.raw(name) == val
     monkeypatch.setenv("RAFT_TPU_DTYPE", "f32")
     assert tcfg.get("DTYPE") == jcfg.get("DTYPE") == "float32"
     monkeypatch.setenv("RAFT_TPU_SOLVER", "pallas")
