@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--rows-per-design 4096] [--out DIR]
+    python3 chip_smoke.py [--rows-per-design 2048] [--out DIR]
 
 Phases, each printing one line (the last line is the result object):
 
@@ -42,12 +42,12 @@ Phases, each printing one line (the last line is the result object):
              mooring force + stiffness evaluation by the bucket path's
              hand-carried tangents and by torch.func.jacfwd, the two
              held against each other.
-8. profile - torch.profiler over one 512-row chunk: device busy time,
-             idle share, kernel launches (top kernels to
-             <out>/profile_top.txt).
+8. profile - torch.profiler (the CUDA activity, raw events) over one
+             512-row chunk: device busy time, idle share, kernel
+             launches (top kernels to <out>/profile_top.txt).
 9. full    - the full-physics evaluator (make_full_evaluator, float64,
              default flags) on the two rotor designs: semi_wind (one wave
-             heading) and mhk_tidal (two), FULL_ROWS (4096) rows each
+             heading) and mhk_tidal (two), FULL_ROWS (2048) rows each
              from a fixed seed with the golden rows first (held against
              tests/fixtures/torch_port/golden_full_*.npz, warm-up on the
              golden rows alone); full-evals/s, stage ms (aero, statics,
@@ -60,12 +60,14 @@ Phases, each printing one line (the last line is the result object):
     staged_solve - the staged response's solve at its shape (512 rows x
              2 headings x 40 frequencies against one Z per row): times
              of the SoA repack, the kernel and the wrapper.
-11. profile_full - torch.profiler over one 512-row semi_wind chunk of
-             the full path: kernel launches and device busy time of the
-             aero stage alone and of the whole chunk, idle share.
+11. profile_full - torch.profiler (the CUDA activity, raw events) over
+             one 512-row semi_wind chunk of the full path: kernel
+             launches and device busy time of the aero stage alone and
+             of the whole chunk, idle share (top kernels to
+             <out>/profile_full_top.txt).
 12. geometry - the geometry design axis: make_full_evaluator(...,
              geometry=True) on design_semi_wind.json over GEOMETRY_ROWS
-             (4096) rows in 512-row chunks, the full phase's operating rows
+             (2048) rows in 512-row chunks, the full phase's operating rows
              with per-member diameter, thickness, fill and fill-density
              scales and per-row drag, added-mass, mooring-length and
              mooring-stiffness scales drawn over GEOM_BOX; the golden
@@ -87,14 +89,22 @@ Phases, each printing one line (the last line is the result object):
              _native_solve(Z.mH, G) at 20,480 systems (bit-equal), its
              time beside the byte bound, the plain version's and
              torch.linalg.solve's on the same adjoint systems.
-14. farm    - the farm evaluator (make_farm_evaluator, float64) on
+14. kernel12 - the one-lane-per-row design (N = 7-12), forward and
+             adjoint, against its plain versions _native_solve(Z, F) and
+             _native_solve(Z.mH, G) at N = 7-12 on a ragged batch
+             (float64 bit-equal, float32 within F32_TOL); then at the
+             farm's system-response shape (512 rows x 40 frequencies =
+             20,480 systems of N = 12, complex128), for each entry, the
+             raw kernel's time on Z and F as they lie, the wrapper's, the
+             plain version's, torch.linalg.solve's and the bound.
+15. farm    - the farm evaluator (make_farm_evaluator, float64) on
              design_farm_semi_wind.json, two units with their own
              catenaries and a shared line over a free buoy (nT = 12):
              warm-up on the golden rows alone (in forward and reverse
              mode: one jvp, its tangent held against
              golden_jvp_farm_semi_wind.npz, and the gradient of the
              response metric at the gradient golden's rows, reported by
-             grad_paths), then FARM_ROWS (1024)
+             grad_paths), then FARM_ROWS (512)
              seeded operating rows (free-stream wind for the upstream
              unit, a wake deficit of 0-35% for the downstream one) with
              the golden rows first, held against golden_farm_semi_wind.npz;
@@ -107,16 +117,11 @@ Phases, each printing one line (the last line is the result object):
              one-lane-per-row design (one per chunk); then the golden
              rows of the three-spar farm (nT = 18, torch.linalg.solve),
              held, untimed.
-15. kernel12 - the one-lane-per-row design (N = 7-12), forward and
-             adjoint, against its plain versions _native_solve(Z, F) and
-             _native_solve(Z.mH, G) at N = 7-12 on a ragged batch
-             (float64 bit-equal, float32 within F32_TOL); then at the
-             farm's system-response shape (512 rows x 40 frequencies =
-             20,480 systems of N = 12, complex128), for each entry, the
-             raw kernel's time on Z and F as they lie, the wrapper's, the
-             plain version's, torch.linalg.solve's and the bound.
-16. profile_farm - torch.profiler over one 512-row farm chunk: kernel
-             launches, device busy time, idle share.
+16. profile_farm - torch.profiler (the CUDA activity, raw events) over
+             one network evaluation of the farm's mooring (what each
+             statics Newton iteration of a chunk runs) at the farm
+             phase's 512 equilibrium poses: kernel launches, device busy
+             time, idle share.
 17. flex    - the flexible evaluator (make_flexible_evaluator, float64)
              on design_semi_wind_flex.json (the semi_wind rotor on a
              steel beam tower, nDOF 168): warm-up on the golden rows
@@ -143,18 +148,21 @@ Phases, each printing one line (the last line is the result object):
              with every platform member meshed: 684 panels, 25 BEM
              frequencies, 8 headings, 200 m deep): the port's run_bem
              solves on the host (g++-built csrc/panel_bem.cpp, the
-             shipped Green table) into a fresh cache under <out>; its raw
+             shipped Green table) into a fresh cache under <out>, in a
+             thread started before the farm phase, beside the phases up
+             to this one (the design's solve and the d_scale axis' two,
+             on BEM_HOST_THREADS threads); its raw
              A/B/X and its model-grid coefficients after the .1/.3 round
              trip held against golden_bem_semi_wind.npz within
              BEM_COEF_TOL (1e-10) x max; host seconds of the table load,
              the build and the solve.  Then make_full_evaluator (float64,
-             default flags) on the golden rows (held) and BEM_ROWS (4096)
+             default flags) on the golden rows (held) and BEM_ROWS (2048)
              semi_wind operating rows with them first: full-evals/s,
              stage ms, Newton iterations per chunk, the solve kernel's
              launches against the trips run; the WAMIT-file design
              (design_semi_wind_wamit.json) on its golden rows (held);
-             the d_scale geometry axis: the two extra host solves (timed),
-             the golden d_scale rows (held), then BEM_GEOMETRY_ROWS (1024)
+             the d_scale geometry axis: its two extra host solves served
+             from that cache, the golden d_scale rows (held), then BEM_GEOMETRY_ROWS (1024)
              rows with d_scale uniform over D_SCALE_BOX, geometry-evals/s,
              launches against the trips run.
     grad_paths - reverse mode through every other evaluator, on golden
@@ -205,7 +213,7 @@ Phases, each printing one line (the last line is the result object):
 19. qtf     - second-order forces: make_full_evaluator on
              design_semi_wind_qtf.json (semi_wind with the external QTF
              semi_wind_qtf.12d): the golden rows (held against
-             golden_semi_wind_qtf.npz), then QTF_ROWS (4096) semi_wind
+             golden_semi_wind_qtf.npz), then QTF_ROWS (2048) semi_wind
              operating rows with them first: full-evals/s, stage ms with
              the second_order stage (the QTF forces) and the drift stage
              (the second equilibrium under the mean drift), Newton iterations per chunk of both equilibria, the
@@ -236,7 +244,8 @@ Phases, each printing one line (the last line is the result object):
              on the path against the fixed-point solves run (each FOWT's
              trips plus its final solve at N <= 12, plus the system
              response at N <= 12); one `python -m raft_tpu_torch
-             design_spar.json --csv` run on the card, its CSV held; the
+             design_spar.json --csv` run on the card beside the designs,
+             its CSV held; the
              kernel on the captured system responses (Z, F) of the spar
              (N = 6, the thread-per-system entry) and the farm (N = 12,
              the lane-per-row entry) bit-equal to its plain version.
@@ -275,10 +284,29 @@ Phases, each printing one line (the last line is the result object):
              Model.qtf_slender (1e-10 x max).  Rows/s of the
              checkpointed sweep against the plain call's, shard write
              and resume s, launches.
-23. kernels - one JSON object listing both entries of the solve kernel,
+23. fabric  - the elastic sweep fabric on the card: the port's
+             demo_entry (spar, case evaluator, FABRIC_ROWS (512) seeded
+             rows in shards of FABRIC_SHARD (128), keys PSD, X0, status,
+             n_iter_drag) through run_fabric with FABRIC_WORKERS (2)
+             worker processes, both on cuda:0, held bit-identical to the
+             same entry's serial run_checkpointed in this process; then
+             with RAFT_TPU_FAULTS=worker_kill:worker_shard forwarded to
+             worker 0, which is SIGKILLed at its first claim (a worker's
+             first shard takes seconds, so worker 0 claims one before
+             worker 1 is done): the dead worker's lease expires after
+             FABRIC_TTL_S and is stolen, the sweep assembled
+             bit-identical; the first run under RAFT_TPU_RUNS_DIR
+             writes its run record, and `python -m raft_tpu_torch.obs
+             runs list` and `obs trace --merge <its log dir> --check`
+             exit 0.  The workers' kernel ledgers (metrics.json
+             `programs`) give the phase's launches; every worker's exit
+             code is checked.  Worker start-up s, rows/s against the
+             serial sweep's.
+24. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path (the analyze,
-             omdao and sweep paths' also as analyze_launches,
-             omdao_launches and sweep_launches) and the adjoint
+             omdao, sweep and fabric paths' also as analyze_launches,
+             omdao_launches, sweep_launches and fabric_launches) and the
+             adjoint
              with its launches on the grad and grad_paths paths, each
              with its N = 12 (one-lane-per-row) figures (the adjoint's
              from the farm's backward).
@@ -300,6 +328,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -325,10 +354,10 @@ BEMT_TOL = 1e-12                       # x max, hand tangents vs jacfwd
 #: their rows
 FULL_CONFIGS = {"semi_wind": dict(nWaves=1, seed=20261018),
                 "mhk_tidal": dict(nWaves=2, seed=20261019)}
-FULL_ROWS = 4096                       # rows per rotor design, full phase
+FULL_ROWS = 2048                       # rows per rotor design, full phase
 #: the geometry phase's design, rows and seed; its box of geometry scales
 GEOMETRY_DESIGN = "semi_wind"
-GEOMETRY_ROWS = 4096
+GEOMETRY_ROWS = 2048
 GEOMETRY_SEED = 20261022
 GEOM_BOX = dict(d_scale=(0.9, 1.1), t_scale=(0.9, 1.1),
                 fill_scale=(0.8, 1.2), rho_fill_scale=(0.9, 1.1),
@@ -337,7 +366,7 @@ GEOM_BOX = dict(d_scale=(0.9, 1.1), t_scale=(0.9, 1.1),
 GRAD_ROWS = 512                        # rows of the grad phase (one chunk)
 #: the grad_paths phase's aero golden sets
 GRAD_AERO_SETS = ("semi_wind", "mhk_tidal")
-FARM_ROWS = 1024                       # rows of the farm phase (2 chunks)
+FARM_ROWS = 512                        # rows of the farm phase (1 chunk)
 FARM_SEED = 20261023
 FLEX_DESIGN = "semi_wind"
 FLEX_ROWS = 1024                       # rows of the flex phase
@@ -348,12 +377,16 @@ FLEX_GEOMETRY_SEED = 20261025
 #: the potential-flow phase: rows of the evaluator and of its d_scale
 #: geometry axis (uniform over D_SCALE_BOX), their seeds, and the gate of
 #: the host solve's coefficients against the JAX goldens
-BEM_ROWS = 4096
+BEM_ROWS = 2048
 BEM_SEED = 20261026
 BEM_GEOMETRY_ROWS = 1024
 BEM_GEOMETRY_SEED = 20261027
 D_SCALE_BOX = (0.92, 1.08)
 BEM_COEF_TOL = 1e-10
+#: the threads of the host panel solves, which run beside the phases
+#: from farm to flex: the cores less two (the script's and the CUDA
+#: driver's), at most 8
+BEM_HOST_THREADS = min(8, max(1, (os.cpu_count() or 3) - 2))
 #: the flexible path's gates past its N = 108-168 solves (pivoted LU of
 #: two libraries, tests/test_torch_flexible.py): X0 at kappa(K) eps and
 #: Xi, PSD and drag_resid at kappa(Z) eps, with the largest condition
@@ -364,7 +397,7 @@ FLEX_KAPPA_Z = 2.72e10
 #: the second-order phase: operating rows of the external-QTF design and
 #: of its geometry axis, their seeds; the slow-drift grid of the
 #: slender-body QTF [Hz] (200 bins, 20,100 pairs)
-QTF_ROWS = 4096
+QTF_ROWS = 2048
 QTF_SEED = 20261028
 QTF_GEOMETRY_ROWS = 1024
 QTF_GEOMETRY_SEED = 20261029
@@ -374,9 +407,22 @@ SWEEP_SEED = 20261030
 SWEEP_CASE_ROWS = 1024                 # sea states per demo, two-entry mesh
 SLOW_DRIFT_GRID = dict(min_freq2nd=0.00125, df_freq2nd=0.00125,
                        max_freq2nd=0.25)
+#: the fabric phase: the spar demo entry's rows, its shards, their seed,
+#: the workers of its first run and the lease TTL of its killed-worker
+#: run [s]
+FABRIC_ROWS = 512
+FABRIC_SHARD = 128
+FABRIC_SEED = 20261031
+FABRIC_WORKERS = 2
+FABRIC_TTL_S = 3.0
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
+
+
+#: processes a phase starts to run beside its own work: stopped on the
+#: way out, whatever the outcome
+CHILDREN = []
 
 
 class PhaseError(RuntimeError):
@@ -1035,13 +1081,58 @@ def phase_catenary(rows=512, reps=3):
     return out
 
 
+def _device_profile(fn, by_kernel=False):
+    """torch.profiler with the CUDA activity alone over one call of
+    ``fn``, read from the profiler's raw events (``key_averages`` builds
+    one Python object per event and takes tens of seconds over a chunk's
+    launches): dict of the wall ms, the device busy ms (the device
+    events' durations summed: one stream), the runtime's kernel
+    launches, the device events and, with ``by_kernel``, {kernel name:
+    [device ms, calls]}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    busy_ns = launches = device_events = 0
+    kernels = {} if by_kernel else None
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            busy_ns += e.duration_ns()
+            device_events += 1
+            if by_kernel:
+                k = kernels.setdefault(e.name(), [0.0, 0])
+                k[0] += e.duration_ns() / 1e6
+                k[1] += 1
+        elif e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC",
+                          "cuLaunchKernel", "cuLaunchKernelEx"):
+            launches += 1
+    return dict(wall_ms=wall_ms, busy_ms=busy_ns / 1e6,
+                kernel_launches=launches, device_events=device_events,
+                idle_share=(1.0 - busy_ns / 1e6 / wall_ms) if wall_ms
+                else None, kernels=kernels)
+
+
+def _write_top(path, kernels, n=25):
+    """The ``n`` kernels of most device time, from a by-kernel
+    :func:`_device_profile`, as a table; returns them sorted."""
+    top = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)
+    with open(path, "w") as f:
+        f.write(f"{'device ms':>10} {'calls':>8} {'us/call':>9}  kernel\n")
+        for name, (ms, calls) in top[:n]:
+            f.write(f"{ms:10.3f} {calls:8d} {1e3 * ms / calls:9.2f}  "
+                    f"{name[:160]}\n")
+    return top
+
+
 def phase_profile(out_dir, name="mhk", rows=512):
     """torch.profiler over one chunk of the bucket path: the device's
     busy time (sum of kernel self times on the one stream) against the
     chunk's wall time, and the number of kernel launches."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     from raft_tpu_torch.structure import bucketing as bk
 
     p = bk.load_packed(os.path.join(FIX, f"packed_{name}.npz"))
@@ -1052,36 +1143,21 @@ def phase_profile(out_dir, name="mhk", rows=512):
     args = [torch.as_tensor(g[k][take]) for k in ("Hs", "Tp", "beta")]
     with torch.no_grad():
         ev(d, *args)
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.time()
-            ev(d, *args)
-            torch.cuda.synchronize()
-            wall_ms = (time.time() - t0) * 1e3
-    avg = prof.key_averages()
-    # device-side rows only: an operator's row repeats its kernels' time
-    kernels = [e for e in avg
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
-    top = sorted(kernels, key=lambda e: e.self_device_time_total,
-                 reverse=True)
-    with open(os.path.join(out_dir, "profile_top.txt"), "w") as f:
-        f.write(avg.table(sort_by="self_device_time_total", row_limit=25))
-    ge = [e for e in kernels if "ge_solve_kernel" in e.key]
-    ge_us = (sum(e.self_device_time_total for e in ge)
-             / max(sum(e.count for e in ge), 1))
-    res = dict(design=name, rows=rows, wall_ms=wall_ms, busy_ms=busy_ms,
-               idle_share=(1.0 - busy_ms / wall_ms) if wall_ms else None,
-               kernel_launches=launches, ge_solve_us=ge_us,
-               top=[(e.key, e.self_device_time_total / 1e3, e.count)
-                    for e in top[:5]])
-    if busy_ms > 0:
-        print(f"profile: one {rows}-row {name} chunk: wall {wall_ms:.1f} ms "
-              f"(under the profiler), device busy {busy_ms:.1f} ms, idle "
-              f"share {res['idle_share']:.3f}, {launches} kernel launches; "
-              f"ge_solve_kernel {ge_us:.2f} us per launch")
+        prof = _device_profile(lambda: ev(d, *args), by_kernel=True)
+    top = _write_top(os.path.join(out_dir, "profile_top.txt"),
+                     prof["kernels"])
+    ge = [v for k, v in top if "ge_solve_kernel" in k]
+    ge_us = 1e3 * sum(ms for ms, _ in ge) / max(sum(c for _, c in ge), 1)
+    res = dict(design=name, rows=rows, wall_ms=prof["wall_ms"],
+               busy_ms=prof["busy_ms"], idle_share=prof["idle_share"],
+               kernel_launches=prof["kernel_launches"], ge_solve_us=ge_us,
+               top=[(k, ms, c) for k, (ms, c) in top[:5]])
+    if res["busy_ms"] > 0:
+        print(f"profile: one {rows}-row {name} chunk: wall "
+              f"{res['wall_ms']:.1f} ms (under the profiler), device busy "
+              f"{res['busy_ms']:.1f} ms, idle share {res['idle_share']:.3f}, "
+              f"{res['kernel_launches']} kernel launches; ge_solve_kernel "
+              f"{ge_us:.2f} us per launch")
     else:
         print("profile: the profiler recorded no device time (not measured)")
     return res
@@ -1331,27 +1407,6 @@ def phase_staged_solve(rows=512, nWaves=2, nw=40):
     return res
 
 
-def _profiled(fn):
-    """(wall ms, device busy ms, kernel launches, key_averages) of one
-    call of ``fn`` under torch.profiler."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    avg = prof.key_averages()
-    kernels = [e for e in avg
-               if getattr(e, "device_type", None) == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in avg if e.key == "cudaLaunchKernel")
-    return wall_ms, busy_ms, launches, avg
-
-
 def phase_profile_full(out_dir, ev, rows=512):
     """torch.profiler over the aero stage alone and over one whole
     ``rows``-row semi_wind chunk of the full path."""
@@ -1361,16 +1416,14 @@ def phase_profile_full(out_dir, ev, rows=512):
     pt = {k: torch.as_tensor(v, **kw) for k, v in p.items()}
     with torch.no_grad():
         ev(**p)
-        aero = _profiled(lambda: ev._aero(pt, rows))
-        whole = _profiled(lambda: ev(**p))
-    with open(os.path.join(out_dir, "profile_full_top.txt"), "w") as f:
-        f.write(whole[3].table(sort_by="self_device_time_total",
-                               row_limit=25))
-    res = {}
-    for tag, (wall, busy, launches, _) in (("aero", aero), ("chunk", whole)):
-        res[tag] = dict(wall_ms=wall, busy_ms=busy, kernel_launches=launches,
-                        idle_share=(1.0 - busy / wall) if wall else None)
-    if whole[1] > 0:
+        aero = _device_profile(lambda: ev._aero(pt, rows))
+        whole = _device_profile(lambda: ev(**p), by_kernel=True)
+    _write_top(os.path.join(out_dir, "profile_full_top.txt"),
+               whole["kernels"])
+    keep = ("wall_ms", "busy_ms", "kernel_launches", "idle_share")
+    res = {tag: {k: r[k] for k in keep}
+           for tag, r in (("aero", aero), ("chunk", whole))}
+    if whole["busy_ms"] > 0:
         print(f"profile_full: one {rows}-row semi_wind chunk: aero stage "
               f"alone {res['aero']['kernel_launches']} kernel launches, "
               f"device busy {res['aero']['busy_ms']:.1f} ms of "
@@ -1907,7 +1960,7 @@ def phase_farm(card, rows=FARM_ROWS):
     print(f"  spar3 (3 units, nT {ev3.nT}, torch.linalg.solve) goldens: "
           + ", ".join(f"{k} {v:.1e}"
                       for k, v in res["spar3_worst_rel"].items()))
-    return res, ev, p
+    return res, ev, out["X0"]
 
 
 def time_rows(Z, F, adjoint=False):
@@ -2073,45 +2126,23 @@ def phase_kernel12(rows=512, nw=40):
     return res
 
 
-def _device_profile(fn):
-    """(wall ms, device busy ms, runtime kernel launches, device events)
-    of one call of ``fn`` under torch.profiler with the CUDA activity
-    alone, read from the profiler's raw events: ``key_averages`` builds
-    one Python object per event, too slow for the millions of launches
-    of a farm chunk."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.time()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.time() - t0) * 1e3
-    busy_ns = launches = device_events = 0
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA:
-            busy_ns += e.duration_ns()
-            device_events += 1
-        elif e.name() in ("cudaLaunchKernel", "cudaLaunchKernelExC",
-                          "cuLaunchKernel", "cuLaunchKernelEx"):
-            launches += 1
-    return wall_ms, busy_ns / 1e6, launches, device_events
-
-
-def phase_profile_farm(ev, p, rows=512):
-    """torch.profiler over one ``rows``-row chunk of the farm: runtime
-    kernel launches, device events, busy time and idle share."""
-    q = {k: v[:rows] for k, v in p.items()}
-    wall, busy, launches, events = _device_profile(lambda: ev(**q))
-    res = dict(wall_ms=wall, busy_ms=busy, kernel_launches=launches,
-               device_events=events,
-               idle_share=(1.0 - busy / wall) if wall else None)
-    if busy > 0:
-        print(f"profile_farm: one {rows}-row farm chunk: {launches} kernel "
-              f"launches, {events} device events, device busy {busy:.1f} ms "
-              f"of {wall:.1f} ms (under the profiler), idle share "
-              f"{res['idle_share']:.3f}")
+def phase_profile_farm(ev, X0):
+    """torch.profiler over one network evaluation of the farm's mooring
+    (the evaluator's own closure, as one statics Newton iteration calls
+    it, the bulk of a farm chunk) at the farm phase's equilibrium poses
+    ``X0`` (R, nT): kernel launches, device events, busy time and idle
+    share.  A whole chunk under the profiler makes about 2.8 million
+    launches, whose events take minutes to read."""
+    X = torch.as_tensor(X0, dtype=torch.float64, device=DEVICE)
+    r = _device_profile(lambda: ev.mooring.with_root(X))
+    res = {k: v for k, v in r.items() if k != "kernels"}
+    res["rows"] = X.shape[0]
+    if r["busy_ms"] > 0:
+        print(f"profile_farm: one network evaluation of the farm's mooring "
+              f"at {X.shape[0]} rows: {r['kernel_launches']} kernel "
+              f"launches, {r['device_events']} device events, device busy "
+              f"{r['busy_ms']:.1f} ms of {r['wall_ms']:.1f} ms (under the "
+              f"profiler), idle share {r['idle_share']:.3f}")
     else:
         print("profile_farm: the profiler recorded no device time "
               "(not measured)")
@@ -2389,40 +2420,40 @@ def _timed_full_rows(ev, p, tag, geom=None):
             list(moor.drift), launches, exp)
 
 
-def phase_bem(out_dir, card):
-    """Potential flow on semi_wind_bem (module docstring, phase 18): the
-    host panel solve into a fresh cache, its raw and model-grid
-    coefficients held against the JAX goldens; the full evaluator's
-    golden rows and BEM_ROWS rows; the WAMIT-file design's golden rows;
-    the d_scale geometry axis' golden rows and BEM_GEOMETRY_ROWS rows."""
-    import shutil
+def start_bem_host(out_dir):
+    """Start the bem phase's host work in a thread, to run beside the
+    launch-bound phases before it: a fresh cache under ``out_dir``
+    (RAFT_TPU_BEM_DIR, restored by :func:`phase_bem`), the Green table
+    and the panel library loaded, design_semi_wind_bem.json's Model and
+    its panel solves, the design's own and those of its d_scale axis'
+    two other sample scales, each recorded as solve_bem returns it, on
+    BEM_HOST_THREADS threads (ctypes frees the GIL for each frequency's
+    solve).  Returns a dict whose ``future`` gives (Model, [(panels,
+    (A, B, X))], seconds)."""
+    import concurrent.futures as cf
 
     from raft_tpu_torch import native
-    from raft_tpu_torch.api import (ENV_KEYS, FULL_OUT_KEYS, SEA_KEYS,
-                                    make_full_evaluator)
     from raft_tpu_torch.models.model import Model
     from raft_tpu_torch.native import green_table
-    from raft_tpu_torch.utils import config
 
-    pfx = "on_" if config.get("FUSED") == "on" else "off_"
-    gold = dict(np.load(os.path.join(FIX, "golden_bem_semi_wind.npz")))
     cache = os.path.join(out_dir, "bem_cache")
     shutil.rmtree(cache, ignore_errors=True)
-    prev = os.environ.get("RAFT_TPU_BEM_DIR")
+    host = dict(prev=os.environ.get("RAFT_TPU_BEM_DIR"), t0=time.time())
     os.environ["RAFT_TPU_BEM_DIR"] = cache
-    res = {}
-    try:
-        # ---- host solve, nothing served from a cache
+
+    def work():
+        sec = {}
         t0 = time.time()
         green_table.build_tables()
-        res["table_s"] = time.time() - t0
+        sec["table_s"] = time.time() - t0
         t0 = time.time()
         native.build()
-        res["gxx_s"] = time.time() - t0
+        sec["gxx_s"] = time.time() - t0
         raw = []
         solve = native.solve_bem
 
         def recording(*a, **kw):
+            kw["workers"] = kw.get("workers") or BEM_HOST_THREADS
             raw.append((len(a[3]), solve(*a, **kw)))
             return raw[-1][1]
 
@@ -2431,11 +2462,52 @@ def phase_bem(out_dir, card):
             with open(os.path.join(FIX, "design_semi_wind_bem.json")) as f:
                 model = Model(json.load(f))
             t0 = time.time()
-            bem = model.bem
-            res["solve_s"] = time.time() - t0
+            model.bem
+            sec["solve_s"] = time.time() - t0
+            # the geometry evaluator's sample scales (api.py, bem_samples)
+            scales = (model.design.get("settings", {}) or {}).get(
+                "bem_geom_scales", (0.92, 1.0, 1.08))
+            t0 = time.time()
+            for sc in scales:
+                if abs(float(sc) - 1.0) > 1e-12:
+                    model.run_bem(d_scale=float(sc))
+            sec["geometry_solve_s"] = time.time() - t0
         finally:
             native.solve_bem = solve
-        check(len(raw) == 1, f"bem: {len(raw)} panel solves, expected 1")
+        sec["host_s"] = time.time() - host["t0"]
+        return model, raw, sec
+
+    ex = cf.ThreadPoolExecutor(max_workers=1)
+    host["future"] = ex.submit(work)
+    ex.shutdown(wait=False)
+    return host
+
+
+def phase_bem(out_dir, card, host):
+    """Potential flow on semi_wind_bem (module docstring, phase 18): the
+    host panel solves of :func:`start_bem_host` into a fresh cache,
+    their raw and model-grid coefficients held against the JAX goldens;
+    the full evaluator's golden rows and BEM_ROWS rows; the WAMIT-file
+    design's golden rows; the d_scale geometry axis (its panel solves
+    served from the cache) with its golden rows and BEM_GEOMETRY_ROWS
+    rows."""
+    from raft_tpu_torch import native
+    from raft_tpu_torch.api import (ENV_KEYS, FULL_OUT_KEYS, SEA_KEYS,
+                                    make_full_evaluator)
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.utils import config
+
+    pfx = "on_" if config.get("FUSED") == "on" else "off_"
+    gold = dict(np.load(os.path.join(FIX, "golden_bem_semi_wind.npz")))
+    res = {}
+    try:
+        # ---- the host solves, nothing served from a cache
+        t0 = time.time()
+        model, raw, sec = host["future"].result()
+        res.update(sec, wait_s=time.time() - t0)
+        bem = model.bem
+        check(len(raw) == 3, f"bem: {len(raw)} panel solves, expected 3 "
+              "(the design's and two d_scale samples)")
         mesh, (A, B, X) = raw[0]
         check(mesh == int(gold["n_panels"]),
               f"bem: {mesh} panels, the reference meshes {gold['n_panels']}")
@@ -2449,15 +2521,18 @@ def phase_bem(out_dir, card):
               "bem: headings differ")
         res.update(panels=mesh, frequencies=len(gold["w_bem"]),
                    headings=len(gold["bem_headings"]),
-                   threads=min(8, max(1, (os.cpu_count() or 2) - 1)))
+                   threads=BEM_HOST_THREADS)
         print(f"bem host solve on {card}: {mesh} panels x "
               f"{res['frequencies']} frequencies x {res['headings']} "
               f"headings, {res['threads']} threads on {os.cpu_count()} "
-              f"cores: table load {res['table_s']:.2f} s, g++ "
-              f"{res['gxx_s']:.2f} s (built in the build phase), mesh + "
-              f"solve + .1/.3 round trip {res['solve_s']:.1f} s; raw "
-              "A/B/X against the JAX goldens (gate "
-              f"{BEM_COEF_TOL:g} x max) " + ", ".join(
+              f"cores, beside the phases from farm on: table load "
+              f"{res['table_s']:.2f} s, g++ {res['gxx_s']:.2f} s (built in "
+              f"the build phase), mesh + solve + .1/.3 round trip "
+              f"{res['solve_s']:.1f} s, the d_scale axis' two "
+              f"{res['geometry_solve_s']:.1f} s, all done "
+              f"{res['host_s']:.1f} s after the start, waited for "
+              f"{res['wait_s']:.1f} s; raw A/B/X against the JAX goldens "
+              f"(gate {BEM_COEF_TOL:g} x max) " + ", ".join(
                   f"{k} {v:.1e}" for k, v in res["raw_worst"].items())
               + "; after the WAMIT round trip " + ", ".join(
                   f"{k} {v:.1e}" for k, v in res["coef_worst"].items()))
@@ -2510,9 +2585,18 @@ def phase_bem(out_dir, card):
 
         # ---- the d_scale geometry axis
         geo = make_full_evaluator(model, device=DEVICE, geometry=True)
+        solve, solved = native.solve_bem, []
+        native.solve_bem = lambda *a, **kw: solved.append(1) or solve(
+            *a, **kw)
         t0 = time.time()
-        geo.bem_samples()
-        res["geometry_solve_s"] = time.time() - t0
+        try:
+            geo.bem_samples()
+        finally:
+            native.solve_bem = solve
+        res["geometry_load_s"] = time.time() - t0
+        check(not solved, f"bem geometry: {len(solved)} panel solve(s) at "
+              f"the d_scale samples {geo.bem_scales}, expected all served "
+              "from the cache the host solves wrote")
         gg = {k: gold["geo_" + k] for k in ENV_KEYS + SEA_KEYS}
         ds = gold["geo_d_scale"]
         out = {k: v.cpu().numpy() for k, v in geo(
@@ -2536,19 +2620,19 @@ def phase_bem(out_dir, card):
             expected_launches=gexp,
             worst=max(max(wg.values()), max(main.values())))
         r = res["geometry"]
-        print(f"bem geometry on {card}: two more host solves (d_scale "
-              f"{geo.bem_scales[0]:g}, {geo.bem_scales[2]:g}) in "
-              f"{res['geometry_solve_s']:.1f} s; {BEM_GEOMETRY_ROWS} rows, "
+        print(f"bem geometry on {card}: the two more host solves (d_scale "
+              f"{geo.bem_scales[0]:g}, {geo.bem_scales[2]:g}) read from the "
+              f"cache in {res['geometry_load_s']:.2f} s; {BEM_GEOMETRY_ROWS} rows, "
               f"d_scale over {D_SCALE_BOX}, {gwall:.2f} s = "
               f"{r['evals_per_s']:.1f} geometry-evals/s; stage ms "
               + ", ".join(f"{s} {v:.1f}" for s, v in gstage.items())
               + f"; solve kernel launches {glaunch} (expected {gexp}); "
               f"goldens worst {r['worst']:.1e}")
     finally:
-        if prev is None:
+        if host["prev"] is None:
             os.environ.pop("RAFT_TPU_BEM_DIR", None)
         else:
-            os.environ["RAFT_TPU_BEM_DIR"] = prev
+            os.environ["RAFT_TPU_BEM_DIR"] = host["prev"]
     return res, geo
 
 
@@ -3263,6 +3347,18 @@ def phase_analyze(out_dir, card):
 
     chunk = max(1, config.get("SCAN_CHUNK"))
     t_phase = time.time()
+    # the CLI on the card, beside the designs (its CSV held below)
+    cli_csv = os.path.join(out_dir, "cli_spar.csv")
+    cli_err = os.path.join(out_dir, "cli_spar.err")
+    with open(cli_err, "w") as err:
+        cli = subprocess.Popen(
+            [sys.executable, "-m", "raft_tpu_torch",
+             os.path.join(FIX, "design_spar.json"), "--csv", cli_csv],
+            cwd=HERE, stdout=subprocess.DEVNULL, stderr=err)
+    CHILDREN.append(cli)
+    cli_done = []
+    threading.Thread(target=lambda: cli_done.append(
+        (cli.wait(), time.time())), daemon=True).start()
     for name, (fn, farm, n_cases) in ORCH_SETS.items():
         g = orch.golden(name)
         src = os.path.join(FIX, fn)
@@ -3347,17 +3443,15 @@ def phase_analyze(out_dir, card):
               f"), {rows} on the N = 7-12 design; worst {worst:.1e} of "
               f"the golden gates")
 
-    # the CLI on the card, its CSV held
-    csv = os.path.join(out_dir, "cli_spar.csv")
-    t0 = time.time()
-    cli = subprocess.run(
-        [sys.executable, "-m", "raft_tpu_torch",
-         os.path.join(FIX, "design_spar.json"), "--csv", csv], cwd=HERE,
-        capture_output=True, text=True, timeout=600)
-    res["cli_s"] = time.time() - t0
-    check(cli.returncode == 0, f"analyze CLI: exit {cli.returncode}: "
-          f"{cli.stderr[-800:]}")
-    with open(csv) as f:
+    # the CLI run: its exit and its CSV
+    cli.wait(timeout=600)
+    while not cli_done:
+        time.sleep(0.01)
+    res["cli_s"] = cli_done[0][1] - t_phase
+    with open(cli_err) as f:
+        check(cli.returncode == 0, f"analyze CLI: exit {cli.returncode}: "
+              f"{f.read()[-800:]}")
+    with open(cli_csv) as f:
         _held("CLI CSV", orch.hold_csv, f.read(),
               orch.golden("spar")["csv"].item())
 
@@ -3379,7 +3473,8 @@ def phase_analyze(out_dir, card):
     print(f"  analyze: {total} cases over {len(ORCH_SETS)} designs in "
           f"{res['phase_s']:.1f} s; solve kernel launches on the path "
           f"{res['launches']} ({res['row_launches']} on the N = 7-12 "
-          f"design); CLI spar on the card {res['cli_s']:.1f} s, CSV held; "
+          f"design); CLI spar on the card {res['cli_s']:.1f} s (beside the "
+          "designs), CSV held; "
           "captured system responses " + ", ".join(
               f"{t} Z {tuple(z)} / F {tuple(f)}"
               for t, (z, f) in res["captured"].items())
@@ -3824,9 +3919,187 @@ def phase_sweep(ev, models, out_dir, card):
     return res
 
 
+def _fabric_events(log_dir):
+    """Every record of a RAFT_TPU_LOG directory's per-process shards."""
+    evs = []
+    for name in sorted(os.listdir(log_dir)):
+        if name.endswith(".jsonl"):
+            evs += _jsonl_since(os.path.join(log_dir, name), 0)[0]
+    return evs
+
+
+def _fabric_ledger(sweep_dir):
+    """The fleet kernel ledger and per-worker rows of an assembled
+    fabric sweep (its metrics.json)."""
+    with open(os.path.join(sweep_dir, "metrics.json")) as f:
+        snap = json.load(f)
+    return ({r["key"]: r["dispatches"] for r in snap["programs"]},
+            {w: st["shards_done"] for w, st in snap["workers"].items()})
+
+
+def phase_fabric(out_dir, card):
+    """The elastic sweep fabric on the card (module docstring, phase
+    23)."""
+    from raft_tpu_torch.obs import runs
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.parallel import fabric, resilience
+    from raft_tpu_torch.parallel import sweep as ts
+
+    t_phase = time.time()
+    on_card = str(DEVICE).startswith("cuda")
+    where = "cuda" if on_card else "cpu"
+    if on_card:
+        torch.cuda.empty_cache()   # earlier phases' cached blocks
+    keys = ("PSD", "X0", "status", "n_iter_drag")
+    base = os.path.join(out_dir, "fabric")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    entry = "raft_tpu_torch.parallel.fabric:demo_entry"
+    kw = {"n": FABRIC_ROWS, "seed": FABRIC_SEED, "out_keys": list(keys)}
+    env_keys = ("RAFT_TPU_LOG", "RAFT_TPU_RUNS_DIR", "RAFT_TPU_FAULTS",
+                "RAFT_TPU_FABRIC_TTL_S", "RAFT_TPU_FABRIC_POLL_S")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    res = dict(rows=FABRIC_ROWS, shard=FABRIC_SHARD, workers=FABRIC_WORKERS)
+    try:
+        os.environ["RAFT_TPU_FABRIC_POLL_S"] = "0.1"
+        # the entry and its serial checkpointed sweep in this process
+        ent = fabric.resolve_entry(entry, dict(kw, device=DEVICE))
+        cases = ent["cases"]
+        linsolve.reset_launches()
+        t0 = time.time()
+        serial = resilience.run_checkpointed(
+            ent["compute"], cases, os.path.join(base, "serial"),
+            FABRIC_SHARD, ts.make_mesh(1, device=None if on_card else "cpu"),
+            keys)
+        res["serial_s"] = time.time() - t0
+        res["serial_launches"] = linsolve.KERNEL_LAUNCHES
+        for k in ("PSD", "X0"):
+            check(np.all(np.isfinite(serial[k])), f"fabric: non-finite {k}")
+
+        def same(out, tag):
+            for k in keys:
+                check(np.array_equal(out[k], serial[k]),
+                      f"fabric {tag}: {k} differs from the serial sweep")
+
+        # (a) two workers on cuda:0
+        logs_a = os.path.join(base, "logs_a") + os.sep
+        store = os.path.join(base, "runs")
+        os.environ["RAFT_TPU_LOG"] = logs_a
+        os.environ["RAFT_TPU_RUNS_DIR"] = store
+        dir_a = os.path.join(base, "a")
+        linsolve.reset_launches()
+        t0 = time.time()
+        out_a = fabric.run_fabric(
+            dir_a, FABRIC_WORKERS, entry, cases=cases, entry_kwargs=kw,
+            out_keys=keys, shard_size=FABRIC_SHARD, device=where)
+        res["fabric_s"] = time.time() - t0
+        check(linsolve.KERNEL_LAUNCHES == 0,
+              "fabric: the coordinator launched the kernel")
+        same(out_a, "(a)")
+        evs = _fabric_events(logs_a)
+        exits = {e["worker"]: e["returncode"] for e in evs
+                 if e["event"] == "fabric_worker_exit"}
+        check(exits == {f"w{i}": 0 for i in range(FABRIC_WORKERS)},
+              f"fabric (a): worker exit codes {exits}")
+        res["startup_s"] = {e["worker"]: e["startup_s"] for e in evs
+                            if e["event"] == "fabric_worker_start"}
+        res["worker_devices"] = sorted({e["device"] for e in evs if
+                                        e["event"] == "fabric_worker_start"})
+        prog_a, res["shards_by_worker"] = _fabric_ledger(dir_a)
+        res["launches_a"] = prog_a.get("ge_solve", 0)
+        check(res["launches_a"] == res["serial_launches"] > 0,
+              f"fabric (a): the workers launched the kernel "
+              f"{res['launches_a']} times, the serial sweep "
+              f"{res['serial_launches']}")
+        check(set(prog_a) == {"ge_solve"},
+              f"fabric (a): unexpected kernel entries {prog_a}")
+
+        # (c) the run record and the obs CLI over the first run
+        recs = [r for _, r in runs.list_records(store)
+                if r.get("extra", {}).get("n_workers") == FABRIC_WORKERS]
+        check(len(recs) == 1 and recs[0]["kind"] == "sweep",
+              f"fabric: {len(recs)} fabric run record(s) in {store}")
+        res["record_env"] = {k: recs[0]["env"].get(k)
+                             for k in ("platform", "device_kind",
+                                       "n_devices", "torch", "cuda")}
+        for argv in (["runs", "list", "--dir", store],
+                     ["trace", "--merge", logs_a, "--check", "-o",
+                      os.path.join(base, "trace_a.json")]):
+            p = subprocess.run(
+                [sys.executable, "-m", "raft_tpu_torch.obs"] + argv,
+                capture_output=True, text=True, timeout=120, cwd=HERE)
+            check(p.returncode == 0, f"fabric: obs {argv[0]} exited "
+                  f"{p.returncode}: {(p.stdout + p.stderr)[-400:]}")
+        res["trace_check"] = p.stdout.strip()
+
+        # (b) the same run with worker 0 SIGKILLed at its first claim:
+        # its lease expires and worker 1 steals it.  Each worker's first
+        # shard takes seconds (the process's first evaluation), so
+        # worker 0 claims one before worker 1 can finish the sweep
+        del os.environ["RAFT_TPU_RUNS_DIR"]
+        logs_b = os.path.join(base, "logs_b") + os.sep
+        os.environ["RAFT_TPU_LOG"] = logs_b
+        os.environ["RAFT_TPU_FAULTS"] = "worker_kill:worker_shard:1"
+        os.environ["RAFT_TPU_FABRIC_TTL_S"] = str(FABRIC_TTL_S)
+        dir_b = os.path.join(base, "b")
+        t0 = time.time()
+        out_b = fabric.run_fabric(
+            dir_b, FABRIC_WORKERS, entry, cases=cases, entry_kwargs=kw,
+            out_keys=keys, shard_size=FABRIC_SHARD, device=where)
+        res["killed_s"] = time.time() - t0
+        same(out_b, "(b)")
+        evs = _fabric_events(logs_b)
+        exits = {e["worker"]: e["returncode"] for e in evs
+                 if e["event"] == "fabric_worker_exit"}
+        check(exits.get("w0") == -9 and all(
+            rc == 0 for w, rc in exits.items() if w != "w0"),
+              f"fabric (b): worker exit codes {exits} (worker 0 must die "
+              "by its SIGKILL, the others exit 0)")
+        steals = [(e["shard"], e["from_worker"], e["reason"]) for e in evs
+                  if e["event"] == "shard_steal"]
+        ledger = fabric.Ledger(dir_b, FABRIC_ROWS // FABRIC_SHARD)
+        reclaimed = [s for s in range(ledger.n_shards)
+                     if (ledger.read_done(s) or {}).get("attempt") == 2]
+        check(steals and steals[0][1] == "w0" and reclaimed,
+              f"fabric (b): steals {steals}, re-claimed shards {reclaimed}")
+        res["steals"] = steals
+        prog_b, res["shards_by_worker_b"] = _fabric_ledger(dir_b)
+        res["launches_b"] = prog_b.get("ge_solve", 0)
+        check(res["launches_b"] == res["serial_launches"],
+              f"fabric (b): the workers launched the kernel "
+              f"{res['launches_b']} times, the serial sweep "
+              f"{res['serial_launches']}")
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    res["launches"] = res["launches_a"] + res["launches_b"]
+    res["rows_per_s"] = FABRIC_ROWS / res["fabric_s"]
+    res["serial_rows_per_s"] = FABRIC_ROWS / res["serial_s"]
+    res["phase_s"] = time.time() - t_phase
+    print(f"fabric on {card}: demo_entry (spar) {FABRIC_ROWS} rows in "
+          f"shards of {FABRIC_SHARD} on {FABRIC_WORKERS} workers "
+          f"({', '.join(res['worker_devices'])}): {res['fabric_s']:.2f} s = "
+          f"{res['rows_per_s']:.1f} rows/s against the serial sweep's "
+          f"{res['serial_rows_per_s']:.1f} rows/s ({res['serial_s']:.2f} s), "
+          f"bit-identical; worker start-up "
+          + ", ".join(f"{w} {s:.2f} s" for w, s in
+                      sorted(res["startup_s"].items()))
+          + f"; shards by worker {res['shards_by_worker']}; worker 0 killed "
+          f"at its first claim: steals {res['steals']}, shards by worker "
+          f"{res['shards_by_worker_b']}, {res['killed_s']:.2f} s, "
+          f"bit-identical; run record and obs "
+          f"trace --check ok; ge_solve launches {res['launches_a']} + "
+          f"{res['launches_b']} (the serial sweep's "
+          f"{res['serial_launches']} each); phase {res['phase_s']:.1f} s")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows-per-design", type=int, default=4096)
+    ap.add_argument("--rows-per-design", type=int, default=2048)
     ap.add_argument("--out", default=os.path.join(HERE, "chip_smoke_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -3873,12 +4146,15 @@ def main():
                                         rotor_models[GEOMETRY_DESIGN],
                                         rec["card"])
         rec["grad"] = timed("grad", phase_grad, geo_ev, models, rec["card"])
-        rec["farm"], farm_ev, farm_p = timed("farm", phase_farm, rec["card"])
         rec["kernel12"] = timed("kernel12", phase_kernel12)
+        bem_host = start_bem_host(args.out)
+        rec["farm"], farm_ev, farm_x0 = timed("farm", phase_farm,
+                                              rec["card"])
         rec["profile_farm"] = timed("profile_farm", phase_profile_farm,
-                                    farm_ev, farm_p)
+                                    farm_ev, farm_x0)
         rec["flex"] = timed("flex", phase_flex, rec["card"])
-        rec["bem"], bem_geo = timed("bem", phase_bem, args.out, rec["card"])
+        rec["bem"], bem_geo = timed("bem", phase_bem, args.out, rec["card"],
+                                    bem_host)
         rec["grad_paths"] = timed("grad_paths", phase_grad_paths, evs,
                                   rec["farm"]["grad"], bem_geo, rec["card"])
         rec["fwd"] = timed("fwd", phase_fwd, models, evs, geo_ev, bem_geo,
@@ -3889,9 +4165,15 @@ def main():
         rec["omdao"] = timed("omdao", phase_omdao, rec["card"])
         rec["sweep"] = timed("sweep", phase_sweep, evs["semi_wind"], models,
                              args.out, rec["card"])
+        rec["fabric"] = timed("fabric", phase_fabric, args.out, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
+    finally:
+        for child in CHILDREN:
+            if child.poll() is None:
+                child.kill()
+                child.wait()
     k = rec["kernel"]
     a = rec["grad"]["adjoint"]
     rec["launches_by_path"] = dict(
@@ -3909,7 +4191,8 @@ def main():
         qtf=rec["qtf"]["launches"],
         qtf_geometry=rec["qtf"]["geometry"]["launches"],
         analyze=rec["analyze"]["launches"],
-        omdao=rec["omdao"]["launches"], sweep=rec["sweep"]["launches"])
+        omdao=rec["omdao"]["launches"], sweep=rec["sweep"]["launches"],
+        fabric=rec["fabric"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -3929,10 +4212,12 @@ def main():
                   + rec["qtf"]["geometry"]["launches"]
                   + rec["analyze"]["launches"]
                   + rec["omdao"]["launches"]
-                  + rec["sweep"]["launches"]),
+                  + rec["sweep"]["launches"]
+                  + rec["fabric"]["launches"]),
         analyze_launches=rec["analyze"]["launches"],
         omdao_launches=rec["omdao"]["launches"],
         sweep_launches=rec["sweep"]["launches"],
+        fabric_launches=rec["fabric"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

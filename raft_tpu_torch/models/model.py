@@ -444,10 +444,17 @@ class Model:
         self.statics_status = int(status[0])
         self.statics_iterations = int(n_iter[0])
         if not bool(converged[0]):
+            from raft_tpu_torch.obs import metrics as obs_metrics
+            from raft_tpu_torch.utils.structlog import log_event
+
             warnings.warn(
                 "solveStatics Newton did not converge within "
                 f"{int(n_iter[0])} iterations "
                 f"(status: {health.describe(int(status[0]))})")
+            obs_metrics.counter("statics_unconverged").inc()
+            log_event("statics_unconverged", n_iter=int(n_iter[0]),
+                      status=int(status[0]),
+                      reason=health.describe(int(status[0])))
         self.X0 = X[0].cpu().numpy()
         return self.X0
 
@@ -911,11 +918,21 @@ class Model:
         ``case_stats`` keeps the wall seconds of its statics (both
         equilibria), dynamics (second-order forces and line dynamics
         included) and outputs, its Newton iterations, each FOWT's
-        fixed-point solves and the system response's size."""
+        fixed-point solves and the system response's size.
+
+        Telemetry, as the reference's: the ``solve_statics`` and
+        ``solve_dynamics`` spans per case, the ``cases_done`` counter,
+        per FOWT the ``drag_iterations`` histogram, the
+        ``cases_flagged`` counter (SEVERE status bits) and a
+        ``drag_linearisation`` event."""
         import time
 
         from raft_tpu_torch.models.outputs import turbine_outputs
+        from raft_tpu_torch.obs import metrics as obs_metrics
+        from raft_tpu_torch.obs.spans import span
+        from raft_tpu_torch.utils import health
         from raft_tpu_torch.utils.dtypes import resolve_device
+        from raft_tpu_torch.utils.structlog import log_event
 
         dev = resolve_device(device)
         sync = (torch.cuda.synchronize if dev.type == "cuda"
@@ -930,14 +947,28 @@ class Model:
         for iCase, case in enumerate(self.cases):
             self._current_case_index = iCase
             t0 = time.perf_counter()
-            X0 = self.solve_statics(case, device=dev)
+            with span("solve_statics", case=iCase):
+                X0 = self.solve_statics(case, device=dev)
+                sync()
             st_status, st_iter = self.statics_status, self.statics_iterations
-            sync()
             t1 = time.perf_counter()
-            Xi, info = self.solve_dynamics(case, X0=X0, device=dev)
+            with span("solve_dynamics", case=iCase):
+                Xi, info = self.solve_dynamics(case, X0=X0, device=dev)
+                sync()
             poses = [inf["pose"] for inf in info["infos"]]
-            sync()
             t2 = time.perf_counter()
+            obs_metrics.counter("cases_done").inc()
+            for i, dd in enumerate(inf["dyn_diag"] for inf in info["infos"]):
+                st = int(dd["status"][0])
+                obs_metrics.histogram("drag_iterations").observe(
+                    int(dd["n_iter_drag"][0]))
+                if st & int(health.SEVERE):
+                    obs_metrics.counter("cases_flagged").inc()
+                log_event("drag_linearisation", case=iCase, fowt=i,
+                          resid=float(dd["drag_resid"][0]),
+                          converged=bool(dd["drag_converged"][0]),
+                          n_iter=int(dd["n_iter_drag"][0]),
+                          status=st, reason=health.describe(st))
             if second_order:
                 # the mean drift moves the reported equilibrium; the
                 # reference's hydro objects are back at the zero pose

@@ -15,12 +15,20 @@ formats.
 * :mod:`raft_tpu_torch.obs.heartbeat` — the optional device sampler
   thread (``RAFT_TPU_HEARTBEAT_S``).
 
-The reference's event registry, run records, alerts, trace report and
-CLI are not ported yet (ROADMAP A15(c)).  Importing this package turns
-the flight recorder on.
+* :mod:`raft_tpu_torch.obs.events` — the registry of every event and
+  span name the port emits;
+* :mod:`raft_tpu_torch.obs.runs` — the run-record store and regression
+  sentinel (``RAFT_TPU_RUNS_DIR``);
+* :mod:`raft_tpu_torch.obs.report` — ``python -m raft_tpu_torch.obs
+  report`` and ``... trace`` (Chrome/Perfetto export, multi-process
+  merge) over captured JSONL.
+
+The reference's alert engine (``obs/alerts.py``) comes with the serve
+layer (ROADMAP A15(d)).  Importing this package turns the flight
+recorder on.
 """
 
-from raft_tpu_torch.obs import metrics  # noqa: F401
+from raft_tpu_torch.obs import events, metrics  # noqa: F401
 from raft_tpu_torch.obs.heartbeat import (  # noqa: F401
     Heartbeat, maybe_heartbeat)
 from raft_tpu_torch.obs.spans import (  # noqa: F401

@@ -461,14 +461,32 @@ def read_shard(path):
 
 
 def show(path, out=None):
-    """Human summary of one dump shard (the reference's ``obs flight
-    show``).  Its span table needs the trace report module, which the
-    port does not have yet (ROADMAP A15(c)): the shard is validated by
-    :func:`read_shard` and then this raises ``NotImplementedError``."""
-    read_shard(path)
-    raise NotImplementedError(
-        "flight.show needs the trace report module (ROADMAP A15(c)); "
-        "read the shard with flight.read_shard")
+    """Human summary of one dump shard (``obs flight show``); returns
+    0, or 1 after printing the validation failure."""
+    out = out if out is not None else sys.stdout
+    try:
+        hdr, records = read_shard(path)
+    except FlightError as e:
+        print(f"flight show FAILED: {e}", file=sys.stderr)
+        return 1
+    from raft_tpu_torch.obs import report
+
+    meta = hdr["flight"]
+    spans, unmatched = report.collect_spans(records)
+    counts: dict = {}
+    for r in records[1:]:
+        counts[r["event"]] = counts.get(r["event"], 0) + 1
+    ts = [r["t"] for r in records]
+    print(f"{path}: flight shard v{meta['version']} "
+          f"(trigger={meta['trigger']}, ring={meta['ring']})", file=out)
+    print(f"  pid {hdr['pid']}, run_id {hdr.get('run_id')}, "
+          f"{len(records) - 1} record(s) of {meta.get('captured', '?')} "
+          f"captured, window {max(ts) - min(ts):.3f}s", file=out)
+    print(f"  spans: {len(spans)} matched, {len(unmatched)} still open "
+          "at dump", file=out)
+    for name, n in sorted(counts.items(), key=lambda kv: (-kv[1], kv[0])):
+        print(f"  {name:38s} {n:6d}", file=out)
+    return 0
 
 
 # Self-install: importing the obs package is what turns the recorder

@@ -71,6 +71,9 @@ ADJ_KERNEL_LAUNCHES = 0
 #: launches of the N = 7-12 design, forward and adjoint (each counted in
 #: KERNEL_LAUNCHES or ADJ_KERNEL_LAUNCHES as well)
 ROW_KERNEL_LAUNCHES = 0
+#: launches of the N = 7-12 design's adjoint entry (each counted in
+#: ADJ_KERNEL_LAUNCHES and ROW_KERNEL_LAUNCHES as well)
+ROW_ADJ_KERNEL_LAUNCHES = 0
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 PKG_DIR = os.path.dirname(_HERE)
@@ -568,7 +571,8 @@ def _cuda_solve_rows(Z, F, adjoint=False):
     = F`` (F then the cotangent, of the forward's broadcast batch
     shape).  Raises on anything the kernel does not take or a launch it
     cannot make; there is no fallback."""
-    global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES
+    global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES, \
+        ROW_ADJ_KERNEL_LAUNCHES
     _check_inputs(Z, F, "_cuda_solve_rows", lo=ROW_MIN_N)
     N = Z.shape[-1]
     bshape = torch.broadcast_shapes(Z.shape[:-2], F.shape[:-1])
@@ -586,6 +590,7 @@ def _cuda_solve_rows(Z, F, adjoint=False):
                            f"batch shape={tuple(bshape)}, {Z.dtype})")
     if adjoint:
         ADJ_KERNEL_LAUNCHES += 1
+        ROW_ADJ_KERNEL_LAUNCHES += 1
     else:
         KERNEL_LAUNCHES += 1
     ROW_KERNEL_LAUNCHES += 1
@@ -593,10 +598,23 @@ def _cuda_solve_rows(Z, F, adjoint=False):
 
 
 def reset_launches():
-    """Set :data:`KERNEL_LAUNCHES`, :data:`ADJ_KERNEL_LAUNCHES` and
-    :data:`ROW_KERNEL_LAUNCHES` to 0 (returns the previous forward
-    count)."""
-    global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES
-    n, KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES = \
-        KERNEL_LAUNCHES, 0, 0, 0
+    """Set :data:`KERNEL_LAUNCHES`, :data:`ADJ_KERNEL_LAUNCHES`,
+    :data:`ROW_KERNEL_LAUNCHES` and :data:`ROW_ADJ_KERNEL_LAUNCHES` to 0
+    (returns the previous forward count)."""
+    global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES, \
+        ROW_ADJ_KERNEL_LAUNCHES
+    n = KERNEL_LAUNCHES
+    KERNEL_LAUNCHES = ADJ_KERNEL_LAUNCHES = ROW_KERNEL_LAUNCHES = \
+        ROW_ADJ_KERNEL_LAUNCHES = 0
     return n
+
+
+def launch_ledger():
+    """The kernel's launches in this process, one count per entry:
+    ``ge_solve`` (N <= 6), ``ge_solve_adj`` (its adjoint),
+    ``ge_solve_rows`` (N = 7-12) and ``ge_solve_rows_adj``."""
+    rows_fwd = ROW_KERNEL_LAUNCHES - ROW_ADJ_KERNEL_LAUNCHES
+    return {"ge_solve": KERNEL_LAUNCHES - rows_fwd,
+            "ge_solve_adj": ADJ_KERNEL_LAUNCHES - ROW_ADJ_KERNEL_LAUNCHES,
+            "ge_solve_rows": rows_fwd,
+            "ge_solve_rows_adj": ROW_ADJ_KERNEL_LAUNCHES}

@@ -43,10 +43,11 @@ explicit, recorded re-solves of single flagged rows; neither ever
 replaces a shard's device run.  Unlike the reference, the port never
 falls back to the CPU when the accelerator is unhealthy:
 :func:`resolve_mesh` raises with the health probe's own words (a CPU
-sweep is asked for with a CPU mesh).  The reference's worker fabric is
-not ported yet (ROADMAP A15(b)): a compute that carries a fabric entry
-with ``RAFT_TPU_FABRIC_WORKERS`` > 1 raises, every other sweep runs
-serially (``fabric_unavailable`` event when workers were asked for).
+sweep is asked for with a CPU mesh).  With ``RAFT_TPU_FABRIC_WORKERS``
+> 1, a compute that carries a fabric entry runs on the worker fabric
+(:func:`raft_tpu_torch.parallel.fabric.run_fabric`, on the card unless
+the mesh is a CPU one); every other sweep runs serially, with a
+``fabric_unavailable`` event when workers were asked for.
 
 Every event flows through :mod:`raft_tpu_torch.utils.structlog` (JSONL),
 under the reference's names: ``sweep_start``, ``shard_start``,
@@ -63,9 +64,9 @@ and escalation outcomes, and its snapshot lands in the sweep manifest
 and ``<out_dir>/metrics.json`` at ``sweep_done`` (Prometheus text to
 ``RAFT_TPU_METRICS`` when set).  ``RAFT_TPU_HEARTBEAT_S`` samples
 device memory between shards; ``RAFT_TPU_PROFILE`` writes a
-``torch.profiler`` Chrome trace of the whole checkpointed sweep.  The
-reference's run record at ``sweep_done`` (``RAFT_TPU_RUNS_DIR``) waits
-for the run-record store (ROADMAP A15(c)).
+``torch.profiler`` Chrome trace of the whole checkpointed sweep; with
+``RAFT_TPU_RUNS_DIR`` set, ``sweep_done`` appends a run record
+(:mod:`raft_tpu_torch.obs.runs`).
 """
 
 from __future__ import annotations
@@ -680,7 +681,7 @@ def _dump_metrics(out_dir, manifest, counters0):
 def evaluate_shard(compute, chunk, shard, offset, mesh, max_retries=3,
                    backoff_s=0.5, quarantine_retry=True, on_result=None):
     """One shard's full fault-tolerant evaluation — the unit of work of
-    the checkpointed runner (and of the reference's fabric workers, so
+    the checkpointed runner (and of the fabric workers, so
     a fabric sweep judges and records a shard exactly like the serial
     path does).
 
@@ -771,16 +772,29 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
             f"ragged case dict: all case arrays must have equal length, "
             f"got {lengths}")
 
-    # the reference's elastic fabric path (RAFT_TPU_FABRIC_WORKERS > 1
-    # with a fabric entry spec on the compute closure) is not ported:
-    # such a compute raises; without a spec (every factory evaluator)
-    # the sweep runs serially, as the reference's does
+    # elastic fabric path: RAFT_TPU_FABRIC_WORKERS > 1 routes the sweep
+    # through N worker subprocesses claiming shards from the lease
+    # ledger — zero caller changes, same out_dir layout, same results.
+    # Needs a fabric entry spec on the compute closure (the sweep
+    # runners propagate it from the evaluator's `_raft_fabric_entry`
+    # stamp) so workers can rebuild the evaluator in their own process;
+    # they run on the card unless the caller's mesh is a CPU one
     workers = int(config.get("FABRIC_WORKERS") or 0)
     if workers > 1:
-        if getattr(compute, "_raft_fabric_entry", None):
-            raise NotImplementedError(
-                f"RAFT_TPU_FABRIC_WORKERS={workers} with a fabric entry: "
-                "the sweep fabric is not ported yet (ROADMAP A15(b))")
+        spec = getattr(compute, "_raft_fabric_entry", None)
+        if spec:
+            from raft_tpu_torch.parallel import fabric
+
+            device = ("cpu" if mesh is not None
+                      and torch.device(mesh.devices.flat[0]).type == "cpu"
+                      else "cuda")
+            return fabric.run_fabric(
+                out_dir, workers=workers, entry=spec["entry"],
+                entry_kwargs=spec.get("kwargs"), warmup=spec.get("warmup"),
+                cases=cases, out_keys=out_keys, shard_size=shard_size,
+                on_shard=on_shard, max_retries=max_retries,
+                backoff_s=backoff_s, quarantine_retry=quarantine_retry,
+                device=device)
         log_event("fabric_unavailable", out_dir=out_dir,
                   reason="RAFT_TPU_FABRIC_WORKERS set but the evaluator "
                          "carries no _raft_fabric_entry spec; running "
@@ -883,8 +897,16 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
         log_event("sweep_done", out_dir=out_dir, n_cases=n,
                   n_quarantined=n_quarantined, n_flagged=n_flagged,
                   wall_s=round(time.perf_counter() - t0, 3))
-        # the reference's run record (RAFT_TPU_RUNS_DIR) waits for the
-        # run-record store (ROADMAP A15(c))
+        # longitudinal perf trajectory: one schema-versioned run record
+        # per sweep session when RAFT_TPU_RUNS_DIR is set (no-op and
+        # never fatal otherwise) — what `obs runs regress` gates on
+        from raft_tpu_torch.obs import runs as obs_runs
+
+        obs_runs.maybe_record(
+            "sweep", label=os.path.basename(os.path.normpath(out_dir)),
+            wall_s=time.perf_counter() - t0,
+            extra={"n_cases": n, "n_shards": n_shards,
+                   "n_quarantined": n_quarantined, "n_flagged": n_flagged})
     return {k: np.concatenate([r[k] for r in results]) for k in out_keys}
 
 

@@ -484,7 +484,11 @@ def run_sweep_checkpointed_full(evaluate, cases, out_dir, shard_size=256,
     re-evaluation on the CPU, ``quarantine_retry``).  ``mesh=None``
     resolves the CUDA devices after a health probe, and raises when the
     probe fails or no CUDA device exists (pass a CPU mesh,
-    ``make_mesh(device="cpu")``, to run on the CPU).
+    ``make_mesh(device="cpu")``, to run on the CPU).  An evaluator that
+    carries a fabric entry stamp runs on ``RAFT_TPU_FABRIC_WORKERS``
+    worker processes when that is > 1 (:mod:`raft_tpu_torch.parallel.
+    fabric`); ``mesh=None`` is then left to the workers, which probe the
+    card themselves, and a CPU mesh sends them to the CPU.
     """
     from raft_tpu_torch.parallel import resilience
 

@@ -7,11 +7,11 @@ to the evaluation that stored it.  An LRU with a byte budget (numpy
 ``nbytes``), thread-safe.  :class:`raft_tpu_torch.omdao.DesignEvaluation`
 uses it for an optimizer's repeated iterates.
 
-The keys are those of the reference, digest for digest.  The
-reference's counters also feed its metrics registry
-(``<prefix>_hits`` ...); the port has no metrics registry yet (ROADMAP
-A15), so its counters live on the instance and in :meth:`ResultCache.
-stats` only.
+The keys are those of the reference, digest for digest.  Hit, miss and
+eviction totals count on the instance (:meth:`ResultCache.stats`) and
+feed the metrics registry (:mod:`raft_tpu_torch.obs.metrics`) under
+the reference's names: ``<prefix>_hits`` / ``_misses`` / ``_evictions``
+counters and a ``<prefix>_bytes`` gauge.
 """
 
 from __future__ import annotations
@@ -21,6 +21,8 @@ import threading
 from collections import OrderedDict
 
 import numpy as np
+
+from raft_tpu_torch.obs import metrics
 
 
 def _value_token(v):
@@ -58,9 +60,10 @@ class ResultCache:
 
     Eviction is by access order; an entry larger than the whole budget
     is not cached.  ``hits``, ``misses`` and ``evictions`` count on the
-    instance; :meth:`stats` reports them with the entries and bytes.
-    ``metrics_prefix`` is the name the reference's registry gives the
-    counters, kept for the registry hookup (ROADMAP A15)."""
+    instance (:meth:`stats` reports them with the entries and bytes)
+    and in the metrics registry under ``<metrics_prefix>_hits`` /
+    ``_misses`` / ``_evictions``, with the held bytes as the
+    ``<metrics_prefix>_bytes`` gauge."""
 
     def __init__(self, max_bytes, metrics_prefix="serve_cache"):
         self.max_bytes = int(max_bytes)
@@ -78,9 +81,11 @@ class ResultCache:
             ent = self._entries.get(key)
             if ent is None:
                 self.misses += 1
+                metrics.counter(self.metrics_prefix + "_misses").inc()
                 return None
             self._entries.move_to_end(key)
             self.hits += 1
+            metrics.counter(self.metrics_prefix + "_hits").inc()
             return dict(ent[0])
 
     def put(self, key, row):
@@ -101,6 +106,8 @@ class ResultCache:
                 _, (_, freed) = self._entries.popitem(last=False)
                 self._bytes -= freed
                 self.evictions += 1
+                metrics.counter(self.metrics_prefix + "_evictions").inc()
+            metrics.gauge(self.metrics_prefix + "_bytes").set(self._bytes)
         return True
 
     def __len__(self):

@@ -1,9 +1,9 @@
 """The port's registry of ``RAFT_TPU_*`` environment flags.
 
 Main-path flags, the result cache's byte budget, and the flags of the
-checkpointed sweeps and their telemetry (structured log, heartbeat,
-metrics export, flight recorder, fault injection, escalation ladder,
-profiler), under the same environment names, kinds and defaults as
+checkpointed sweeps, their worker fabric and their telemetry
+(structured log, heartbeat, metrics export, flight recorder, run
+records, fault injection, escalation ladder, profiler), under the same environment names, kinds and defaults as
 ``raft_tpu/utils/config.py`` so that one environment drives both
 packages in the parity tests.  Flags are re-read on every :func:`get`
 (tests change them mid-process); :func:`raw` is the raw string for the
@@ -141,8 +141,26 @@ _register(
          help="deterministic fault injection: comma list of "
               "kind:site[:count] specs (see raft_tpu_torch.utils.faults)"),
     Flag("FABRIC_WORKERS", "int", 0,
-         help="route checkpointed sweeps through N fabric workers (0/1 = "
-              "serial in-process path; the port has no fabric yet)"),
+         help="route checkpointed sweeps through N local fabric worker "
+              "subprocesses claiming shards from the lease ledger "
+              "(0/1 = serial in-process path; needs a fabric entry "
+              "spec on the evaluator, raft_tpu_torch.parallel.fabric)"),
+    Flag("FABRIC_TTL_S", "float", 30.0,
+         help="shard lease time-to-live: a lease not renewed within "
+              "this window is expired and the shard is stealable "
+              "(a dead worker is just an expired lease)"),
+    Flag("FABRIC_STEAL_MULT", "float", 4.0,
+         help="straggler steal threshold: a lease older than this "
+              "multiple of the pooled shard_wall_s p95 is stealable "
+              "even while still being renewed"),
+    Flag("FABRIC_POLL_S", "float", 0.5,
+         help="fabric ledger poll period for idle workers and the "
+              "coordinator wait loop"),
+    Flag("FABRIC_FAULT_WORKER", "int", 0,
+         help="index of the ONE spawned worker that receives the "
+              "worker-targeted RAFT_TPU_FAULTS kinds (worker_kill, "
+              "lease_expire); other workers get them stripped so the "
+              "kill-a-worker test is deterministic"),
     Flag("WORKER_ID", "raw", "",
          help="fabric worker id stamped as 'worker' on every "
               "structured-log record"),
@@ -187,4 +205,21 @@ _register(
          help="exemplars kept per histogram log-bucket (0 disables)"),
     Flag("EXEMPLAR_MIN_S", "float", 0.0,
          help="minimum observed value for exemplar admission"),
+    # -- run-record store (raft_tpu_torch.obs.runs)
+    Flag("RUNS_DIR", "str", "",
+         help="append-only run-record store directory: when set, every "
+              "checkpointed-sweep session ends by writing a "
+              "schema-versioned run record (env fingerprint, metrics "
+              "snapshot, kernel launch ledger) there; `python -m "
+              "raft_tpu_torch.obs runs {list,compare,regress}` read it. "
+              "Unset (default) disables recording"),
+    Flag("RUNS_REL_TOL", "float", 0.5,
+         help="when SET, overrides every watch rule's relative "
+              "worsening tolerance in `obs runs regress` (a watched "
+              "metric regresses only past max(rel_tol x |baseline|, abs "
+              "floor)); unset, the per-rule tolerances apply. "
+              "`--rel-tol` outranks both"),
+    Flag("RUNS_ABS_FLOOR", "float", 1.0,
+         help="global multiplier on the per-rule minimum-absolute-"
+              "delta floors of `obs runs regress`"),
 )

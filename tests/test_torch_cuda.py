@@ -715,3 +715,41 @@ def test_evaluators_repeat_bit_for_bit_on_card(cuda, name):
     a, b = ev(**rows), ev(**rows)
     for k in a:
         assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.cuda
+def test_two_worker_fabric_on_card_is_bit_identical_to_serial(cuda,
+                                                              tmp_path,
+                                                              monkeypatch):
+    """Two fabric workers on the card (both on cuda:0) give the bits of
+    the same entry's serial checkpointed sweep in this process, on the
+    rows of ``golden_sweep_cases_spar.npz``, and stay within 1e-10 x max
+    of the JAX case evaluator's there; the workers' kernel ledgers count
+    their launches."""
+    from raft_tpu_torch.parallel import fabric, resilience
+    from raft_tpu_torch.parallel.sweep import make_mesh
+
+    monkeypatch.setenv("RAFT_TPU_FABRIC_POLL_S", "0.1")
+    keys = ("PSD", "X0", "status", "n_iter_drag")
+    gold = dict(np.load(os.path.join(FIX, "golden_sweep_cases_spar.npz")))
+    cases = {k: gold[k] for k in ("Hs", "Tp", "beta")}
+    entry = "raft_tpu_torch.parallel.fabric:demo_entry"
+    res = fabric.resolve_entry(entry, {"out_keys": list(keys),
+                                       "device": "cuda"})
+    serial = resilience.run_checkpointed(
+        res["compute"], cases, str(tmp_path / "serial"), 4, make_mesh(1),
+        keys)
+    out = fabric.run_fabric(str(tmp_path / "fab"), 2, entry, cases=cases,
+                            entry_kwargs={"out_keys": list(keys)},
+                            out_keys=keys, shard_size=4, device="cuda")
+    for k in keys:
+        assert np.array_equal(out[k], serial[k]), k
+    for k in ("status", "n_iter_drag"):
+        np.testing.assert_array_equal(out[k], gold[k])
+    for k in ("PSD", "X0"):
+        scale = np.max(np.abs(gold[k]))
+        assert np.max(np.abs(out[k] - gold[k])) <= 1e-10 * scale, k
+    with open(tmp_path / "fab" / "metrics.json") as f:
+        programs = {r["key"]: r["dispatches"]
+                    for r in json.load(f)["programs"]}
+    assert programs["ge_solve"] > 0

@@ -17,6 +17,7 @@ port's own heartbeat sampler (CPU rows carry no allocator stats; a
 CUDA query failure is reported in-band).
 """
 
+import io
 import json
 import os
 import re
@@ -237,9 +238,14 @@ def test_flight_ring_bound_dump_layout_and_strict_reader(tmp_path,
     assert flight.dump(trigger="manual", path=p) == p
     hdr, records = flight.read_shard(p)
     assert hdr["flight"]["trigger"] == "manual"
-    # the summary needs the trace report module (ROADMAP A15(c))
-    with pytest.raises(NotImplementedError, match="A15"):
-        flight.show(p)
+    # the summary: the reference's lines, its span table from the
+    # port's trace report module
+    buf = io.StringIO()
+    assert flight.show(p, out=buf) == 0
+    text = buf.getvalue()
+    assert "flight shard v1 (trigger=manual" in text
+    assert "spans: 0 matched, 0 still open at dump" in text
+    assert "shard_start" in text
     monkeypatch.setenv("RAFT_TPU_FLIGHT_DIR", str(tmp_path / "box"))
     auto = flight.dump(trigger="quarantine-severe")
     assert auto.endswith(f"flight-{os.getpid()}-quarantine-severe.jsonl")

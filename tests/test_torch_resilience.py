@@ -19,8 +19,8 @@ build:
 * the legacy (Hs, Tp, beta) driver sharing the runtime;
 * an unhealthy device probe, or no CUDA without a mesh, RAISES (the
   port never falls back to the CPU), with ``backend_fallback_failed``;
-* the fabric branch: serial with ``fabric_unavailable``, or a raise
-  for a compute that carries a fabric entry;
+* the fabric branch: serial with ``fabric_unavailable``, or the
+  worker fabric for a compute that carries a fabric entry;
 * ``log_event`` surviving payloads it cannot serialise; fault-spec
   parsing and arming from the environment.
 
@@ -444,7 +444,12 @@ def test_unhealthy_probe_raises_never_falls_back(tmp_path, log_path,
 
 def test_fabric_branch(tmp_path, log_path, monkeypatch):
     """FABRIC_WORKERS > 1 runs an unstamped sweep serially with a
-    ``fabric_unavailable`` event; a stamped compute raises."""
+    ``fabric_unavailable`` event; a stamped compute reaches
+    ``fabric.run_fabric`` with its entry spec, the sweep's arguments and
+    the device of the caller's mesh (the card when the mesh is left to
+    the workers)."""
+    from raft_tpu_torch.parallel import fabric
+
     monkeypatch.setenv("RAFT_TPU_FABRIC_WORKERS", "3")
     cases = _cases(4, seed=16)
     out = run_full(toy_full, cases, tmp_path / "serial")
@@ -458,9 +463,33 @@ def test_fabric_branch(tmp_path, log_path, monkeypatch):
     compute = full_compute(stamped, out_keys=("X0",), shard_freq=True)
     assert compute._raft_fabric_entry["kwargs"] == {
         "a": 1, "out_keys": ["X0"], "shard_freq": True}
-    with pytest.raises(NotImplementedError, match="A15"):
-        resilience.run_checkpointed(compute, cases, str(tmp_path / "fab"),
-                                    4, mesh2(), ("X0",))
+    calls = []
+
+    def fake_run_fabric(out_dir, **kw):
+        calls.append(dict(kw, out_dir=out_dir))
+        return {"X0": np.zeros(4)}
+
+    monkeypatch.setattr(fabric, "run_fabric", fake_run_fabric)
+    got = resilience.run_checkpointed(compute, cases, str(tmp_path / "fab"),
+                                      4, mesh2(), ("X0",), max_retries=5)
+    np.testing.assert_array_equal(got["X0"], np.zeros(4))
+    (call,) = calls
+    assert call["workers"] == 3 and call["entry"] == "mod:fn"
+    assert call["entry_kwargs"] == {"a": 1, "out_keys": ["X0"],
+                                    "shard_freq": True}
+    assert call["device"] == "cpu" and call["shard_size"] == 4
+    assert call["out_keys"] == ("X0",) and call["max_retries"] == 5
+    assert call["cases"] is not cases and set(call["cases"]) == {"Hs", "Tp"}
+    assert not os.path.exists(tmp_path / "fab" / "manifest.json")
+    assert len(_events(log_path, "fabric_unavailable")) == 1
+    # run_full leaves mesh=None to the workers: no probe, the card
+    def no_probe(*a, **k):
+        raise AssertionError("the coordinator probed the device")
+
+    monkeypatch.setattr(resilience, "resolve_mesh", no_probe)
+    stamped._raft_fabric_entry = {"entry": "mod:fn", "kwargs": {}}
+    run_full(stamped, cases, tmp_path / "fab2", mesh=None)
+    assert calls[-1]["device"] == "cuda"
 
 
 def test_profile_writes_a_chrome_trace(tmp_path, monkeypatch, log_path):
