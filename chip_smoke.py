@@ -302,11 +302,33 @@ Phases, each printing one line (the last line is the result object):
              `programs`) give the phase's launches; every worker's exit
              code is checked.  Worker start-up s, rows/s against the
              serial sweep's.
-24. kernels - one JSON object listing both entries of the solve kernel,
+24. serve   - one serving process in this process on cuda:0: the spar
+             and semi demos registered, the batch ladder SERVE_LADDER
+             (1,4,16) through RAFT_TPU_SERVE_LADDER, every (signature x
+             rung) warmed, the asyncio HTTP server on a loopback port in
+             a thread of its own; SERVE_CLIENTS (8) client threads x
+             SERVE_REQS (8) requests over real sockets, mixed across the
+             two designs from a small pool of cases (repeats give
+             in-flight joins and cache hits), one of them asking for
+             escalate_f64, one an out_keys subset, one an inline design
+             (the mhk demo's dict); then POST /drain from loopback.
+             Every accepted request answered, no 5xx; every served row
+             bit-equal to a direct BucketEvaluator call on the padded
+             group the batcher recorded, status equal; the solve
+             kernel's launches in the run equal to the dispatches'
+             (trips + 1 each, from the direct calls' n_iter_drag) and
+             to their sum; the JAX serving engine's golden_serve_*.npz
+             groups at rungs 1, 4, 16 dispatched on the card within
+             SLICE_TOL x max, status equal, the shared first case's
+             difference across rungs recorded.  p50 / p95 request
+             latency, rows/s, batch
+             occupancy, the stage split (mean s per stage), the launches
+             and the phase's wall beside its SERVE_BUDGET_S (45 s).
+25. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path (the analyze,
-             omdao, sweep and fabric paths' also as analyze_launches,
-             omdao_launches, sweep_launches and fabric_launches) and the
-             adjoint
+             omdao, sweep, fabric and serve paths' also as
+             analyze_launches, omdao_launches, sweep_launches,
+             fabric_launches and serve_launches) and the adjoint
              with its launches on the grad and grad_paths paths, each
              with its N = 12 (one-lane-per-row) figures (the adjoint's
              from the farm's backward).
@@ -415,6 +437,15 @@ FABRIC_SHARD = 128
 FABRIC_SEED = 20261031
 FABRIC_WORKERS = 2
 FABRIC_TTL_S = 3.0
+#: the serve phase: its batch ladder, client threads, requests per
+#: client, the seed of the case pool, the pool's cases per design and
+#: the phase's wall budget [s]
+SERVE_LADDER = "1,4,16"
+SERVE_CLIENTS = 8
+SERVE_REQS = 8
+SERVE_SEED = 20261102
+SERVE_POOL = 12
+SERVE_BUDGET_S = 45.0
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -4097,6 +4128,289 @@ def phase_fabric(out_dir, card):
     return res
 
 
+def _serve_plan():
+    """Per client thread, its SERVE_REQS request bodies: the design
+    alternates between spar and semi with the client and request index,
+    the case is drawn from a pool of SERVE_POOL seeded cases per design
+    (so cases repeat: in-flight joins and cache hits); client 0's first
+    request asks for escalate_f64, client 1's first for an out_keys
+    subset, client 2's first is the mhk demo's dict inline."""
+    rng = np.random.default_rng(SERVE_SEED)
+    pool = {n: [tuple(round(float(x), 3) for x in c) for c in zip(
+        rng.uniform(2.0, 8.0, SERVE_POOL), rng.uniform(6.0, 14.0, SERVE_POOL),
+        rng.uniform(-0.5, 0.5, SERVE_POOL))] for n in ("spar", "semi")}
+    plan = []
+    for i in range(SERVE_CLIENTS):
+        reqs = []
+        for j in range(SERVE_REQS):
+            name = ("spar", "semi")[(i + j) % 2]
+            h, t, b = pool[name][int(rng.integers(SERVE_POOL))]
+            reqs.append({"design": name, "Hs": h, "Tp": t, "beta": b})
+        plan.append(reqs)
+    plan[0][0]["escalate_f64"] = True
+    plan[1][0]["out_keys"] = ["X0", "status"]
+    with open(os.path.join(FIX, "design_mhk.json")) as f:
+        plan[2][0] = {"design_inline": json.load(f), "Hs": 4.0, "Tp": 9.0,
+                      "beta": 0.2}
+    return plan
+
+
+def _start_server(batcher):
+    """The asyncio HTTP server of ``batcher`` on a loopback port, its
+    event loop in a thread of its own; returns (server, thread, box),
+    box holding the error that ended the loop, if one did."""
+    import asyncio
+
+    from raft_tpu_torch.serve.http import Server
+
+    box, up = {}, threading.Event()
+
+    def serve():
+        loop = asyncio.new_event_loop()
+        asyncio.set_event_loop(loop)
+
+        async def run():
+            box["server"] = await Server(batcher, "127.0.0.1", 0).start()
+            up.set()
+            await box["server"].serve_until_stopped()
+
+        try:
+            loop.run_until_complete(run())
+        except BaseException as e:  # noqa: BLE001 — reported below
+            box["error"] = e
+            up.set()
+        finally:
+            loop.close()
+
+    th = threading.Thread(target=serve, name="chip-smoke-serve", daemon=True)
+    th.start()
+    check(up.wait(60) and "server" in box,
+          f"serve: the server did not start: {box.get('error')!r}")
+    return box["server"], th, box
+
+
+def phase_serve(card):
+    """One serving process on the card (module docstring, phase 24)."""
+    from raft_tpu_torch.obs import metrics
+    from raft_tpu_torch.obs.report import SERVE_STAGES
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.serve import engine
+    from raft_tpu_torch.serve.batcher import Batcher
+    from raft_tpu_torch.serve.client import ServeClient
+    from raft_tpu_torch.structure import bucketing as bk
+    from raft_tpu_torch.utils import config
+    from raft_tpu_torch.utils.devices import to_host
+
+    t_phase = time.time()
+    on_card = str(DEVICE).startswith("cuda")
+    dev = torch.device("cuda", 0) if on_card else torch.device(DEVICE)
+    env = config.env_name("SERVE_LADDER")
+    prev = os.environ.get(env)
+    os.environ[env] = SERVE_LADDER
+    try:
+        registry = engine.Registry()
+        for n in ("spar", "semi"):
+            registry.register(n, os.path.join(FIX, f"design_{n}.json"))
+        batcher = Batcher(registry, device=dev, group_log=4096)
+        check(batcher.sizes == (1, 4, 16),
+              f"serve: ladder {batcher.sizes}, want {SERVE_LADDER}")
+        entries = [registry.get(n) for n in registry.names()]
+        t0 = time.time()
+        warm = engine.warm(entries, device=dev, out_keys=batcher.out_keys,
+                           sizes=batcher.sizes)
+        warm_s = time.time() - t0
+        walls = engine.ladder_walls(entries, batcher.sizes,
+                                    out_keys=batcher.out_keys)
+        server, th, box = _start_server(batcher)
+        plan = _serve_plan()
+        results, errors = [], []
+
+        def client(i):
+            c = ServeClient("127.0.0.1", server.port, client_id=f"c{i}",
+                            timeout=120)
+            try:
+                for j, body in enumerate(plan[i]):
+                    t0 = time.perf_counter()
+                    code, resp = c.request("POST", "/evaluate", body)
+                    results.append((i, j, body, code, resp,
+                                    time.perf_counter() - t0))
+            except Exception as e:  # noqa: BLE001 — checked below
+                errors.append((i, repr(e)))
+            finally:
+                c.close()
+
+        stage0 = {st: (metrics.histogram(f"serve_stage_{st}_s").count,
+                       metrics.histogram(f"serve_stage_{st}_s").sum)
+                  for st in SERVE_STAGES}
+        c0 = {k: metrics.counter(k).value for k in (
+            "serve_dispatches", "serve_rows_dispatched", "serve_coalesced",
+            "serve_inflight_joins", "serve_errors", "serve_escalations")}
+        h0 = metrics.counter("serve_cache_hits").value
+        linsolve.reset_launches()
+        t_load = time.time()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(SERVE_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        load_s = time.time() - t_load
+        c = ServeClient("127.0.0.1", server.port)
+        code, drained = c.request("POST", "/drain")
+        c.close()
+        th.join(timeout=120)
+        launches = linsolve.forward_launches()
+    finally:
+        if prev is None:
+            os.environ.pop(env, None)
+        else:
+            os.environ[env] = prev
+    check(code == 202 and not th.is_alive() and "error" not in box,
+          f"serve: drain answered {code} {drained}, server thread alive "
+          f"{th.is_alive()}, error {box.get('error')!r}")
+    check(not errors, f"serve: client errors {errors[:3]}")
+    n_req = SERVE_CLIENTS * SERVE_REQS
+    check(len(results) == n_req, f"serve: {len(results)} of {n_req} "
+          "requests answered")
+    codes = sorted({r[3] for r in results})
+    check(all(cd in (200, 422) for cd in codes),
+          f"serve: response codes {codes} (5xx or rejects)")
+    groups = list(batcher.groups)
+    d = {k: metrics.counter(k).value - v for k, v in c0.items()}
+    check(d["serve_errors"] == 0, f"serve: {d['serve_errors']} serve_errors")
+    check(len(groups) == d["serve_dispatches"],
+          f"serve: {len(groups)} recorded groups, "
+          f"{d['serve_dispatches']} dispatches")
+
+    # every recorded group against a direct evaluator call on it (after
+    # the counts were read: these launches are not the path's)
+    fused = config.get("FUSED") == "on"
+    exp_launches, rows_at = 0, {}
+    with torch.no_grad():
+        for gi, g in enumerate(groups):
+            ents, n = g["entries"], len(g["entries"])
+            ev = bk.get_bucket_evaluator(ents[0].sig, dev)
+            design, seas = engine.padded_group(ents, g["Hs"], g["Tp"],
+                                               g["beta"], g["padded"], dev)
+            direct = ev(design, *seas)
+            for k in batcher.out_keys:
+                check(np.array_equal(g["out"][k], to_host(direct[k][:n])),
+                      f"serve: group {gi} {k} differs from the direct call")
+            meta = bk.signature_meta(ents[0].sig)
+            cap = meta["nIter"] * max(int(config.get("ITER_SCALE")), 1) + 1 \
+                + max(int(meta["nIterExtra"]), 0)
+            exp = expected_launches(to_host(direct["n_iter_drag"]),
+                                    g["padded"], cap,
+                                    min(max(1, config.get("SCAN_CHUNK")),
+                                        cap), fused)
+            check(g["launches"] == exp, f"serve: group {gi} launched "
+                  f"{g['launches']} times, its trips want {exp}")
+            exp_launches += exp
+            for i, e in enumerate(ents):
+                rows_at.setdefault((e.name, g["Hs"][i], g["Tp"][i],
+                                    g["beta"][i]), []).append((g, i))
+    check(launches == exp_launches == sum(g["launches"] for g in groups),
+          f"serve: {launches} launches in the run, the dispatches' trips "
+          f"want {exp_launches}, the dispatches counted "
+          f"{sum(g['launches'] for g in groups)}")
+
+    # every served row is its group's row, bit for bit
+    inline = {g["entries"][0].name for g in groups
+              if g["entries"][0].name.startswith("inline-")}
+    check(len(inline) == 1, f"serve: inline groups {sorted(inline)}")
+    hits = 0
+    for i, j, body, code, resp, _ in results:
+        name = body.get("design") or next(iter(inline))
+        at = rows_at.get((name, body["Hs"], body["Tp"], body["beta"]))
+        check(at, f"serve: client {i} request {j} ({name}) in no group")
+        want = set(body.get("out_keys") or batcher.out_keys)
+        check(set(resp["outputs"]) == want,
+              f"serve: client {i} request {j} keys {sorted(resp['outputs'])}")
+        check(any(resp["status"] == int(g["out"]["status"][r]) and all(
+            np.array_equal(np.asarray(v, dtype=g["out"][k].dtype),
+                           g["out"][k][r])
+            for k, v in resp["outputs"].items()) for g, r in at),
+            f"serve: client {i} request {j} ({name}) differs from its "
+            "group's row")
+        hits += bool(resp["cache_hit"])
+    check(hits > 0, "serve: no request hit the result cache")
+
+    # the JAX serving engine's goldens at rungs 1, 4 and 16 on the card
+    # (each rung's first request is one shared case: its rung
+    # dependence is recorded)
+    gold_err, rung_dep = {}, {}
+    for n in ("spar", "semi"):
+        g = np.load(os.path.join(FIX, f"golden_serve_{n}.npz"))
+        first = {}
+        for rung in (1, 4, 16):
+            Hs, Tp, beta = (g[f"r{rung}_{k}"] for k in ("Hs", "Tp", "beta"))
+            out = engine.dispatch([registry.get(n)] * len(Hs), Hs, Tp, beta,
+                                  out_keys=batcher.out_keys, device=dev,
+                                  padded=rung, record_metrics=False)
+            check(np.array_equal(out["status"], g[f"r{rung}_status"]),
+                  f"serve: {n} rung {rung} status {out['status'].tolist()}")
+            for k in ("PSD", "X0"):
+                ref = g[f"r{rung}_{k}"]
+                err = float(np.max(np.abs(out[k] - ref))
+                            / np.max(np.abs(ref)))
+                check(err <= SLICE_TOL, f"serve: {n} rung {rung} {k} "
+                      f"{err:.3e} x max off the golden")
+                gold_err[f"{n}.r{rung}.{k}"] = err
+            first[rung] = out
+        rung_dep[n] = max(float(np.max(np.abs(first[r][k][0]
+                                              - first[1][k][0]))
+                                / np.max(np.abs(first[1][k][0])))
+                          for r in (4, 16) for k in ("PSD", "X0"))
+
+    walls_req = np.array([r[5] for r in results])
+    p50, p95 = (float(np.percentile(walls_req, q)) for q in (50, 95))
+    occ = float(np.mean([len(g["entries"]) / g["padded"] for g in groups]))
+    stages = {}
+    for st in SERVE_STAGES:
+        h = metrics.histogram(f"serve_stage_{st}_s")
+        dn = h.count - stage0[st][0]
+        stages[st] = (h.sum - stage0[st][1]) / dn if dn else 0.0
+    rows = d["serve_rows_dispatched"]
+    res = dict(
+        requests=n_req, codes=codes, dispatches=len(groups),
+        rows_dispatched=rows, coalesced=d["serve_coalesced"],
+        inflight_joins=d["serve_inflight_joins"], cache_hits=hits,
+        escalations=d["serve_escalations"], launches=launches,
+        latency_p50_s=p50, latency_p95_s=p95, load_s=load_s,
+        requests_per_s=n_req / load_s, rows_per_s=rows / load_s,
+        occupancy_mean=occ, stage_mean_s=stages, warm_s=warm_s,
+        warm=warm, ladder_walls_s={str(r): w for r, w in walls.items()},
+        by_rung={str(r): sum(g["padded"] == r for g in groups)
+                 for r in batcher.sizes},
+        golden_worst_rel=max(gold_err.values()), rung_dependence=rung_dep)
+    res["phase_s"] = time.time() - t_phase
+    print(f"serve on {card}: {n_req} requests from {SERVE_CLIENTS} client "
+          f"threads over loopback in {load_s:.2f} s, every one answered "
+          f"(codes {codes}), no 5xx; latency p50 {p50 * 1e3:.2f} ms, p95 "
+          f"{p95 * 1e3:.2f} ms; {n_req / load_s:.1f} requests/s, "
+          f"{rows / load_s:.1f} dispatched rows/s")
+    print(f"  serve: {len(groups)} dispatches (by rung "
+          f"{res['by_rung']}), {rows} rows, occupancy mean {occ:.3f}; "
+          f"{d['serve_coalesced']} coalesced ({d['serve_inflight_joins']} "
+          f"in-flight joins), {hits} cache hits, "
+          f"{d['serve_escalations']} escalations; every served row "
+          "bit-equal to a direct BucketEvaluator call on its group, status "
+          "equal")
+    print("  serve: stage split (mean ms) " + ", ".join(
+        f"{st} {v * 1e3:.3f}" for st, v in stages.items())
+          + f"; serve_launches {launches} (= the dispatches' trips + 1 "
+          f"each); warm-up {len(warm)} (signature x rung) in "
+          f"{warm_s:.2f} s, best walls ms " + ", ".join(
+              f"{r}: {w * 1e3:.2f}" for r, w in walls.items() if w))
+    print(f"  serve: golden_serve_{{spar,semi}} at rungs 1, 4, 16 held "
+          f"(worst {res['golden_worst_rel']:.2e} x max, status equal); the "
+          "shared case's rung dependence " + ", ".join(
+              f"{n} {v:.2e} x max" for n, v in rung_dep.items()))
+    print(f"  serve: phase wall {res['phase_s']:.1f} s of its "
+          f"{SERVE_BUDGET_S:.0f} s budget")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=2048)
@@ -4166,6 +4480,7 @@ def main():
         rec["sweep"] = timed("sweep", phase_sweep, evs["semi_wind"], models,
                              args.out, rec["card"])
         rec["fabric"] = timed("fabric", phase_fabric, args.out, rec["card"])
+        rec["serve"] = timed("serve", phase_serve, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4192,7 +4507,7 @@ def main():
         qtf_geometry=rec["qtf"]["geometry"]["launches"],
         analyze=rec["analyze"]["launches"],
         omdao=rec["omdao"]["launches"], sweep=rec["sweep"]["launches"],
-        fabric=rec["fabric"]["launches"])
+        fabric=rec["fabric"]["launches"], serve=rec["serve"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -4213,11 +4528,13 @@ def main():
                   + rec["analyze"]["launches"]
                   + rec["omdao"]["launches"]
                   + rec["sweep"]["launches"]
-                  + rec["fabric"]["launches"]),
+                  + rec["fabric"]["launches"]
+                  + rec["serve"]["launches"]),
         analyze_launches=rec["analyze"]["launches"],
         omdao_launches=rec["omdao"]["launches"],
         sweep_launches=rec["sweep"]["launches"],
         fabric_launches=rec["fabric"]["launches"],
+        serve_launches=rec["serve"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

@@ -2,6 +2,7 @@
 the batched case, design-axis and full-physics evaluators
 (:func:`make_case_evaluator`, :func:`make_design_evaluator`,
 :func:`make_full_evaluator`, with its geometry design axis), the
+serving adapter :func:`pack_for_serving`, the
 case-table helpers of the full evaluator (:func:`case_to_traced`,
 :func:`case_in_traced_domain`), and the case-level helpers every
 evaluator shares (``_policy_cdt``, ``_case_status``).
@@ -310,6 +311,28 @@ class GeometryConstants:
             raise ValueError(f"geometry constants of {self.rows} rows for "
                              f"{n} rows")
         return self._map(lambda t: t.expand((n,) + t.shape[1:]))
+
+
+def pack_for_serving(model):
+    """One built model resolved into what the evaluation service
+    (:mod:`raft_tpu_torch.serve`) coalesces requests with: ``(sig,
+    packed, fingerprint)``, the bucket signature that routes it
+    (:func:`~raft_tpu_torch.structure.bucketing.bucket_signature`), the
+    packed numpy leaves one request contributes as a batch row
+    (:func:`~raft_tpu_torch.structure.bucketing.pack_design`) and the
+    design's content fingerprint that keys the result cache
+    (:func:`raft_tpu_torch.aot.bank.content_fingerprint`).
+
+    Raises :class:`~raft_tpu_torch.structure.bucketing.
+    UnbucketableDesignError` for designs outside the bucketed chain
+    (flexible members, potential flow, farms): the service refuses them
+    at registration, not mid-tick."""
+    from raft_tpu_torch.aot.bank import content_fingerprint
+    from raft_tpu_torch.structure import bucketing
+
+    sig = bucketing.bucket_signature(model)
+    packed = bucketing.pack_design(model, sig)
+    return sig, packed, content_fingerprint(model.design)
 
 
 def case_to_traced(case, nWaves=1):

@@ -19,22 +19,32 @@ import torch
 def run(input_file, save_csv=None, device=None):
     """Load a design (a ``.json`` / ``.yaml`` path or a dict), analyze
     every load case on ``device`` and, with ``save_csv``, write the
-    channel statistics there.  Returns the Model."""
+    channel statistics there.  Returns the Model.  The work runs under
+    a ``driver.run`` span, the root of the case spans."""
+    return _run("driver.run", input_file, save_csv, device)
+
+
+def run_farm(input_file, save_csv=None, device=None):
+    """The one-call farm driver (the reference's ``run_farm``, its
+    runRAFTFarm): ``run``'s work under a ``driver.run_farm`` span.  The
+    reference's farm entry leaves the single-FOWT property and eigen
+    outputs out; ``analyze_cases`` already covers the array path and
+    leaves them to ``Model.calc_outputs``."""
+    return _run("driver.run_farm", input_file, save_csv, device)
+
+
+def _run(span_name, input_file, save_csv, device):
     from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.obs.spans import span
     from raft_tpu_torch.utils.dtypes import resolve_device
 
     dev = resolve_device(device)
-    model = Model(input_file)
-    model.analyze_cases(device=dev)
-    if save_csv:
-        save_responses(model, save_csv)
+    with span(span_name, input=str(input_file)):
+        model = Model(input_file)
+        model.analyze_cases(device=dev)
+        if save_csv:
+            save_responses(model, save_csv)
     return model
-
-
-#: The one-call farm driver (the reference's ``run_farm``, its
-#: runRAFTFarm): the reference's body is ``run``'s, and ``run`` already
-#: leaves the properties and eigen outputs to ``Model.calc_outputs``.
-run_farm = run
 
 
 def save_responses(model, path):

@@ -23,9 +23,10 @@ formats.
   report`` and ``... trace`` (Chrome/Perfetto export, multi-process
   merge) over captured JSONL.
 
-The reference's alert engine (``obs/alerts.py``) comes with the serve
-layer (ROADMAP A15(d)).  Importing this package turns the flight
-recorder on.
+* :mod:`raft_tpu_torch.obs.alerts` — the alert-rule engine, its daemon
+  and sink, and the ``x-raft-provenance`` codec.
+
+Importing this package turns the flight recorder on.
 """
 
 from raft_tpu_torch.obs import events, metrics  # noqa: F401

@@ -8,6 +8,7 @@
     python -m raft_tpu_torch.obs spans
     python -m raft_tpu_torch.obs report <capture> --tail [RANK]
     python -m raft_tpu_torch.obs runs {record,list,compare,regress,ingest,pin}
+    python -m raft_tpu_torch.obs alerts {list,check,eval}
     python -m raft_tpu_torch.obs flight {dump,show}
 
 The verbs, options, output and exit codes of ``python -m raft_tpu.obs``.
@@ -32,9 +33,12 @@ newest record against the pinned baseline (exit 1 on regression,
 env-fingerprint mismatch downgrades to warnings), ``ingest`` imports
 ``BENCH_rNN.json`` artifacts, ``pin`` chooses the baseline.
 
-``alerts`` (the rule engine over the live registry) comes with the
-serve layer, ROADMAP A15(d): until then each of its verbs prints that
-and exits 2.
+``alerts`` is the alert engine's offline face
+(:mod:`raft_tpu_torch.obs.alerts`): ``list`` prints the effective rule
+pack (default + ``RAFT_TPU_ALERT_RULES``/``--rules``, optionally
+summarizing a ``RAFT_TPU_ALERTS`` sink), ``check`` validates it, and
+``eval --record`` replays the rules against a stored run record — rate
+rules gate on their cumulative totals — with no live process.
 
 Exit codes: 0 ok, 1 check/regress failed, 2 usage/input error.
 """
@@ -168,13 +172,81 @@ def _cmd_flight_show(args):
 # ----------------------------------------------------------- alerts verbs
 
 
-def _cmd_alerts(args):
-    """The alert verbs refuse: the rule engine, its daemon and sink
-    come with the serve layer (ROADMAP A15(d))."""
-    print(f"obs alerts {args.alerts_cmd}: the alert-rule engine "
-          "(obs/alerts.py) is not ported yet; it comes with the serve "
-          "layer, ROADMAP A15(d)", file=sys.stderr)
-    return 2
+def _alert_rules(args):
+    from raft_tpu_torch.obs import alerts
+    from raft_tpu_torch.utils import config
+
+    path = getattr(args, "rules", None) or config.get("ALERT_RULES") or None
+    return alerts.load_rules(path), path
+
+
+def _cmd_alerts_list(args):
+    from raft_tpu_torch.obs import alerts
+
+    try:
+        rules, path = _alert_rules(args)
+    except (OSError, ValueError) as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    print(f"{len(rules)} rule(s)"
+          + (f" (default pack + {path})" if path else " (default pack)"))
+    print(f"  {'name':24s} {'severity':10s} {'predicate':12s} "
+          f"{'threshold':>10s} {'for_s':>7s} {'clear_s':>7s}  metric")
+    for r in sorted(rules, key=lambda r: r.name):
+        print(f"  {r.name:24s} {r.severity:10s} {r.predicate:12s} "
+              f"{r.threshold:10.4g} {r.for_s:7.1f} {r.clear_s:7.1f}  "
+              f"{r.metric}")
+    if args.sink:
+        try:
+            records, bad = alerts.read_sink(args.sink)
+        except OSError as e:
+            print(f"cannot read sink {args.sink}: {e}", file=sys.stderr)
+            return 2
+        print(f"\nsink {args.sink}: {len(records)} record(s)"
+              + (f" ({bad} unparseable)" if bad else ""))
+        for line in alerts.render_sink_summary(records):
+            print(f"  {line}")
+    return 0
+
+
+def _cmd_alerts_check(args):
+    """Rule-pack validation (the lint.sh gate): the default pack plus
+    the given/flagged rule file must parse and validate.  Exit 0 ok,
+    1 invalid."""
+    try:
+        rules, path = _alert_rules(args)
+    except (OSError, ValueError) as e:
+        print(f"alerts check FAILED: {e}", file=sys.stderr)
+        return 1
+    print(f"ok: {len(rules)} rule(s) valid"
+          + (f" (default pack + {path})" if path else " (default pack)"))
+    return 0
+
+
+def _cmd_alerts_eval(args):
+    """Replay the rule pack against a stored run record — no live
+    process, no torch import.  Exit 0 clean, 1 when any rule fires."""
+    from raft_tpu_torch.obs import alerts, runs
+
+    try:
+        rules, _path = _alert_rules(args)
+        record = runs.load_record(args.record)
+    except (OSError, ValueError) as e:
+        print(str(e), file=sys.stderr)
+        return 2
+    fired, checked = alerts.replay_rules(rules, record)
+    name = os.path.basename(args.record)
+    print(f"alerts eval {name}: {checked}/{len(rules)} rule(s) "
+          "applicable")
+    for f in fired:
+        print(f"  FIRED: {f['rule']} [{f['severity']}] {f['metric']} = "
+              f"{f['value']:.6g} (replay threshold {f['threshold']:.6g})"
+              + (f" — {f['help']}" if f.get("help") else ""))
+    if fired:
+        print(f"  FAILED: {len(fired)} rule(s) fired", file=sys.stderr)
+        return 1
+    print("  ok: no rules fired")
+    return 0
 
 
 # ------------------------------------------------------------- runs verbs
@@ -437,8 +509,9 @@ def main(argv=None):
     f.add_argument("shard", help="a flight-*.jsonl dump shard")
 
     p = sub.add_parser("alerts",
-                       help="alert-rule engine (not ported yet: "
-                            "ROADMAP A15(d); every verb exits 2)")
+                       help="alert-rule engine: list/check the rule "
+                            "pack, replay it against stored run "
+                            "records (raft_tpu_torch.obs.alerts)")
     asub = p.add_subparsers(dest="alerts_cmd", required=True)
 
     a = asub.add_parser("list", help="print the effective rule pack "
@@ -517,7 +590,8 @@ def main(argv=None):
                 "ingest": _cmd_runs_ingest,
                 "pin": _cmd_runs_pin}[args.runs_cmd](args)
     if args.cmd == "alerts":
-        return _cmd_alerts(args)
+        return {"list": _cmd_alerts_list, "check": _cmd_alerts_check,
+                "eval": _cmd_alerts_eval}[args.alerts_cmd](args)
     if args.cmd == "flight":
         return {"dump": _cmd_flight_dump,
                 "show": _cmd_flight_show}[args.flight_cmd](args)

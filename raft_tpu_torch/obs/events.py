@@ -175,6 +175,65 @@ EVENTS: dict[str, tuple[tuple[str, ...], str]] = {
         ("case", "fowt", "resid", "converged", "n_iter", "status",
          "reason"),
         "per-case drag-linearisation convergence diagnostics"),
+    # ------------------------------------------------ evaluation service
+    "serve_start": (
+        ("host", "port", "designs", "tick_ms", "batch_sizes"),
+        "the evaluation service bound its socket (after design "
+        "registration and warm-up — raft_tpu_torch.serve)"),
+    "serve_request": (
+        ("endpoint", "method", "code", "client", "wall_s", "cache_hit"),
+        "one HTTP request served (any endpoint; wall_s includes "
+        "queueing + batching + dispatch for /evaluate)"),
+    "serve_tick": (
+        ("rows", "unique", "n_groups", "dispatches", "wall_s"),
+        "one non-empty batcher tick: pending requests deduplicated, "
+        "grouped by bucket signature and dispatched"),
+    "serve_reject": (
+        ("reason", "client"),
+        "a request was refused at admission (reason: quota -> 429 | "
+        "queue_full -> 503)"),
+    "serve_escalate": (
+        ("status_before", "status_after", "resolved"),
+        "a SEVERE-flagged request opted into the f64_cpu re-solve; "
+        "only a healthy re-solve is adopted"),
+    "serve_error": (
+        ("error", "rows"),
+        "a serving dispatch raised; every coalesced requester got the "
+        "exception (HTTP 500)"),
+    "serve_drain": (
+        ("pending", "wall_s", "completed"),
+        "graceful drain: new work refused, pending ticks finished"),
+    "slo_breach": (
+        ("wall_s", "slo_ms", "client?", "cache_hit?"),
+        "one request resolved slower than RAFT_TPU_SERVE_SLO_MS "
+        "(counted in serve_slo_breaches)"),
+    "serve_request_stages": (
+        ("wall_s", "queue_wait_s", "tick_wait_s", "dispatch_s",
+         "solve_s", "post_s", "escalated?"),
+        "per-resolved-request latency decomposition into named stages "
+        "(admission-queue wait, in-tick wait behind earlier groups, "
+        "dispatch overhead, device solve, post/cache fan-out); the "
+        "stages sum to wall_s by construction"),
+    "serve_stop": (
+        ("requests", "wall_s"),
+        "the service exited after draining and flushing metrics"),
+    "serve_ladder": (
+        ("candidates", "sizes", "walls_ms"),
+        "cost-driven batch-ladder refinement (RAFT_TPU_SERVE_LADDER="
+        "cost): candidate rungs whose measured per-dispatch wall was "
+        "flat vs the next rung were pruned after warm-up"),
+    # --------------------------------------------------- alert engine
+    "alert_fire": (
+        ("rule", "severity", "metric", "value", "threshold", "context"),
+        "one alert rule's condition held past its for-duration and the "
+        "alert FIRED (raft_tpu_torch.obs.alerts; also appended to the "
+        "RAFT_TPU_ALERTS JSONL sink and counted in alerts_active/"
+        "alerts_fired)"),
+    "alert_resolve": (
+        ("rule", "severity", "metric", "duration_s", "value"),
+        "a firing alert's condition stayed clean past its clear_s "
+        "hysteresis and the alert RESOLVED (duration_s = how long it "
+        "fired)"),
     # -------------------------------------------------- run-record store
     "run_record": (
         ("kind", "path", "label?"),
@@ -208,6 +267,9 @@ EVENTS: dict[str, tuple[tuple[str, ...], str]] = {
 #: tree (and mints a stray ``span_<name>_s`` histogram) instead of
 #: crashing.  name -> help.
 SPANS: dict[str, str] = {
+    "driver.run": "one full analysis via raft_tpu_torch.drivers.run",
+    "driver.run_farm": "one farm analysis via "
+                       "raft_tpu_torch.drivers.run_farm",
     "solve_statics": "per-case statics equilibrium solve",
     "solve_dynamics": "per-case dynamics (drag-linearised) solve",
     "sweep": "one checkpointed/fabric sweep, root of the shard tree",
@@ -218,6 +280,10 @@ SPANS: dict[str, str] = {
                       "bucket)",
     "qtf_slender_sharded": "one slender-body QTF with its frequency "
                            "pairs split over a mesh's devices",
+    "serve_request": "one /evaluate request, HTTP accept to response "
+                     "(adopts the client's traceparent when sent)",
+    "serve_tick": "one non-empty batcher tick; `links` names every "
+                  "coalesced request span it dispatched for",
 }
 
 

@@ -18,12 +18,13 @@ Two consumers of a ``RAFT_TPU_LOG`` capture (pure stdlib, no torch):
   span pair, instant events for everything else, and counter tracks
   from the heartbeat stream's device-memory samples.
 
-The sections over serving events (endpoints, the fleet router and its
-provenance check, alerts and canaries) read the reference's record
-formats; the port's serve layer that will emit them is ROADMAP A15(d).
-The ``x-raft-provenance`` parser and the cross-replica consistency
-verdict they need are kept here (the reference's live in
-``obs/alerts.py``, which comes with that layer).
+The sections over serving events (endpoints, ticks, the stage split,
+alerts) read what :mod:`raft_tpu_torch.serve` and
+:mod:`raft_tpu_torch.obs.alerts` emit, in the reference's record
+formats; the fleet router's and the canaries' sections read the
+reference's records (those layers are ROADMAP A15(h)).  The
+``x-raft-provenance`` parser and the cross-replica consistency verdict
+come from :mod:`raft_tpu_torch.obs.alerts`.
 """
 
 from __future__ import annotations
@@ -31,6 +32,8 @@ from __future__ import annotations
 import json
 import os
 import re
+
+from raft_tpu_torch.obs.alerts import parse_provenance, provenance_consistency
 
 
 def expand_captures(paths):
@@ -1087,77 +1090,3 @@ def chrome_trace(events, merged=False):
                                if e.get("run_id")})}
     return {"traceEvents": trace, "displayTimeUnit": "ms",
             "otherData": meta}
-
-
-# ------------------------------------------------ provenance verdict
-
-
-def parse_provenance(value):
-    """Parse an ``x-raft-provenance`` header into a dict, or None when
-    the value is empty/garbled (a consumer must never crash on a
-    foreign header)."""
-    if not value or not isinstance(value, str):
-        return None
-    out = {}
-    for part in value.split(";"):
-        k, sep, v = part.partition("=")
-        if sep and k.strip():
-            out[k.strip()] = v.strip()
-    return out or None
-
-
-def provenance_consistency(by_design, releases=None):
-    """Cross-replica provenance verdict over ``{design: {replica:
-    prov_dict}}``: two replicas serving the SAME design must agree on
-    the bank payload sha, bank key, code hash and flags key (replica
-    id legitimately differs).  Returns ``{"consistent": bool,
-    "splits": [{design, field, values: {replica: value}}]}`` — the
-    canary feeds this into the ``canary_parity`` rule context so the
-    alert payload names the offending provenance.
-
-    ``releases`` makes the verdict VERSION-AWARE (the reference's
-    ``aot/release.py`` ``parity_context``): ``{"allowed": [release ids
-    legitimately in the fleet], "entries": {release_id: [16-char
-    payload sha prefixes]}}``.  A mid-rollout fleet spans two release
-    ids, so cross-replica comparison happens *within* a release group
-    (mixed-version skew is expected, not an alarm), while a replica
-    stamping an id outside ``allowed`` — or a bank sha its own
-    release's manifest never shipped — is a genuine skew even when it
-    is the lone replica on that release (the seeded
-    ``provenance_skew`` drill).  ``releases=None`` is exactly the
-    pre-release behavior."""
-    allowed = set((releases or {}).get("allowed") or ())
-    manifest_shas = {rid: set(shas) for rid, shas in
-                     ((releases or {}).get("entries") or {}).items()}
-    splits = []
-    for design in sorted(by_design or {}):
-        provs = {rid: p for rid, p in (by_design[design] or {}).items()
-                 if p}
-        if releases:
-            groups = {}
-            for rid, p in provs.items():
-                rel = p.get("release") or "none"
-                if allowed and rel not in allowed:
-                    splits.append({"design": design, "field": "release",
-                                   "values": {rid: rel}})
-                    continue
-                sha = p.get("bank_sha") or "none"
-                shipped = manifest_shas.get(rel)
-                if shipped is not None and sha not in shipped \
-                        and sha != "none":
-                    splits.append({"design": design, "field": "bank_sha",
-                                   "values": {rid: sha}})
-                    continue
-                groups.setdefault(rel, {})[rid] = p
-        else:
-            groups = {None: provs}
-        for group in groups.values():
-            if len(group) < 2:
-                continue
-            for field in ("bank_sha", "bank_key", "code", "flags"):
-                values = {rid: (p.get(field) or "none")
-                          for rid, p in group.items()}
-                if len(set(values.values())) > 1:
-                    splits.append({"design": design, "field": field,
-                                   "values": dict(sorted(values.items()))})
-    return {"consistent": not splits, "splits": splits}

@@ -74,6 +74,12 @@ ROW_KERNEL_LAUNCHES = 0
 #: launches of the N = 7-12 design's adjoint entry (each counted in
 #: ADJ_KERNEL_LAUNCHES and ROW_KERNEL_LAUNCHES as well)
 ROW_ADJ_KERNEL_LAUNCHES = 0
+#: guards the four counters: a serving process launches from its batcher
+#: thread while other threads read them
+_COUNT_LOCK = threading.Lock()
+#: True once :func:`build` has compiled the kernel library in this
+#: process (False while it only loaded an existing build, or none)
+BUILT_HERE = False
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 PKG_DIR = os.path.dirname(_HERE)
@@ -344,6 +350,7 @@ def build(force=False):
     returns the library path and, when it compiled, nvcc's ``-Xptxas
     -v`` report.  Raises ``RuntimeError`` with the compiler's output on
     failure."""
+    global BUILT_HERE
     out = library_path()
     if os.path.exists(out) and not force:
         return out, ""
@@ -362,6 +369,7 @@ def build(force=False):
             raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
+        BUILT_HERE = True
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
@@ -492,7 +500,8 @@ def _cuda_solve(Z, F, keep_planes=False, planes=None):
     if err != 0:
         raise RuntimeError(f"linsolve kernel launch failed: cudaError {err} "
                            f"(N={N}, batch shape={tuple(bshape)}, {Z.dtype})")
-    KERNEL_LAUNCHES += 1
+    with _COUNT_LOCK:
+        KERNEL_LAUNCHES += 1
     x = torch.complex(xr.T, xi.T).reshape(out_shape)
     return (x, planes) if keep_planes else x
 
@@ -523,7 +532,8 @@ def _cuda_solve_adj(planes, G):
     if err != 0:
         raise RuntimeError(f"linsolve adjoint kernel launch failed: "
                            f"cudaError {err} (N={N}, {B} systems)")
-    ADJ_KERNEL_LAUNCHES += 1
+    with _COUNT_LOCK:
+        ADJ_KERNEL_LAUNCHES += 1
     return torch.complex(xr.T, xi.T).reshape(G.shape)
 
 
@@ -588,12 +598,13 @@ def _cuda_solve_rows(Z, F, adjoint=False):
         raise RuntimeError(f"linsolve {'adjoint ' if adjoint else ''}row "
                            f"kernel launch failed: cudaError {err} (N={N}, "
                            f"batch shape={tuple(bshape)}, {Z.dtype})")
-    if adjoint:
-        ADJ_KERNEL_LAUNCHES += 1
-        ROW_ADJ_KERNEL_LAUNCHES += 1
-    else:
-        KERNEL_LAUNCHES += 1
-    ROW_KERNEL_LAUNCHES += 1
+    with _COUNT_LOCK:
+        if adjoint:
+            ADJ_KERNEL_LAUNCHES += 1
+            ROW_ADJ_KERNEL_LAUNCHES += 1
+        else:
+            KERNEL_LAUNCHES += 1
+        ROW_KERNEL_LAUNCHES += 1
     return x
 
 
@@ -603,10 +614,17 @@ def reset_launches():
     (returns the previous forward count)."""
     global KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES, ROW_KERNEL_LAUNCHES, \
         ROW_ADJ_KERNEL_LAUNCHES
-    n = KERNEL_LAUNCHES
-    KERNEL_LAUNCHES = ADJ_KERNEL_LAUNCHES = ROW_KERNEL_LAUNCHES = \
-        ROW_ADJ_KERNEL_LAUNCHES = 0
+    with _COUNT_LOCK:
+        n = KERNEL_LAUNCHES
+        KERNEL_LAUNCHES = ADJ_KERNEL_LAUNCHES = ROW_KERNEL_LAUNCHES = \
+            ROW_ADJ_KERNEL_LAUNCHES = 0
     return n
+
+
+def forward_launches():
+    """:data:`KERNEL_LAUNCHES` now, read under the counters' lock."""
+    with _COUNT_LOCK:
+        return KERNEL_LAUNCHES
 
 
 def launch_ledger():

@@ -1,7 +1,7 @@
 """The port's registry of ``RAFT_TPU_*`` environment flags.
 
-Main-path flags, the result cache's byte budget, and the flags of the
-checkpointed sweeps, their worker fabric and their telemetry
+Main-path flags, the evaluation service's and its alert engine's, and
+the flags of the checkpointed sweeps, their worker fabric and their telemetry
 (structured log, heartbeat, metrics export, flight recorder, run
 records, fault injection, escalation ladder, profiler), under the same environment names, kinds and defaults as
 ``raft_tpu/utils/config.py`` so that one environment drives both
@@ -56,6 +56,19 @@ def env_name(name):
 def raw(name):
     """Raw string value of a registered flag (None when unset)."""
     return os.environ.get(FLAGS[name].env)
+
+
+#: the flags that shape the numbers the port's evaluators compute (the
+#: reference's ``_flags_key`` in ``raft_tpu/parallel/sweep.py``, less
+#: ``FIXED_POINT``, which the port does not have): every result-cache key
+#: of the service folds them in, so a flag flip never serves stale rows
+EVALUATOR_FLAGS = ("SOLVER", "SCAN_CHUNK", "DTYPE", "COND_CHECK",
+                   "COND_THRESHOLD", "ITER_SCALE", "FUSED")
+
+
+def flags_key():
+    """The values of :data:`EVALUATOR_FLAGS` now, as a tuple."""
+    return tuple(get(k) for k in EVALUATOR_FLAGS)
 
 
 def get(name):
@@ -124,9 +137,80 @@ _register(
     Flag("BEM_DIR", "str", "",
          help="panel-solver coefficient cache directory (default: "
               "_bem_cache in the working directory)"),
+    # -- evaluation service (raft_tpu_torch.serve)
+    Flag("SERVE_TICK_MS", "float", 20.0,
+         help="continuous-batching tick CEILING: pending requests "
+              "coalesce into one bucketed dispatch per (signature, "
+              "tick).  Under RAFT_TPU_SERVE_TICK_MODE=adaptive this is "
+              "the window under sustained load; light load shrinks the "
+              "window toward RAFT_TPU_SERVE_TICK_MIN_MS"),
+    Flag("SERVE_TICK_MIN_MS", "float", 1.0,
+         help="adaptive-tick floor: with a near-empty queue the "
+              "coalescing window shrinks to this, so a lone light-load "
+              "request waits ~this long instead of the full tick "
+              "(adaptive mode only)"),
+    Flag("SERVE_TICK_MODE", "choice", "adaptive",
+         choices=("adaptive", "fixed"),
+         help="serve tick policy: 'adaptive' scales the coalescing "
+              "window between SERVE_TICK_MIN_MS and SERVE_TICK_MS with "
+              "the recent per-tick row load and dispatches early when a "
+              "bucket group fills a top ladder rung; 'fixed' keeps the "
+              "constant SERVE_TICK_MS window"),
+    Flag("SERVE_LADDER", "str", "cost",
+         help="serve batch-ladder policy: 'pow2' (1,2,4,... up to "
+              "SERVE_MAX_BATCH), 'cost' (pow2 candidates warmed, then "
+              "rungs whose measured dispatch wall is flat vs the next "
+              "rung are pruned after warmup), or an explicit ascending "
+              "comma list of rung sizes"),
+    Flag("SERVE_LADDER_TOL", "float", 1.15,
+         help="cost-ladder flatness tolerance: rung r is pruned when "
+              "the next rung's measured per-dispatch wall is within "
+              "this factor of r's"),
+    Flag("SERVE_MAX_BATCH", "int", 64,
+         help="largest padded batch one serving dispatch holds; the "
+              "batch ladder is 1,2,4,... up to this"),
     Flag("SERVE_CACHE_MB", "float", 64.0,
          help="byte budget of the content-addressed result cache "
               "(design hash + case + out_keys -> outputs, LRU)"),
+    Flag("SERVE_QUEUE", "int", 1024,
+         help="admission-queue bound: requests past this many pending "
+              "get 503 (backpressure) instead of an unbounded backlog"),
+    Flag("SERVE_QPS", "float", 0.0,
+         help="per-client token-bucket sustained rate (requests/s); "
+              "0 disables quotas.  An over-quota client gets 429 with "
+              "Retry-After"),
+    Flag("SERVE_BURST", "float", 32.0,
+         help="per-client token-bucket burst capacity"),
+    Flag("SERVE_TIMEOUT_S", "float", 300.0,
+         help="per-request evaluation timeout at the HTTP layer (408)"),
+    Flag("SERVE_DRAIN_S", "float", 120.0,
+         help="graceful-shutdown budget: SIGTERM finishes in-flight "
+              "ticks and open responses within this window"),
+    Flag("SERVE_SLO_MS", "float", 0.0,
+         help="per-request latency SLO in milliseconds (0 disables): a "
+              "request resolving slower than this increments the "
+              "serve_slo_breaches counter and emits an slo_breach "
+              "event"),
+    Flag("SERVE_CLIENT_RETRIES", "int", 0,
+         help="serve-client retry budget for clean 429/503 rejections "
+              "(capped exponential backoff honoring Retry-After; 0 "
+              "disables)"),
+    # -- alert-rule engine (raft_tpu_torch.obs.alerts)
+    Flag("ALERT_EVAL_S", "float", 0.0,
+         help="alert-rule evaluation period in seconds (0 disables: no "
+              "thread, no state): a daemon evaluates the rule pack "
+              "against the live metrics registry, emitting "
+              "alert_fire/alert_resolve events, the alerts_active "
+              "gauge and the RAFT_TPU_ALERTS sink; state is served at "
+              "GET /alerts"),
+    Flag("ALERT_RULES", "str", "",
+         help="YAML/JSON rule file loaded over the default alert pack "
+              "(same-name rules replace, 'disabled: true' removes, "
+              "top-level 'default_pack: false' starts empty); validate "
+              "with `python -m raft_tpu_torch.obs alerts check`"),
+    Flag("ALERTS", "str", "",
+         help="JSONL sink path for alert fire/resolve records (one "
+              "appended line per transition; unset = no sink)"),
     # -- checkpointed sweeps (raft_tpu_torch.parallel.resilience)
     Flag("ESCALATE", "choice", "off", choices=("off", "retol", "f64_cpu"),
          help="escalation ladder for status-flagged sweep rows: 'retol' "

@@ -1,5 +1,5 @@
-"""Deterministic fault injection for the sweep runtime (the port's copy
-of ``raft_tpu/utils/faults.py``).
+"""Deterministic fault injection for the sweep and serving runtime (the
+port's copy of ``raft_tpu/utils/faults.py``).
 
 Every failure path in :mod:`raft_tpu_torch.parallel.resilience` — truncated
 shard writes, transient evaluator errors, device OOM, NaN payloads,
@@ -34,11 +34,18 @@ delay      shard_eval         sleep 0.25 s before the shard evaluation (a
                               count covering every shard)
 unhealthy  backend_probe      the accelerator probe reports the backend
                               dead (the port's ``resolve_mesh`` raises)
+replica_   serve_evaluate     the serving process, at its next /evaluate:
+kill                          SIGKILLs itself
+replica_   serve_evaluate     parks the request past every timeout
+hang
+replica_   serve_evaluate     answers 500
+5xx
+provenance serve_provenance   the provenance stamps built at start-up
+_skew                         report a skewed program identity
 ========== ================== ==============================================
 
-The reference's fabric and serving kinds (``worker_kill``,
-``lease_expire``, ``replica_*``) parse here too; no site of the port
-consults them yet.
+The fabric's kinds (``worker_kill``, ``lease_expire``) are consulted
+by :mod:`raft_tpu_torch.parallel.fabric`.
 
 Example::
 

@@ -196,6 +196,16 @@ in shards of :data:`SWEEP_SHARD` rows:
   of :func:`quarantine_design` (``RAFT_TPU_ESCALATE=retol``) and its
   ``quarantine.json`` entries (about 5 min in all).
 
+With ``--serve`` it writes ``golden_serve_<name>.npz`` for the three
+demos: the JAX serving engine's own ``raft_tpu.serve.engine.dispatch``
+(float64, one CPU device, the design registered from its dict) over
+:data:`SERVE_ROWS` requests padded to each rung of
+:data:`SERVE_RUNGS`, every bucket output key, the request rows' sea
+states beside them (``r<rung>_Hs`` / ``_Tp`` / ``_beta`` and
+``r<rung>_<key>``).  The first request of every rung is the same case
+(:data:`SERVE_SHARED_CASE`), so a row's dependence on its rung can be
+read off the file (about 5 min).
+
 Run from the repository root::
 
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py
@@ -212,6 +222,7 @@ Run from the repository root::
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py \
         --omdao [set ...]
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --sweeps
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --serve
 
 It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
 geometry and gradient goldens, or the named parts of them).
@@ -3483,6 +3494,64 @@ def write_sweep_fixtures():
         print(f"wrote {fname}")
 
 
+#: the serve goldens: the padded batch sizes (rungs) dispatched, the
+#: requests per rung (each rung padded by repeating its last request),
+#: the seed of their sea states and the case every rung starts with
+SERVE_RUNGS = (1, 4, 16)
+SERVE_ROWS = {1: 1, 4: 3, 16: 11}
+SERVE_SEED = 20261101
+SERVE_SHARED_CASE = (5.0, 10.0, 0.1)
+
+
+def serve_requests(name, rung):
+    """``(Hs, Tp, beta)`` arrays of the requests of one demo at one
+    rung: :data:`SERVE_SHARED_CASE` first, then seeded seas (Hs 2-8 m,
+    Tp 6-14 s, beta -0.5-0.5 rad, the serve warm-up's box)."""
+    import numpy as np
+
+    n = SERVE_ROWS[rung]
+    rng = np.random.default_rng(
+        [SERVE_SEED, list(DESIGNS).index(name), rung])
+    lo_hi = ((2.0, 8.0), (6.0, 14.0), (-0.5, 0.5))
+    return tuple(np.concatenate([[c], rng.uniform(lo, hi, n - 1)])
+                 for c, (lo, hi) in zip(SERVE_SHARED_CASE, lo_hi))
+
+
+def build_serve_golden(name):
+    """The ``golden_serve_<name>.npz`` dict, as written."""
+    _jax()
+    import numpy as np
+
+    from raft_tpu.parallel.sweep import make_mesh
+    from raft_tpu.serve import engine
+
+    reg = engine.Registry()
+    entry = reg.register(name, design_dict(name))
+    mesh = make_mesh(1)
+    gd = {}
+    for rung in SERVE_RUNGS:
+        Hs, Tp, beta = serve_requests(name, rung)
+        out = engine.dispatch([entry] * len(Hs), Hs, Tp, beta,
+                              out_keys=OUT_KEYS, mesh=mesh, padded=rung,
+                              record_metrics=False)
+        gd.update({f"r{rung}_Hs": Hs, f"r{rung}_Tp": Tp,
+                   f"r{rung}_beta": beta})
+        gd.update({f"r{rung}_{k}": np.asarray(v) for k, v in out.items()})
+    return gd
+
+
+def write_serve_fixtures():
+    import numpy as np
+
+    for name in DESIGNS:
+        gd = build_serve_golden(name)
+        np.savez_compressed(os.path.join(OUT_DIR, f"golden_serve_{name}.npz"),
+                            **gd)
+        print(f"wrote golden_serve_{name}.npz: status "
+              + " ".join(f"r{r}={gd[f'r{r}_status'].tolist()}"
+                         for r in SERVE_RUNGS))
+
+
 def main():
     import numpy as np
 
@@ -3520,6 +3589,9 @@ def main():
     if sys.argv[1:] == ["--sweeps"]:
         write_sweep_fixtures()
         return
+    if sys.argv[1:] == ["--serve"]:
+        write_serve_fixtures()
+        return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
         np.savez_compressed(os.path.join(OUT_DIR, f"packed_{name}.npz"), **pk)
@@ -3546,6 +3618,7 @@ def main():
     write_drivers_fixtures()
     write_omdao_fixtures()
     write_sweep_fixtures()
+    write_serve_fixtures()
 
 
 if __name__ == "__main__":

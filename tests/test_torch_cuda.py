@@ -18,7 +18,8 @@ each key's max|g| of the JAX goldens, forward-mode tangents within 1e-9
 x each key's max|tangent| (the solve's tangent bit-equal to the plain
 version on its right-hand side, and jacfwd's directions one launch);
 the orchestrated path's case metrics at the gates of
-``tests/test_torch_orchestrated.py``.
+``tests/test_torch_orchestrated.py``; a served row bit-equal to a direct
+bucket-evaluator call on the padded group that served it.
 """
 
 import json
@@ -753,3 +754,90 @@ def test_two_worker_fabric_on_card_is_bit_identical_to_serial(cuda,
         programs = {r["key"]: r["dispatches"]
                     for r in json.load(f)["programs"]}
     assert programs["ge_solve"] > 0
+
+
+@pytest.mark.cuda
+def test_serving_process_on_card_is_bit_equal_to_direct_calls(cuda):
+    """One in-process server on cuda:0 (the batcher's thread dispatches,
+    the asyncio server's loop runs in another) under 4 concurrent
+    clients over loopback: every served row bit-equal to a direct
+    bucket-evaluator call on the padded group that served it, status
+    equal, and the solve kernel's launches in the run equal to the sum
+    of the dispatches' launches."""
+    import asyncio
+    import threading
+
+    from raft_tpu_torch.serve import engine
+    from raft_tpu_torch.serve.batcher import Batcher
+    from raft_tpu_torch.serve.client import ServeClient
+    from raft_tpu_torch.serve.http import Server
+    from raft_tpu_torch.utils.devices import to_host
+
+    dev = torch.device("cuda", 0)
+    registry = engine.Registry()
+    for n in ("spar", "semi"):
+        registry.register(n, os.path.join(FIX, f"design_{n}.json"))
+    batcher = Batcher(registry, device=dev, max_batch=4, group_log=256)
+    engine.warm([registry.get(n) for n in registry.names()], device=dev,
+                out_keys=batcher.out_keys, sizes=batcher.sizes)
+    box, up = {}, threading.Event()
+
+    def serve():
+        loop = asyncio.new_event_loop()
+
+        async def run():
+            box["server"] = await Server(batcher, "127.0.0.1", 0).start()
+            up.set()
+            await box["server"].serve_until_stopped()
+
+        loop.run_until_complete(run())
+        loop.close()
+
+    th = threading.Thread(target=serve, daemon=True)
+    th.start()
+    assert up.wait(60)
+    port = box["server"].port
+    linsolve.reset_launches()
+    results = []
+
+    def client(i):
+        c = ServeClient("127.0.0.1", port, client_id=f"c{i}")
+        for j in range(6):
+            name = ("spar", "semi")[(i + j) % 2]
+            case = (3.0 + 0.5 * ((i * 6 + j) % 5), 8.0 + j % 3, 0.1 * i)
+            code, body = c.evaluate(name, *case)
+            results.append((name, case, code, body))
+        c.close()
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    c = ServeClient("127.0.0.1", port)
+    assert c.request("POST", "/drain")[0] == 202
+    c.close()
+    th.join(timeout=120)
+    launches = linsolve.KERNEL_LAUNCHES
+    groups = list(batcher.groups)
+    assert len(results) == 24 and all(r[2] == 200 for r in results)
+    assert launches == sum(g["launches"] for g in groups) > 0
+    rows = {}
+    with torch.no_grad():
+        for g in groups:
+            ents, n = g["entries"], len(g["entries"])
+            ev = tb.get_bucket_evaluator(ents[0].sig, dev)
+            design, seas = engine.padded_group(ents, g["Hs"], g["Tp"],
+                                               g["beta"], g["padded"], dev)
+            direct = ev(design, *seas)
+            for k in batcher.out_keys:
+                np.testing.assert_array_equal(g["out"][k],
+                                              to_host(direct[k][:n]))
+            for i, e in enumerate(ents):
+                rows[(e.name, g["Hs"][i], g["Tp"][i], g["beta"][i])] = (g, i)
+    for name, case, _, body in results:
+        g, i = rows[(name,) + tuple(float(x) for x in case)]
+        assert body["status"] == int(g["out"]["status"][i])
+        for k, v in body["outputs"].items():
+            np.testing.assert_array_equal(np.asarray(v, g["out"][k].dtype),
+                                          g["out"][k][i])

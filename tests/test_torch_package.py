@@ -114,6 +114,62 @@ def test_flags_mirror_the_jax_registry(monkeypatch):
         tcfg.get("SOLVER")
 
 
+#: the evaluation service's and the alert engine's flags
+SERVE_FLAGS = ("SERVE_TICK_MS", "SERVE_TICK_MIN_MS", "SERVE_TICK_MODE",
+               "SERVE_LADDER", "SERVE_LADDER_TOL", "SERVE_MAX_BATCH",
+               "SERVE_CACHE_MB", "SERVE_QUEUE", "SERVE_QPS", "SERVE_BURST",
+               "SERVE_TIMEOUT_S", "SERVE_DRAIN_S", "SERVE_SLO_MS",
+               "SERVE_WINDOW_S", "SERVE_CLIENT_RETRIES", "ALERT_EVAL_S",
+               "ALERT_RULES", "ALERTS")
+
+
+@pytest.mark.parametrize("name", SERVE_FLAGS)
+def test_serve_flags_mirror_the_jax_registry(monkeypatch, name):
+    """Every SERVE_* flag of the reference, and the alert engine's, under
+    the same name, kind, choices and default."""
+    from raft_tpu.utils import config as jcfg
+    from raft_tpu_torch.utils import config as tcfg
+
+    monkeypatch.delenv("RAFT_TPU_" + name, raising=False)
+    assert tcfg.FLAGS[name].env == jcfg.FLAGS[name].env
+    assert tcfg.FLAGS[name].kind == jcfg.FLAGS[name].kind
+    assert tcfg.FLAGS[name].choices == jcfg.FLAGS[name].choices
+    assert tcfg.get(name) == jcfg.get(name)
+    assert {f for f in jcfg.FLAGS if f.startswith("SERVE_")} <= set(
+        tcfg.FLAGS)
+
+
+def test_serve_cli_help_runs():
+    """``python -m raft_tpu_torch.serve --help`` runs (and imports no
+    JAX: the AST check above covers the serve modules' sources)."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-m", "raft_tpu_torch.serve",
+                          "--help"], cwd=ROOT, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for opt in ("--designs", "--device", "--dtype", "--no-warm",
+                "--out-keys", "--port"):
+        assert opt in out.stdout
+
+
+def test_serve_entry_points_raise_without_cuda_and_device(monkeypatch):
+    """The service's entry points raise naming device="cpu" without a
+    card and without a device; they never run on the CPU of their own
+    accord."""
+    from raft_tpu_torch.serve import engine
+    from raft_tpu_torch.serve.batcher import Batcher
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    reg = engine.Registry()
+    entry = reg.register("mhk", os.path.join(
+        ROOT, "tests", "fixtures", "torch_port", "design_mhk.json"))
+    for call in (lambda: Batcher(reg),
+                 lambda: engine.dispatch([entry], [2.0], [8.0], [0.0]),
+                 lambda: engine.warm([entry], sizes=(1,))):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            call()
+
+
 def test_compute_dtypes_policy(monkeypatch):
     from raft_tpu_torch.utils.dtypes import compute_dtypes
 
