@@ -298,10 +298,17 @@ Phases, each printing one line (the last line is the result object):
              bit-identical; the first run under RAFT_TPU_RUNS_DIR
              writes its run record, and `python -m raft_tpu_torch.obs
              runs list` and `obs trace --merge <its log dir> --check`
-             exit 0.  The workers' kernel ledgers (metrics.json
-             `programs`) give the phase's launches; every worker's exit
-             code is checked.  Worker start-up s, rows/s against the
-             serial sweep's.
+             exit 0.  The killed run carries the entry's AOT warm-up
+             spec (one shard's worth of the spar case program) under
+             RAFT_TPU_AOT=load into a fresh bank the two workers share:
+             each worker warms before its first claim, loading or
+             building the one program and launching the kernel as many
+             times as the same rows in this process.  The workers'
+             kernel ledgers (metrics.json `programs`) give the phase's
+             launches (the killed run's: the serial sweep's plus the
+             surviving worker's warm-up); every worker's exit code is
+             checked.  Worker start-up s and first-shard wall, cold and
+             warmed, rows/s against the serial sweep's.
 24. serve   - one serving process in this process on cuda:0: the spar
              and semi demos registered, the batch ladder SERVE_LADDER
              (1,4,16) through RAFT_TPU_SERVE_LADDER, every (signature x
@@ -323,12 +330,37 @@ Phases, each printing one line (the last line is the result object):
              difference across rungs recorded.  p50 / p95 request
              latency, rows/s, batch
              occupancy, the stage split (mean s per stage), the launches
-             and the phase's wall beside its SERVE_BUDGET_S (45 s).
-25. kernels - one JSON object listing both entries of the solve kernel,
+             and the phase's wall beside its SERVE_BUDGET_S (45 s).  The
+             server warms under RAFT_TPU_AOT=load into a fresh bank:
+             every (signature x rung) program built and stored, and
+             every design's provenance stamp names its entry's payload
+             sha (bank_sha not none).
+25. aot     - the program bank, its warm-up and its releases: `python -m
+             raft_tpu_torch.aot warmup --kinds serve,cases` in a child
+             process into a fresh bank (the spar serve program at rung
+             AOT_RUNG (4), its case program at AOT_ROWS (8) rows: two
+             entries, one payload, the kernel library); meanwhile the
+             same calls in this process, the bank off.  Releases: cut +
+             promote A, cut + promote B (parent A), verify B against the
+             bank, roll back to A; a tampered copy of A's manifest
+             refused by `release verify --manifest`.  Then, side by
+             side: a child under RAFT_TPU_AOT=require and
+             COMPILE_BUDGET=0 (tests/_torch_aot_child.py, started up
+             beside the warm-up and waiting for a go file before its
+             first program) that loads both programs and the bank's
+             copy of the library, builds nothing, runs no nvcc, and
+             answers bit-equal to this process's calls; a `python -m
+             raft_tpu_torch.serve` under
+             require and RAFT_TPU_FUSED=off that prints the release and
+             exits 3 with the preflight diagnosis naming `flags`.  The
+             children's launches are the phase's, each equal to this
+             process's same calls; the phase's wall beside its
+             AOT_BUDGET_S (45 s).
+26. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path (the analyze,
-             omdao, sweep, fabric and serve paths' also as
+             omdao, sweep, fabric, serve and aot paths' also as
              analyze_launches, omdao_launches, sweep_launches,
-             fabric_launches and serve_launches) and the adjoint
+             fabric_launches, serve_launches and aot_launches) and the adjoint
              with its launches on the grad and grad_paths paths, each
              with its N = 12 (one-lane-per-row) figures (the adjoint's
              from the farm's backward).
@@ -446,6 +478,11 @@ SERVE_REQS = 8
 SERVE_SEED = 20261102
 SERVE_POOL = 12
 SERVE_BUDGET_S = 45.0
+#: the aot phase: the spar case program's rows, the serve program's rung
+#: and the phase's wall budget [s]
+AOT_ROWS = 8
+AOT_RUNG = 4
+AOT_BUDGET_S = 45.0
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -3988,7 +4025,8 @@ def phase_fabric(out_dir, card):
     entry = "raft_tpu_torch.parallel.fabric:demo_entry"
     kw = {"n": FABRIC_ROWS, "seed": FABRIC_SEED, "out_keys": list(keys)}
     env_keys = ("RAFT_TPU_LOG", "RAFT_TPU_RUNS_DIR", "RAFT_TPU_FAULTS",
-                "RAFT_TPU_FABRIC_TTL_S", "RAFT_TPU_FABRIC_POLL_S")
+                "RAFT_TPU_FABRIC_TTL_S", "RAFT_TPU_FABRIC_POLL_S",
+                "RAFT_TPU_AOT", "RAFT_TPU_AOT_DIR")
     saved = {k: os.environ.get(k) for k in env_keys}
     res = dict(rows=FABRIC_ROWS, shard=FABRIC_SHARD, workers=FABRIC_WORKERS)
     try:
@@ -4034,6 +4072,7 @@ def phase_fabric(out_dir, card):
               f"fabric (a): worker exit codes {exits}")
         res["startup_s"] = {e["worker"]: e["startup_s"] for e in evs
                             if e["event"] == "fabric_worker_start"}
+        res["first_shard_s"] = _first_shards(evs)
         res["worker_devices"] = sorted({e["device"] for e in evs if
                                         e["event"] == "fabric_worker_start"})
         prog_a, res["shards_by_worker"] = _fabric_ledger(dir_a)
@@ -4063,23 +4102,52 @@ def phase_fabric(out_dir, card):
                   f"{p.returncode}: {(p.stdout + p.stderr)[-400:]}")
         res["trace_check"] = p.stdout.strip()
 
-        # (b) the same run with worker 0 SIGKILLed at its first claim:
-        # its lease expires and worker 1 steals it.  Each worker's first
-        # shard takes seconds (the process's first evaluation), so
-        # worker 0 claims one before worker 1 can finish the sweep
+        # (b) the same run with the entry's AOT warm-up spec (a shard's
+        # worth of the spar case program before the first claim, under
+        # RAFT_TPU_AOT=load into a fresh bank both workers share) and
+        # worker 0 SIGKILLed at its first claim: its lease expires and
+        # worker 1 steals it.  Both workers do the same work up to their
+        # first claim (their start-ups agree within tens of ms), so
+        # worker 0 claims one before worker 1 can finish the sweep.  The
+        # warm-up's launches, predicted by the same rows in this process
+        rng = np.random.default_rng(0)              # warmup_model's rows
+        l0 = linsolve.forward_launches()
+        ent["compute"]({"Hs": rng.uniform(2.0, 8.0, FABRIC_SHARD),
+                        "Tp": rng.uniform(6.0, 14.0, FABRIC_SHARD),
+                        "beta": rng.uniform(-0.5, 0.5, FABRIC_SHARD)},
+                       ts.make_mesh(1, device=None if on_card else "cpu"))
+        res["warmup_launches_want"] = linsolve.forward_launches() - l0
         del os.environ["RAFT_TPU_RUNS_DIR"]
         logs_b = os.path.join(base, "logs_b") + os.sep
         os.environ["RAFT_TPU_LOG"] = logs_b
         os.environ["RAFT_TPU_FAULTS"] = "worker_kill:worker_shard:1"
         os.environ["RAFT_TPU_FABRIC_TTL_S"] = str(FABRIC_TTL_S)
+        os.environ["RAFT_TPU_AOT"] = "load"
+        os.environ["RAFT_TPU_AOT_DIR"] = os.path.join(base, "bank_b")
         dir_b = os.path.join(base, "b")
         t0 = time.time()
         out_b = fabric.run_fabric(
             dir_b, FABRIC_WORKERS, entry, cases=cases, entry_kwargs=kw,
-            out_keys=keys, shard_size=FABRIC_SHARD, device=where)
+            out_keys=keys, shard_size=FABRIC_SHARD, device=where,
+            warmup={"sizes": [FABRIC_SHARD], "kinds": ["cases"]})
         res["killed_s"] = time.time() - t0
         same(out_b, "(b)")
         evs = _fabric_events(logs_b)
+        starts = {e["worker"]: e for e in evs
+                  if e["event"] == "fabric_worker_start"}
+        check(set(starts) == {f"w{i}" for i in range(FABRIC_WORKERS)} and all(
+            st.get("warmup_launches") == res["warmup_launches_want"]
+            and st["programs_loaded"] + st["programs_compiled"] == 1
+            for st in starts.values()),
+              f"fabric (b): worker warm-ups {starts} (each must load or "
+              f"build the one program, launching "
+              f"{res['warmup_launches_want']} times as this process did)")
+        res["startup_s_b"] = {w: st["startup_s"] for w, st in starts.items()}
+        res["warmup_s_b"] = {w: st["warmup_s"] for w, st in starts.items()}
+        res["programs_b"] = {w: (st["programs_loaded"],
+                                 st["programs_compiled"])
+                             for w, st in starts.items()}
+        res["first_shard_s_b"] = _first_shards(evs)
         exits = {e["worker"]: e["returncode"] for e in evs
                  if e["event"] == "fabric_worker_exit"}
         check(exits.get("w0") == -9 and all(
@@ -4096,10 +4164,13 @@ def phase_fabric(out_dir, card):
         res["steals"] = steals
         prog_b, res["shards_by_worker_b"] = _fabric_ledger(dir_b)
         res["launches_b"] = prog_b.get("ge_solve", 0)
-        check(res["launches_b"] == res["serial_launches"],
+        # the surviving worker's ledger: every shard and its warm-up
+        check(res["launches_b"] == res["serial_launches"]
+              + res["warmup_launches_want"],
               f"fabric (b): the workers launched the kernel "
               f"{res['launches_b']} times, the serial sweep "
-              f"{res['serial_launches']}")
+              f"{res['serial_launches']} + one warm-up "
+              f"{res['warmup_launches_want']}")
     finally:
         for k, v in saved.items():
             if v is None:
@@ -4118,14 +4189,42 @@ def phase_fabric(out_dir, card):
           f"bit-identical; worker start-up "
           + ", ".join(f"{w} {s:.2f} s" for w, s in
                       sorted(res["startup_s"].items()))
+          + ", first shard " + ", ".join(
+              f"{w} {s:.2f} s" for w, s in
+              sorted(res["first_shard_s"].items()))
           + f"; shards by worker {res['shards_by_worker']}; worker 0 killed "
           f"at its first claim: steals {res['steals']}, shards by worker "
           f"{res['shards_by_worker_b']}, {res['killed_s']:.2f} s, "
           f"bit-identical; run record and obs "
           f"trace --check ok; ge_solve launches {res['launches_a']} + "
           f"{res['launches_b']} (the serial sweep's "
-          f"{res['serial_launches']} each); phase {res['phase_s']:.1f} s")
+          f"{res['serial_launches']} each, + {res['warmup_launches_want']} "
+          f"of the surviving worker's warm-up in (b)); phase "
+          f"{res['phase_s']:.1f} s")
+    print("  fabric (b) with the AOT warm-up spec (RAFT_TPU_AOT=load): "
+          "worker start-up " + ", ".join(
+              f"{w} {s:.2f} s (warm-up {res['warmup_s_b'][w]:.2f} s, "
+              f"loaded/compiled {res['programs_b'][w]})"
+              for w, s in sorted(res["startup_s_b"].items()))
+          + "; first shard " + ", ".join(
+              f"{w} {s:.2f} s" for w, s in
+              sorted(res["first_shard_s_b"].items()))
+          + " (run (a), cold: start-up " + ", ".join(
+              f"{w} {s:.2f} s" for w, s in sorted(res["startup_s"].items()))
+          + ", first shard " + ", ".join(
+              f"{w} {s:.2f} s" for w, s in
+              sorted(res["first_shard_s"].items())) + ")")
     return res
+
+
+def _first_shards(evs):
+    """Each worker's first evaluated shard's wall (its first
+    ``shard_done`` event)."""
+    first = {}
+    for e in sorted((e for e in evs if e["event"] == "shard_done"
+                     and e.get("worker")), key=lambda e: e["t"]):
+        first.setdefault(e["worker"], e["wall_s"])
+    return first
 
 
 def _serve_plan():
@@ -4189,8 +4288,10 @@ def _start_server(batcher):
     return box["server"], th, box
 
 
-def phase_serve(card):
+def phase_serve(card, out_dir=None):
     """One serving process on the card (module docstring, phase 24)."""
+    import tempfile
+
     from raft_tpu_torch.obs import metrics
     from raft_tpu_torch.obs.report import SERVE_STAGES
     from raft_tpu_torch.ops import linsolve
@@ -4204,9 +4305,17 @@ def phase_serve(card):
     t_phase = time.time()
     on_card = str(DEVICE).startswith("cuda")
     dev = torch.device("cuda", 0) if on_card else torch.device(DEVICE)
-    env = config.env_name("SERVE_LADDER")
-    prev = os.environ.get(env)
-    os.environ[env] = SERVE_LADDER
+    env_names = (config.env_name("SERVE_LADDER"), config.env_name("AOT"),
+                 config.env_name("AOT_DIR"))
+    prev = {k: os.environ.get(k) for k in env_names}
+    os.environ[config.env_name("SERVE_LADDER")] = SERVE_LADDER
+    # the server warms under RAFT_TPU_AOT=load into a fresh bank, so its
+    # provenance stamps name the entries it stored
+    os.environ[config.env_name("AOT")] = "load"
+    os.environ[config.env_name("AOT_DIR")] = (
+        os.path.join(out_dir, "serve_bank") if out_dir
+        else tempfile.mkdtemp(prefix="serve_bank"))
+    shutil.rmtree(os.environ[config.env_name("AOT_DIR")], ignore_errors=True)
     try:
         registry = engine.Registry()
         for n in ("spar", "semi"):
@@ -4220,7 +4329,13 @@ def phase_serve(card):
                            sizes=batcher.sizes)
         warm_s = time.time() - t0
         walls = engine.ladder_walls(entries, batcher.sizes,
-                                    out_keys=batcher.out_keys)
+                                    out_keys=batcher.out_keys, device=dev)
+        prov = engine.build_provenance(registry, out_keys=batcher.out_keys,
+                                       sizes=batcher.sizes, device=dev)
+        check(all(prov[n]["bank_sha"] != "none" for n in registry.names())
+              and sum(r["compiled"] for r in warm) == len(warm),
+              f"serve: warmed under load, provenance {prov}, warm-up "
+              f"{[(r['loaded'], r['compiled']) for r in warm]}")
         server, th, box = _start_server(batcher)
         plan = _serve_plan()
         results, errors = [], []
@@ -4261,10 +4376,11 @@ def phase_serve(card):
         th.join(timeout=120)
         launches = linsolve.forward_launches()
     finally:
-        if prev is None:
-            os.environ.pop(env, None)
-        else:
-            os.environ[env] = prev
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
     check(code == 202 and not th.is_alive() and "error" not in box,
           f"serve: drain answered {code} {drained}, server thread alive "
           f"{th.is_alive()}, error {box.get('error')!r}")
@@ -4382,7 +4498,8 @@ def phase_serve(card):
         warm=warm, ladder_walls_s={str(r): w for r, w in walls.items()},
         by_rung={str(r): sum(g["padded"] == r for g in groups)
                  for r in batcher.sizes},
-        golden_worst_rel=max(gold_err.values()), rung_dependence=rung_dep)
+        golden_worst_rel=max(gold_err.values()), rung_dependence=rung_dep,
+        bank_sha={n: prov[n]["bank_sha"] for n in registry.names()})
     res["phase_s"] = time.time() - t_phase
     print(f"serve on {card}: {n_req} requests from {SERVE_CLIENTS} client "
           f"threads over loopback in {load_s:.2f} s, every one answered "
@@ -4400,7 +4517,9 @@ def phase_serve(card):
         f"{st} {v * 1e3:.3f}" for st, v in stages.items())
           + f"; serve_launches {launches} (= the dispatches' trips + 1 "
           f"each); warm-up {len(warm)} (signature x rung) in "
-          f"{warm_s:.2f} s, best walls ms " + ", ".join(
+          f"{warm_s:.2f} s under RAFT_TPU_AOT=load ("
+          f"{sum(r['compiled'] for r in warm)} programs stored, provenance "
+          f"bank_sha {res['bank_sha']}), best walls ms " + ", ".join(
               f"{r}: {w * 1e3:.2f}" for r, w in walls.items() if w))
     print(f"  serve: golden_serve_{{spar,semi}} at rungs 1, 4, 16 held "
           f"(worst {res['golden_worst_rel']:.2e} x max, status equal); the "
@@ -4408,6 +4527,218 @@ def phase_serve(card):
               f"{n} {v:.2e} x max" for n, v in rung_dep.items()))
     print(f"  serve: phase wall {res['phase_s']:.1f} s of its "
           f"{SERVE_BUDGET_S:.0f} s budget")
+    return res
+
+
+def _aot_cli(*argv):
+    """``python -m raft_tpu_torch.aot`` in this process: (exit code,
+    stdout + stderr)."""
+    import contextlib
+    import io
+
+    from raft_tpu_torch.aot.__main__ import main as aot_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(buf):
+        rc = aot_main(list(argv))
+    return rc, buf.getvalue()
+
+
+def phase_aot(out_dir, card):
+    """The program bank, its warm-up and its releases (module docstring,
+    phase 25)."""
+    from raft_tpu_torch import api
+    from raft_tpu_torch.aot import bank, release
+    from raft_tpu_torch.models.model import Model
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.parallel import sweep as ts
+    from raft_tpu_torch.serve import engine
+
+    t_phase = time.time()
+    on_card = str(DEVICE).startswith("cuda")
+    dev = torch.device("cuda", 0) if on_card else torch.device(DEVICE)
+    dev_arg = "cuda" if on_card else str(DEVICE)
+    base = os.path.join(out_dir, "aot")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    root = os.path.join(base, "bank")
+    spar = os.path.join(FIX, "design_spar.json")
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RAFT_TPU_", "AOT_CHILD"))}
+    env.update(RAFT_TPU_AOT_DIR=root, RAFT_TPU_SERVE_LADDER=str(AOT_RUNG),
+               PYTHONPATH=HERE)
+    res = dict(rows=AOT_ROWS, rung=AOT_RUNG)
+
+    def spawn(argv, **extra):
+        p = subprocess.Popen([sys.executable] + argv, env=dict(env, **extra),
+                             cwd=HERE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+        CHILDREN.append(p)
+        return p
+
+    def finish(p, what):
+        try:
+            out, err = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            out, err = p.communicate()
+        return p.returncode, out, err
+
+    # 1. the warm-up CLI into a fresh bank: the serve program at the
+    #    rung, the spar case program at AOT_ROWS rows.  Beside it the
+    #    require child (COMPILE_BUDGET=0) starts up — imports, context,
+    #    model and evaluator — and waits for the go file before its
+    #    first program, and this process makes the same calls, the bank
+    #    off (the bits the children are held to, and their launches: the
+    #    prediction)
+    t0 = time.time()
+    go = os.path.join(base, "go")
+    warm = spawn(["-m", "raft_tpu_torch.aot", "warmup", "--design", spar,
+                  "--kinds", "serve,cases", "--n", str(AOT_ROWS),
+                  "--device", dev_arg])
+    child = spawn([os.path.join(HERE, "tests", "_torch_aot_child.py")],
+                  RAFT_TPU_AOT="require", RAFT_TPU_COMPILE_BUDGET="0",
+                  AOT_CHILD_DEVICE=dev_arg, AOT_CHILD_N=str(AOT_ROWS),
+                  AOT_CHILD_GO=go,
+                  AOT_CHILD_OUT=os.path.join(base, "require.npz"))
+    prev = {k: os.environ.get(k) for k in ("RAFT_TPU_SERVE_LADDER",
+                                           "RAFT_TPU_AOT_DIR")}
+    os.environ["RAFT_TPU_SERVE_LADDER"] = str(AOT_RUNG)
+    os.environ["RAFT_TPU_AOT_DIR"] = root
+    try:
+        model = Model(spar, base_dir=FIX)
+        entry = engine.DesignEntry("spar", model)
+        rng = np.random.default_rng(0)          # warmup_model's rows
+        Hs, Tp, beta = (rng.uniform(2.0, 8.0, AOT_ROWS),
+                        rng.uniform(6.0, 14.0, AOT_ROWS),
+                        rng.uniform(-0.5, 0.5, AOT_ROWS))
+        l0 = linsolve.forward_launches()
+        here = ts.sweep_cases(api.make_case_evaluator(model, device=dev),
+                              Hs, Tp, beta, mesh=ts.make_mesh(device=dev),
+                              out_keys=("PSD", "X0", "status"))
+        l1 = linsolve.forward_launches()
+        served = engine.dispatch([entry] * AOT_RUNG, Hs[:AOT_RUNG],
+                                 Tp[:AOT_RUNG], beta[:AOT_RUNG], device=dev,
+                                 padded=AOT_RUNG, record_metrics=False)
+        l2 = linsolve.forward_launches()
+        engine.warm([entry], device=dev, sizes=(AOT_RUNG,))
+        l3 = linsolve.forward_launches()
+        want_warm, want_child = (l1 - l0) + (l3 - l2), (l1 - l0) + (l2 - l1)
+        rc, out, err = finish(warm, "warmup")
+        res["warmup_s"] = time.time() - t0
+        check(rc == 0, f"aot: the warm-up exited {rc}: {err[-600:]}")
+        lines = [ln for ln in out.splitlines() if ln.startswith("warmup ")]
+        got_warm = sum(int(re.search(r"(\d+) kernel launch", ln).group(1))
+                       for ln in lines)
+        check(len(lines) == 2 and all("compiled 1 program(s)" in ln
+                                      for ln in lines),
+              f"aot: warm-up reports {lines}")
+        check(got_warm == want_warm,
+              f"aot: the warm-up launched {got_warm} times, this process's "
+              f"same calls {want_warm}")
+        res["warmup_launches"] = got_warm
+        metas = [m for _, m, mp, _ in bank.scan() if mp]
+        payloads = os.listdir(bank.payload_dir())
+        check(len(metas) == 2 and len(payloads) == 1 and payloads[0]
+              .endswith(".so" if on_card else ".plain"),
+              f"aot: bank holds {len(metas)} entries, payloads {payloads}")
+        res["first_run_s"] = {m["kind"]: m["compile_s"] for m in metas}
+
+        # 3. releases: cut A, cut B over A, verify, roll back to A
+        rc_a, txt_a = _aot_cli("release", "cut", "--promote", "--label", "a")
+        rid_a = release.current_release()
+        rc_b, txt_b = _aot_cli("release", "cut", "--promote", "--label", "b")
+        rid_b = release.current_release()
+        rc_v, txt_v = _aot_cli("release", "verify")
+        rc_r, txt_r = _aot_cli("release", "rollback")
+        check((rc_a, rc_b, rc_v, rc_r) == (0, 0, 0, 0) and rid_a != rid_b
+              and release.current_release() == rid_a
+              and release.load_release(rid_b)["parent"] == rid_a,
+              f"aot: release cut/promote/verify/rollback "
+              f"{(rc_a, rc_b, rc_v, rc_r)}: {txt_a} {txt_b} {txt_v} {txt_r}")
+        man_a = release.load_release(rid_a)
+        check(man_a["n_entries"] == 2 and release.verify_against_bank(
+            man_a) == [], f"aot: release {rid_a} {man_a['n_entries']} entries")
+        # 4. a tampered manifest is refused
+        bad = dict(man_a, entries={k: dict(v, payload_sha256="e" * 64)
+                                   for k, v in man_a["entries"].items()})
+        bad_path = os.path.join(base, "tampered.json")
+        with open(bad_path, "w") as f:
+            json.dump(bad, f)
+        rc_t, txt_t = _aot_cli("release", "verify", "--manifest", bad_path)
+        rc_g, _ = _aot_cli("release", "verify", "--manifest",
+                           release.manifest_path(rid_a))
+        check(rc_t == 1 and "manifest_sha256 mismatch" in txt_t and rc_g == 0,
+              f"aot: tampered manifest verify exited {rc_t}, the good one "
+              f"{rc_g}: {txt_t}")
+        res.update(release=rid_a, releases=[rid_a, rid_b])
+    finally:
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    # 2. the require child runs its programs on the warm bank, and 5. a
+    #    require server under a flipped RAFT_TPU_FUSED starts beside it
+    t0 = time.time()
+    with open(go, "w") as f:
+        f.write("warm\n")
+    skew = spawn(["-m", "raft_tpu_torch.serve", "--designs", f"spar={spar}",
+                  "--port", "0", "--device", dev_arg],
+                 RAFT_TPU_AOT="require", RAFT_TPU_FUSED="off")
+    rc, out, err = finish(child, "require")
+    res["require_s"] = time.time() - t0
+    check(rc == 0, f"aot: the require child exited {rc}: {err[-600:]}")
+    r = json.loads(out.strip().splitlines()[-1])
+    res["require"] = r
+    check((r["loaded"], r["compiled"], r["builds"], r["nvcc_runs"],
+           r["built_here"]) == (2, 0, 0, 0, False),
+          f"aot: the require child loaded {r['loaded']}, compiled "
+          f"{r['compiled']}, builds {r['builds']}, nvcc {r['nvcc_runs']}")
+    if on_card:
+        check(r["library"] and r["library"].startswith(root),
+              f"aot: the require child's library {r['library']} is not the "
+              "bank's copy")
+    check(r["launches"] == want_child,
+          f"aot: the require child launched {r['launches']} times, this "
+          f"process's same calls {want_child}")
+    got = np.load(os.path.join(base, "require.npz"))
+    for k, v in list(here.items()):
+        check(np.array_equal(got[f"cases_{k}"], v),
+              f"aot: the require child's cases {k} differs")
+    for k, v in served.items():
+        check(np.array_equal(got[f"serve_{k}"], v),
+              f"aot: the require child's served {k} differs")
+    rc, out, err = finish(skew, "skew")
+    res["skew_s"] = time.time() - t0
+    check(rc == 3 and f"release: {rid_a}" in out and "why [flags]" in err
+          and f"bank preflight vs release {rid_a}" in err,
+          f"aot: the skewed require server exited {rc}: {out[-300:]} "
+          f"{err[-600:]}")
+    res["diagnosis"] = [ln for ln in err.splitlines() if ln.startswith(
+        ("bank preflight", "  spar", "  why"))]
+    res["launches"] = res["warmup_launches"] + r["launches"]
+    res["phase_s"] = time.time() - t_phase
+    print(f"aot on {card}: warm-up child (serve at rung {AOT_RUNG}, spar "
+          f"cases at {AOT_ROWS} rows) {res['warmup_s']:.2f} s, 2 programs "
+          f"stored (first runs " + ", ".join(
+              f"{k} {v:.2f} s" for k, v in res["first_run_s"].items())
+          + f"), one {'library' if on_card else 'plain'} payload; require "
+          f"child (COMPILE_BUDGET=0, started beside the warm-up) "
+          f"{res['require_s']:.2f} s after the go: loaded "
+          f"{r['loaded']}, compiled 0, nvcc 0, its programs "
+          f"{r['run_s']:.2f} s, cold start {r['cold_start_s']:.2f} s "
+          f"(the wait for the go, {r['wait_s']:.2f} s, left out), "
+          "bit-equal to this process")
+    print(f"  aot: releases {rid_a} <- {rid_b} cut, promoted, verified, "
+          f"rolled back to {rid_a}; tampered manifest refused; require "
+          f"server under RAFT_TPU_FUSED=off exited 3: "
+          + " | ".join(res["diagnosis"][:3]))
+    print(f"  aot: ge_solve launches {res['launches']} (warm-up "
+          f"{res['warmup_launches']} + require child {r['launches']}, "
+          f"each as predicted); phase {res['phase_s']:.1f} s of its "
+          f"{AOT_BUDGET_S:.0f} s budget")
     return res
 
 
@@ -4480,7 +4811,8 @@ def main():
         rec["sweep"] = timed("sweep", phase_sweep, evs["semi_wind"], models,
                              args.out, rec["card"])
         rec["fabric"] = timed("fabric", phase_fabric, args.out, rec["card"])
-        rec["serve"] = timed("serve", phase_serve, rec["card"])
+        rec["serve"] = timed("serve", phase_serve, rec["card"], args.out)
+        rec["aot"] = timed("aot", phase_aot, args.out, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4507,7 +4839,8 @@ def main():
         qtf_geometry=rec["qtf"]["geometry"]["launches"],
         analyze=rec["analyze"]["launches"],
         omdao=rec["omdao"]["launches"], sweep=rec["sweep"]["launches"],
-        fabric=rec["fabric"]["launches"], serve=rec["serve"]["launches"])
+        fabric=rec["fabric"]["launches"], serve=rec["serve"]["launches"],
+        aot=rec["aot"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -4529,12 +4862,14 @@ def main():
                   + rec["omdao"]["launches"]
                   + rec["sweep"]["launches"]
                   + rec["fabric"]["launches"]
-                  + rec["serve"]["launches"]),
+                  + rec["serve"]["launches"]
+                  + rec["aot"]["launches"]),
         analyze_launches=rec["analyze"]["launches"],
         omdao_launches=rec["omdao"]["launches"],
         sweep_launches=rec["sweep"]["launches"],
         fabric_launches=rec["fabric"]["launches"],
         serve_launches=rec["serve"]["launches"],
+        aot_launches=rec["aot"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

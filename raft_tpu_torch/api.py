@@ -200,8 +200,16 @@ class DesignEvaluator(CaseEvaluator):
 def _stamped(ev, factory, model, **kwargs):
     """Stamp ``ev`` with the factory call that made it (the sweeps build
     its twin on another device from it:
-    :func:`raft_tpu_torch.parallel.sweep.bind_evaluator`)."""
+    :func:`raft_tpu_torch.parallel.sweep.bind_evaluator`) and with its
+    program identity for the program bank, the reference's
+    ``_stamp_program_key``: the factory's name and a content hash of the
+    design and the factory's arguments (:mod:`raft_tpu_torch.aot.bank`
+    banks only stamped evaluators)."""
+    from raft_tpu_torch.aot.bank import content_fingerprint
+
     ev._raft_factory = (factory, (model,), kwargs)
+    ev._raft_program_key = (factory.__name__,
+                            content_fingerprint((model.design, kwargs)))
     return ev
 
 

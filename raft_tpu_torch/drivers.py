@@ -1,5 +1,6 @@
 """High-level drivers of the port (counterpart of ``raft_tpu/drivers.py``):
 the ``runRAFT``-style entry points :func:`run` and :func:`run_farm`, the
+program bank's warm-up (:func:`warmup`), the
 channel-statistics CSV (:func:`save_responses`), the steady power and
 thrust curve, and the ballast adjustments.  ``python -m raft_tpu_torch
 design.json`` runs :func:`run` (:mod:`raft_tpu_torch.__main__`).
@@ -45,6 +46,31 @@ def _run(span_name, input_file, save_csv, device):
         if save_csv:
             save_responses(model, save_csv)
     return model
+
+
+def warmup(input_file=None, sizes=(8,), kinds=("cases", "full", "design"),
+           out_keys=("PSD", "X0", "status"), device=None):
+    """Warm the program bank for a design before serving it (the
+    reference's ``drivers.warmup``; the driver-level face of ``python -m
+    raft_tpu_torch.aot warmup``): builds the model once and pushes every
+    requested kind through the production funnel under
+    ``RAFT_TPU_AOT=load``, so each program is built, run and stored in
+    the bank (``RAFT_TPU_AOT_DIR``).  A later fresh process — a fabric
+    worker, a serving process — then loads them, with no ``nvcc`` run on
+    the card (run it under ``RAFT_TPU_AOT=require`` +
+    ``RAFT_TPU_COMPILE_BUDGET=0`` to make that an enforced invariant).
+
+    sizes : batch sizes to warm, one program each (warm the shard sizes
+        you will dispatch).
+    device : where the programs run (default: the current CUDA device;
+        raises without one, naming ``device="cpu"``).
+    Returns the per-program warm-up reports (kind, rows, wall_s,
+    loaded, compiled, launches)."""
+    from raft_tpu_torch.aot.warmup import warmup_model
+    from raft_tpu_torch.utils.dtypes import resolve_device
+
+    return warmup_model(design=input_file, sizes=sizes, kinds=kinds,
+                        out_keys=out_keys, device=resolve_device(device))
 
 
 def save_responses(model, path):

@@ -133,16 +133,22 @@ EVENTS: dict[str, tuple[tuple[str, ...], str]] = {
         ("out_dir", "worker", "pid"),
         "coordinator spawned one worker subprocess"),
     "fabric_worker_start": (
-        ("out_dir", "worker", "n_shards", "device", "startup_s"),
+        ("out_dir", "worker", "n_shards", "device", "startup_s",
+         "programs_loaded", "programs_compiled", "warmup_s?",
+         "warmup_launches?"),
         "a fabric worker is ready to claim shards (after the torch "
         "import, its mesh resolution — the CUDA health probe on the "
-        "card — and its entry's evaluator build; startup_s counts from "
-        "the worker's first line)"),
+        "card — its AOT warm-up when the entry names one and the bank "
+        "is armed, and its entry's evaluator build; startup_s counts "
+        "from the worker's first line; programs_* are the bank's "
+        "counters so far, warmup_launches the warm-up's solve-kernel "
+        "launches)"),
     "fabric_worker_done": (
         ("out_dir", "worker", "shards_done", "shards_resumed", "rows",
-         "wall_s", "launches"),
+         "wall_s", "launches", "programs_loaded", "programs_compiled"),
         "a fabric worker found the ledger drained and exited cleanly; "
-        "launches is its solve-kernel launches, every entry"),
+        "launches is its solve-kernel launches, every entry (its "
+        "warm-up's included); programs_* are the bank's counters"),
     "fabric_worker_exit": (
         ("out_dir", "worker", "returncode"),
         "a spawned worker subprocess exited (nonzero returncode with "
@@ -167,6 +173,69 @@ EVENTS: dict[str, tuple[tuple[str, ...], str]] = {
         "RAFT_TPU_FABRIC_WORKERS requested but the sweep cannot run "
         "on the fabric (no entry spec on the evaluator); falling back "
         "to the serial in-process path"),
+    # ------------------------------------------------------ program bank
+    "aot_load": (
+        ("kind", "key", "bytes", "wall_s"),
+        "a bank entry answered this program: its payload's sha checked "
+        "and, on the card, the bank's copy of the kernel library loaded "
+        "— nothing built (raft_tpu_torch.aot.bank)"),
+    "aot_miss": (
+        ("kind", "key", "mode"),
+        "no bank entry for this program key; 'require' mode raises "
+        "BankMissError here unless RAFT_TPU_AOT_MISS=compile"),
+    "aot_store": (
+        ("kind", "key", "bytes", "compile_s"),
+        "a program that missed was built and run, and its entry (the "
+        "sidecar and the kernel library it ran) stored for the next "
+        "process; compile_s is the wall of that first run"),
+    "aot_unbankable": (
+        ("kind",),
+        "a sweep evaluator carries no program-identity stamp "
+        "(_raft_program_key) and runs without the bank — make it with "
+        "a raft_tpu_torch.api factory to make it bankable"),
+    "aot_error": (
+        ("error", "kind?", "key?"),
+        "a bank entry could not be read or stored (corrupt or "
+        "truncated payload, a library that does not load) — logged and "
+        "treated as a miss, never fatal"),
+    "aot_gc": (
+        ("removed", "kept", "bytes_freed", "dry_run"),
+        "bank garbage collection removed stale/orphaned entries "
+        "(python -m raft_tpu_torch.aot gc)"),
+    "aot_warmup": (
+        ("kind", "n", "loaded", "compiled", "wall_s", "n_buckets?"),
+        "one warm-up sweep dispatched (python -m raft_tpu_torch.aot "
+        "warmup); bucketed kind warms n rows per bucket signature"),
+    "compile_budget_exceeded": (
+        ("count", "budget", "action"),
+        "a program build (a bank miss or an nvcc run) exceeded "
+        "RAFT_TPU_COMPILE_BUDGET; action 'error' raised "
+        "CompileBudgetError before the build"),
+    "release_cut": (
+        ("release", "parent", "entries", "label?"),
+        "an immutable content-addressed release manifest was cut from "
+        "the current bank snapshot (python -m raft_tpu_torch.aot "
+        "release cut): bank entry keys + payload shas + code hash + "
+        "flags fingerprint + parent release, signed by its own sha"),
+    "release_promote": (
+        ("release", "previous"),
+        "the torch-releases/current pointer was flipped (atomic "
+        "rename) to a new release — a serving process resolves its "
+        "bank through this pointer at start-up"),
+    "release_rollback": (
+        ("release", "to"),
+        "the current pointer was re-pointed at the release's parent"),
+    "release_resolve": (
+        ("release", "root"),
+        "a serving process resolved its bank through the current "
+        "release pointer at start-up; the release id is stamped into "
+        "every x-raft-provenance response header"),
+    "release_preflight": (
+        ("release", "unwarmed", "total", "reason?"),
+        "the release-vs-designs bank preflight ran (aot release "
+        "verify --against-designs, or a require-mode server dying on "
+        "a BankMissError): how many design/rung programs are unwarmed "
+        "and the mismatch class (code | flags | ladder | avals)"),
     # ----------------------------------------------------------- solvers
     "statics_unconverged": (
         ("n_iter", "status", "reason"),

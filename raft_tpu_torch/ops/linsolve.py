@@ -55,7 +55,7 @@ import threading
 
 import torch
 
-from raft_tpu_torch.utils import ad, config
+from raft_tpu_torch.utils import ad, budget, config
 
 MAX_NATIVE_N = 12
 #: the smallest N that takes the kernel's one-lane-per-row design
@@ -80,6 +80,12 @@ _COUNT_LOCK = threading.Lock()
 #: True once :func:`build` has compiled the kernel library in this
 #: process (False while it only loaded an existing build, or none)
 BUILT_HERE = False
+#: nvcc runs of :func:`build` in this process (the program bank's
+#: compile budget counts them)
+NVCC_RUNS = 0
+#: the file the loaded kernel library came from (None before the first
+#: load): the build directory's, or a program bank's copy
+LIB_PATH = None
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 PKG_DIR = os.path.dirname(_HERE)
@@ -350,10 +356,11 @@ def build(force=False):
     returns the library path and, when it compiled, nvcc's ``-Xptxas
     -v`` report.  Raises ``RuntimeError`` with the compiler's output on
     failure."""
-    global BUILT_HERE
+    global BUILT_HERE, NVCC_RUNS
     out = library_path()
     if os.path.exists(out) and not force:
         return out, ""
+    budget.charge("nvcc")   # RAFT_TPU_COMPILE_BUDGET, before the run
     nvcc = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "nvcc")
     if not os.path.exists(nvcc):
@@ -370,35 +377,58 @@ def build(force=False):
                                f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, out)
         BUILT_HERE = True
+        NVCC_RUNS += 1
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
     return out, proc.stderr
 
 
-def _lib():
-    global _LIB
+def use_library(path):
+    """Load the kernel library from ``path`` (a program bank's copy,
+    whose sha the bank checked) unless this process has loaded one
+    already; returns the path of the library in use.  A process that
+    loads the bank's copy before its first launch never calls
+    :func:`build`, so it runs no ``nvcc``."""
     with _LIB_LOCK:
         if _LIB is None:
-            path, _ = build()
-            lib = ctypes.CDLL(path)
-            args = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
-            for name in ("raft_ge_solve_f64", "raft_ge_solve_f32",
-                         "raft_ge_solve_adj_f64", "raft_ge_solve_adj_f32"):
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            args = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_void_p]
-            for name in ("raft_ge_solve_rows_f64", "raft_ge_solve_rows_f32",
-                         "raft_ge_solve_rows_adj_f64",
-                         "raft_ge_solve_rows_adj_f32"):
-                fn = getattr(lib, name)
-                fn.argtypes = args
-                fn.restype = ctypes.c_int
-            _LIB = lib
+            _bind(path)
+        return LIB_PATH
+
+
+def loaded_library():
+    """The path of the kernel library this process loaded, or None."""
+    with _LIB_LOCK:
+        return LIB_PATH
+
+
+def _lib():
+    with _LIB_LOCK:
+        if _LIB is None:
+            _bind(build()[0])
     return _LIB
+
+
+def _bind(path):
+    """dlopen ``path`` and declare its entries (under ``_LIB_LOCK``)."""
+    global _LIB, LIB_PATH
+    lib = ctypes.CDLL(path)
+    args = [ctypes.c_void_p] * 6 + [ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_void_p]
+    for name in ("raft_ge_solve_f64", "raft_ge_solve_f32",
+                 "raft_ge_solve_adj_f64", "raft_ge_solve_adj_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    args = [ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_int,
+                                    ctypes.c_void_p]
+    for name in ("raft_ge_solve_rows_f64", "raft_ge_solve_rows_f32",
+                 "raft_ge_solve_rows_adj_f64",
+                 "raft_ge_solve_rows_adj_f32"):
+        fn = getattr(lib, name)
+        fn.argtypes = args
+        fn.restype = ctypes.c_int
+    _LIB, LIB_PATH = lib, path
 
 
 def soa_planes(Z, F):

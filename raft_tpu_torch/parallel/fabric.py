@@ -54,10 +54,16 @@ mesh or ``device=`` says ``"cpu"``) and the dtype policy.  A worker on
 ``"cuda"`` resolves its mesh through :func:`~raft_tpu_torch.parallel.
 resilience.resolve_mesh` (health probe, raise, never the CPU); on
 ``"cpu"`` it takes ``make_mesh(device="cpu")``.  With one card, every
-worker lands on ``cuda:0``.  Two things of the reference are refused
-rather than skipped: an entry's AOT ``warmup`` spec (the program bank
-is ROADMAP A15(e); :func:`init_sweep` raises) and multi-host workers
-(``RAFT_TPU_DIST*`` set; ROADMAP A15(g); a worker raises).
+worker lands on ``cuda:0``.  One thing of the reference is refused
+rather than skipped: multi-host workers (``RAFT_TPU_DIST*`` set;
+ROADMAP A15(g); a worker raises).
+
+Cold start: an entry can name an AOT ``warmup`` spec — a worker pushes
+it through :func:`raft_tpu_torch.aot.warmup.warmup_model` before its
+first claim when ``RAFT_TPU_AOT`` is armed, so its first shard does not
+carry the process's first evaluation; its ``fabric_worker_start`` event
+and status file report ``programs_loaded`` / ``programs_compiled``,
+``warmup_s`` and ``warmup_launches``.
 
 Failure injection (:mod:`raft_tpu_torch.utils.faults`): ``worker_kill:
 worker_shard`` SIGKILLs a worker right after it claims a lease;
@@ -632,23 +638,31 @@ class Worker:
                              worker_id=self.worker_id)
         self.ledger.write_worker_status("starting")
         self.mesh = self._setup_runtime(spec)
+        warm = {}
+        if spec.get("warmup") and config.get("AOT") != "off":
+            warm = self._warmup(spec["warmup"])
         kwargs = dict(spec.get("entry_kwargs") or {})
         kwargs.setdefault("device", spec.get("device", "cuda"))
         self.compute = resolve_entry(spec["entry"], kwargs)["compute"]
-        self._counters0 = dict(metrics.snapshot()["counters"])
+        counters0 = dict(metrics.snapshot()["counters"])
+        self._counters0 = counters0
         startup = _process_age_s()
         # arm the flight recorder (no-op without RAFT_TPU_FLIGHT_DIR):
         # a killed worker leaves a black box with its last shards' spans
         from raft_tpu_torch.obs import flight
 
         flight.maybe_start()
+        programs = dict(
+            programs_loaded=counters0.get("aot_programs_loaded", 0),
+            programs_compiled=counters0.get("aot_programs_compiled", 0))
         log_event("fabric_worker_start", out_dir=self.out_dir,
                   worker=self.worker_id, n_shards=self.n_shards,
                   device=str(self.mesh.devices.flat[0]),
-                  startup_s=None if startup is None else round(startup, 3))
+                  startup_s=None if startup is None else round(startup, 3),
+                  **programs, **warm)
         progress = {"out_dir": self.out_dir, "shards_done": 0,
                     "n_shards": self.n_shards}
-        self.ledger.write_worker_status("ready")
+        self.ledger.write_worker_status("ready", **programs, **warm)
         poll_s = float(config.get("FABRIC_POLL_S"))
         with maybe_heartbeat(devices=list(self.mesh.devices.flat),
                              progress=progress,
@@ -669,19 +683,52 @@ class Worker:
         from raft_tpu_torch.aot import bank
 
         # `programs` is this worker's kernel ledger (launches per solve
-        # entry), folded fleet-wide by the coordinator's assemble
+        # entry, its warm-up's included), folded fleet-wide by the
+        # coordinator's assemble; the bank counters are absolute (the
+        # warm-up predates counters0)
         programs = bank.ledger_summary()
+        cnt = metrics.snapshot()["counters"]
+        banked = dict(
+            programs_loaded=cnt.get("aot_programs_loaded", 0),
+            programs_compiled=cnt.get("aot_programs_compiled", 0))
         self.ledger.write_worker_status(
             "done", counters=self._counter_delta(),
             shards_done=self.shards_done,
             shards_resumed=self.shards_resumed, rows=self.rows,
-            programs=programs)
+            programs=programs, **banked)
         log_event("fabric_worker_done", out_dir=self.out_dir,
                   worker=self.worker_id, shards_done=self.shards_done,
                   shards_resumed=self.shards_resumed, rows=self.rows,
                   wall_s=round(time.perf_counter() - t0, 3),
-                  launches=sum(r["dispatches"] for r in programs))
+                  launches=sum(r["dispatches"] for r in programs), **banked)
         return self.shards_done
+
+    def _warmup(self, warmup):
+        """Push the entry's AOT warm-up spec through the program bank
+        before the first claim (:func:`raft_tpu_torch.aot.warmup.
+        warmup_model` on this worker's mesh): the process's first
+        evaluation — the library's load, the lazy loading of the kernels
+        it and torch launch — then happens here, not inside a leased
+        shard.  A failure is logged, never fatal: the first shard then
+        pays it.  Returns ``warmup_s`` and ``warmup_launches`` (the
+        solve kernel's launches of the warm-up)."""
+        from raft_tpu_torch.ops import linsolve
+
+        t0 = time.perf_counter()
+        l0 = linsolve.forward_launches()
+        try:
+            from raft_tpu_torch.aot.warmup import warmup_model
+
+            warmup_model(
+                design=warmup.get("design"),
+                sizes=tuple(warmup.get("sizes") or (self.shard_size,)),
+                kinds=tuple(warmup.get("kinds") or ("cases",)),
+                out_keys=tuple(warmup.get("out_keys") or self.out_keys),
+                mesh=self.mesh)
+        except Exception as e:
+            log_event("aot_error", error=f"fabric warmup failed: {e}"[:300])
+        return {"warmup_s": round(time.perf_counter() - t0, 3),
+                "warmup_launches": linsolve.forward_launches() - l0}
 
     def _shard_rows(self, shard):
         lo = shard * self.shard_size
@@ -823,14 +870,11 @@ def init_sweep(out_dir, entry, cases, out_keys, shard_size,
     process); resuming against an existing out_dir is
     manifest-validated exactly like the serial runner.  ``device``
     (``"cuda"`` or ``"cpu"``) is where the workers run; the spec also
-    carries the dtype policy (``RAFT_TPU_DTYPE``).  An AOT ``warmup``
-    spec raises: the program bank is ROADMAP A15(e).  Returns the spec
-    dict."""
-    if warmup:
-        raise NotImplementedError(
-            "fabric entry with an AOT warmup spec: the program bank and "
-            "its warm-up are not ported yet (ROADMAP A15(e)); drop "
-            "'warmup' from the entry")
+    carries the dtype policy (``RAFT_TPU_DTYPE``) and the entry's AOT
+    ``warmup`` spec (``{"design", "sizes", "kinds", "out_keys"}``, each
+    optional: the bundled spar demo, the shard size, ``cases``, the
+    sweep's out_keys), which every worker runs before its first claim
+    when ``RAFT_TPU_AOT`` is armed.  Returns the spec dict."""
     if device not in ("cuda", "cpu"):
         raise ValueError(f"device={device!r}: expected 'cuda' or 'cpu'")
     cases = {k: np.asarray(v) for k, v in cases.items()}
@@ -857,7 +901,7 @@ def init_sweep(out_dir, entry, cases, out_keys, shard_size,
         "n_shards": int(n_shards),
         "device": device,
         "dtype": config.get("DTYPE") or None,
-        "warmup": None,
+        "warmup": dict(warmup) if warmup else None,
         "max_retries": int(max_retries),
         "backoff_s": float(backoff_s),
         "quarantine_retry": bool(quarantine_retry),

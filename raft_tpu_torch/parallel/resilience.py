@@ -407,10 +407,20 @@ def _rung_flags(rung):
     not absolute, so a base sweep already running with a scaled budget
     still escalates to a strictly larger one; ``f64_cpu`` additionally
     forces the float64 compute policy (``RAFT_TPU_DTYPE``), under which
-    the rung's evaluator twin is built."""
+    the rung's evaluator twin is built.
+
+    A rung's flags change its program-bank key, and warm-up stores no
+    rung programs, so under the serving config (``RAFT_TPU_AOT=require``
+    with ``RAFT_TPU_COMPILE_BUDGET=0``) the rung's first re-solve would
+    miss the bank and raise instead of healing the row.  Escalation is a
+    rare one-row recovery where availability comes before a build-free
+    process: a rung may always build (``AOT_MISS=compile``, no budget),
+    and under ``load`` / ``require`` it stores its entry, so the next
+    process's same rung loads."""
     ambient = max(int(config.get("ITER_SCALE")), 1)
     flags = {"ITER_SCALE":
-             str(ambient * max(int(config.get("ESCALATE_ITER_SCALE")), 2))}
+             str(ambient * max(int(config.get("ESCALATE_ITER_SCALE")), 2)),
+             "AOT_MISS": "compile", "COMPILE_BUDGET": "-1"}
     if rung == "f64_cpu":
         flags["DTYPE"] = "float64"
     old = {}

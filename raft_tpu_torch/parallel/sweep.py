@@ -23,6 +23,13 @@ runs as a twin, built by the same factory with the same arguments for
 that device (:func:`bind_evaluator`).  A plain function evaluator gets
 its inputs on each block's device.
 
+Under ``RAFT_TPU_AOT=load|require`` the program bank
+(:mod:`raft_tpu_torch.aot.bank`) fronts :func:`sweep_cases`,
+:func:`sweep_cases_full` and each bucket chunk of
+:func:`sweep_heterogeneous`, with the reference's memo keys (the
+evaluator's program identity, out_keys, the mesh's devices, the
+evaluator flags) and the padded inputs' signature.
+
 :func:`run_sweep_checkpointed_full` and :func:`run_sweep_checkpointed`
 run a sweep in shards through the fault-tolerant runtime of
 :mod:`raft_tpu_torch.parallel.resilience` (atomic shard files, manifest,
@@ -42,6 +49,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from raft_tpu_torch.aot import bank
 from raft_tpu_torch.obs import metrics
 from raft_tpu_torch.obs.spans import span
 from raft_tpu_torch.structure import bucketing
@@ -198,6 +206,46 @@ def _as_rows(a, device):
     return torch.as_tensor(a, device=device)
 
 
+def _banked(kind, key, args, mesh, pk):
+    """The program bank in front of one program of a funnel
+    (:func:`raft_tpu_torch.aot.bank.consult`): the memo key is ``key``
+    plus the mesh, the evaluator flags and the program identity ``pk``,
+    as the reference's ``_cached_jit`` builds it; an evaluator without
+    an identity runs unbanked."""
+    memo = key + (bank.mesh_key(mesh), config.flags_key(), ("program", pk))
+    return bank.consult(kind, memo, args, mesh.devices.flat[0],
+                        bankable=pk is not None)
+
+
+#: (signature, rows, out_keys, mesh key, flags key) -> (memo_key, args)
+#: of :func:`bucket_program`; a dict's get / setdefault need no lock
+_BUCKET_PROGRAMS: dict = {}
+
+
+def bucket_program(sig, leaves, rows, out_keys, mkey):
+    """``(memo_key, args)`` of the bucket program of ``sig`` at ``rows``
+    padded rows on the mesh of key ``mkey``: the one program behind
+    :func:`sweep_heterogeneous`'s chunks and the serving engine's
+    dispatches, so both share bank entries.  ``leaves`` are one design's
+    packed leaves; the input signature is their shapes stacked to
+    ``rows`` and the three sea-state columns.  Memoised per process:
+    the signature fixes the leaves' shapes and dtypes, so a repeat call
+    is a dict lookup."""
+    ck = (sig, int(rows), tuple(out_keys), mkey, config.flags_key())
+    hit = _BUCKET_PROGRAMS.get(ck)
+    if hit is not None:
+        return hit
+    design = {k: bank.ArgSpec((int(rows),) + tuple(np.shape(v)),
+                              str(np.asarray(v).dtype))
+              for k, v in leaves.items()}
+    sea = bank.ArgSpec((int(rows),), "float64")
+    memo = ("bucket", tuple(out_keys), sig, mkey, ck[-1],
+            ("program", ("bucket_evaluator",
+                         bank.content_fingerprint(list(sig)))))
+    return _BUCKET_PROGRAMS.setdefault(
+        ck, (memo, {"design": design, "Hs": sea, "Tp": sea, "beta": sea}))
+
+
 def _split_run(run, n, mesh, out_keys):
     """Run ``run(device, lo, hi)`` on every dp block of the ``n`` padded
     rows and gather ``out_keys`` as host numpy in row order."""
@@ -235,7 +283,9 @@ def sweep_cases(evaluate, Hs, Tp, beta, mesh=None, out_keys=("PSD", "X0")):
         ev = bind_evaluator(evaluate, dev)
         return ev(*(_as_rows(x[lo:hi], dev) for x in cols))
 
-    with span("sweep_dispatch", kind="cases", rows=n + pad):
+    with span("sweep_dispatch", kind="cases", rows=n + pad), _banked(
+            "cases", ("cases", tuple(out_keys)), cols, mesh,
+            bank.program_key(evaluate)):
         out = _split_run(run, n + pad, mesh, out_keys)
     return {k: v[:n] for k, v in out.items()}
 
@@ -275,7 +325,10 @@ def sweep_cases_full(evaluate, cases, mesh=None, out_keys=("PSD", "X0"),
         ev = bind_evaluator(evaluate, dev)
         return ev(**{k: _as_rows(v[lo:hi], dev) for k, v in cases.items()})
 
-    with span("sweep_dispatch", kind="cases_full", rows=n):
+    with span("sweep_dispatch", kind="cases_full", rows=n), _banked(
+            "cases_full", ("cases_full", tuple(out_keys), tuple(sorted(cases)),
+                           bool(shard_freq)), cases, mesh,
+            bank.program_key(evaluate)):
         out = _split_run(run, n + pad, mesh, out_keys)
     return {k: v[:n] for k, v in out.items()}
 
@@ -378,8 +431,11 @@ def sweep_heterogeneous(designs, Hs, Tp, beta, device=None, mesh=None,
             pad = (cap - m) if len(chunks) > 1 else _autopad_rows(m, mesh)
             n_row_pad += pad
             take = chunk + [chunk[-1]] * pad
+            memo, args = bucket_program(sig, distinct[0], m + pad,
+                                        out_keys, bank.mesh_key(mesh))
             with span("sweep_dispatch", kind="bucket", rows=m,
-                      bucket=bucketing.signature_fingerprint(sig)):
+                      bucket=bucketing.signature_fingerprint(sig)), \
+                    bank.consult("bucket", memo, args, mesh.devices.flat[0]):
                 res = _split_run(lambda dev, lo, hi: run(dev, lo, hi, take),
                                  m + pad, mesh, out_keys)
             for k in out_keys:

@@ -8,10 +8,16 @@
         [--dtype float64]
 
 Startup order is the serving contract: build + pack every registered
-design, WARM every (bucket x batch-ladder rung) on the device
-(:func:`raft_tpu_torch.serve.engine.warm`: the kernel library is built
-or loaded and every rung dispatched twice), refine the ladder by the
-measured walls, and only then bind the socket.
+design, resolve the program bank through the release pointer (printed
+as ``release: <id>`` when there is one), WARM every (bucket x
+batch-ladder rung) on the device (:func:`raft_tpu_torch.serve.engine.
+warm`: through the program bank under ``RAFT_TPU_AOT=load|require``,
+the kernel library built or loaded and every rung dispatched twice),
+refine the ladder by the measured walls, and only then bind the
+socket.  Under ``RAFT_TPU_AOT=require`` a cold or skewed bank ends the
+start-up with exit code 3 and the release preflight's diagnosis on
+stderr (which programs are cold, which key component drifted, the
+re-warm command).
 
 ``--device`` names the device every dispatch runs on (default: the
 current CUDA device; without one the command exits 2 naming
@@ -100,12 +106,15 @@ def _serve_main(argv):
     if args.dtype:
         os.environ[config.env_name("DTYPE")] = args.dtype
 
+    from raft_tpu_torch.aot import bank as bank_mod
+    from raft_tpu_torch.aot import release as release_mod
     from raft_tpu_torch.obs import alerts as alerts_mod
     from raft_tpu_torch.serve import engine
     from raft_tpu_torch.serve.batcher import Batcher
     from raft_tpu_torch.serve.http import run_server
     from raft_tpu_torch.structure.bucketing import signature_fingerprint
     from raft_tpu_torch.utils.dtypes import resolve_device
+    from raft_tpu_torch.utils.structlog import log_event
 
     try:
         device = resolve_device(args.device)
@@ -122,13 +131,41 @@ def _serve_main(argv):
         print(f"registered {name}: bucket "
               f"{signature_fingerprint(entry.sig)}", flush=True)
 
+    # resolve the bank through the release pointer FIRST: the resolved
+    # id is stamped into every provenance header, and a warm-up miss is
+    # diagnosed against this release's manifest (releases are opt-in —
+    # a pointer-less bank serves exactly as before)
+    cur_release, cur_manifest = (release_mod.resolve()
+                                 if bank_mod.mode() != "off"
+                                 else (None, None))
+    if cur_release:
+        log_event("release_resolve", release=cur_release,
+                  root=release_mod.releases_dir())
+        print(f"release: {cur_release}", flush=True)
+
     out_keys = tuple(k.strip() for k in args.out_keys.split(",") if k.strip())
     batcher = Batcher(registry, out_keys=out_keys, device=device)
     entries = [registry.get(n) for n in registry.names()]
     if not args.no_warm:
-        reports = engine.warm(entries, device=device,
-                              out_keys=batcher.out_keys, sizes=batcher.sizes)
-        print(f"warmup: {len(reports)} (bucket x rung) program(s) in "
+        try:
+            reports = engine.warm(entries, device=device,
+                                  out_keys=batcher.out_keys,
+                                  sizes=batcher.sizes)
+        except bank_mod.BankMissError:
+            # RAFT_TPU_AOT=require on a cold or stale bank: die with the
+            # preflight diagnosis (which programs, which key component
+            # drifted, the re-warm command) instead of one opaque key
+            report = release_mod.diagnose(
+                entries, device=device, out_keys=batcher.out_keys,
+                sizes=batcher.sizes, manifest=cur_manifest)
+            for line in release_mod.format_diagnosis(
+                    report, sorted(designs.values()), dtype=args.dtype,
+                    device=args.device):
+                print(line, file=sys.stderr)
+            return 3
+        print(f"warmup: {len(reports)} (bucket x rung) program(s) "
+              f"({sum(r['loaded'] for r in reports)} bank-loaded, "
+              f"{sum(r['compiled'] for r in reports)} compiled) in "
               f"{sum(r['wall_s'] for r in reports):.1f}s, "
               f"{sum(r['launches'] for r in reports)} kernel launch(es)",
               flush=True)
@@ -136,7 +173,8 @@ def _serve_main(argv):
         # the warm-up dispatches just measured every candidate rung's
         # wall — prune the flat rungs (every kept rung was warmed)
         refined = engine.refine_ladder(entries, batcher.sizes,
-                                       out_keys=batcher.out_keys)
+                                       out_keys=batcher.out_keys,
+                                       device=device)
         if tuple(refined) != tuple(batcher.sizes):
             print(f"batch ladder refined {list(batcher.sizes)} -> "
                   f"{list(refined)} (cost-flat rungs pruned)", flush=True)
@@ -146,7 +184,7 @@ def _serve_main(argv):
     # response), computed once here, a dict lookup per request
     provenance = engine.build_provenance(
         registry, out_keys=batcher.out_keys, sizes=batcher.sizes,
-        replica_id=batcher.replica_id)
+        replica_id=batcher.replica_id, device=device)
     # in-process alert evaluator (RAFT_TPU_ALERT_EVAL_S > 0; served at
     # GET /alerts) — no flag, no thread
     alerts_mod.maybe_start()

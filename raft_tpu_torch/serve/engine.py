@@ -21,6 +21,12 @@ dispatch fills with its solve wall per (program identity), read after
 ``torch.cuda.synchronize`` on a card so a wall times the solve and not
 the launches.
 
+Every dispatch goes through the program bank (:mod:`raft_tpu_torch.
+aot.bank`, armed by ``RAFT_TPU_AOT``) under the bucket program key that
+``sweep_heterogeneous`` uses, so serving, sweeps and warm-up share bank
+entries; the provenance stamps carry the entry's payload sha and the
+release the pointer resolves to.
+
 Nothing here falls back: a dispatch that raises is the caller's error
 (the batcher fans it out as a 500), and the only way a served row
 reaches the CPU on a card is :func:`escalate_row`, which a request asks
@@ -230,7 +236,7 @@ def program_stats(key):
         return dict(_WALLS.get(key) or {})
 
 
-def ladder_walls(entries, sizes, out_keys=DEFAULT_OUT_KEYS):
+def ladder_walls(entries, sizes, out_keys=DEFAULT_OUT_KEYS, device=None):
     """Measured dispatch wall per ladder rung, from the in-process wall
     ledger that :func:`dispatch` fills (warm-up dispatches and serving
     load).  Per program the BEST observed wall is taken — one scheduler
@@ -247,7 +253,8 @@ def ladder_walls(entries, sizes, out_keys=DEFAULT_OUT_KEYS):
     for rung in sizes:
         worst = None
         for e in by_sig.values():
-            key, _ = program_identity(e, out_keys=out_keys, rows=rung)
+            key, _ = program_identity(e, out_keys=out_keys, rows=rung,
+                                      device=device)
             st = program_stats(key)
             if st.get("dispatches") and st.get("wall_s", 0) > 0:
                 w = st.get("wall_min_s") or (st["wall_s"]
@@ -257,7 +264,7 @@ def ladder_walls(entries, sizes, out_keys=DEFAULT_OUT_KEYS):
     return walls
 
 
-def refine_ladder(entries, sizes, out_keys=DEFAULT_OUT_KEYS):
+def refine_ladder(entries, sizes, out_keys=DEFAULT_OUT_KEYS, device=None):
     """Post-warm-up ladder refinement (``RAFT_TPU_SERVE_LADDER=cost``):
     prune the warmed candidate rungs whose measured dispatch wall is
     flat vs the next rung.  Under any other policy — or with no
@@ -266,7 +273,7 @@ def refine_ladder(entries, sizes, out_keys=DEFAULT_OUT_KEYS):
     policy = str(config.get("SERVE_LADDER") or "cost").strip().lower()
     if policy != "cost" or len(sizes) <= 1:
         return tuple(sizes)
-    walls = ladder_walls(entries, sizes, out_keys=out_keys)
+    walls = ladder_walls(entries, sizes, out_keys=out_keys, device=device)
     pruned = prune_ladder(sizes, walls)
     if tuple(pruned) != tuple(sizes):
         log_event("serve_ladder", candidates=list(sizes),
@@ -352,6 +359,7 @@ def dispatch(entries, Hs, Tp, beta, out_keys=DEFAULT_OUT_KEYS, device=None,
     """
     import torch
 
+    from raft_tpu_torch.aot import bank
     from raft_tpu_torch.ops import linsolve
     from raft_tpu_torch.structure import bucketing
     from raft_tpu_torch.utils.devices import to_host
@@ -370,12 +378,13 @@ def dispatch(entries, Hs, Tp, beta, out_keys=DEFAULT_OUT_KEYS, device=None,
     if padded < n:
         raise ValueError(f"padded batch {padded} cannot hold {n} rows")
     out_keys = tuple(out_keys)
-    key, _ = program_identity(entries[0], out_keys=out_keys, rows=padded)
+    memo, args, key = _bucket_program(entries[0], out_keys, padded, device)
     with _on_device(device), torch.no_grad():
         ev = bucketing.get_bucket_evaluator(sig, device)
         design, seas = padded_group(entries, Hs, Tp, beta, padded, device)
         with span("sweep_dispatch", kind="serve", rows=n,
-                  bucket=bucketing.signature_fingerprint(sig)):
+                  bucket=bucketing.signature_fingerprint(sig)), \
+                bank.consult("bucket", memo, args, device):
             l0 = linsolve.forward_launches()
             t_solve0 = time.perf_counter()
             out = ev(design, *seas)
@@ -430,21 +439,51 @@ def escalate_row(entry, Hs, Tp, beta, out_keys=DEFAULT_OUT_KEYS):
 # ------------------------------------------------------------- provenance
 
 
-def program_identity(entry, out_keys=DEFAULT_OUT_KEYS, rows=None):
-    """The identity of the program that serves ``entry`` at ``rows``
-    padded rows (default: the smallest ladder rung): ``(key, sidecar)``.
-    Torch has no serialized executable, so the key is a hash of what
-    decides the computation — the bucket signature, the evaluator flags
-    (:func:`raft_tpu_torch.utils.config.flags_key`), the port's source
-    hash (:func:`raft_tpu_torch.aot.bank.code_fingerprint`), the out_keys
-    and the rows — and the sidecar is None (the port has no program
-    bank: ROADMAP A15(e))."""
-    from raft_tpu_torch.aot.bank import code_fingerprint
+#: (signature, rows, out_keys, device, flags key) -> (memo_key, args,
+#: entry_key) of :func:`_bucket_program`; get / setdefault need no lock
+_PROGRAMS: dict = {}
 
+
+def _bucket_program(entry, out_keys, rows, device):
+    """``(memo_key, args, entry_key)`` of the bucket program serving
+    ``entry`` at ``rows`` padded rows on ``device`` — the key
+    :func:`raft_tpu_torch.parallel.sweep.sweep_heterogeneous` banks the
+    same program under on a one-device mesh.  Memoised per process (the
+    rest of the entry key, the version and the environment, is fixed
+    per process but for the dtype policy, which the flags key holds),
+    so a dispatch pays a dict lookup."""
+    from raft_tpu_torch.aot import bank
+    from raft_tpu_torch.parallel.sweep import bucket_program
+
+    name = bank.device_name(device)
+    out_keys = normalize_out_keys(out_keys)
+    ck = (entry.sig, int(rows), out_keys, name, config.flags_key())
+    hit = _PROGRAMS.get(ck)
+    if hit is None:
+        memo, args = bucket_program(entry.sig, entry.packed, rows, out_keys,
+                                    (("dp",), (1,), (name,)))
+        key, _ = bank.entry_key("bucket", memo, args, device)
+        hit = _PROGRAMS.setdefault(ck, (memo, args, key))
+    return hit
+
+
+def program_identity(entry, out_keys=DEFAULT_OUT_KEYS, rows=None,
+                     device=None):
+    """The program-bank identity of the program that serves ``entry`` at
+    ``rows`` padded rows (default: the smallest ladder rung) on
+    ``device`` (default: the current CUDA device, else the CPU; nothing
+    runs): ``(entry_key, sidecar | None)`` — the key :func:`dispatch`
+    consults the bank under, derived without dispatching anything, and
+    the entry's sidecar when the bank holds it (None under
+    ``RAFT_TPU_AOT=off``, which reads no file).  The wall ledger of
+    the cost ladder is keyed by it too."""
+    from raft_tpu_torch.aot import bank
+
+    device = bank.fingerprint_device(device)
     rows = int(rows) if rows else batch_ladder()[0]
-    blob = repr(("bucket", entry.sig, config.flags_key(), code_fingerprint(),
-                 normalize_out_keys(out_keys), rows))
-    return hashlib.sha256(blob.encode()).hexdigest()[:16], None
+    key = _bucket_program(entry, out_keys, rows, device)[2]
+    side = bank.read_meta(key) if bank.mode() != "off" else None
+    return key, side
 
 
 def flags_fingerprint():
@@ -456,19 +495,24 @@ def flags_fingerprint():
 
 
 def build_provenance(registry, out_keys=DEFAULT_OUT_KEYS, sizes=None,
-                     replica_id=None):
+                     replica_id=None, device=None):
     """Per-design provenance stamps for the ``x-raft-provenance``
     response header: ``{design_name: {bank_key, bank_sha, code, flags,
-    replica}}`` plus a ``"*"`` base entry (code/flags/replica only) for
-    inline designs.  Computed ONCE at startup — per request the stamp is
-    a dict lookup.  ``bank_key`` is :func:`program_identity`'s key;
-    ``bank_sha`` is ``none`` (no program bank, ROADMAP A15(e)), and so
-    is the ``release`` stamp.
+    replica, release?}}`` plus a ``"*"`` base entry (code/flags/replica/
+    release only) for inline designs.  Computed ONCE at startup — per
+    request the stamp is a dict lookup.  ``bank_key`` is
+    :func:`program_identity`'s key at the first rung on ``device``;
+    ``bank_sha`` the first 16 hex of its entry's payload sha (``none``
+    when the bank holds no entry, or under ``RAFT_TPU_AOT=off``);
+    ``release`` the id the release pointer resolves to
+    (:func:`raft_tpu_torch.aot.release.current_release`), when there is
+    one and the bank is armed.
 
     The deterministic ``provenance_skew`` fault kind
     (:mod:`raft_tpu_torch.utils.faults`, site ``serve_provenance``)
     perturbs the reported identity — the stand-in for a stale or
     env-skewed replica."""
+    from raft_tpu_torch.aot import bank, release
     from raft_tpu_torch.aot.bank import code_fingerprint
     from raft_tpu_torch.utils import faults
 
@@ -477,10 +521,16 @@ def build_provenance(registry, out_keys=DEFAULT_OUT_KEYS, sizes=None,
     rid = str(replica_id or f"pid-{os.getpid()}")
     skewed = faults.take("provenance_skew", "serve_provenance")
     base = {"code": code, "flags": flags, "replica": rid}
+    rel = release.current_release() if bank.mode() != "off" else None
+    if rel:
+        # the release id resolved through the current pointer — the
+        # version-aware canary groups replicas by this stamp
+        base["release"] = rel
     out = {"*": dict(base)}
     for name in registry.names():
         key, side = program_identity(registry.get(name), out_keys=out_keys,
-                                     rows=(sizes[0] if sizes else None))
+                                     rows=(sizes[0] if sizes else None),
+                                     device=device)
         d = dict(base)
         d["bank_key"] = key
         d["bank_sha"] = ((side or {}).get("payload_sha256") or "none")[:16]
@@ -501,10 +551,14 @@ def warm(entries, device=None, out_keys=DEFAULT_OUT_KEYS, sizes=None):
     evaluators are created), then a second, timed one for the cost
     ladder — the ladder tuner reads the BEST wall per rung, and a first
     dispatch carries one-time costs.  Each dispatch ends in a device
-    synchronize (:func:`dispatch`).  Returns per-(signature x rung)
-    report dicts: ``kind``, ``rows``, ``bucket``, ``wall_s`` and
+    synchronize (:func:`dispatch`).  Through the production funnel:
+    under ``RAFT_TPU_AOT=load`` each program is loaded from the bank or
+    built and stored; under ``require`` a cold bank fails here, before
+    any client is waiting.  Returns per-(signature x rung) report dicts:
+    ``kind``, ``rows``, ``bucket``, ``wall_s``, ``loaded`` and
+    ``compiled`` (bank entries loaded / programs built) and
     ``launches`` (the solve kernel's launches of both dispatches)."""
-    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.aot.warmup import ProgramReport
     from raft_tpu_torch.structure import bucketing
     from raft_tpu_torch.utils.dtypes import resolve_device
 
@@ -520,16 +574,12 @@ def warm(entries, device=None, out_keys=DEFAULT_OUT_KEYS, sizes=None):
     for sig, group in by_sig.items():
         for rows in sizes:
             row_entries = [group[i % len(group)] for i in range(rows)]
-            l0 = linsolve.forward_launches()
-            t0 = time.perf_counter()
+            rep = ProgramReport("serve", rows,
+                                bucket=bucketing.signature_fingerprint(sig))
             for _ in range(2):
                 dispatch(row_entries, rng.uniform(2.0, 8.0, rows),
                          rng.uniform(6.0, 14.0, rows),
                          rng.uniform(-0.5, 0.5, rows), out_keys=out_keys,
                          device=device, padded=rows, record_metrics=False)
-            reports.append(dict(
-                kind="serve", rows=rows,
-                bucket=bucketing.signature_fingerprint(sig),
-                wall_s=round(time.perf_counter() - t0, 3),
-                launches=linsolve.forward_launches() - l0))
+            reports.append(rep.done())
     return reports

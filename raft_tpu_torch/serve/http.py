@@ -31,7 +31,11 @@ Routes
                     (this process compiled the kernel library),
                     ``kernel.loaded`` and ``kernel.launches`` (its
                     launch counters per entry) — where the reference
-                    reports its XLA compile counts
+                    reports its XLA compile counts; beside the kernel
+                    ledger (``cost_ledger``) the program bank's
+                    counters (``aot_programs_loaded`` /
+                    ``aot_programs_compiled``) and state (``aot``: mode,
+                    builds, nvcc runs, the library's file)
 ``GET /metrics``    the process metrics registry in Prometheus text
                     exposition format
 ``GET /designs``    registered design names
@@ -239,7 +243,8 @@ class Server:
         from raft_tpu_torch.ops import linsolve
 
         snap = {c: metrics.counter(c).value for c in
-                ("serve_requests", "serve_dispatches",
+                ("aot_programs_loaded", "aot_programs_compiled",
+                 "serve_requests", "serve_dispatches",
                  "serve_rows_dispatched", "serve_coalesced",
                  "serve_rejected_quota", "serve_rejected_queue",
                  "serve_errors", "serve_escalations",
@@ -274,6 +279,13 @@ class Server:
                     "breaches": metrics.counter("serve_slo_breaches").value},
             # the kernel's launch ledger (one row per entry launched)
             "cost_ledger": bank.ledger_summary(),
+            # the program bank beside it: its mode, the builds this
+            # process charged (bank misses + nvcc runs), its nvcc runs
+            # and the file its kernel library came from (a bank's copy
+            # under RAFT_TPU_AOT=load|require on a warm bank)
+            "aot": {"mode": bank.mode(), "builds": bank.builds(),
+                    "nvcc_runs": linsolve.NVCC_RUNS,
+                    "library": linsolve.loaded_library()},
             **self.batcher.stats(),
             **snap,
         }

@@ -10,7 +10,12 @@ packages in the parity tests.  Flags are re-read on every :func:`get`
 modules with their own parsing (fault specs, log sinks, ids).
 
 ``SOLVER`` has no ``pallas`` choice here: on a CUDA tensor ``native``
-is the hand-written kernel (:mod:`raft_tpu_torch.ops.linsolve`).
+is the hand-written kernel (:mod:`raft_tpu_torch.ops.linsolve`).  The
+program bank's flags (``AOT``, ``AOT_DIR``, ``AOT_MISS``,
+``COMPILE_BUDGET``, ``COMPILE_BUDGET_ACTION``) keep the reference's
+names and choices with the port's meanings (:mod:`raft_tpu_torch.aot.
+bank`); an empty ``AOT_DIR`` means a directory of the port's own
+(:func:`raft_tpu_torch.aot.bank.aot_root`).
 """
 
 from __future__ import annotations
@@ -137,6 +142,34 @@ _register(
     Flag("BEM_DIR", "str", "",
          help="panel-solver coefficient cache directory (default: "
               "_bem_cache in the working directory)"),
+    # -- program bank (raft_tpu_torch.aot)
+    Flag("AOT", "choice", "off", choices=("off", "load", "require"),
+         help="program bank: 'load' consults the bank before a sweep "
+              "or serving program's first run in the process (a hit "
+              "loads the bank's copy of the kernel library; a miss "
+              "runs the program and stores its entry for the next "
+              "process); 'require' additionally treats a miss per "
+              "RAFT_TPU_AOT_MISS (serving mode: start-up builds "
+              "nothing); 'off' (default) reads and writes no file"),
+    Flag("AOT_DIR", "str", "",
+         help="program-bank root (default: ~/.cache/raft_tpu_torch/"
+              "aot_bank): the port's entries live in its "
+              "torch-v<format>/ and its releases in torch-releases/, "
+              "so one root can hold the JAX package's bank beside it"),
+    Flag("AOT_MISS", "choice", "error", choices=("error", "compile"),
+         help="what RAFT_TPU_AOT=require does on a bank miss: 'error' "
+              "raises BankMissError before the program runs; 'compile' "
+              "logs the miss, builds and stores the program"),
+    Flag("COMPILE_BUDGET", "int", -1,
+         help="ceiling on program builds per process (-1 disables): "
+              "bank misses that built a program plus nvcc runs of the "
+              "kernel library.  A fresh process on a warm bank under "
+              "RAFT_TPU_AOT=require holds 0"),
+    Flag("COMPILE_BUDGET_ACTION", "choice", "error",
+         choices=("error", "warn"),
+         help="a build past RAFT_TPU_COMPILE_BUDGET raises "
+              "CompileBudgetError before it starts ('error') or only "
+              "logs + counts ('warn')"),
     # -- evaluation service (raft_tpu_torch.serve)
     Flag("SERVE_TICK_MS", "float", 20.0,
          help="continuous-batching tick CEILING: pending requests "

@@ -19,7 +19,9 @@ x each key's max|tangent| (the solve's tangent bit-equal to the plain
 version on its right-hand side, and jacfwd's directions one launch);
 the orchestrated path's case metrics at the gates of
 ``tests/test_torch_orchestrated.py``; a served row bit-equal to a direct
-bucket-evaluator call on the padded group that served it.
+bucket-evaluator call on the padded group that served it; a fresh
+process on a warmed program bank bit-equal to this process's calls,
+with no nvcc run.
 """
 
 import json
@@ -841,3 +843,75 @@ def test_serving_process_on_card_is_bit_equal_to_direct_calls(cuda):
         for k, v in body["outputs"].items():
             np.testing.assert_array_equal(np.asarray(v, g["out"][k].dtype),
                                           g["out"][k][i])
+
+
+@pytest.mark.cuda
+def test_warmed_bank_loads_on_card_under_require_without_nvcc(cuda,
+                                                              tmp_path):
+    """A bank warmed in this process (the spar case program at 4 rows
+    and the serve program at rung 2, under RAFT_TPU_AOT=load), then a
+    fresh process under require and COMPILE_BUDGET=0: it loads both
+    entries and the bank's copy of the kernel library, runs no nvcc,
+    builds nothing, and answers bit-equal to this process's calls."""
+    import subprocess
+    import sys
+
+    from raft_tpu_torch.aot import bank, warmup
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env_keys = ("RAFT_TPU_AOT_DIR", "RAFT_TPU_SERVE_LADDER")
+    saved = {k: os.environ.get(k) for k in env_keys}
+    os.environ["RAFT_TPU_AOT_DIR"] = str(tmp_path / "bank")
+    os.environ["RAFT_TPU_SERVE_LADDER"] = "2"
+    try:
+        reps = warmup.warmup_model(sizes=(4,), kinds=("cases", "serve"),
+                                   device=torch.device("cuda", 0))
+        assert [r["compiled"] for r in reps] == [1, 1]
+        assert all(r["launches"] > 0 for r in reps)
+        payloads = os.listdir(bank.payload_dir())
+        assert len(payloads) == 1 and payloads[0].endswith(".so")
+        env = {k: v for k, v in os.environ.items()
+               if not k.startswith(("RAFT_TPU_", "AOT_CHILD"))}
+        env.update(RAFT_TPU_AOT_DIR=str(tmp_path / "bank"),
+                   RAFT_TPU_SERVE_LADDER="2", RAFT_TPU_AOT="require",
+                   RAFT_TPU_COMPILE_BUDGET="0", AOT_CHILD_DEVICE="cuda",
+                   AOT_CHILD_OUT=str(tmp_path / "child.npz"),
+                   PYTHONPATH=root)
+        p = subprocess.run(
+            [sys.executable, os.path.join(root, "tests",
+                                          "_torch_aot_child.py")],
+            env=env, capture_output=True, text=True, timeout=600, cwd=root)
+        assert p.returncode == 0, p.stderr[-2000:]
+        r = json.loads(p.stdout.strip().splitlines()[-1])
+        assert (r["loaded"], r["compiled"], r["builds"], r["nvcc_runs"]) \
+            == (2, 0, 0, 0) and not r["built_here"]
+        assert r["library"] == os.path.join(bank.payload_dir(), payloads[0])
+        assert r["launches"] > 0
+        # this process's calls on the child's inputs (the bank off)
+        from raft_tpu_torch import api
+        from raft_tpu_torch.parallel.sweep import make_mesh, sweep_cases
+        from raft_tpu_torch.serve import engine
+
+        os.environ.pop("RAFT_TPU_AOT", None)
+        model = Model(os.path.join(FIX, "design_spar.json"), base_dir=FIX)
+        rng = np.random.default_rng(0)
+        Hs, Tp, beta = (rng.uniform(2.0, 8.0, 4), rng.uniform(6.0, 14.0, 4),
+                        rng.uniform(-0.5, 0.5, 4))
+        dev = torch.device("cuda", 0)
+        out = sweep_cases(api.make_case_evaluator(model, device=dev), Hs, Tp,
+                          beta, mesh=make_mesh(device=dev),
+                          out_keys=("PSD", "X0", "status"))
+        served = engine.dispatch([engine.DesignEntry("spar", model)] * 2,
+                                 Hs[:2], Tp[:2], beta[:2], device=dev,
+                                 padded=2)
+        got = np.load(tmp_path / "child.npz")
+        for k, v in list(out.items()):
+            assert np.array_equal(got[f"cases_{k}"], v), k
+        for k, v in served.items():
+            assert np.array_equal(got[f"serve_{k}"], v), k
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v

@@ -9,7 +9,7 @@ in-process, no worker subprocess (those are in
 * the silenced renewer (``lease_expire:lease_renew``);
 * ``resolve_entry``'s ``module:callable`` and ``path.py:callable``
   forms; ``init_sweep``'s spec, manifest and case file; a spec with an
-  AOT ``warmup`` refused (ROADMAP A15(e)), a worker under
+  AOT ``warmup`` carried for the workers, a worker under
   ``RAFT_TPU_DIST`` refused (A15(g));
 * format parity with the JAX package: a ledger laid out by
   ``raft_tpu.parallel.fabric`` is read by the port's ``Ledger`` with the
@@ -244,15 +244,13 @@ def test_init_sweep_spec_manifest_and_refusals(tmp_path, log_path,
     with pytest.raises(resilience.ManifestMismatchError):
         fabric.init_sweep(out_dir, f"{HERE}:toy_entry",
                           dict(cases, Hs=cases["Hs"] + 1.0), ("X0",), 4)
-    # an AOT warmup spec is refused, not skipped (the bank is A15(e))
-    with pytest.raises(NotImplementedError, match=r"A15\(e\)"):
-        fabric.init_sweep(str(tmp_path / "w"), f"{HERE}:toy_entry", cases,
-                          ("X0",), 4, warmup={"sizes": [4]})
-    assert not os.path.exists(tmp_path / "w")
-    with pytest.raises(NotImplementedError, match=r"A15\(e\)"):
-        fabric.run_fabric(str(tmp_path / "w2"), 2, f"{HERE}:toy_entry",
-                          cases=cases, out_keys=("X0",), shard_size=4,
-                          warmup={"sizes": [4]}, device="cpu")
+    # an AOT warmup spec is carried in the spec for the workers, as the
+    # reference's init_sweep carries it
+    wspec = fabric.init_sweep(str(tmp_path / "w"), f"{HERE}:toy_entry",
+                              cases, ("X0",), 4, warmup={"sizes": [4]},
+                              device="cpu")
+    assert wspec["warmup"] == {"sizes": [4]}
+    assert fabric.load_spec(str(tmp_path / "w"))["warmup"] == {"sizes": [4]}
     with pytest.raises(ValueError, match="device"):
         fabric.init_sweep(str(tmp_path / "d"), f"{HERE}:toy_entry", cases,
                           ("X0",), 4, device="tpu")

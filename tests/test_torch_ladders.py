@@ -386,6 +386,20 @@ def test_fused_flag_in_flags_key(monkeypatch):
     assert k_on != k_off and "on" in k_on and "off" in k_off
 
 
+def test_fused_flag_in_bank_key(monkeypatch):
+    """The reference's memo-key half of ``test_fused_flag_in_memo_key``:
+    the fused and staged programs never share a program-bank key (the
+    port has no jit memo; its bank key holds the flags key)."""
+    monkeypatch.delenv("RAFT_TPU_FUSED", raising=False)
+    e = _toy_entry()
+    k_on, _ = engine.program_identity(e, out_keys=("PSD",), rows=2,
+                                      device="cpu")
+    monkeypatch.setenv("RAFT_TPU_FUSED", "off")
+    k_off, _ = engine.program_identity(e, out_keys=("PSD",), rows=2,
+                                       device="cpu")
+    assert k_on != k_off
+
+
 def test_flags_key_is_the_references_less_fixed_point(monkeypatch):
     from raft_tpu.parallel.sweep import _flags_key
     from raft_tpu_torch.utils import config

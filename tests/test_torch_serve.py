@@ -667,6 +667,94 @@ def test_warm_and_provenance(serve_stack):
     assert prov["spar"]["bank_sha"] == "none"
 
 
+def test_warm_reports_bank_loads_and_provenance_bank_sha(serve_stack,
+                                                       tmp_path,
+                                                       monkeypatch):
+    """The AOT halves of the reference's warm/provenance assertions:
+    under RAFT_TPU_AOT=load a cold bank's warm-up builds and stores
+    every (signature x rung) program (``compiled``), a process that
+    finds them warm loads them (``loaded``, nothing built), and the
+    provenance then stamps the entry's payload sha and the release the
+    pointer resolves to."""
+    from raft_tpu_torch.aot import bank, release
+
+    registry, batcher = serve_stack
+    entries = [registry.get("spar")]
+    monkeypatch.setenv("RAFT_TPU_AOT_DIR", str(tmp_path))
+    monkeypatch.setenv("RAFT_TPU_AOT", "load")
+    reps = engine.warm(entries, device="cpu", out_keys=batcher.out_keys,
+                       sizes=(1, 2))
+    assert [(r["rows"], r["loaded"], r["compiled"]) for r in reps] == [
+        (1, 0, 1), (2, 0, 1)]
+    monkeypatch.setattr(bank, "_SEEN", set())   # a fresh process's view
+    monkeypatch.setenv("RAFT_TPU_AOT", "require")
+    reps = engine.warm(entries, device="cpu", out_keys=batcher.out_keys,
+                       sizes=(1, 2))
+    assert [(r["loaded"], r["compiled"]) for r in reps] == [(1, 0), (1, 0)]
+    rid = release.cut(promote_after=True)["release"]
+    prov = engine.build_provenance(registry, out_keys=batcher.out_keys,
+                                   sizes=(1, 2), replica_id="rA",
+                                   device="cpu")
+    key, side = engine.program_identity(entries[0],
+                                        out_keys=batcher.out_keys, rows=1,
+                                        device="cpu")
+    assert prov["spar"]["bank_key"] == key
+    assert prov["spar"]["bank_sha"] == side["payload_sha256"][:16] != "none"
+    assert prov["spar"]["release"] == prov["*"]["release"] == rid
+
+
+def test_escalation_heals_under_require_and_budget_zero(serve_stack,
+                                                        tmp_path,
+                                                        monkeypatch):
+    """Under the serving config (RAFT_TPU_AOT=require, no build left in
+    the compile budget) on a bank warmed only for the base program, a
+    request's float64 escalation still re-solves its row: the rung's
+    flags let it build its own program and store its entry, and a later
+    process's escalation loads that entry."""
+    from raft_tpu_torch.aot import bank
+    from raft_tpu_torch.obs import metrics
+    from raft_tpu_torch.utils import config
+
+    registry, batcher = serve_stack
+    entry = registry.get("spar")
+    monkeypatch.setenv("RAFT_TPU_AOT_DIR", str(tmp_path))
+    monkeypatch.setenv("RAFT_TPU_AOT", "load")
+    monkeypatch.delenv("RAFT_TPU_DTYPE", raising=False)
+    monkeypatch.setattr(bank, "_SEEN", set())
+    base = engine.dispatch([entry], [4.0], [9.0], [0.1],
+                           out_keys=batcher.out_keys, device="cpu", padded=1)
+    sidecars = tmp_path / bank.BANK_DIRNAME
+    assert len(list(sidecars.glob("*.json"))) == 1
+
+    monkeypatch.setattr(bank, "_SEEN", set())   # a fresh process's view
+    monkeypatch.setenv("RAFT_TPU_AOT", "require")
+    monkeypatch.setenv("RAFT_TPU_COMPILE_BUDGET", str(bank.builds()))
+    again = engine.dispatch([entry], [4.0], [9.0], [0.1],
+                            out_keys=batcher.out_keys, device="cpu",
+                            padded=1)
+    for k in base:
+        np.testing.assert_array_equal(again[k], base[k])
+    c = lambda n: metrics.counter(n).value   # noqa: E731
+    compiled0, loaded0 = c("aot_programs_compiled"), c("aot_programs_loaded")
+    row, status = engine.escalate_row(entry, 4.0, 9.0, 0.1,
+                                      out_keys=batcher.out_keys)
+    assert np.isfinite(np.asarray(row["PSD"])).all()
+    assert isinstance(status, int)
+    assert c("aot_programs_compiled") == compiled0 + 1
+    rung = [m for m in map(bank._read_json, sidecars.glob("*.json"))
+            if m["environment"]["dtype"] == "float64"]
+    assert len(rung) == 1 and rung[0]["raft_flags"]["DTYPE"] == "float64"
+    # the rung's flags are put back: the base program still holds the
+    # budget and the miss policy of the serving config
+    assert config.get("COMPILE_BUDGET") == bank.builds() - 1
+    assert config.get("AOT_MISS") == "error"
+
+    monkeypatch.setattr(bank, "_SEEN", set())   # the next process
+    engine.escalate_row(entry, 4.0, 9.0, 0.1, out_keys=batcher.out_keys)
+    assert c("aot_programs_compiled") == compiled0 + 1
+    assert c("aot_programs_loaded") == loaded0 + 1
+
+
 def test_failed_dispatch_is_a_serve_error_for_every_requester(monkeypatch):
     """A dispatch that raises reaches every requester of its group as
     the exception (HTTP 500), is counted in serve_errors, and nothing
