@@ -1,6 +1,6 @@
 """Drive the PyTorch/CUDA port on one GPU and check it end to end.
 
-    python3 chip_smoke.py [--rows-per-design 2048] [--out DIR]
+    python3 chip_smoke.py [--rows-per-design 1024] [--out DIR]
 
 Phases, each printing one line (the last line is the result object):
 
@@ -47,7 +47,7 @@ Phases, each printing one line (the last line is the result object):
              launches (top kernels to <out>/profile_top.txt).
 9. full    - the full-physics evaluator (make_full_evaluator, float64,
              default flags) on the two rotor designs: semi_wind (one wave
-             heading) and mhk_tidal (two), FULL_ROWS (2048) rows each
+             heading) and mhk_tidal (two), FULL_ROWS (1024) rows each
              from a fixed seed with the golden rows first (held against
              tests/fixtures/torch_port/golden_full_*.npz, warm-up on the
              golden rows alone); full-evals/s, stage ms (aero, statics,
@@ -67,7 +67,7 @@ Phases, each printing one line (the last line is the result object):
              <out>/profile_full_top.txt).
 12. geometry - the geometry design axis: make_full_evaluator(...,
              geometry=True) on design_semi_wind.json over GEOMETRY_ROWS
-             (2048) rows in 512-row chunks, the full phase's operating rows
+             (1024) rows in 512-row chunks, the full phase's operating rows
              with per-member diameter, thickness, fill and fill-density
              scales and per-row drag, added-mass, mooring-length and
              mooring-stiffness scales drawn over GEOM_BOX; the golden
@@ -156,7 +156,7 @@ Phases, each printing one line (the last line is the result object):
              trip held against golden_bem_semi_wind.npz within
              BEM_COEF_TOL (1e-10) x max; host seconds of the table load,
              the build and the solve.  Then make_full_evaluator (float64,
-             default flags) on the golden rows (held) and BEM_ROWS (2048)
+             default flags) on the golden rows (held) and BEM_ROWS (1024)
              semi_wind operating rows with them first: full-evals/s,
              stage ms, Newton iterations per chunk, the solve kernel's
              launches against the trips run; the WAMIT-file design
@@ -213,7 +213,7 @@ Phases, each printing one line (the last line is the result object):
 19. qtf     - second-order forces: make_full_evaluator on
              design_semi_wind_qtf.json (semi_wind with the external QTF
              semi_wind_qtf.12d): the golden rows (held against
-             golden_semi_wind_qtf.npz), then QTF_ROWS (2048) semi_wind
+             golden_semi_wind_qtf.npz), then QTF_ROWS (1024) semi_wind
              operating rows with them first: full-evals/s, stage ms with
              the second_order stage (the QTF forces) and the drift stage
              (the second equilibrium under the mean drift), Newton iterations per chunk of both equilibria, the
@@ -356,11 +356,39 @@ Phases, each printing one line (the last line is the result object):
              children's launches are the phase's, each equal to this
              process's same calls; the phase's wall beside its
              AOT_BUDGET_S (45 s).
-26. kernels - one JSON object listing both entries of the solve kernel,
+26. fleet   - the serving fleet on the card: one program bank for the
+             spar and semi demos at ladder FLEET_LADDER (1,4) warmed in
+             this process, release A cut and promoted; two replica
+             processes (`python -m raft_tpu_torch.serve --fleet-dir`, by
+             fleet.spawn_replica) on cuda:0 under RAFT_TPU_AOT=require,
+             each one's start-up (process start to its lease) and what
+             it built and ran nvcc for (0, 0) printed; the router in
+             this process.  The replica given replica_kill (index 1,
+             RAFT_TPU_FLEET_FAULT_REPLICA) gets an id that owns neither
+             demo on the ring, only the spar design posted inline.  (b)
+             FLEET_CLIENTS (4) x FLEET_REQS (8) requests through the
+             router from FLEET_POOL (4) cases per demo of the serve
+             phase's pool, every answer within SLICE_TOL x max of a
+             direct rung-1 call in this process, status equal; router
+             p50 / p95 beside the serve phase's, its overhead a request
+             (router_request less router_upstream).  (c) the inline
+             spar request kills the armed replica mid-request: 0
+             dropped, the failovers counted, its lease expired and
+             evicted, its flight dump read.  (d) the router's canary on
+             the survivor, release B cut and rolled out: the survivor
+             replaced by --takeover under the canary gate
+             (rollout_done ok), its ring keys unmoved, the canary's
+             checks all ok across the old and the new process.  The
+             survivor's launches from its kernel ledger equal the trips
+             + 1 of its dispatches, rebuilt from its trace shard (each
+             request carries a traceparent of its own); the phase's
+             wall beside FLEET_BUDGET_S (100 s).
+27. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path (the analyze,
-             omdao, sweep, fabric, serve and aot paths' also as
+             omdao, sweep, fabric, serve, aot and fleet paths' also as
              analyze_launches, omdao_launches, sweep_launches,
-             fabric_launches, serve_launches and aot_launches) and the adjoint
+             fabric_launches, serve_launches, aot_launches and
+             fleet_launches) and the adjoint
              with its launches on the grad and grad_paths paths, each
              with its N = 12 (one-lane-per-row) figures (the adjoint's
              from the farm's backward).
@@ -380,6 +408,7 @@ import os
 import platform
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import threading
@@ -408,10 +437,10 @@ BEMT_TOL = 1e-12                       # x max, hand tangents vs jacfwd
 #: their rows
 FULL_CONFIGS = {"semi_wind": dict(nWaves=1, seed=20261018),
                 "mhk_tidal": dict(nWaves=2, seed=20261019)}
-FULL_ROWS = 2048                       # rows per rotor design, full phase
+FULL_ROWS = 1024                       # rows per rotor design, full phase
 #: the geometry phase's design, rows and seed; its box of geometry scales
 GEOMETRY_DESIGN = "semi_wind"
-GEOMETRY_ROWS = 2048
+GEOMETRY_ROWS = 1024
 GEOMETRY_SEED = 20261022
 GEOM_BOX = dict(d_scale=(0.9, 1.1), t_scale=(0.9, 1.1),
                 fill_scale=(0.8, 1.2), rho_fill_scale=(0.9, 1.1),
@@ -431,7 +460,7 @@ FLEX_GEOMETRY_SEED = 20261025
 #: the potential-flow phase: rows of the evaluator and of its d_scale
 #: geometry axis (uniform over D_SCALE_BOX), their seeds, and the gate of
 #: the host solve's coefficients against the JAX goldens
-BEM_ROWS = 2048
+BEM_ROWS = 1024
 BEM_SEED = 20261026
 BEM_GEOMETRY_ROWS = 1024
 BEM_GEOMETRY_SEED = 20261027
@@ -451,7 +480,7 @@ FLEX_KAPPA_Z = 2.72e10
 #: the second-order phase: operating rows of the external-QTF design and
 #: of its geometry axis, their seeds; the slow-drift grid of the
 #: slender-body QTF [Hz] (200 bins, 20,100 pairs)
-QTF_ROWS = 2048
+QTF_ROWS = 1024
 QTF_SEED = 20261028
 QTF_GEOMETRY_ROWS = 1024
 QTF_GEOMETRY_SEED = 20261029
@@ -483,6 +512,12 @@ SERVE_BUDGET_S = 45.0
 AOT_ROWS = 8
 AOT_RUNG = 4
 AOT_BUDGET_S = 45.0
+FLEET_LADDER = "1,4"
+FLEET_CLIENTS = 4
+FLEET_REQS = 8
+FLEET_POOL = 4                         # cases per demo from the serve pool
+FLEET_TTL_S = 2.0
+FLEET_BUDGET_S = 100.0                # three replica start-ups, 26-32 s each
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -4227,6 +4262,15 @@ def _first_shards(evs):
     return first
 
 
+def _serve_pool(rng):
+    """SERVE_POOL seeded (Hs, Tp, beta) cases per demo, rounded to 3
+    decimals, drawn from ``rng`` (the serve phase's SERVE_SEED
+    generator)."""
+    return {n: [tuple(round(float(x), 3) for x in c) for c in zip(
+        rng.uniform(2.0, 8.0, SERVE_POOL), rng.uniform(6.0, 14.0, SERVE_POOL),
+        rng.uniform(-0.5, 0.5, SERVE_POOL))] for n in ("spar", "semi")}
+
+
 def _serve_plan():
     """Per client thread, its SERVE_REQS request bodies: the design
     alternates between spar and semi with the client and request index,
@@ -4235,9 +4279,7 @@ def _serve_plan():
     request asks for escalate_f64, client 1's first for an out_keys
     subset, client 2's first is the mhk demo's dict inline."""
     rng = np.random.default_rng(SERVE_SEED)
-    pool = {n: [tuple(round(float(x), 3) for x in c) for c in zip(
-        rng.uniform(2.0, 8.0, SERVE_POOL), rng.uniform(6.0, 14.0, SERVE_POOL),
-        rng.uniform(-0.5, 0.5, SERVE_POOL))] for n in ("spar", "semi")}
+    pool = _serve_pool(rng)
     plan = []
     for i in range(SERVE_CLIENTS):
         reqs = []
@@ -4742,9 +4784,446 @@ def phase_aot(out_dir, card):
     return res
 
 
+def _fleet_spans(log_dir, pid):
+    """The ``span_begin`` records of one replica's trace shard."""
+    out = []
+    with open(os.path.join(log_dir, f"trace-{pid}.jsonl")) as f:
+        for line in f:
+            try:
+                e = json.loads(line)
+            except ValueError:
+                continue
+            if e.get("event") == "span_begin":
+                out.append(e)
+    return out
+
+
+def _fleet_dispatches(spans, bodies, bucket_of, canary_case):
+    """Every serving dispatch of one replica, rebuilt from its trace
+    shard: each ``sweep_dispatch`` span under a ``serve_tick`` span, its
+    rows the distinct requests the tick links to in the dispatch's
+    bucket.  A link resolves through its trace id to a request body
+    this process sent (``bodies``: trace id -> (design, Hs, Tp, beta)),
+    or, for the router canary's probes (client ``canary``, no
+    traceparent), to the canary case.  Returns ``[(rows, n_rows)]``,
+    ``n_rows`` the span's own row count."""
+    by_span = {e["span_id"]: e for e in spans}
+    ticks = {e["span_id"]: e for e in spans if e["name"] == "serve_tick"}
+    out = []
+    for d in spans:
+        if d["name"] != "sweep_dispatch" or d.get("parent_id") not in ticks:
+            continue
+        rows = set()
+        for link in ticks[d["parent_id"]].get("links") or ():
+            body = bodies.get(link["trace_id"])
+            if body is not None:
+                row = body + (False,)
+            else:
+                req = by_span.get(link["span_id"])
+                check(req is not None and req.get("client") == "canary",
+                      f"fleet: a tick links to an unknown request {link}")
+                row = (None,) + tuple(canary_case) + (True,)
+            design = row[0] or next((n for n, b in bucket_of.items()
+                                     if b == d["bucket"]), None)
+            if bucket_of.get(design) == d["bucket"]:
+                rows.add((design,) + row[1:])
+        out.append((sorted(rows, key=repr), int(d["rows"])))
+    return out
+
+
+def phase_fleet(out_dir, card, serve=None):
+    """The serving fleet on the card (module docstring, phase 26)."""
+    import asyncio
+
+    from raft_tpu_torch.aot import release
+    from raft_tpu_torch.obs import flight, metrics
+    from raft_tpu_torch.serve import canary as canary_mod
+    from raft_tpu_torch.serve import engine, fleet, rollout
+    from raft_tpu_torch.serve.client import ServeClient
+    from raft_tpu_torch.serve.router import HashRing, Router, routing_key
+    from raft_tpu_torch.structure import bucketing as bk
+    from raft_tpu_torch.utils import config
+
+    t_phase = time.time()
+    on_card = str(DEVICE).startswith("cuda")
+    dev = torch.device("cuda", 0) if on_card else torch.device(DEVICE)
+    dev_arg = "cuda" if on_card else str(DEVICE)
+    base = os.path.join(out_dir, "fleet")
+    shutil.rmtree(base, ignore_errors=True)
+    root, logs = os.path.join(base, "deploy"), os.path.join(base, "logs")
+    os.makedirs(logs)
+    spec = [f"{n}={os.path.join(FIX, f'design_{n}.json')}"
+            for n in ("spar", "semi")]
+    phase_env = dict(
+        RAFT_TPU_AOT_DIR=os.path.join(base, "bank"),
+        RAFT_TPU_SERVE_LADDER=FLEET_LADDER,
+        RAFT_TPU_FLEET_TTL_S=str(FLEET_TTL_S),
+        RAFT_TPU_FLEET_FAULT_REPLICA="1",
+        RAFT_TPU_ROUTER_PROBE_S="0.3", RAFT_TPU_ROUTER_BACKOFF_MS="10",
+        RAFT_TPU_ROUTER_BREAKER_FAILS="1",
+        RAFT_TPU_ROLLOUT_CANARY_PROBES="2", RAFT_TPU_ROLLOUT_POLL_S="0.2",
+        RAFT_TPU_ROLLOUT_HEALTH_TIMEOUT_S="120")
+    prev = {k: os.environ.get(k) for k in list(phase_env) + [
+        config.env_name("AOT")]}
+    os.environ.update(phase_env)
+    res = dict(ladder=FLEET_LADDER, clients=FLEET_CLIENTS,
+               requests=FLEET_CLIENTS * FLEET_REQS)
+    loop = th = router = None
+    procs = []
+
+    class Ops(rollout.FleetOps):
+        """The rollout's side effects as the driver's, its takeover
+        replicas stopped on the way out with the phase's children."""
+
+        def spawn_takeover(self, rid, env):
+            p = super().spawn_takeover(rid, env)
+            CHILDREN.append(p)
+            res["takeover_spawn_t"] = time.time()
+            return p
+
+    def get(port, path):
+        c = ServeClient("127.0.0.1", port, timeout=60)
+        try:
+            return c.request("GET", path)
+        finally:
+            c.close()
+
+    try:
+        # (a) one bank for both demos at ladder 1,4 (the chip process
+        #     pays the first runs), release A promoted; two replicas
+        #     under RAFT_TPU_AOT=require.  The one given the
+        #     replica_kill fault (index 1, RAFT_TPU_FLEET_FAULT_REPLICA)
+        #     gets an id that owns neither demo on the ring, only the
+        #     spar design posted inline: no request reaches it before (c)
+        t0 = time.time()
+        warm = fleet.warm_shared_bank(spec, device=dev)
+        res["warm_s"] = time.time() - t0
+        rid_a = release.cut(label="fleet-a", promote_after=True)["release"]
+        registry = engine.Registry()
+        for n in ("spar", "semi"):
+            registry.register(n, os.path.join(FIX, f"design_{n}.json"))
+        meta = {n: {"sig": bk.signature_fingerprint(registry.get(n).sig),
+                    "fingerprint": registry.get(n).fingerprint}
+                for n in registry.names()}
+        bucket_of = {n: m["sig"] for n, m in meta.items()}
+        with open(os.path.join(FIX, "design_spar.json")) as f:
+            spar_inline = json.load(f)
+        keys = {n: routing_key({"design": n}, meta) for n in meta}
+        keys["inline"] = routing_key({"design_inline": spar_inline}, meta)
+        victim = None
+        for i in range(512):
+            ring = HashRing()
+            ring.add("r0")
+            ring.add(f"rk{i}")
+            own = {k: ring.owners(v)[0] for k, v in keys.items()}
+            if own == {"spar": "r0", "semi": "r0", "inline": f"rk{i}"}:
+                victim = f"rk{i}"
+                break
+        check(victim is not None, "fleet: no replica id owns the inline "
+              "key alone")
+        env = dict(RAFT_TPU_AOT="require", RAFT_TPU_LOG=logs + os.sep,
+                   RAFT_TPU_FAULTS="replica_kill:serve_evaluate:1",
+                   RAFT_TPU_FLIGHT_FLUSH_S="0.5", PYTHONPATH=HERE)
+        t_spawn = {}
+        for i, rid in enumerate(("r0", victim)):
+            t_spawn[rid] = time.time()
+            p, _ = fleet.spawn_replica(root, spec, index=i, replica_id=rid,
+                                       env=env, device=dev_arg)
+            CHILDREN.append(p)
+            procs.append((p, rid))
+
+        # while the replicas start: every case of the phase (the pool's
+        # and the canary's) by a direct call at rung 1 in this process,
+        # the bank off (these are not the path's programs) — the answers
+        # are held against these, and their trips give the launches
+        rng = np.random.default_rng(SERVE_SEED)
+        pool = {n: c[:FLEET_POOL] for n, c in _serve_pool(rng).items()}
+        os.environ[config.env_name("AOT")] = "off"
+        direct = {}
+        for key in [(n,) + c for n, cs in pool.items() for c in cs] + [
+                (n,) + canary_mod.CANARY_CASE for n in meta]:
+            direct[key] = engine.dispatch(
+                [registry.get(key[0])], [key[1]], [key[2]], [key[3]],
+                out_keys=("PSD", "X0", "status", "n_iter_drag"),
+                device=dev, padded=1, record_metrics=False)
+        iters = {k: int(d["n_iter_drag"][0]) for k, d in direct.items()}
+        ledger = fleet.FleetLedger(root)
+        while True:
+            live = ledger.live()
+            if {"r0", victim} <= set(live):
+                break
+            for p, rid in procs:
+                log = os.path.join(fleet._replicas_dir(root), f"{rid}.log")
+                check(p.poll() is None, f"fleet: replica {rid} exited "
+                      f"{p.returncode}: {open(log).read()[-800:]}")
+            check(time.time() - t0 < FLEET_BUDGET_S,
+                  "fleet: the replicas did not join in the budget")
+            time.sleep(0.1)
+        res["startup_s"] = {rid: live[rid]["claimed_t"] - t_spawn[rid]
+                            for rid in ("r0", victim)}
+        res["built"] = {rid: (live[rid]["healthz"]["builds"],
+                              live[rid]["healthz"]["nvcc_runs"])
+                        for rid in ("r0", victim)}
+        check(all(v == (0, 0) for v in res["built"].values()),
+              f"fleet: replicas built {res['built']} (builds, nvcc runs)")
+
+        box, up = {}, threading.Event()
+        loop = asyncio.new_event_loop()
+
+        def serve_router():
+            asyncio.set_event_loop(loop)
+
+            async def run():
+                box["router"] = await Router(root, port=0).start()
+                up.set()
+                await box["router"].serve_until_stopped()
+
+            try:
+                loop.run_until_complete(run())
+            except BaseException as e:  # noqa: BLE001 — reported below
+                box["error"] = e
+                up.set()
+
+        th = threading.Thread(target=serve_router, name="chip-smoke-router",
+                              daemon=True)
+        th.start()
+        check(up.wait(60) and "router" in box,
+              f"fleet: the router did not start: {box.get('error')!r}")
+        router = box["router"]
+        check(router.state.ring_view() == {"spar": ["r0", victim],
+                                           "semi": ["r0", victim]},
+              f"fleet: ring {router.state.ring_view()}")
+
+        # (b) FLEET_CLIENTS x FLEET_REQS requests through the router from
+        #     the serve phase's pool, each with a traceparent of its own
+        #     (its trace id names its body in the replica's trace)
+        plan = [[("spar", "semi")[(i + j) % 2] for j in range(FLEET_REQS)]
+                for i in range(FLEET_CLIENTS)]
+        bodies, results, errors = {}, [], []
+        for i, names in enumerate(plan):
+            for j, n in enumerate(names):
+                h, tp, b = pool[n][int(rng.integers(FLEET_POOL))]
+                tid = f"{i:02x}{j:02x}" + "f" * 28
+                plan[i][j] = (n, h, tp, b, tid)
+                bodies[tid] = (n, h, tp, b)
+        l0 = get(live["r0"]["port"], "/healthz")[1]["kernel"]["launches"]
+        h0 = {k: (metrics.histogram(k).count, metrics.histogram(k).sum)
+              for k in ("span_router_request_s", "span_router_upstream_s")}
+
+        def client(i):
+            c = ServeClient("127.0.0.1", router.port, client_id=f"f{i}",
+                            timeout=120)
+            try:
+                for n, h, tp, b, tid in plan[i]:
+                    t1 = time.perf_counter()
+                    code, body = c.evaluate(
+                        n, h, tp, b, traceparent=f"00-{tid}-{'1' * 16}-01")
+                    results.append((n, h, tp, b, code, body,
+                                    c.last_headers.get("x-raft-replica"),
+                                    time.perf_counter() - t1))
+            except Exception as e:  # noqa: BLE001 — checked below
+                errors.append((i, repr(e)))
+            finally:
+                c.close()
+
+        t1 = time.time()
+        threads = [threading.Thread(target=client, args=(i,))
+                   for i in range(FLEET_CLIENTS)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        res["load_s"] = time.time() - t1
+        check(not errors and len(results) == res["requests"],
+              f"fleet: {len(results)} answers, errors {errors[:3]}")
+        check(all(r[4] in (200, 422) and r[6] == "r0" for r in results),
+              "fleet: codes / replicas "
+              f"{sorted({(r[4], r[6]) for r in results})}")
+        walls = np.array([r[7] for r in results])
+        res["latency_p50_s"], res["latency_p95_s"] = (
+            float(np.percentile(walls, q)) for q in (50, 95))
+        hd = {k: (metrics.histogram(k).count - c0,
+                  metrics.histogram(k).sum - s0)
+              for k, (c0, s0) in h0.items()}
+        n_req = hd["span_router_request_s"][0]
+        res["router_overhead_ms"] = 1e3 * (
+            hd["span_router_request_s"][1]
+            - hd["span_router_upstream_s"][1]) / max(n_req, 1)
+
+        # (c) the kill: the spar design posted inline routes to the armed
+        #     replica, which SIGKILLs itself mid-request; the router
+        #     fails the request over to r0
+        retries0 = metrics.counter("router_retries").value
+        kill_tid = "0b" * 16
+        bodies[kill_tid] = ("spar",) + pool["spar"][0]
+        c = ServeClient("127.0.0.1", router.port, client_id="kill",
+                        timeout=120)
+        code, body = c.request(
+            "POST", "/evaluate", dict(zip(("Hs", "Tp", "beta"),
+                                          pool["spar"][0]),
+                                      design_inline=spar_inline),
+            headers={"traceparent": f"00-{kill_tid}-{'2' * 16}-01"})
+        answered_by = c.last_headers.get("x-raft-replica")
+        c.close()
+        results.append(("spar",) + pool["spar"][0]
+                       + (code, body, answered_by, 0.0))
+        vp = procs[1][0]
+        check(code in (200, 422) and answered_by == "r0"
+              and vp.wait(timeout=30) == -signal.SIGKILL,
+              f"fleet: the kill request answered {code} by {answered_by}, "
+              f"the armed replica's exit {vp.poll()}")
+        res["failovers"] = metrics.counter("router_retries").value - retries0
+        check(res["failovers"] >= 1, "fleet: no failover counted")
+        t_kill = time.time()
+        while router.state.snapshot()["n_replicas"] != 1 \
+                or victim in ledger.replicas():
+            check(time.time() - t_kill < 30, "fleet: the dead lease was "
+                  f"not evicted: {ledger.summary()}")
+            time.sleep(0.1)
+        res["evict_s"] = time.time() - t_kill
+        dump = os.path.join(fleet._replicas_dir(root), "flight",
+                            f"flight-{vp.pid}.jsonl")
+        check(os.path.exists(dump), f"fleet: no flight dump {dump}")
+        res["flight_records"] = len(flight.read_shard(dump)[1])
+
+        # every answer within SLICE_TOL x max of its direct call at rung
+        # 1, status equal
+        worst = 0.0
+        for n, h, tp, b, code, body, _, _ in results:
+            d = direct[(n, h, tp, b)]
+            check(body["status"] == int(d["status"][0]),
+                  f"fleet: {n} {h} status {body['status']}")
+            for k in ("PSD", "X0"):
+                ref = d[k][0]
+                err = float(np.max(np.abs(np.asarray(body["outputs"][k])
+                                          - ref)) / np.max(np.abs(ref)))
+                check(err <= SLICE_TOL, f"fleet: {n} {k} {err:.2e} x max "
+                      "off the direct call")
+                worst = max(worst, err)
+        res["direct_worst_rel"] = worst
+
+        # (d) the router's canary on r0 (goldens from its first probes),
+        #     then release B rolled out: r0 replaced by --takeover under
+        #     the canary gate, its ring keys unmoved
+        canary = canary_mod.RouterCanary(router.state, interval_s=0.3)
+        router.canary = canary
+        canary.start()
+        t2 = time.time()
+        while canary.canary.summary()["passes"] < 2 * len(meta):
+            check(time.time() - t2 < 30, "fleet: the canary did not pass "
+                  f"on r0: {canary.canary.summary()}")
+            time.sleep(0.1)
+        l1 = get(live["r0"]["port"], "/healthz")[1]["kernel"]["launches"]
+        rid_b = release.cut(label="fleet-b")["release"]
+        probe_keys = [routing_key({"design": n, "Hs": float(x)}, meta)
+                      for n in meta for x in range(8)] + list(keys.values())
+        owners0 = [router.state.owners(k) for k in probe_keys]
+        os.environ[config.env_name("AOT")] = "require"
+        t3 = time.time()
+        record = rollout.run_rollout(
+            root, rid_b, spec, router_url=f"http://127.0.0.1:{router.port}",
+            ops=Ops(root, spec, router_url=f"http://127.0.0.1:{router.port}",
+                    device=dev_arg))
+        res["rollout_s"] = time.time() - t3
+        check(record["ok"] and record["replaced"] == ["r0"]
+              and release.current_release() == rid_b,
+              f"fleet: rollout {rollout.summarize_record(record)} "
+              f"{record['steps']}")
+        res["rollout_steps_s"] = {s["replica"]: s["wall_s"]
+                                  for s in record["steps"]}
+        check(procs[0][0].wait(timeout=60) == 0,
+              "fleet: the replaced r0 did not drain to exit 0")
+        new = ledger.live()["r0"]
+        res["takeover_startup_s"] = new["claimed_t"] - res.pop(
+            "takeover_spawn_t")
+        res["takeover_built"] = (new["healthz"]["builds"],
+                                 new["healthz"]["nvcc_runs"])
+        check(res["takeover_built"] == (0, 0),
+              f"fleet: the takeover replica built {res['takeover_built']}")
+        check([router.state.owners(k) for k in probe_keys] == owners0,
+              "fleet: the takeover moved ring keys")
+        summ = canary.canary.summary()
+        check(summ["fails"] == 0 and summ["parity_ok"]
+              and summ["probes"].get("r0", {}).get("endpoint")
+              == f"{new['addr']}:{new['port']}",
+              f"fleet: canary {summ}")
+        res["canary"] = {k: summ[k] for k in ("goldens", "passes", "fails",
+                                              "parity_ok")}
+        res["releases"] = [rid_a, rid_b]
+    finally:
+        if loop is not None and router is not None:
+            loop.call_soon_threadsafe(router._stop.set)
+            th.join(timeout=60)
+        for k, v in prev.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        fleet._shutdown_replicas([(p, "x") for p in CHILDREN
+                                  if p.poll() is None])
+
+    # the solve kernel's launches on r0 from its kernel ledger, against
+    # its dispatches rebuilt from its trace (trips + 1 each, the rows'
+    # trips from the direct calls); the armed replica dispatched nothing
+    dispatches = _fleet_dispatches(_fleet_spans(logs, procs[0][0].pid),
+                                   bodies, bucket_of,
+                                   canary_mod.CANARY_CASE)
+    fused = config.get("FUSED") == "on"
+    exp = 0
+    for rows, n_rows in dispatches:
+        check(len(rows) == n_rows, f"fleet: a dispatch of {n_rows} rows "
+              f"rebuilt as {rows}")
+        meta_sig = bk.signature_meta(registry.get(rows[0][0]).sig)
+        cap = meta_sig["nIter"] * max(int(config.get("ITER_SCALE")), 1) \
+            + 1 + max(int(meta_sig["nIterExtra"]), 0)
+        padded = engine.pick_padded(n_rows, tuple(
+            int(x) for x in FLEET_LADDER.split(",")))
+        exp += expected_launches([iters[k[:4]] for k in rows], padded, cap,
+                                 min(max(1, config.get("SCAN_CHUNK")), cap),
+                                 fused)
+    got = l1["ge_solve"] - l0["ge_solve"]
+    res.update(launches=got, dispatches=len(dispatches))
+    check(got == exp, f"fleet: r0's kernel ledger counts {got} launches, "
+          f"its {len(dispatches)} dispatches' trips want {exp}")
+    res["phase_s"] = time.time() - t_phase
+    su = ", ".join(f"{r} {s:.2f} s" for r, s in res["startup_s"].items())
+    print(f"fleet on {card}: one bank for spar + semi at ladder "
+          f"{FLEET_LADDER} warmed here in {res['warm_s']:.2f} s "
+          f"({sum(r['compiled'] for r in warm)} programs), release "
+          f"{rid_a}; 2 replicas on {dev_arg} under RAFT_TPU_AOT=require, "
+          f"start-up (process start to lease) {su}, built "
+          f"{res['built']} (builds, nvcc runs)")
+    sv = serve or {}
+    print(f"  fleet: {res['requests']} requests from {FLEET_CLIENTS} "
+          f"clients through the router in {res['load_s']:.2f} s, all "
+          f"answered by r0; router p50 {res['latency_p50_s'] * 1e3:.2f} ms, "
+          f"p95 {res['latency_p95_s'] * 1e3:.2f} ms (the serve phase's "
+          f"direct p50 {sv.get('latency_p50_s', float('nan')) * 1e3:.2f} "
+          f"ms, p95 {sv.get('latency_p95_s', float('nan')) * 1e3:.2f} ms); "
+          f"router overhead {res['router_overhead_ms']:.3f} ms a request "
+          "(router_request less router_upstream); every answer within "
+          f"{res['direct_worst_rel']:.2e} x max of a direct rung-1 call, "
+          "status equal")
+    print(f"  fleet: kill drill — the inline request to {victim} killed it "
+          f"(SIGKILL), {res['failovers']} failover(s), 0 dropped; lease "
+          f"evicted {res['evict_s']:.2f} s after, its flight dump "
+          f"{res['flight_records']} records")
+    print(f"  fleet: rollout {rid_a} -> {rid_b}: r0 replaced by --takeover "
+          f"in {res['rollout_s']:.2f} s (step "
+          + ", ".join(f"{r} {w:.2f} s" for r, w in
+                      res["rollout_steps_s"].items())
+          + f", takeover start-up {res['takeover_startup_s']:.2f} s, built "
+          f"{res['takeover_built']}), ring keys unmoved; canary "
+          f"{res['canary']}")
+    print(f"  fleet: ge_solve launches {got} on r0 (its kernel ledger) = "
+          f"the trips + 1 of its {len(dispatches)} dispatches; phase "
+          f"{res['phase_s']:.1f} s of its {FLEET_BUDGET_S:.0f} s budget")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--rows-per-design", type=int, default=2048)
+    ap.add_argument("--rows-per-design", type=int, default=1024)
     ap.add_argument("--out", default=os.path.join(HERE, "chip_smoke_out"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -4813,6 +5292,8 @@ def main():
         rec["fabric"] = timed("fabric", phase_fabric, args.out, rec["card"])
         rec["serve"] = timed("serve", phase_serve, rec["card"], args.out)
         rec["aot"] = timed("aot", phase_aot, args.out, rec["card"])
+        rec["fleet"] = timed("fleet", phase_fleet, args.out, rec["card"],
+                             rec["serve"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -4840,7 +5321,7 @@ def main():
         analyze=rec["analyze"]["launches"],
         omdao=rec["omdao"]["launches"], sweep=rec["sweep"]["launches"],
         fabric=rec["fabric"]["launches"], serve=rec["serve"]["launches"],
-        aot=rec["aot"]["launches"])
+        aot=rec["aot"]["launches"], fleet=rec["fleet"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -4863,13 +5344,15 @@ def main():
                   + rec["sweep"]["launches"]
                   + rec["fabric"]["launches"]
                   + rec["serve"]["launches"]
-                  + rec["aot"]["launches"]),
+                  + rec["aot"]["launches"]
+                  + rec["fleet"]["launches"]),
         analyze_launches=rec["analyze"]["launches"],
         omdao_launches=rec["omdao"]["launches"],
         sweep_launches=rec["sweep"]["launches"],
         fabric_launches=rec["fabric"]["launches"],
         serve_launches=rec["serve"]["launches"],
         aot_launches=rec["aot"]["launches"],
+        fleet_launches=rec["fleet"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

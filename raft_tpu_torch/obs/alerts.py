@@ -43,12 +43,14 @@ page about metrics it has not minted yet.
 The default rule pack (:func:`default_rules`) is the reference's:
 SLO-breach storms, breaker-open storms, membership lease churn,
 result-cache hit-rate collapse, compile-budget burn and canary
-failures/parity splits.  Three of its inputs have no live source in the
-port yet: the router's breaker counter and the fleet's evictions come
-with the fleet (ROADMAP A15(h)), the canary's with ``serve/canary.py``
-(A15(h)), and ``compile-budget-burn`` reads ``counter:xla_real_compiles``
-— the reference's XLA recompile sentinel, which the port has no
-counterpart of (it compiles its kernels with ``nvcc`` ahead of the
+failures/parity splits.  The router's breaker counter and the fleet's
+evictions come from :mod:`raft_tpu_torch.serve.router` and
+:mod:`~raft_tpu_torch.serve.fleet`, the canary's from
+:mod:`raft_tpu_torch.serve.canary` (which feeds
+:func:`provenance_consistency` its release view); one input has no live
+source in the port: ``compile-budget-burn`` reads
+``counter:xla_real_compiles`` — the reference's XLA recompile sentinel,
+which the port has no counterpart of (it compiles its kernels with ``nvcc`` ahead of the
 first launch and traces nothing at run time).  The rule and the fold of
 a record's ``compiles`` block are kept as they are, so records written
 by the reference replay the same; a port record's ``compiles`` is

@@ -291,6 +291,125 @@ EVENTS: dict[str, tuple[tuple[str, ...], str]] = {
         "cost-driven batch-ladder refinement (RAFT_TPU_SERVE_LADDER="
         "cost): candidate rungs whose measured per-dispatch wall was "
         "flat vs the next rung were pruned after warm-up"),
+    # ------------------------------------------------------ serving fleet
+    "replica_join": (
+        ("replica", "port", "designs", "root"),
+        "a warmed replica claimed its membership lease in the _fleet/ "
+        "ledger (O_CREAT|O_EXCL — raft_tpu_torch.serve.fleet); the "
+        "router admits it to the hash ring on its next prober pass"),
+    "replica_drain": (
+        ("replica", "reason", "root"),
+        "a replica released its membership lease at drain START "
+        "(SIGTERM / POST /drain): the router stops routing new work "
+        "here while the accepted work finishes"),
+    "replica_evict": (
+        ("replica", "reason", "age_s", "root"),
+        "an expired membership lease was atomically removed (dead "
+        "replica: SIGKILL/OOM/wedged host — exactly one evictor wins "
+        "the rename) and the replica leaves the hash ring"),
+    "replica_takeover": (
+        ("replica", "port", "prev_port", "root"),
+        "a rolling-upgrade replacement SEIZED an existing live lease "
+        "under the same replica id (atomic rewrite, then /drain to "
+        "the predecessor): the router sees one endpoint replacement, "
+        "never a remove+add ring churn pair"),
+    "fleet_spawn": (
+        ("root", "replica", "pid"),
+        "the fleet coordinator spawned one replica server subprocess"),
+    "router_start": (
+        ("host", "port", "fleet_dir", "n_replicas", "replicas"),
+        "the failover router bound its socket (after the first "
+        "membership pass populated the ring)"),
+    "router_stop": (
+        ("requests", "retries"),
+        "the router exited after letting in-flight proxied requests "
+        "finish"),
+    "router_ring_update": (
+        ("added", "removed", "n_replicas", "replaced?"),
+        "the membership prober reconciled the hash ring against the "
+        "lease ledger (join/drain/evict — zero router restarts); "
+        "replaced names replicas whose lease moved to a new endpoint "
+        "under the SAME id (rolling-upgrade takeover): their vnodes "
+        "stay put, only the endpoint + breaker reset"),
+    "router_request": (
+        ("replica", "code", "attempts", "hedged", "design", "wall_s",
+         "provenance?"),
+        "one proxied /evaluate resolved: which replica answered, the "
+        "final HTTP code, and how many failover attempts it took "
+        "(replica=None on a 503 rejection)"),
+    "router_retry": (
+        ("replica", "attempt", "reason", "delay_s"),
+        "the failover ladder moved a request to the next ring replica "
+        "after a backoff (reason: connect | dropped | timeout | "
+        "http_5xx) — duplicate dispatch is benign by construction "
+        "(content-addressed result caches)"),
+    "router_hedge": (
+        ("primary", "replica", "hedge_ms"),
+        "a hedged copy of a straggling first attempt was fired at the "
+        "next ring replica (RAFT_TPU_ROUTER_HEDGE_MS); first good "
+        "response wins"),
+    "router_reject": (
+        ("reason", "attempts", "retry_after_s"),
+        "every owning replica was dead or breaker-open: the client got "
+        "503 + Retry-After (graceful degradation, never a dropped "
+        "connection)"),
+    "breaker_open": (
+        ("replica", "reason", "fails", "cooldown_s"),
+        "a replica's circuit breaker opened after consecutive upstream "
+        "failures; no traffic until the cooldown's half-open trial"),
+    "breaker_close": (
+        ("replica", "probe?"),
+        "a half-open trial (live request, or probe=true for the "
+        "prober's /healthz recovery check) succeeded and the "
+        "replica's breaker closed"),
+    "canary_golden": (
+        ("design", "key", "status", "replica"),
+        "one content-addressed golden row captured (design content "
+        "hash + exact canary case bits + out_keys -> outputs + int32 "
+        "status — raft_tpu_torch.serve.canary); replica names the "
+        "source of a router-side capture, None for a replica's own "
+        "warm-up capture"),
+    "canary_check": (
+        ("design", "replica", "ok", "reason", "provenance_ok", "key"),
+        "one canary probe compared against its golden: ok=false means "
+        "numeric/status drift vs the golden OR a cross-replica "
+        "provenance split (stale bank, env skew, flag divergence) — "
+        "feeds canary_pass/canary_fail and the canary-parity alert "
+        "rule"),
+    "rollout_start": (
+        ("to", "from", "replicas", "root"),
+        "a canary-gated rolling upgrade began: current flipped to the "
+        "candidate release, the rollout marker written, replicas to "
+        "be surf-replaced one at a time (raft_tpu_torch.serve.rollout)"),
+    "rollout_step": (
+        ("replica", "phase", "ok", "wall_s?"),
+        "one rollout step finished (phase: upgrade | rollback): the "
+        "named replica was replaced in place and the mixed-version "
+        "fleet's canary verdict gated promotion to the next"),
+    "rollout_rollback": (
+        ("to", "reason", "aborted"),
+        "the rollout aborted (canary failure, alert fire, or a step "
+        "timeout) and automatically rolled back: current re-pointed "
+        "at the parent release, upgraded replicas rolled back the "
+        "same surf-replace way; aborted names the abandoned release"),
+    "rollout_done": (
+        ("to", "ok", "replaced", "rolled_back", "wall_s"),
+        "the rolling upgrade finished: every replica replaced and "
+        "canary-green (ok=true), or rolled back to the parent "
+        "release (ok=false) — one run record + one merged trace per "
+        "rollout either way"),
+    "autoscale_out": (
+        ("replicas", "reason", "pressure"),
+        "the autoscaler added a replica on sustained hot alert state "
+        "(slo-breach / breaker-storm firing past "
+        "RAFT_TPU_AUTOSCALE_OUT_FOR_S): a replica spawned from the "
+        "shared program bank (raft_tpu_torch.serve.autoscale)"),
+    "autoscale_in": (
+        ("replica", "replicas", "reason", "occupancy"),
+        "the autoscaler drained one replica after sustained low "
+        "kernel-ledger occupancy (under RAFT_TPU_AUTOSCALE_LOW_OCC "
+        "for RAFT_TPU_AUTOSCALE_IN_FOR_S, past the cooldown, never "
+        "below RAFT_TPU_AUTOSCALE_MIN)"),
     # --------------------------------------------------- alert engine
     "alert_fire": (
         ("rule", "severity", "metric", "value", "threshold", "context"),
@@ -353,6 +472,20 @@ SPANS: dict[str, str] = {
                      "(adopts the client's traceparent when sent)",
     "serve_tick": "one non-empty batcher tick; `links` names every "
                   "coalesced request span it dispatched for",
+    "router_request": "one proxied /evaluate at the fleet router, "
+                      "HTTP accept through the failover ladder to the "
+                      "response (adopts the client's traceparent; its "
+                      "ids are forwarded so the replica's serve_request "
+                      "span joins the same trace)",
+    "router_upstream": "one upstream attempt of the failover ladder "
+                       "(child of router_request; retries and hedges "
+                       "each get their own)",
+    "rollout": "one canary-gated rolling upgrade, pointer flip through "
+               "the last replica replacement (or the automatic "
+               "rollback) — root of the rollout_step tree",
+    "rollout_step": "one replica's surf-replacement inside a rollout "
+                    "(spawn + ledger join + canary gate), child of "
+                    "the rollout span",
 }
 
 

@@ -21,8 +21,9 @@ Two consumers of a ``RAFT_TPU_LOG`` capture (pure stdlib, no torch):
 The sections over serving events (endpoints, ticks, the stage split,
 alerts) read what :mod:`raft_tpu_torch.serve` and
 :mod:`raft_tpu_torch.obs.alerts` emit, in the reference's record
-formats; the fleet router's and the canaries' sections read the
-reference's records (those layers are ROADMAP A15(h)).  The
+formats, and so do the fleet router's and the canaries' sections
+(:mod:`raft_tpu_torch.serve.router`, :mod:`~raft_tpu_torch.serve.
+canary`).  The
 ``x-raft-provenance`` parser and the cross-replica consistency verdict
 come from :mod:`raft_tpu_torch.obs.alerts`.
 """

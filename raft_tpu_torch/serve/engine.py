@@ -236,6 +236,15 @@ def program_stats(key):
         return dict(_WALLS.get(key) or {})
 
 
+def busy_s():
+    """The summed solve wall of every dispatch this process ran (warm-up
+    included): a fleet replica's lease health snapshot carries it, and
+    the autoscaler reads its lease-to-lease rate as the replica's
+    occupancy."""
+    with _WALL_LOCK:
+        return sum(st["wall_s"] for st in _WALLS.values())
+
+
 def ladder_walls(entries, sizes, out_keys=DEFAULT_OUT_KEYS, device=None):
     """Measured dispatch wall per ladder rung, from the in-process wall
     ledger that :func:`dispatch` fills (warm-up dispatches and serving

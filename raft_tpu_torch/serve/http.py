@@ -40,20 +40,27 @@ Routes
                     exposition format
 ``GET /designs``    registered design names
 ``GET /alerts``     the alert engine's state (``enabled: false`` unless
-                    ``RAFT_TPU_ALERT_EVAL_S`` > 0)
+                    ``RAFT_TPU_ALERT_EVAL_S`` > 0) and the replica's
+                    golden-canary summary (None unless
+                    ``RAFT_TPU_CANARY_S`` > 0)
 ``GET /debug/flight``  the flight ring as a JSONL shard (loopback only)
 ``POST /drain``     begin a graceful drain (202) — loopback peers only
+                    (the fleet router drains a replica it is evicting;
+                    a tenant must never be able to drain the service)
 
 Shutdown: SIGTERM/SIGINT (or ``POST /drain``) triggers a graceful
-drain — stop accepting, finish in-flight
-ticks (every accepted request gets its response), flush metrics
-(``RAFT_TPU_METRICS`` path when set), then exit.
+drain — release the fleet membership lease FIRST (``on_drain_start``,
+so the router stops routing new work here while accepted work
+finishes), stop accepting, finish in-flight ticks (every accepted
+request gets its response), flush metrics (``RAFT_TPU_METRICS`` path
+when set), then exit.
 
 Fault injection (:mod:`raft_tpu_torch.utils.faults`): the three
 ``replica_*`` kinds consult the ``serve_evaluate`` site here —
 ``replica_kill`` SIGKILLs the process on the next /evaluate,
 ``replica_hang`` parks it past every timeout, ``replica_5xx`` returns
-a 500.
+a 500 — driving the router's kill-a-replica / breaker drills
+deterministically.
 """
 
 from __future__ import annotations
@@ -107,7 +114,7 @@ class Server:
     """One service instance: batcher + asyncio HTTP endpoint."""
 
     def __init__(self, batcher, host="127.0.0.1", port=8787,
-                 provenance=None):
+                 on_drain_start=None, provenance=None):
         self.batcher = batcher
         self.host = host
         self.port = int(port)
@@ -120,6 +127,12 @@ class Server:
 
         self._prov_headers = {k: format_provenance(v)
                               for k, v in (provenance or {}).items()}
+        #: called (in an executor — it does file IO) at the very START
+        #: of the graceful drain, before any in-flight work finishes:
+        #: the fleet replica releases its membership lease here, so the
+        #: router stops routing new requests to a draining replica
+        #: while it completes the accepted ones
+        self.on_drain_start = on_drain_start
         self._server = None
         self._stop = None
         self._handlers = set()
@@ -334,11 +347,15 @@ class Server:
         if path == "/healthz":
             return self._healthz()
         if path == "/alerts":
-            # live alert-engine state (the golden canary is ROADMAP
-            # A15(h)) — pure in-memory reads, safe on the event loop
+            # live alert-engine state (+ the replica's golden-canary
+            # summary when the canary path is enabled) — pure in-memory
+            # reads, safe on the event loop
             from raft_tpu_torch.obs import alerts as alerts_mod
+            from raft_tpu_torch.serve import canary as canary_mod
 
-            return 200, alerts_mod.endpoint_payload()
+            payload = alerts_mod.endpoint_payload()
+            payload["canary"] = canary_mod.replica_summary()
+            return 200, payload
         if path == "/metrics":
             return 200, metrics.to_prometheus()  # text, not JSON
         if path == "/debug/flight":
@@ -457,6 +474,16 @@ class Server:
         flush metrics."""
         t0 = time.perf_counter()
         loop = asyncio.get_running_loop()
+        # 0. release fleet membership FIRST (file IO — executor): the
+        #    router must stop routing NEW work here before we spend the
+        #    drain window finishing the accepted work; a lease released
+        #    at process exit instead would keep attracting traffic for
+        #    the whole drain
+        if self.on_drain_start is not None:
+            try:
+                await loop.run_in_executor(None, self.on_drain_start)
+            except Exception as e:  # noqa: BLE001 — drain must proceed
+                log_event("serve_error", error=repr(e)[:300], rows=0)
         # 1. stop accepting new connections; mark draining so keep-alive
         #    connections get 503 for new requests
         self._server.close()
@@ -496,10 +523,12 @@ class Server:
 
 
 async def run_server(batcher, host="127.0.0.1", port=8787, ready=None,
-                     provenance=None):
+                     on_drain_start=None, provenance=None):
     """Start + block until signalled.  ``ready(server)`` runs after the
-    socket binds (the CLI prints its ready line there)."""
+    socket binds (the CLI prints its ready line there; the fleet
+    replica claims its membership lease there too)."""
     server = await Server(batcher, host, port,
+                          on_drain_start=on_drain_start,
                           provenance=provenance).start()
     if ready is not None:
         ready(server)

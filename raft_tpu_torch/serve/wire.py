@@ -3,9 +3,9 @@
 
 One deliberately small HTTP implementation: :mod:`raft_tpu_torch.serve.
 http` parses requests and formats responses with it, and
-:func:`proxy_request` is the asyncio upstream client the fleet router
-will use (ROADMAP A15(h)).  It imports no torch, so a network process
-built on it starts while the card is busy.
+:func:`proxy_request` is the asyncio upstream client of the fleet
+router (:mod:`raft_tpu_torch.serve.router`).  It imports no torch, so a
+network process built on it starts while the card is busy.
 """
 
 from __future__ import annotations

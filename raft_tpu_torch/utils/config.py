@@ -1,6 +1,7 @@
 """The port's registry of ``RAFT_TPU_*`` environment flags.
 
-Main-path flags, the evaluation service's and its alert engine's, and
+Main-path flags, the evaluation service's, its alert engine's and its
+fleet's (canary, membership leases, router, rollouts, autoscaler), and
 the flags of the checkpointed sweeps, their worker fabric and their telemetry
 (structured log, heartbeat, metrics export, flight recorder, run
 records, fault injection, escalation ladder, profiler), under the same environment names, kinds and defaults as
@@ -244,6 +245,124 @@ _register(
     Flag("ALERTS", "str", "",
          help="JSONL sink path for alert fire/resolve records (one "
               "appended line per transition; unset = no sink)"),
+    # -- golden-answer canary (raft_tpu_torch.serve.canary)
+    Flag("CANARY_S", "float", 0.0,
+         help="golden-answer canary period in seconds (0 disables): on "
+              "the router, a daemon probes every (replica, design) "
+              "pair with a synthetic /evaluate and compares against "
+              "content-addressed goldens (bit-for-status, tolerance-"
+              "for-floats) + cross-replica provenance consistency; on "
+              "a replica, golden rows are captured at warm-up"),
+    Flag("CANARY_OUT_KEYS", "str", "X0,status",
+         help="out_keys the canary probes request and compares "
+              "(status is always included; keep these small — X0 is "
+              "6 floats, PSD is a full grid)"),
+    Flag("CANARY_RTOL", "float", 1e-5,
+         help="relative tolerance of the canary's float-output "
+              "comparison against the golden row (status bits are "
+              "always compared exactly)"),
+    Flag("CANARY_ATOL", "float", 1e-8,
+         help="absolute tolerance of the canary's float-output "
+              "comparison against the golden row"),
+    # -- serving fleet: replica membership ledger
+    #    (raft_tpu_torch.serve.fleet)
+    Flag("FLEET_DIR", "str", "",
+         help="default fleet deploy directory (the _fleet/ membership "
+              "ledger root) for `python -m raft_tpu_torch.serve "
+              "{--fleet-dir,fleet,router}` when the flag is not passed "
+              "explicitly"),
+    Flag("FLEET_TTL_S", "float", 10.0,
+         help="replica membership-lease time-to-live: a lease not "
+              "renewed within this window is a dead replica — the "
+              "router evicts it from the hash ring (renewals run every "
+              "ttl/3 from a daemon thread)"),
+    Flag("FLEET_FAULT_REPLICA", "int", 0,
+         help="index of the ONE spawned fleet replica that receives "
+              "the replica-targeted RAFT_TPU_FAULTS kinds "
+              "(replica_kill, replica_hang, replica_5xx); other "
+              "replicas get them stripped so the kill-a-replica drill "
+              "is deterministic"),
+    # -- serving fleet: failover router (raft_tpu_torch.serve.router)
+    Flag("ROUTER_PROBE_S", "float", 1.0,
+         help="router membership-prober period: lease-ledger scan, "
+              "joiner /healthz admission probe, expired-lease "
+              "eviction, breaker-open recovery probe, router.json "
+              "publication"),
+    Flag("ROUTER_VNODES", "int", 64,
+         help="virtual nodes per replica on the consistent-hash ring "
+              "(more = smoother key distribution, larger ring)"),
+    Flag("ROUTER_RETRIES", "int", 3,
+         help="failover retry budget per proxied request: a connect "
+              "failure, dropped response, per-attempt timeout or "
+              "retryable 5xx moves the request to the next ring "
+              "replica up to this many extra attempts"),
+    Flag("ROUTER_BACKOFF_MS", "float", 50.0,
+         help="base delay of the router's capped exponential failover "
+              "backoff (doubles per retry; shared schedule with the "
+              "serve client's 429/503 retries)"),
+    Flag("ROUTER_BACKOFF_CAP_MS", "float", 2000.0,
+         help="upper bound of the router failover backoff (an "
+              "upstream Retry-After may exceed it — the server's "
+              "window wins)"),
+    Flag("ROUTER_TIMEOUT_S", "float", 300.0,
+         help="per-attempt upstream timeout of one proxied request "
+              "(connect + response); a timed-out attempt counts "
+              "against the replica's breaker and fails over"),
+    Flag("ROUTER_BREAKER_FAILS", "int", 3,
+         help="consecutive upstream failures that open a replica's "
+              "circuit breaker (no traffic until half-open)"),
+    Flag("ROUTER_BREAKER_COOLDOWN_S", "float", 5.0,
+         help="open-breaker cooldown before ONE half-open trial "
+              "request (or prober /healthz success) may close it"),
+    Flag("ROUTER_HEDGE_MS", "float", 0.0,
+         help="hedged-request delay for p99 stragglers: a first "
+              "attempt still unanswered after this many ms fires a "
+              "second copy at the next ring replica and the first "
+              "good response wins (0 disables; duplicate dispatch is "
+              "benign — content-addressed result caches)"),
+    # -- canary-gated rolling upgrades (raft_tpu_torch.serve.rollout)
+    Flag("ROLLOUT_HEALTH_TIMEOUT_S", "float", 180.0,
+         help="per-replica rollout step budget: the upgraded replica "
+              "must bind, join the fleet ledger and clear its canary "
+              "gate within this window, or the rollout aborts and "
+              "rolls back automatically"),
+    Flag("ROLLOUT_CANARY_PROBES", "int", 2,
+         help="green canary passes required after each replica "
+              "replacement before the rollout promotes to the next "
+              "replica (0 skips the canary gate — testing only)"),
+    Flag("ROLLOUT_POLL_S", "float", 0.5,
+         help="rollout driver poll period while waiting on lease "
+              "joins and canary verdicts"),
+    # -- SLO-driven autoscaler (raft_tpu_torch.serve.autoscale)
+    Flag("AUTOSCALE_EVAL_S", "float", 0.0,
+         help="autoscaler evaluation period in seconds (0 disables — "
+              "no thread, no state): a router-side daemon scales the "
+              "replica fleet out on sustained slo-breach/breaker-"
+              "storm alert state and in on low kernel-ledger occupancy"),
+    Flag("AUTOSCALE_MIN", "int", 1,
+         help="autoscaler floor: scale-in never drops the fleet below "
+              "this many live replicas"),
+    Flag("AUTOSCALE_MAX", "int", 4,
+         help="autoscaler ceiling: scale-out never grows the fleet "
+              "past this many live replicas"),
+    Flag("AUTOSCALE_OUT_FOR_S", "float", 3.0,
+         help="sustain window of the scale-out signal: the hot "
+              "condition (slo-breach/breaker-storm firing) must hold "
+              "this long before a replica is added (the alert "
+              "engine's for-duration state machine)"),
+    Flag("AUTOSCALE_IN_FOR_S", "float", 15.0,
+         help="sustain window of the scale-in signal: kernel-ledger "
+              "occupancy must stay under AUTOSCALE_LOW_OCC this long "
+              "before a replica is drained (hysteresis against "
+              "flapping — deliberately longer than the out window)"),
+    Flag("AUTOSCALE_COOLDOWN_S", "float", 30.0,
+         help="minimum seconds between ANY two autoscaler actions "
+              "(out or in): a scale-out's warm-up/join transient must "
+              "never read as the next scale signal"),
+    Flag("AUTOSCALE_LOW_OCC", "float", 0.1,
+         help="scale-in occupancy threshold: fleet-mean busy fraction "
+              "(kernel-ledger busy seconds per wall second per "
+              "replica) under this is a shrink candidate"),
     # -- checkpointed sweeps (raft_tpu_torch.parallel.resilience)
     Flag("ESCALATE", "choice", "off", choices=("off", "retol", "f64_cpu"),
          help="escalation ladder for status-flagged sweep rows: 'retol' "

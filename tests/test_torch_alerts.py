@@ -1,6 +1,6 @@
 """The port's alert engine (``raft_tpu_torch.obs.alerts``), ported from
-``tests/test_alerts.py`` less its golden-canary tests (the canary is
-``serve/canary.py``, ROADMAP A15(h)): rule parsing, predicates,
+``tests/test_alerts.py`` less its golden-canary tests (those are in
+``tests/test_torch_canary.py``): rule parsing, predicates,
 for-duration and resolve hysteresis, rule-file loading, the default
 pack, record replay (``alerts eval --record``), the provenance codec
 and cross-replica consistency, and the obs-report alerts/provenance

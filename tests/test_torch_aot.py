@@ -61,11 +61,21 @@ from raft_tpu_torch.aot.__main__ import main as aot_cli
 from raft_tpu_torch.obs import metrics
 from raft_tpu_torch.parallel.sweep import make_mesh, sweep_cases
 
+from _torch_env_guard import raft_env_unchanged
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CHILD = os.path.join(REPO, "tests", "_torch_aot_child.py")
 FIX = os.path.join(REPO, "tests", "fixtures", "torch_port")
 SPAR = os.path.join(FIX, "design_spar.json")
 GOOD = os.path.join(REPO, "tests", "fixtures", "releases", "good.json")
+
+
+@pytest.fixture(autouse=True)
+def _raft_env_guard():
+    """Fail a test that leaves a RAFT_TPU_* variable behind (a fabric
+    Worker built in-process stamps RAFT_TPU_WORKER_ID)."""
+    with raft_env_unchanged():
+        yield
 
 
 def tiny_evaluator(stamp=("tiny", 1)):
@@ -677,11 +687,11 @@ def test_fabric_worker_warms_before_its_first_claim(bank_dir, tmp_path,
                       entry_kwargs=kw, warmup={"sizes": [4]}, device="cpu")
     monkeypatch.setattr(bank, "_SEEN", set())
     c0 = counters()
+    # the Worker stamps RAFT_TPU_WORKER_ID into the process environment:
+    # set through monkeypatch first, its teardown removes it again
+    monkeypatch.setenv("RAFT_TPU_WORKER_ID", "w0")
     worker = fabric.Worker(out_dir, worker_id="w0")
-    try:
-        assert worker.run() == 2
-    finally:
-        monkeypatch.delenv("RAFT_TPU_WORKER_ID", raising=False)
+    assert worker.run() == 2
     assert delta(c0, "aot_programs_compiled") == 1
     with open(log) as f:
         evs = [json.loads(ln) for ln in f if ln.strip()]

@@ -21,7 +21,9 @@ the orchestrated path's case metrics at the gates of
 ``tests/test_torch_orchestrated.py``; a served row bit-equal to a direct
 bucket-evaluator call on the padded group that served it; a fresh
 process on a warmed program bank bit-equal to this process's calls,
-with no nvcc run.
+with no nvcc run; two fleet replicas on the card behind a router
+bit-equal to each other and within 1e-10 x max of the JAX serving
+engine's goldens.
 """
 
 import json
@@ -915,3 +917,87 @@ def test_warmed_bank_loads_on_card_under_require_without_nvcc(cuda,
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+@pytest.mark.cuda
+def test_two_replicas_on_card_behind_a_router_are_bit_equal(cuda, tmp_path,
+                                                           monkeypatch):
+    """Two fleet replicas (``python -m raft_tpu_torch.serve --fleet-dir``)
+    on cuda:0 behind an in-process router: the same cases answered by
+    each replica directly and through the router are bit-equal, status
+    equal, and within 1e-10 x max of the JAX serving engine's
+    ``golden_serve_spar.npz``."""
+    import asyncio
+    import threading
+    import time
+
+    from raft_tpu_torch.serve import fleet
+    from raft_tpu_torch.serve.client import ServeClient
+    from raft_tpu_torch.serve.router import Router
+
+    g = np.load(os.path.join(FIX, "golden_serve_spar.npz"))
+    rows = [{k: g[f"r{rung}_{k}"][i] for k in ("Hs", "Tp", "beta", "X0",
+                                                "status")}
+            for rung in (1, 4) for i in range(len(g[f"r{rung}_Hs"]))]
+    root = str(tmp_path / "deploy")
+    env = {"RAFT_TPU_SERVE_LADDER": "1,4", "RAFT_TPU_FLEET_TTL_S": "5",
+           "RAFT_TPU_AOT": "off"}
+    for drop in ("RAFT_TPU_LOG", "RAFT_TPU_RUNS_DIR", "RAFT_TPU_FAULTS"):
+        monkeypatch.delenv(drop, raising=False)
+    monkeypatch.setenv("RAFT_TPU_ROUTER_PROBE_S", "0.3")
+    spar = os.path.join(FIX, "design_spar.json")
+    procs = [fleet.spawn_replica(root, [f"spar={spar}"], index=i,
+                                 replica_id=f"r{i}", env=env, device="cuda")
+             for i in range(2)]
+    box, up = {}, threading.Event()
+    loop = asyncio.new_event_loop()
+
+    def serve():
+        asyncio.set_event_loop(loop)
+
+        async def run():
+            box["router"] = await Router(root, port=0).start()
+            up.set()
+            await box["router"].serve_until_stopped()
+
+        loop.run_until_complete(run())
+
+    th = None
+    try:
+        ledger = fleet.FleetLedger(root)
+        t0 = time.monotonic()
+        while not {"r0", "r1"} <= set(ledger.live()):
+            assert all(p.poll() is None for p, _ in procs)
+            assert time.monotonic() - t0 < 300
+            time.sleep(0.2)
+        live = ledger.live()
+        th = threading.Thread(target=serve, daemon=True)
+        th.start()
+        assert up.wait(60)
+        answers = {}
+        for where, port in (("r0", live["r0"]["port"]),
+                            ("r1", live["r1"]["port"]),
+                            ("router", box["router"].port)):
+            c = ServeClient("127.0.0.1", port, timeout=300)
+            try:
+                answers[where] = [c.evaluate("spar", float(r["Hs"]),
+                                             float(r["Tp"]),
+                                             float(r["beta"]))
+                                  for r in rows]
+            finally:
+                c.close()
+        for (ca, a), (cb, b), (cr, rb), row in zip(
+                answers["r0"], answers["r1"], answers["router"], rows):
+            assert ca == cb == cr == 200
+            assert a["status"] == b["status"] == rb["status"] \
+                == int(row["status"])
+            assert a["outputs"] == b["outputs"] == rb["outputs"]
+            ref = row["X0"]
+            assert np.max(np.abs(np.asarray(a["outputs"]["X0"]) - ref)) \
+                <= 1e-10 * np.max(np.abs(ref))
+    finally:
+        if th is not None:
+            loop.call_soon_threadsafe(box["router"]._stop.set)
+            th.join(timeout=60)
+        rcs = fleet._shutdown_replicas(procs)
+    assert set(rcs.values()) == {0}

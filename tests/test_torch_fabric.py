@@ -31,7 +31,16 @@ from raft_tpu_torch.ops import linsolve
 from raft_tpu_torch.parallel import fabric, resilience
 from raft_tpu_torch.utils import faults
 
+from _torch_env_guard import raft_env_unchanged
+
 HERE = os.path.abspath(__file__)
+
+
+@pytest.fixture(autouse=True)
+def _raft_env_guard():
+    """Fail a test that leaves a RAFT_TPU_* variable behind."""
+    with raft_env_unchanged():
+        yield
 
 
 def _cases(n, seed=0):
@@ -254,7 +263,11 @@ def test_init_sweep_spec_manifest_and_refusals(tmp_path, log_path,
     with pytest.raises(ValueError, match="device"):
         fabric.init_sweep(str(tmp_path / "d"), f"{HERE}:toy_entry", cases,
                           ("X0",), 4, device="tpu")
-    # a worker under the reference's multi-host variables refuses (A15(g))
+    # a worker under the reference's multi-host variables refuses (A15(g));
+    # a Worker stamps RAFT_TPU_WORKER_ID into the process environment (as
+    # the reference's does), so the variable is set through monkeypatch
+    # first and its teardown removes it again
+    monkeypatch.setenv("RAFT_TPU_WORKER_ID", "x")
     monkeypatch.setenv("RAFT_TPU_DIST", "1")
     with pytest.raises(NotImplementedError, match=r"A15\(g\)"):
         fabric.Worker(out_dir, worker_id="x")._setup_runtime(spec)

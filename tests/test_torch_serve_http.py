@@ -6,9 +6,11 @@ is answered, the process exits 0 and flushes its metrics.  The
 reference test's JAX setup (``JAX_PLATFORMS``, ``XLA_FLAGS``, the
 compile cache) has no counterpart here.
 
-Also the CLI's refusals: the fleet modes and options exit 2 naming
-ROADMAP A15(h), and without a card and without ``--device`` the server
-exits 2 naming ``--device cpu``.
+Also the CLI's refusals: the fleet, router and rollout modes and the
+replica options exit 2 on what they cannot run without (a fleet
+directory, designs, at least one replica, a cut release), and without a
+card and without ``--device`` the server exits 2 naming ``--device
+cpu``.
 """
 
 import json
@@ -235,16 +237,36 @@ def test_server_end_to_end_sigterm_drain(tmp_path):
         stderr_f.close()
 
 
-@pytest.mark.parametrize("argv", [
-    ["fleet", "--replicas", "2"], ["router"], ["rollout", "--to", "r1"],
-    ["--designs", "spar=x.json", "--fleet-dir", "d"],
-    ["--designs", "spar=x.json", "--replica-id", "r0"],
-    ["--designs", "spar=x.json", "--takeover"]])
-def test_fleet_modes_exit_2_naming_the_roadmap_item(argv, capsys):
+@pytest.mark.parametrize("argv,says", [
+    (["fleet", "--replicas", "2", "--designs", "spar=x.json"],
+     "--fleet-dir (or RAFT_TPU_FLEET_DIR) is required"),
+    (["router"], "--fleet-dir (or RAFT_TPU_FLEET_DIR) is required"),
+    (["rollout", "--to", "r1", "--designs", "spar=x.json"],
+     "--fleet-dir (or RAFT_TPU_FLEET_DIR) is required"),
+    (["fleet", "--fleet-dir", "{d}", "--replicas", "2"], "no designs"),
+    (["rollout", "--fleet-dir", "{d}", "--to", "r1"], "no designs"),
+    (["fleet", "--fleet-dir", "{d}", "--replicas", "0",
+      "--designs", "spar=x.json"], "at least one replica"),
+    (["rollout", "--fleet-dir", "{d}", "--to", "000000000000",
+      "--designs", "spar=x.json"], "no release '000000000000'"),
+    (["--designs", "spar=x.json", "--replica-id", "r0"],
+     "--replica-id / --takeover name a fleet replica"),
+    (["--designs", "spar=x.json", "--takeover"],
+     "--replica-id / --takeover name a fleet replica")])
+def test_fleet_modes_own_refusals_exit_2(argv, says, tmp_path, monkeypatch,
+                                         capsys):
+    """Each fleet mode and replica option refuses, with exit 2 and a
+    line naming what is missing, before it spawns, binds or promotes
+    anything (the reference's refusals, and the port's for a replica
+    option without a fleet directory)."""
     from raft_tpu_torch.serve.__main__ import main
 
+    monkeypatch.delenv("RAFT_TPU_FLEET_DIR", raising=False)
+    monkeypatch.setenv("RAFT_TPU_AOT_DIR", str(tmp_path / "bank"))
+    argv = [a.replace("{d}", str(tmp_path / "deploy")) for a in argv]
     assert main(argv) == 2
-    assert "A15(h)" in capsys.readouterr().err
+    assert says in capsys.readouterr().err
+    assert not (tmp_path / "deploy").exists()
 
 
 def test_server_without_a_card_or_device_exits_2(capsys):
