@@ -383,12 +383,30 @@ Phases, each printing one line (the last line is the result object):
              + 1 of its dispatches, rebuilt from its trace shard (each
              request carries a traceparent of its own); the phase's
              wall beside FLEET_BUDGET_S (100 s).
-27. kernels - one JSON object listing both entries of the solve kernel,
+27. analysis - the op contracts on the card
+             (raft_tpu_torch/analysis/contracts.py): the seven entries
+             of `python -m raft_tpu_torch.analysis contracts` once each
+             on the spar demo on cuda:0 (float64, FUSED on), their aten
+             ops beside the CPU baseline (op_baseline.json), the solve
+             kernel's launches (one per raft.solve), host syncs and
+             host-to-card copies: the per-entry launch table.  The
+             bucket evaluator and the case evaluator in float64 and
+             float32 are held: aten ops, host syncs and trips equal to
+             the same call's on the CPU in this process (this torch),
+             those within op_baseline.json's budget slack (it was
+             recorded with another torch), launches = trips + 1, the
+             structure, stop-test and float32-trip contracts, a repeat
+             call that builds nothing, runs nvcc no time and runs the
+             same ops and launches, outputs against the CPU's (float64
+             within SLICE_TOL x max with status, n_iter_drag and
+             drag_converged equal; float32 within ANALYSIS_F32_TOL);
+             the phase's wall beside ANALYSIS_BUDGET_S (30 s).
+28. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path (the analyze,
-             omdao, sweep, fabric, serve, aot and fleet paths' also as
-             analyze_launches, omdao_launches, sweep_launches,
-             fabric_launches, serve_launches, aot_launches and
-             fleet_launches) and the adjoint
+             omdao, sweep, fabric, serve, aot, fleet and analysis paths'
+             also as analyze_launches, omdao_launches, sweep_launches,
+             fabric_launches, serve_launches, aot_launches,
+             fleet_launches and analysis_launches) and the adjoint
              with its launches on the grad and grad_paths paths, each
              with its N = 12 (one-lane-per-row) figures (the adjoint's
              from the farm's backward).
@@ -518,6 +536,8 @@ FLEET_REQS = 8
 FLEET_POOL = 4                         # cases per demo from the serve pool
 FLEET_TTL_S = 2.0
 FLEET_BUDGET_S = 100.0                # three replica start-ups, 26-32 s each
+ANALYSIS_BUDGET_S = 30.0
+ANALYSIS_F32_TOL = 1e-3                # x max|x|, float32 card vs CPU
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
 DEVICE = "cuda"
@@ -5221,6 +5241,108 @@ def phase_fleet(out_dir, card, serve=None):
     return res
 
 
+def phase_analysis(card):
+    """The op contracts on the card (module docstring, phase 27)."""
+    from raft_tpu_torch.analysis import contracts as oc
+
+    t_phase = time.time()
+    base = oc.load_baseline()
+    check(base.get("entries"), "analysis: raft_tpu_torch/analysis/"
+          "op_baseline.json is missing")
+    card_run = oc.EntryRunner(device=DEVICE)
+    cpu_run = oc.EntryRunner(device="cpu")
+    res = dict(entries={}, launches=0)
+    held = ("bucket_evaluator", "fused_case")
+    plan = [(e, "float64+fused" if oc.CONTRACTS[e].fused else "float64")
+            for e in oc.CONTRACTS if e not in held]
+    plan += [(e, v) for e in held for v in ("float64+fused",
+                                           "float32+fused")]
+    for entry, variant in plan:
+        t0 = time.time()
+        s = card_run.record(entry, variant, repeat=entry in held)
+        wall = time.time() - t0
+        b = base["entries"][entry][variant]
+        tag = f"analysis {entry}[{variant}]"
+        res["launches"] += s["launches"] + s.get("repeat", {}).get(
+            "launches", 0)
+        row = dict(cpu_ops=b["total"], card_ops=s["total"],
+                   solves=s["ops"].get(oc.SOLVE_OP, 0),
+                   launches=s["launches"], syncs=s["syncs"], h2d=s["h2d"],
+                   trips=s["trips"], wall_s=wall)
+        res["entries"][f"{entry}[{variant}]"] = row
+        # the card's solves are the kernel's launches, one per solve
+        check(s["launches"] == row["solves"],
+              f"{tag}: {s['launches']} launches for {row['solves']} solves")
+        if entry not in held:
+            continue
+        # the held entries: their ops, syncs and trips those of the same
+        # call on the CPU in this process (this torch), and those within
+        # the checked-in baseline's budget (recorded with the sandbox's)
+        cpu = cpu_run.record(entry, variant)
+        row["cpu_here_ops"] = cpu["total"]
+        diff = sorted(k for k in set(s["ops"]) | set(cpu["ops"])
+                      if s["ops"].get(k) != cpu["ops"].get(k))
+        check(not diff, f"{tag}: aten ops differ from the CPU's: "
+              + ", ".join(f"{k} {cpu['ops'].get(k, 0)} -> "
+                          f"{s['ops'].get(k, 0)}" for k in diff[:8]))
+        over = oc.check_budget(entry, variant, cpu, base)
+        check(not over, f"{tag}: " + "; ".join(over))
+        check(s["syncs"] == cpu["syncs"] and s["trips"] == cpu["trips"],
+              f"{tag}: host syncs {s['syncs']} / trips {s['trips']}, "
+              f"CPU {cpu['syncs']} / {cpu['trips']}")
+        check(s["launches"] == sum(s["trips"]) + 1,
+              f"{tag}: {s['launches']} launches, want trips + 1 = "
+              f"{sum(s['trips']) + 1}")
+        bad = oc.check_structure(entry, variant, s)
+        check(not bad, f"{tag}: " + "; ".join(bad))
+        r = s["repeat"]
+        check(r["builds"] == 0 and r["nvcc"] == 0,
+              f"{tag}: the repeat call built {r['builds']}, ran nvcc "
+              f"{r['nvcc']} times")
+        check(r["ops"] == s["ops"] and r["launches"] == s["launches"],
+              f"{tag}: the repeat call ran other ops or launches")
+        # the outputs against the plain version (the CPU's)
+        ref = cpu["outputs"]
+        f32 = variant.startswith("float32")
+        errs = {}
+        for k, v in s["outputs"].items():
+            g, w = v.detach().cpu(), ref[k].detach()
+            if k in EXACT:
+                if not f32:
+                    check(torch.equal(g, w), f"{tag}: {k} differs")
+                continue
+            scale = float(w.abs().max()) or 1.0
+            errs[k] = float((g - w).abs().max()) / scale
+            tol = ANALYSIS_F32_TOL if f32 else SLICE_TOL
+            check(errs[k] <= tol, f"{tag}: {k} off by {errs[k]:.3e} x max "
+                  f"(tol {tol:g})")
+        row["max_rel_err"] = max(errs.values())
+        row["exact_equal"] = all(torch.equal(
+            s["outputs"][k].detach().cpu(), ref[k]) for k in EXACT
+            if k in ref)
+    res["phase_s"] = time.time() - t_phase
+    print(f"analysis on {card}: per-entry aten ops (the CPU baseline, "
+          "raft_tpu_torch/analysis/op_baseline.json, torch "
+          f"{base.get('torch')}; held entries also the CPU here, torch "
+          f"{torch.__version__}) and on the card, solve kernel launches, "
+          "host syncs, host-to-card copies:")
+    for name, r in res["entries"].items():
+        extra = (f", outputs within {r['max_rel_err']:.2e} x max of the "
+                 f"CPU's, exact keys {'equal' if r['exact_equal'] else 'differ'}"
+                 if "max_rel_err" in r else "")
+        here = (f" (here {r['cpu_here_ops']})" if "cpu_here_ops" in r
+                else "")
+        print(f"  analysis {name}: ops CPU {r['cpu_ops']}{here} card "
+              f"{r['card_ops']} ({r['solves']} x raft.solve), launches "
+              f"{r['launches']}, syncs {r['syncs']}, h2d {r['h2d']}, trips "
+              f"{r['trips']}, {r['wall_s']:.2f} s{extra}")
+    print(f"  analysis: held entries' ops equal the CPU's, launches "
+          f"= trips + 1, repeat calls built 0 and ran nvcc 0 times; ge_solve "
+          f"launches {res['launches']}; phase {res['phase_s']:.1f} s of its "
+          f"{ANALYSIS_BUDGET_S:.0f} s budget")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=1024)
@@ -5294,6 +5416,7 @@ def main():
         rec["aot"] = timed("aot", phase_aot, args.out, rec["card"])
         rec["fleet"] = timed("fleet", phase_fleet, args.out, rec["card"],
                              rec["serve"])
+        rec["analysis"] = timed("analysis", phase_analysis, rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5321,7 +5444,8 @@ def main():
         analyze=rec["analyze"]["launches"],
         omdao=rec["omdao"]["launches"], sweep=rec["sweep"]["launches"],
         fabric=rec["fabric"]["launches"], serve=rec["serve"]["launches"],
-        aot=rec["aot"]["launches"], fleet=rec["fleet"]["launches"])
+        aot=rec["aot"]["launches"], fleet=rec["fleet"]["launches"],
+        analysis=rec["analysis"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -5345,7 +5469,8 @@ def main():
                   + rec["fabric"]["launches"]
                   + rec["serve"]["launches"]
                   + rec["aot"]["launches"]
-                  + rec["fleet"]["launches"]),
+                  + rec["fleet"]["launches"]
+                  + rec["analysis"]["launches"]),
         analyze_launches=rec["analyze"]["launches"],
         omdao_launches=rec["omdao"]["launches"],
         sweep_launches=rec["sweep"]["launches"],
@@ -5353,6 +5478,7 @@ def main():
         serve_launches=rec["serve"]["launches"],
         aot_launches=rec["aot"]["launches"],
         fleet_launches=rec["fleet"]["launches"],
+        analysis_launches=rec["analysis"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

@@ -60,9 +60,9 @@ def _case_status(st_status, dyn_diag, X0, Xi, input_clipped=None):
     inputs (``input_clipped`` (R,) bool, or None: no input clamped, as
     on the bucket path)."""
     status = st_status | dyn_diag["status"]
+    fin = torch.isfinite(torch.view_as_real(Xi))
     finite = (torch.all(torch.isfinite(X0), dim=-1)
-              & torch.all(torch.isfinite(torch.view_as_real(Xi)).flatten(1),
-                          dim=1))
+              & torch.all(fin, dim=tuple(range(1, fin.ndim))))
     status = health.set_bit(status, health.NONFINITE_INTERMEDIATE,
                             (~finite).to(torch.int32))
     if input_clipped is not None:
@@ -789,7 +789,8 @@ class FullEvaluator(CaseEvaluator):
         if self.bem is None:
             return None
         d = g["d_scale"]
-        if not bool(torch.all(d == d[:, :1])):
+        # input validation, once per chunk before any launch
+        if not bool(torch.all(d == d[:, :1])):  # raft-lint: disable=host-coercion (input check)
             raise ValueError(
                 "potential-flow geometry rows need one uniform d_scale "
                 "for every member (the coefficients are interpolated in "
@@ -798,7 +799,8 @@ class FullEvaluator(CaseEvaluator):
         # at s = 1 the interpolation gives the design's own coefficients
         # (l1 = 1, l0 = l2 = 0 exactly) but not their derivative: a scale
         # being differentiated always interpolates
-        if not ad.differentiated(s) and not bool(torch.any(s != 1.0)):
+        # a host branch once per chunk: skip the interpolation at s = 1
+        if not ad.differentiated(s) and not bool(torch.any(s != 1.0)):  # raft-lint: disable=host-coercion (once per chunk)
             return None
         tab = self.bem_samples()
         return {k: _lagrange3(tab[k], tab["s"], s) for k in ("A", "B", "X")}

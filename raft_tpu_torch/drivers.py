@@ -22,7 +22,12 @@ def run(input_file, save_csv=None, device=None):
     every load case on ``device`` and, with ``save_csv``, write the
     channel statistics there.  Returns the Model.  The work runs under
     a ``driver.run`` span, the root of the case spans."""
-    return _run("driver.run", input_file, save_csv, device)
+    from raft_tpu_torch.obs.spans import span
+    from raft_tpu_torch.utils.dtypes import resolve_device
+
+    dev = resolve_device(device)
+    with span("driver.run", input=str(input_file)):
+        return _analyze(input_file, save_csv, dev)
 
 
 def run_farm(input_file, save_csv=None, device=None):
@@ -31,20 +36,21 @@ def run_farm(input_file, save_csv=None, device=None):
     reference's farm entry leaves the single-FOWT property and eigen
     outputs out; ``analyze_cases`` already covers the array path and
     leaves them to ``Model.calc_outputs``."""
-    return _run("driver.run_farm", input_file, save_csv, device)
-
-
-def _run(span_name, input_file, save_csv, device):
-    from raft_tpu_torch.models.model import Model
     from raft_tpu_torch.obs.spans import span
     from raft_tpu_torch.utils.dtypes import resolve_device
 
     dev = resolve_device(device)
-    with span(span_name, input=str(input_file)):
-        model = Model(input_file)
-        model.analyze_cases(device=dev)
-        if save_csv:
-            save_responses(model, save_csv)
+    with span("driver.run_farm", input=str(input_file)):
+        return _analyze(input_file, save_csv, dev)
+
+
+def _analyze(input_file, save_csv, dev):
+    from raft_tpu_torch.models.model import Model
+
+    model = Model(input_file)
+    model.analyze_cases(device=dev)
+    if save_csv:
+        save_responses(model, save_csv)
     return model
 
 

@@ -30,6 +30,8 @@ stays differentiable directly.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 from raft_tpu_torch.ops import linsolve
@@ -58,6 +60,11 @@ TOL = 0.01
 #: Neumann steps of the fixed point's jvp and backward (the reference's
 #: tangent_solve takes 10)
 NEUMANN_STEPS = 10
+#: the context entered around the fixed point's trips (a factory called
+#: with no argument): a no-op, which the op recorder of
+#: :mod:`raft_tpu_torch.analysis.contracts` replaces to tell the trips'
+#: ops from the rest of an entry's
+TRIP_SCOPE = contextlib.nullcontext
 
 
 class FixedPointState:
@@ -216,12 +223,12 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     it = 0
     # the trips run on detached values: no graph, no tangent
     loop_params = ad.detached(*params)
-    with torch.no_grad():
+    with torch.no_grad(), TRIP_SCOPE():
         while it < cap:
             for _ in range(min(chunk, cap - it)):
                 Xi, _, _ = update(XiLast, loop_params)
                 tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + TOL)
-                done = torch.all((tolCheck < TOL).flatten(1), dim=1)
+                done = torch.all(tolCheck < TOL, dim=(1, 2))
                 last = it + 1 >= cap
                 # a finished row keeps its point; a row stopped by the cap
                 # keeps the point of its last linearisation (no relaxation)
@@ -231,7 +238,8 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
                 n_real = n_real + (~done_prev).to(torch.int32)
                 done_prev = done_prev | done
                 it += 1
-            if bool(done_prev.all()):
+            # the stop test: one host sync per SCAN_CHUNK trips
+            if bool(done_prev.all()):  # raft-lint: disable=host-coercion (stop test)
                 break
     if timer is not None:
         timer("fixed_point")
@@ -243,11 +251,14 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
                                        FixedPointState(lin, keep),
                                        *loop_params)
     Xi, Z, Bmat = update(XiLast, params)
-    tolCheck = torch.amax((torch.abs(Xi - XiLast)
-                           / (torch.abs(Xi) + TOL)).flatten(1), dim=1)
+    # reductions over the trailing dims, never through flatten: a
+    # flatten copies or views by the layout of the solve's output, which
+    # differs between the kernel and its plain version
+    tolCheck = torch.amax(torch.abs(Xi - XiLast) / (torch.abs(Xi) + TOL),
+                          dim=(1, 2))
     drag_converged = tolCheck < TOL
-    finite = torch.all(torch.isfinite(torch.view_as_real(Xi)).flatten(1),
-                       dim=1)
+    finite = torch.all(torch.isfinite(torch.view_as_real(Xi)),
+                       dim=(1, 2, 3))
     status = torch.zeros(R, dtype=torch.int32, device=dev)
     status = health.set_bit(status, health.DRAG_CAP_HIT,
                             (~drag_converged).to(torch.int32))

@@ -19,7 +19,7 @@ import torch
 def _tensors(*xs):
     like = next((x for x in xs if isinstance(x, torch.Tensor)), None)
     kw = (dict(dtype=like.dtype, device=like.device) if like is not None
-          else dict(dtype=torch.float64, device="cpu"))
+          else dict(dtype=torch.float64, device="cpu"))  # raft-lint: disable=dtype-literal (host build precision: no tensor given)
     return [torch.as_tensor(x, **kw) for x in xs]
 
 

@@ -691,11 +691,14 @@ class Worker:
         banked = dict(
             programs_loaded=cnt.get("aot_programs_loaded", 0),
             programs_compiled=cnt.get("aot_programs_compiled", 0))
+        # the record's keys spelled out: the schema checker reads them
         self.ledger.write_worker_status(
             "done", counters=self._counter_delta(),
             shards_done=self.shards_done,
             shards_resumed=self.shards_resumed, rows=self.rows,
-            programs=programs, **banked)
+            programs=programs,
+            programs_loaded=banked["programs_loaded"],
+            programs_compiled=banked["programs_compiled"])
         log_event("fabric_worker_done", out_dir=self.out_dir,
                   worker=self.worker_id, shards_done=self.shards_done,
                   shards_resumed=self.shards_resumed, rows=self.rows,
@@ -1150,7 +1153,8 @@ def assemble(out_dir, spec=None, wall_s=None):
         "histograms": {"shard_wall_s": pooled.snapshot()},
         "workers": {wid: {k: st.get(k) for k in
                           ("state", "shards_done", "shards_resumed",
-                           "rows", "pid", "host")}
+                           "rows", "programs_loaded", "programs_compiled",
+                           "pid", "host")}
                     for wid, st in states.items()},
         # fleet-wide kernel ledger: every worker's launches per solve
         # entry merged

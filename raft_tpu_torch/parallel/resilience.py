@@ -67,6 +67,10 @@ device memory between shards; ``RAFT_TPU_PROFILE`` writes a
 ``torch.profiler`` Chrome trace of the whole checkpointed sweep; with
 ``RAFT_TPU_RUNS_DIR`` set, ``sweep_done`` appends a run record
 (:mod:`raft_tpu_torch.obs.runs`).
+
+torch is imported by the functions that use it, so the fabric's ledger
+loads without it (the protocol explorer,
+:mod:`raft_tpu_torch.analysis.mcheck`, runs it torch-free).
 """
 
 from __future__ import annotations
@@ -79,7 +83,6 @@ import tempfile
 import time
 
 import numpy as np
-import torch
 
 from raft_tpu_torch.obs import metrics
 from raft_tpu_torch.obs.heartbeat import maybe_heartbeat
@@ -512,6 +515,8 @@ def _is_oom(e):
     """A device OOM: ``torch.OutOfMemoryError`` (the CUDA caching
     allocator's), the injected :class:`~raft_tpu_torch.utils.faults.
     OOMInjectedError`, or an error whose words say so."""
+    import torch
+
     if isinstance(e, (torch.OutOfMemoryError, faults.OOMInjectedError)):
         return True
     s = str(e)
@@ -522,6 +527,8 @@ def _is_oom(e):
 def _free_device_memory():
     """Return the CUDA caching allocator's free blocks to the driver
     before an OOM-halved retry."""
+    import torch
+
     if torch.cuda.is_available():
         torch.cuda.empty_cache()
 
@@ -599,6 +606,8 @@ def resolve_mesh(make_mesh, mesh=None):
     global _PROBE_VERDICT
     if mesh is not None:
         return mesh
+    import torch
+
     from raft_tpu_torch.utils.devices import probe_backend
 
     forced = faults.take("unhealthy", "backend_probe")
@@ -635,6 +644,8 @@ def _maybe_profile():
         return
     prof = None
     try:
+        import torch
+
         acts = [torch.profiler.ProfilerActivity.CPU]
         if torch.cuda.is_available():
             acts.append(torch.profiler.ProfilerActivity.CUDA)
@@ -793,6 +804,8 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
     if workers > 1:
         spec = getattr(compute, "_raft_fabric_entry", None)
         if spec:
+            import torch
+
             from raft_tpu_torch.parallel import fabric
 
             device = ("cpu" if mesh is not None

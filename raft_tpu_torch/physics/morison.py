@@ -215,9 +215,9 @@ def strips_to_rows(ss, device, rows=1):
         a = np.asarray(a)
         t = torch.from_numpy(a.copy())
         if a.dtype.kind == "f":
-            t = t.to(torch.float64)
+            t = t.to(torch.float64)  # raft-lint: disable=dtype-literal (build precision; the policy casts later)
         elif a.dtype.kind == "c":
-            t = t.to(torch.complex128)
+            t = t.to(torch.complex128)  # raft-lint: disable=dtype-literal (build precision; the policy casts later)
         elif a.dtype.kind in "iu":
             t = t.to(torch.int64)
         t = t.to(device)

@@ -54,10 +54,22 @@ Or a fault-tolerant fleet behind one endpoint::
 
 from __future__ import annotations
 
-from raft_tpu_torch.serve.batcher import (Batcher, Draining,  # noqa: F401
-                                          QueueFull, QuotaExceeded,
-                                          RejectError)
-from raft_tpu_torch.serve.cache import (ResultCache,  # noqa: F401
-                                        result_cache_key)
-from raft_tpu_torch.serve.engine import DesignEntry, Registry  # noqa: F401
-from raft_tpu_torch.serve.quota import TokenBucket  # noqa: F401
+import importlib
+
+#: the package's names, each imported from its module on first access,
+#: so that the fleet's torch-free modules (fleet, router, canary,
+#: rollout) load without the engine: the protocol explorer
+#: (:mod:`raft_tpu_torch.analysis.mcheck`) runs them without torch
+_EXPORTS = {
+    "Batcher": "batcher", "Draining": "batcher", "QueueFull": "batcher",
+    "QuotaExceeded": "batcher", "RejectError": "batcher",
+    "ResultCache": "cache", "result_cache_key": "cache",
+    "DesignEntry": "engine", "Registry": "engine", "TokenBucket": "quota",
+}
+
+
+def __getattr__(name):
+    if name not in _EXPORTS:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    return getattr(importlib.import_module(f"{__name__}.{_EXPORTS[name]}"),
+                   name)

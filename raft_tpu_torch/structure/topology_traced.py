@@ -236,17 +236,19 @@ class TracedTopology:
 
     # ------------------------------------------------------ validation
     def _validate(self, topo, fs, atol=1e-12):
+        # a build-time check of the traced maps against the numpy
+        # topology, on CPU tensors in float64, before any row runs
         rng = np.random.default_rng(0)
         Xi0 = 1e-2 * rng.standard_normal(self.nDOF)
         disp_np = topo.displacements(fs.T, fs.reducedDOF, fs.root_id, Xi0)
-        x = torch.as_tensor(Xi0, dtype=torch.float64)[None]
-        disp_tr = self.displacements(x)[0].numpy()
+        x = torch.as_tensor(Xi0, dtype=torch.float64)[None]  # raft-lint: disable=dtype-literal (build-time check)
+        disp_tr = self.displacements(x)[0].numpy()  # raft-lint: disable=host-coercion (build-time check)
         if not np.allclose(disp_tr, disp_np, rtol=0.0, atol=atol):
             raise RuntimeError("traced displacement map mismatch")
         r_np = self.node_r0 + disp_np[:, :3]
         T_np, _, _ = topo.reduce(positions=r_np)
         topo.reduce()  # restore the reference-pose traversal state
-        T_tr = self.reduce_T(torch.as_tensor(r_np)[None])[0].numpy()
+        T_tr = self.reduce_T(torch.as_tensor(r_np)[None])[0].numpy()  # raft-lint: disable=host-coercion (build-time check)
         if not np.allclose(T_tr, T_np, rtol=0.0, atol=atol):
             raise RuntimeError("traced reduce(T) mismatch")
 

@@ -82,6 +82,37 @@ print("ok")
     assert out.stdout.strip() == "ok"
 
 
+def test_analysis_engines_run_with_jax_and_torch_blocked():
+    """The port's static checkers (lint, concurrency, schemas, the
+    protocol extraction) and its protocol explorer run in a fresh
+    interpreter where neither ``jax`` nor ``torch`` can be imported, and
+    load nothing of ``raft_tpu``."""
+    code = r"""
+import sys
+for name in ("jax", "jaxlib", "torch"):
+    sys.modules[name] = None
+from raft_tpu_torch.analysis.__main__ import main
+for argv in (["lint"], ["concurrency"], ["schemas"],
+             ["protocol", "check", "--static-only"]):
+    assert main(argv) == 0, argv
+from raft_tpu_torch.analysis import mcheck
+violations, stats = mcheck.run_all(scenarios=[
+    mcheck.ReleasePointerScenario, mcheck.RolloutScenario])
+assert violations == [] and stats["rollout-takeover"]["runs"] == 155, stats
+for m in ("router", "canary", "rollout"):
+    __import__("raft_tpu_torch.serve." + m)
+loaded = sorted(n for n in sys.modules
+                if n == "raft_tpu" or n.startswith("raft_tpu."))
+assert not loaded, loaded
+print("ok")
+"""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stdout[-2000:] + out.stderr[-2000:]
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_flags_mirror_the_jax_registry(monkeypatch):
     from raft_tpu.utils import config as jcfg
     from raft_tpu_torch.utils import config as tcfg
