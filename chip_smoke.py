@@ -401,12 +401,38 @@ Phases, each printing one line (the last line is the result object):
              within SLICE_TOL x max with status, n_iter_drag and
              drag_converged equal; float32 within ANALYSIS_F32_TOL);
              the phase's wall beside ANALYSIS_BUDGET_S (30 s).
-28. kernels - one JSON object listing both entries of the solve kernel,
+28. mesh  - meshes beyond one card's rows: (a) the full phase's
+             semi_wind evaluator on MESH_ROWS (512) rows x 40
+             frequencies, float64, through sweep_cases_full(...,
+             shard_freq=True) on a (dp, sp) = (2, 2) mesh of four
+             cuda:0 entries (the dp blocks one after another, each
+             block's two sp entries in two threads, each with its own
+             evaluator, on its half of the frequency grid, the
+             couplings through its sp group's reducer), held
+             against the same rows on a one-entry mesh at SLICE_TOL x
+             max with status and n_iter_drag equal, run twice for the
+             same bits, each entry's solve launches (its thread's
+             kernel ledger) equal to its chunks' trips + 1, and the
+             kernel against its plain version at the sliced shape,
+             512 x 20 systems; (b) a dp = 4 mesh of cuda:0 through
+             the sweep beside the same four blocks called by hand,
+             bit-equal (the mesh's own cost; information); (c) two child
+             processes (tests/_torch_dist_child.py) under
+             RAFT_TPU_DIST on cuda:0, backend gloo, loading the spar
+             case program from the aot phase's bank (RAFT_TPU_AOT=
+             require, COMPILE_BUDGET=0: 0 builds, nvcc 0), then the
+             demo's sea states over dp = 2 across the ranks (each
+             rank's dict bit-equal to this process's blocks) and
+             (1, 2) across the ranks (within SLICE_TOL x max,
+             identical on both ranks); the phase's wall beside
+             MESH_BUDGET_S (60 s).
+29. kernels - one JSON object listing both entries of the solve kernel,
              the forward with its launches on every path (the analyze,
-             omdao, sweep, fabric, serve, aot, fleet and analysis paths'
-             also as analyze_launches, omdao_launches, sweep_launches,
-             fabric_launches, serve_launches, aot_launches,
-             fleet_launches and analysis_launches) and the adjoint
+             omdao, sweep, fabric, serve, aot, fleet, analysis and mesh
+             paths' also as analyze_launches, omdao_launches,
+             sweep_launches, fabric_launches, serve_launches,
+             aot_launches, fleet_launches, analysis_launches and
+             mesh_launches) and the adjoint
              with its launches on the grad and grad_paths paths, each
              with its N = 12 (one-lane-per-row) figures (the adjoint's
              from the farm's backward).
@@ -427,6 +453,7 @@ import platform
 import re
 import shutil
 import signal
+import socket
 import subprocess
 import sys
 import threading
@@ -537,6 +564,10 @@ FLEET_POOL = 4                         # cases per demo from the serve pool
 FLEET_TTL_S = 2.0
 FLEET_BUDGET_S = 100.0                # three replica start-ups, 26-32 s each
 ANALYSIS_BUDGET_S = 30.0
+MESH_ROWS = 512                        # rows of the mesh phase's sweeps
+MESH_SEED = 20261104
+MESH_DP_ENTRIES = 4                    # run (b): a dp mesh of cuda:0
+MESH_BUDGET_S = 60.0
 ANALYSIS_F32_TOL = 1e-3                # x max|x|, float32 card vs CPU
 BUILD_TOL = 1e-12                      # x each packed leaf's max
 EXACT = ("status", "n_iter_drag", "drag_converged")
@@ -5343,6 +5374,222 @@ def phase_analysis(card):
     return res
 
 
+def _mesh_hold(got, ref, tag, keys, exact=False):
+    """``got`` within SLICE_TOL x each key's max of ``ref`` (bit-equal
+    with ``exact``), status and n_iter_drag equal; the largest relative
+    gap."""
+    worst = 0.0
+    for k in keys:
+        a, b = np.asarray(got[k]), np.asarray(ref[k])
+        check(a.shape == b.shape, f"mesh {tag}: {k} shape {a.shape} vs "
+              f"{b.shape}")
+        if exact or k in EXACT:
+            check(np.array_equal(a, b), f"mesh {tag}: {k} differs")
+            continue
+        scale = float(np.max(np.abs(b))) or 1.0
+        err = float(np.max(np.abs(a - b))) / scale
+        check(err <= SLICE_TOL, f"mesh {tag}: {k} off by {err:.3e} x max")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_mesh(ev, out_dir, card):
+    """Meshes beyond one card's rows on the card (module docstring,
+    phase 28); ``ev`` is the full phase's semi_wind evaluator."""
+    from raft_tpu_torch.ops import linsolve
+    from raft_tpu_torch.parallel import sweep as ts
+    from raft_tpu_torch.utils import config
+
+    t_phase = time.time()
+    on_card = str(DEVICE).startswith("cuda")
+    dev = torch.device("cuda", 0) if on_card else torch.device(DEVICE)
+    keys = ("PSD", "Xi", "X0", "status", "n_iter_drag")
+    gold = dict(np.load(os.path.join(FIX, "golden_full_semi_wind.npz")))
+    p = full_rows("semi_wind", gold, MESH_ROWS, MESH_SEED)
+    res = dict(rows=MESH_ROWS)
+    fused = config.get("FUSED") == "on"
+    cap = ev.body.n_iter * max(int(config.get("ITER_SCALE")), 1) + 1 \
+        + max(int(ev.body.n_iter_extra), 0)
+    scan = min(max(1, config.get("SCAN_CHUNK")), cap)
+    chunk_rows = int(config.get("BUCKET_ROWS")) or MESH_ROWS
+
+    def mesh_of(shape, names):
+        return ts.Mesh(ts.device_array([dev] * int(np.prod(shape)), shape),
+                       names)
+
+    def timed(fn):
+        _sync()
+        t0 = time.time()
+        out = fn()
+        _sync()
+        return out, time.time() - t0
+
+    one, res["one_entry_s"] = timed(lambda: ts.sweep_cases_full(
+        ev, p, mesh=mesh_of((1,), ("dp",)), out_keys=keys))
+
+    # (a) (dp, sp) = (2, 2) of cuda:0: each entry's block on its half of
+    #     the frequency grid, the couplings through its sp group's reducer
+    grid = mesh_of((2, 2), ("dp", "sp"))
+    ts.bind_evaluator(ev, dev, 1)   # the second sp entry's, built first
+    linsolve.reset_launches()
+    split, res["split_s"] = timed(lambda: ts.sweep_cases_full(
+        ev, p, mesh=grid, out_keys=keys, shard_freq=True))
+    launches = linsolve.KERNEL_LAUNCHES
+    entries = ts.last_entries()
+    res["split_err"] = _mesh_hold(split, one, "(2, 2) vs one entry", keys)
+    for k in ("PSD", "Xi", "X0"):
+        check(np.all(np.isfinite(split[k])), f"mesh: non-finite {k}")
+    check([(e["dp"], e["sp"], tuple(e["freq"])) for e in entries]
+          == [(0, 0, (0, 20)), (0, 1, (20, 40)), (1, 0, (0, 20)),
+              (1, 1, (20, 40))], f"mesh: the (2, 2) entries ran {entries}")
+    res["entry_launches"] = []
+    for e in entries:
+        lo, hi = e["rows"]
+        exp = expected_launches(split["n_iter_drag"][lo:hi], chunk_rows, cap,
+                                scan, fused)
+        got = e["launches"]["ge_solve"]
+        check(got == exp, f"mesh: entry (dp {e['dp']}, sp {e['sp']}) "
+              f"launched {got} times, its chunks' trips + 1 are {exp}")
+        res["entry_launches"].append(got)
+    check(launches == sum(res["entry_launches"]) and launches > 0,
+          f"mesh: {launches} launches in the (2, 2) run, entries "
+          f"{res['entry_launches']}")
+    res["launches"] = launches
+    again, res["split_again_s"] = timed(lambda: ts.sweep_cases_full(
+        ev, p, mesh=grid, out_keys=keys, shard_freq=True))
+    _mesh_hold(again, split, "(2, 2) run twice", keys, exact=True)
+    # the kernel against its plain version at the sliced shape: 512 rows
+    # x 20 frequencies at N = 6 (not counted: the main path's launches
+    # were read above)
+    rng = np.random.default_rng(MESH_SEED)
+    Z = impedance_systems(rng, 6, (MESH_ROWS,), 20, torch.complex128).to(dev)
+    F = torch.as_tensor(rng.normal(size=(MESH_ROWS, 20, 6))
+                        + 1j * rng.normal(size=(MESH_ROWS, 20, 6))).to(dev)
+    x_p = linsolve._native_solve(Z, F)
+    x_k = linsolve._cuda_solve(Z, F) if on_card else x_p
+    scale = float(torch.max(torch.abs(x_p)))
+    res["kernel_err"] = float(torch.max(torch.abs(x_k - x_p))) / scale
+    check(res["kernel_err"] <= F64_TOL, f"mesh: the kernel at 512 x 20 "
+          f"systems is off its plain version by {res['kernel_err']:.3e}")
+
+    # (b) dp = 4 of cuda:0 through the sweep beside its four blocks
+    #     called by hand (the mesh's own cost: information)
+    four = mesh_of((MESH_DP_ENTRIES,), ("dp",))
+    size = MESH_ROWS // MESH_DP_ENTRIES
+
+    def serial():
+        parts = []
+        with torch.no_grad():
+            for j in range(MESH_DP_ENTRIES):
+                out = ev(**{k: torch.as_tensor(v[j * size:(j + 1) * size],
+                                               device=dev)
+                            for k, v in p.items()})
+                parts.append({k: out[k].cpu().numpy() for k in keys})
+        return {k: np.concatenate([q[k] for q in parts]) for k in keys}
+
+    ser, res["serial_s"] = timed(serial)
+    swept, res["sweep_s"] = timed(lambda: ts.sweep_cases_full(
+        ev, p, mesh=four, out_keys=keys))
+    _mesh_hold(swept, ser, "dp = 4 sweep vs its blocks by hand", keys,
+               exact=True)
+
+    # (c) two processes under RAFT_TPU_DIST on one card (gloo): the spar
+    #     case program loaded from the aot phase's bank, then the demo's
+    #     sea states over dp = 2 and (dp, sp) = (1, 2) across the ranks
+    from raft_tpu_torch import api
+    from raft_tpu_torch.models.model import Model
+
+    base = os.path.join(out_dir, "mesh")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith(("RAFT_TPU_", "DIST_CHILD"))}
+    env.update(PYTHONPATH=HERE, RAFT_TPU_DIST="1",
+               RAFT_TPU_DIST_COORDINATOR=f"127.0.0.1:{port}",
+               RAFT_TPU_DIST_NUM_PROCESSES="2", RAFT_TPU_AOT="require",
+               RAFT_TPU_COMPILE_BUDGET="0",
+               RAFT_TPU_AOT_DIR=os.path.join(out_dir, "aot", "bank"),
+               DIST_CHILD_DEVICE=str(dev), DIST_CHILD_BANK="1",
+               DIST_CHILD_ROWS=str(AOT_ROWS))
+    t0 = time.time()
+    procs = []
+    for r in (0, 1):
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "tests",
+                                          "_torch_dist_child.py")],
+            env=dict(env, RAFT_TPU_DIST_PROCESS_ID=str(r),
+                     DIST_CHILD_OUT=os.path.join(base, f"rank{r}.npz")),
+            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+        CHILDREN.append(procs[-1])
+    ranks = []
+    for r, proc in enumerate(procs):
+        try:
+            out, err = proc.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, err = proc.communicate()
+        check(proc.returncode == 0, f"mesh: rank {r} exited "
+              f"{proc.returncode}: {err[-800:]}")
+        ranks.append(json.loads(out.strip().splitlines()[-1]))
+    res["dist_s"] = time.time() - t0
+    for r, rec in enumerate(ranks):
+        check(rec["card_backend"] == "gloo" and rec["bank_loaded"] == 1
+              and rec["bank_compiled"] == 0 and rec["builds"] == 0
+              and rec["nvcc_runs"] == 0,
+              f"mesh: rank {r} backend {rec['card_backend']}, bank loaded "
+              f"{rec['bank_loaded']} compiled {rec['bank_compiled']}, builds "
+              f"{rec['builds']}, nvcc {rec['nvcc_runs']}")
+    got = [dict(np.load(os.path.join(base, f"rank{r}.npz"))) for r in (0, 1)]
+    for k in got[0]:
+        check(np.array_equal(got[0][k], got[1][k]),
+              f"mesh: the ranks' {k} differ")
+    sys.path.insert(0, os.path.join(HERE, "tests"))
+    import _torch_dist_child as child
+
+    case_ev = api.make_case_evaluator(Model(child.SPAR), device=dev)
+    cases = child.demo_cases(AOT_ROWS)
+    half = AOT_ROWS // 2
+    with torch.no_grad():
+        blocks = [case_ev(*(torch.as_tensor(cases[c][a:a + half], device=dev)
+                            for c in ("Hs", "Tp", "beta")))
+                  for a in (0, half)]
+    direct = {k: np.concatenate([b[k].cpu().numpy() for b in blocks])
+              for k in child.KEYS}
+    _mesh_hold({k: got[0]["dp_" + k] for k in child.KEYS}, direct,
+               "dp = 2 across ranks vs direct", child.KEYS, exact=True)
+    res["dist_split_err"] = _mesh_hold(
+        {k: got[0]["sp_" + k] for k in child.KEYS}, direct,
+        "(1, 2) across ranks vs direct", child.KEYS)
+    res["dist_entry_launches"] = [
+        sum(e["launches"]["ge_solve"] for e in rec["dp_entries"]
+            + rec["sp_entries"]) for rec in ranks]
+    res["phase_s"] = time.time() - t_phase
+    print(f"mesh on {card}: semi_wind full, {MESH_ROWS} rows x 40 "
+          f"frequencies, float64: (dp, sp) = (2, 2) of cuda:0, 2 threads a block "
+          f"{res['split_s']:.2f} s (again {res['split_again_s']:.2f} s, "
+          f"bit-equal), one entry {res['one_entry_s']:.2f} s, within "
+          f"{res['split_err']:.2e} x max of it, status and n_iter_drag "
+          f"equal; launches per entry {res['entry_launches']} = its "
+          f"chunks' trips + 1; kernel at 512 x 20 systems within "
+          f"{res['kernel_err']:.2e} x max of its plain version")
+    print(f"  mesh: dp = {MESH_DP_ENTRIES} of cuda:0, {size} rows a block: "
+          f"the sweep {res['sweep_s']:.2f} s, the blocks by hand "
+          f"{res['serial_s']:.2f} s, bit-equal ({card}; "
+          "one card: information, no speed-up claimed)")
+    print(f"  mesh: 2 ranks under RAFT_TPU_DIST on cuda:0, backend gloo, "
+          f"{res['dist_s']:.2f} s: the spar case program loaded from the "
+          f"aot bank (0 builds, nvcc 0); dp = 2 bit-equal to this process's "
+          f"blocks, (1, 2) within {res['dist_split_err']:.2e} x max, the "
+          f"ranks identical; their launches {res['dist_entry_launches']}")
+    print(f"  mesh: ge_solve launches {res['launches']}; phase "
+          f"{res['phase_s']:.1f} s of its {MESH_BUDGET_S:.0f} s budget")
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rows-per-design", type=int, default=1024)
@@ -5417,6 +5664,8 @@ def main():
         rec["fleet"] = timed("fleet", phase_fleet, args.out, rec["card"],
                              rec["serve"])
         rec["analysis"] = timed("analysis", phase_analysis, rec["card"])
+        rec["mesh"] = timed("mesh", phase_mesh, evs["semi_wind"], args.out,
+                            rec["card"])
     except PhaseError as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -5445,7 +5694,7 @@ def main():
         omdao=rec["omdao"]["launches"], sweep=rec["sweep"]["launches"],
         fabric=rec["fabric"]["launches"], serve=rec["serve"]["launches"],
         aot=rec["aot"]["launches"], fleet=rec["fleet"]["launches"],
-        analysis=rec["analysis"]["launches"])
+        analysis=rec["analysis"]["launches"], mesh=rec["mesh"]["launches"])
     k12 = rec["kernel12"]["forward"]
     a12 = rec["kernel12"]["adjoint"]
     kernels = [dict(
@@ -5470,7 +5719,8 @@ def main():
                   + rec["serve"]["launches"]
                   + rec["aot"]["launches"]
                   + rec["fleet"]["launches"]
-                  + rec["analysis"]["launches"]),
+                  + rec["analysis"]["launches"]
+                  + rec["mesh"]["launches"]),
         analyze_launches=rec["analyze"]["launches"],
         omdao_launches=rec["omdao"]["launches"],
         sweep_launches=rec["sweep"]["launches"],
@@ -5479,6 +5729,7 @@ def main():
         aot_launches=rec["aot"]["launches"],
         fleet_launches=rec["fleet"]["launches"],
         analysis_launches=rec["analysis"]["launches"],
+        mesh_launches=rec["mesh"]["launches"],
         max_abs_err=k["max_abs_err"],
         ms=k["ms"], plain_ms=k["plain_ms"], bound_ms=k["bound_ms"],
         bound_by=k["bound_by"], library_ms=k["library_ms"],

@@ -93,7 +93,9 @@ RULES = {
 #: ``lint.TRACED_MODULES``.
 SHARED_STATE_MODULES = (
     "raft_tpu_torch/parallel/fabric.py",
+    "raft_tpu_torch/parallel/freq.py",
     "raft_tpu_torch/parallel/resilience.py",
+    "raft_tpu_torch/parallel/sweep.py",
     "raft_tpu_torch/obs/runs.py",
     "raft_tpu_torch/obs/metrics.py",
     "raft_tpu_torch/obs/heartbeat.py",

@@ -276,9 +276,14 @@ def input_signature(args):
 
 
 def mesh_key(mesh):
-    """A mesh's identity in a memo key: axis names, shape, devices."""
-    return (tuple(mesh.axis_names), tuple(mesh.devices.shape),
-            tuple(device_name(d) for d in mesh.devices.flat))
+    """A mesh's identity in a memo key: axis names, shape, devices and,
+    for a mesh that spans processes, each entry's rank."""
+    key = (tuple(mesh.axis_names), tuple(mesh.devices.shape),
+           tuple(device_name(d) for d in mesh.devices.flat))
+    ranks = getattr(mesh, "ranks", None)
+    if ranks is not None and len(set(ranks.flat)) > 1:
+        key += (("ranks", tuple(int(r) for r in ranks.flat)),)
+    return key
 
 
 def entry_key(kind, memo_key, args, device=None):

@@ -42,6 +42,7 @@ from torch import nn
 
 from raft_tpu_torch.models.statics_solve import solve_equilibrium
 from raft_tpu_torch.ops import waves as wv
+from raft_tpu_torch.parallel import freq
 from raft_tpu_torch.physics import morison
 from raft_tpu_torch.structure import members_traced
 from raft_tpu_torch.utils import ad, config, health
@@ -62,7 +63,7 @@ def _case_status(st_status, dyn_diag, X0, Xi, input_clipped=None):
     status = st_status | dyn_diag["status"]
     fin = torch.isfinite(torch.view_as_real(Xi))
     finite = (torch.all(torch.isfinite(X0), dim=-1)
-              & torch.all(fin, dim=tuple(range(1, fin.ndim))))
+              & freq.wall(fin, dim=tuple(range(1, fin.ndim))))
     status = health.set_bit(status, health.NONFINITE_INTERMEDIATE,
                             (~finite).to(torch.int32))
     if input_clipped is not None:
@@ -96,6 +97,7 @@ class CaseEvaluator(nn.Module):
         self.fs = model.fowtList[0]
         sig = bucketing.bucket_signature(model, ladders={}, full=full)
         self.body = bucketing.BucketEvaluator(sig, device)
+        self.nw = self.body.nw
         self.design = {k: v[None] for k, v in bucketing.packed_from_numpy(
             bucketing.pack_design(model, sig), device).items()}
         self.ms = None if model.ms is None else model.ms.to(device, self.rdt)
@@ -400,7 +402,9 @@ def _rotor_terms(ev, p, R):
     :class:`FullEvaluator` or :class:`FlexibleEvaluator`."""
     from raft_tpu_torch.physics.aero import calc_aero_traced
 
-    rdt, dev, nw = ev.rdt, ev.device, ev.nw
+    rdt, dev = ev.rdt, ev.device
+    w = freq.take(ev.w)
+    nw = w.shape[0]
     n = ev.Tn0.shape[-1]
     out = dict(
         f_aero0=torch.zeros((R, n), dtype=rdt, device=dev),
@@ -425,8 +429,9 @@ def _rotor_terms(ev, p, R):
         speed_safe = torch.clamp(speed, min=0.1)
         out["input_clipped"] |= on & (speed < 0.1)
         f0, f6, a6, b6, Bg, _, Om, pit = calc_aero_traced(
-            rt, rprops, ev.w, speed_safe, heading, p["TI"],
-            yaw_command_rad=yaw_cmd, turb_static=ev.turb_static)
+            rt, rprops, w, speed_safe, heading, p["TI"],
+            yaw_command_rad=yaw_cmd, turb_static=ev.turb_static,
+            dw=ev.w[1] - ev.w[0])
         Tn = ev.Tn0[node]                                    # (6, n)
         onr = on.to(rdt)
         out["f_aero0"] += onr[:, None] * (f0 @ Tn)
@@ -884,13 +889,13 @@ class FullEvaluator(CaseEvaluator):
         if self.bem is None:
             return None
         bem = bem or self.bem_t
-        out = dict(A=bem["A"], B=bem["B"], X=None)
+        out = dict(A=freq.take(bem["A"]), B=freq.take(bem["B"]), X=None)
         if self.bem_has_X:
             fs, bd = self.fs, p["beta_deg"]
             b = bd * (math.pi / 180)
-            phase = torch.exp(-1j * self.k_t * (
+            phase = torch.exp(-1j * freq.take(self.k_t) * (
                 fs.x_ref * torch.cos(b) + fs.y_ref * torch.sin(b))[..., None])
-            X = _interp_heading_rows(bem["X"], self.bem_headings,
+            X = _interp_heading_rows(freq.take(bem["X"]), self.bem_headings,
                                      torch.remainder(bd - fs.heading_adjust,
                                                      360.0))
             out["X"] = X * phase[:, :, None, :]
@@ -1352,7 +1357,9 @@ class FarmEvaluator(nn.Module):
         rows with a clamped speed (R,)."""
         from raft_tpu_torch.physics.aero import calc_aero_traced
 
-        rdt, dev, nw, nF = self.rdt, self.device, self.nw, self.nF
+        rdt, dev, nF = self.rdt, self.device, self.nF
+        w = freq.take(self.w)
+        nw = w.shape[0]
         U = R * nF
         f0 = torch.zeros((U, 6), dtype=rdt, device=dev)
         A = torch.zeros((U, 6, 6, nw), dtype=rdt, device=dev)
@@ -1375,10 +1382,11 @@ class FarmEvaluator(nn.Module):
                 on = speed > 0
                 clipped |= (on & (speed < 0.1)).reshape(R, nu).any(dim=1)
                 f0r, _, a6, b6, Bgr, _, _, _ = calc_aero_traced(
-                    rt, rp, self.w, torch.clamp(speed, min=0.1),
+                    rt, rp, w, torch.clamp(speed, min=0.1),
                     per_unit(heading), per_unit(p["TI"]),
                     yaw_command_rad=per_unit(p["yaw_misalign_deg"] * deg),
-                    turb_static=self.turb_static)
+                    turb_static=self.turb_static,
+                    dw=self.w[1] - self.w[0])
                 Tn = self.Tn0[units, nodes]                     # (nu, 6, 6)
                 Tn = Tn[None].expand(R, -1, -1, -1).reshape(-1, 6, 6)
                 onr = on.to(rdt)
@@ -1401,7 +1409,9 @@ class FarmEvaluator(nn.Module):
         from raft_tpu_torch.physics.statics import node_T, platform_kinematics
         from raft_tpu_torch.structure import bucketing
 
-        R, nF, nT, nw = p["Hs"].shape[0], self.nF, self.nT, self.nw
+        R, nF, nT = p["Hs"].shape[0], self.nF, self.nT
+        w = freq.take(self.w)
+        nw = w.shape[0]
         U = R * nF
         mark("start")
         f0, A_aero, B_aero, B_gyro, clipped = self._aero(p, R)
@@ -1433,14 +1443,14 @@ class FarmEvaluator(nn.Module):
                                                       d["root"], Xu)
         Tn = node_T(r_nodes, r_root)
         hc = bucketing.packed_hydro(d, ss, R_ptfm, r_nodes)
-        S_spec = wv.jonswap(self.w, p["Hs"], p["Tp"], gamma=p["gamma"])
+        S_spec = wv.jonswap(w, p["Hs"], p["Tp"], gamma=p["gamma"])
         zeta = wv.amplitudes(S_spec, self.dw).to(_policy_cdt(X0))
         zeta_u = zeta.repeat_interleave(nF, dim=0)
         beta_u = (p["beta_deg"] * (math.pi / 180)).repeat_interleave(nF,
                                                                       dim=0)
         exc = [morison.hydro_excitation(site, ss, hc, zeta_u[:, ih],
-                                        beta_u[:, ih], self.w, d["k"], Tn,
-                                        r_nodes)
+                                        beta_u[:, ih], w, freq.take(d["k"]),
+                                        Tn, r_nodes)
                for ih in range(self.nWaves)]
         mark("excitation")
 
@@ -1451,7 +1461,7 @@ class FarmEvaluator(nn.Module):
             + self.C_elast.repeat(R, 1, 1)
         Z, _, Bmat, diag = solve_dynamics_fowt(
             site, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin,
-            exc[0]["F_hydro_iner"], self.w, Tn, r_nodes, n_iter=self.n_iter,
+            exc[0]["F_hydro_iner"], w, Tn, r_nodes, n_iter=self.n_iter,
             Xi_start=self.Xi_start, n_iter_extra=self.n_iter_extra,
             timer=mark)
 
@@ -1741,7 +1751,9 @@ class FlexibleEvaluator(nn.Module):
         from raft_tpu_torch.models.statics_solve import (
             single_ms_closures, solve_equilibrium_general)
 
-        R, n, nw = p["Hs"].shape[0], self.n, self.nw
+        R, n = p["Hs"].shape[0], self.n
+        w = freq.take(self.w)
+        nw = w.shape[0]
         mark("start")
         st, hc0, ss, ms = self._structure(R, sp, mark)
         aero = _rotor_terms(self, p, R)
@@ -1770,12 +1782,12 @@ class FlexibleEvaluator(nn.Module):
                   active=sub & ss.active)
         mark("kinematics")
 
-        S = wv.jonswap(self.w, p["Hs"], p["Tp"], gamma=p["gamma"])
+        S = wv.jonswap(w, p["Hs"], p["Tp"], gamma=p["gamma"])
         zeta = wv.amplitudes(S, self.dw).to(_policy_cdt(X0))
         beta = p["beta_deg"] * (math.pi / 180)
-        k = self.k.expand(R, nw)
+        k = freq.take(self.k).expand(R, nw)
         exc = [morison.hydro_excitation(site, ss, hc, zeta[:, ih],
-                                        beta[:, ih], self.w, k, Tn, r_nodes)
+                                        beta[:, ih], w, k, Tn, r_nodes)
                for ih in range(self.nWaves)]
         mark("excitation")
 
@@ -1784,7 +1796,7 @@ class FlexibleEvaluator(nn.Module):
         C_lin = st["K_h"] + C_moor + st["C_elast"]
         Z, _, Bmat, diag = solve_dynamics_fowt(
             site, ss, hc, exc[0]["u"], M_lin, B_lin, C_lin,
-            exc[0]["F_hydro_iner"], self.w, Tn, r_nodes, n_iter=self.n_iter,
+            exc[0]["F_hydro_iner"], w, Tn, r_nodes, n_iter=self.n_iter,
             Xi_start=self.Xi_start, n_iter_extra=self.n_iter_extra,
             timer=mark)
         del M_lin, B_lin

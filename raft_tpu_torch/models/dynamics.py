@@ -35,6 +35,7 @@ import contextlib
 import torch
 
 from raft_tpu_torch.ops import linsolve
+from raft_tpu_torch.parallel import freq
 from raft_tpu_torch.physics import morison
 from raft_tpu_torch.utils import ad, config, health
 from raft_tpu_torch.utils.dtypes import compute_dtypes
@@ -228,7 +229,7 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
             for _ in range(min(chunk, cap - it)):
                 Xi, _, _ = update(XiLast, loop_params)
                 tolCheck = torch.abs(Xi - XiLast) / (torch.abs(Xi) + TOL)
-                done = torch.all(tolCheck < TOL, dim=(1, 2))
+                done = freq.wall(tolCheck < TOL, dim=(1, 2))
                 last = it + 1 >= cap
                 # a finished row keeps its point; a row stopped by the cap
                 # keeps the point of its last linearisation (no relaxation)
@@ -254,10 +255,10 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     # reductions over the trailing dims, never through flatten: a
     # flatten copies or views by the layout of the solve's output, which
     # differs between the kernel and its plain version
-    tolCheck = torch.amax(torch.abs(Xi - XiLast) / (torch.abs(Xi) + TOL),
+    tolCheck = freq.wamax(torch.abs(Xi - XiLast) / (torch.abs(Xi) + TOL),
                           dim=(1, 2))
     drag_converged = tolCheck < TOL
-    finite = torch.all(torch.isfinite(torch.view_as_real(Xi)),
+    finite = freq.wall(torch.isfinite(torch.view_as_real(Xi)),
                        dim=(1, 2, 3))
     status = torch.zeros(R, dtype=torch.int32, device=dev)
     status = health.set_bit(status, health.DRAG_CAP_HIT,
@@ -265,7 +266,7 @@ def solve_dynamics_fowt(fs, ss, hc, u0, M_lin, B_lin, C_lin, F_lin, w, Tn,
     status = health.set_bit(status, health.NONFINITE_INTERMEDIATE,
                             (~finite).to(torch.int32))
     if config.get("COND_CHECK"):
-        cond_Z = torch.amax(linsolve.cond_estimate(Z.detach()), dim=-1)
+        cond_Z = freq.wamax(linsolve.cond_estimate(Z.detach()), dim=-1)
         status = health.set_bit(
             status, health.ILL_CONDITIONED_Z,
             (cond_Z > config.get("COND_THRESHOLD")).to(torch.int32))

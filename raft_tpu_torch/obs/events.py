@@ -173,6 +173,11 @@ EVENTS: dict[str, tuple[tuple[str, ...], str]] = {
         "RAFT_TPU_FABRIC_WORKERS requested but the sweep cannot run "
         "on the fabric (no entry spec on the evaluator); falling back "
         "to the serial in-process path"),
+    "distributed_init": (
+        ("coordinator", "process_id", "num_processes", "dryrun"),
+        "torch.distributed.init_process_group wiring for multi-process "
+        "meshes (RAFT_TPU_DIST; dryrun validates the config without "
+        "touching torch.distributed)"),
     # ------------------------------------------------------ program bank
     "aot_load": (
         ("kind", "key", "bytes", "wall_s"),

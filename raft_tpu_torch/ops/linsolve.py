@@ -75,8 +75,11 @@ ROW_KERNEL_LAUNCHES = 0
 #: ADJ_KERNEL_LAUNCHES and ROW_KERNEL_LAUNCHES as well)
 ROW_ADJ_KERNEL_LAUNCHES = 0
 #: guards the four counters: a serving process launches from its batcher
-#: thread while other threads read them
+#: thread while other threads read them, and a sweep's entry threads
+#: launch at once
 _COUNT_LOCK = threading.Lock()
+#: each thread's own launches by kernel entry (:func:`thread_launch_ledger`)
+_THREAD = threading.local()
 #: True once :func:`build` has compiled the kernel library in this
 #: process (False while it only loaded an existing build, or none)
 BUILT_HERE = False
@@ -532,6 +535,7 @@ def _cuda_solve(Z, F, keep_planes=False, planes=None):
                            f"(N={N}, batch shape={tuple(bshape)}, {Z.dtype})")
     with _COUNT_LOCK:
         KERNEL_LAUNCHES += 1
+    _tally("ge_solve")
     x = torch.complex(xr.T, xi.T).reshape(out_shape)
     return (x, planes) if keep_planes else x
 
@@ -564,6 +568,7 @@ def _cuda_solve_adj(planes, G):
                            f"cudaError {err} (N={N}, {B} systems)")
     with _COUNT_LOCK:
         ADJ_KERNEL_LAUNCHES += 1
+    _tally("ge_solve_adj")
     return torch.complex(xr.T, xi.T).reshape(G.shape)
 
 
@@ -635,6 +640,7 @@ def _cuda_solve_rows(Z, F, adjoint=False):
         else:
             KERNEL_LAUNCHES += 1
         ROW_KERNEL_LAUNCHES += 1
+    _tally("ge_solve_rows_adj" if adjoint else "ge_solve_rows")
     return x
 
 
@@ -660,9 +666,31 @@ def forward_launches():
 def launch_ledger():
     """The kernel's launches in this process, one count per entry:
     ``ge_solve`` (N <= 6), ``ge_solve_adj`` (its adjoint),
-    ``ge_solve_rows`` (N = 7-12) and ``ge_solve_rows_adj``."""
-    rows_fwd = ROW_KERNEL_LAUNCHES - ROW_ADJ_KERNEL_LAUNCHES
-    return {"ge_solve": KERNEL_LAUNCHES - rows_fwd,
-            "ge_solve_adj": ADJ_KERNEL_LAUNCHES - ROW_ADJ_KERNEL_LAUNCHES,
-            "ge_solve_rows": rows_fwd,
-            "ge_solve_rows_adj": ROW_ADJ_KERNEL_LAUNCHES}
+    ``ge_solve_rows`` (N = 7-12) and ``ge_solve_rows_adj`` (read under
+    the counters' lock)."""
+    with _COUNT_LOCK:
+        fwd, adj = KERNEL_LAUNCHES, ADJ_KERNEL_LAUNCHES
+        rows, rows_adj = ROW_KERNEL_LAUNCHES, ROW_ADJ_KERNEL_LAUNCHES
+    rows_fwd = rows - rows_adj
+    return {"ge_solve": fwd - rows_fwd, "ge_solve_adj": adj - rows_adj,
+            "ge_solve_rows": rows_fwd, "ge_solve_rows_adj": rows_adj}
+
+
+LEDGER_KEYS = ("ge_solve", "ge_solve_adj", "ge_solve_rows",
+               "ge_solve_rows_adj")
+
+
+def _tally(entry):
+    """One launch of ``entry`` on the calling thread's own ledger."""
+    counts = getattr(_THREAD, "counts", None)
+    if counts is None:
+        counts = _THREAD.counts = dict.fromkeys(LEDGER_KEYS, 0)
+    counts[entry] += 1
+
+
+def thread_launch_ledger():
+    """The kernel's launches made by the calling thread, by entry (the
+    keys of :func:`launch_ledger`): a sweep's entry thread reads its own
+    launches here, apart from its peers' on the same card."""
+    return dict(getattr(_THREAD, "counts", None)
+                or dict.fromkeys(LEDGER_KEYS, 0))

@@ -54,9 +54,17 @@ mesh or ``device=`` says ``"cpu"``) and the dtype policy.  A worker on
 ``"cuda"`` resolves its mesh through :func:`~raft_tpu_torch.parallel.
 resilience.resolve_mesh` (health probe, raise, never the CPU); on
 ``"cpu"`` it takes ``make_mesh(device="cpu")``.  With one card, every
-worker lands on ``cuda:0``.  One thing of the reference is refused
-rather than skipped: multi-host workers (``RAFT_TPU_DIST*`` set;
-ROADMAP A15(g); a worker raises).
+worker lands on ``cuda:0``.
+
+Multi-process workers: ``RAFT_TPU_DIST*`` and :func:`raft_tpu_torch.
+parallel.sweep.ensure_distributed` make one worker of a group of ranks
+with one global mesh (each rank's entries, in rank order).  Rank 0
+claims, renews, judges and writes, as a worker does; every sweep of a
+shard it runs on the global mesh (its retries and OOM halves included)
+it orders the other ranks to run too, and it sends them "stop" once the
+ledger is drained, and keep-alives while it waits for a lease
+(:class:`~raft_tpu_torch.parallel.resilience.RankOrders`).  The ledger
+needs nothing new: the other ranks never touch it.
 
 Cold start: an entry can name an AOT ``warmup`` spec — a worker pushes
 it through :func:`raft_tpu_torch.aot.warmup.warmup_model` before its
@@ -591,31 +599,44 @@ class Worker:
         # process emits carries worker=<id> (per-worker report tables)
         os.environ[config.env_name("WORKER_ID")] = self.worker_id
         self.held = set()
+        # rank 0's orders to the other ranks of a multi-process worker
+        # (set by run)
+        self.orders = None
         self.shards_done = 0
         self.shards_resumed = 0
         self.rows = 0
         self._renew_silenced = [False]
 
     def _setup_runtime(self, spec):
-        """Pin what decides the bits to the spec's (the dtype policy),
-        refuse multi-host wiring (ROADMAP A15(g)) and resolve the mesh:
-        the CUDA devices after the health probe (never the CPU), or one
-        CPU entry for a ``"cpu"`` spec."""
-        dist = sorted(k for k, v in os.environ.items()
-                      if k.startswith(config.PREFIX + "DIST")
-                      and v.strip() not in ("", "0"))
-        if dist:
-            raise NotImplementedError(
-                f"fabric worker started with {', '.join(dist)}: multi-host "
-                "workers are not ported yet (ROADMAP A15(g)); run every "
-                "worker on this host")
+        """Join the distributed job first (``RAFT_TPU_DIST``: before the
+        warm-up or the entry's evaluator touches a device, so the mesh
+        spans every rank), pin what decides the bits to the spec's (the
+        dtype policy) and resolve the mesh: the CUDA devices after the
+        health probe (never the CPU), or one CPU entry per rank for a
+        ``"cpu"`` spec."""
+        from raft_tpu_torch.parallel.sweep import (ensure_distributed,
+                                                   make_mesh)
+
+        ensure_distributed()
         if spec.get("dtype"):
             os.environ[config.env_name("DTYPE")] = spec["dtype"]
-        from raft_tpu_torch.parallel.sweep import make_mesh
-
         if spec.get("device", "cuda") == "cpu":
             return make_mesh(device="cpu")
         return resilience.resolve_mesh(make_mesh)
+
+    def _follow(self):
+        """A rank > 0 of a multi-process worker: run each sweep rank 0
+        orders on the global mesh until it sends "stop" (rank 0 alone
+        judges, writes and records the shards).  Returns the number of
+        shards run."""
+        n = 0
+        while True:
+            kind, payload = self.orders.follow(self.compute)
+            if kind == "stop":
+                return n
+            if kind == "error":
+                raise payload
+            n += 1
 
     def run(self):
         """Join the sweep: claim/evaluate/release until every shard has
@@ -636,14 +657,25 @@ class Worker:
         self.cases = cases
         self.ledger = Ledger(self.out_dir, self.n_shards,
                              worker_id=self.worker_id)
-        self.ledger.write_worker_status("starting")
         self.mesh = self._setup_runtime(spec)
+        from raft_tpu_torch.parallel import sweep
+
+        follower = False
+        if self.mesh.spans_ranks():
+            self.orders = resilience.RankOrders(
+                sweep.process_group(set(self.mesh.ranks.flat),
+                                    tag="orders"), self.mesh)
+            follower = sweep.dist_rank() != 0
+        if not follower:
+            self.ledger.write_worker_status("starting")
         warm = {}
         if spec.get("warmup") and config.get("AOT") != "off":
             warm = self._warmup(spec["warmup"])
         kwargs = dict(spec.get("entry_kwargs") or {})
         kwargs.setdefault("device", spec.get("device", "cuda"))
         self.compute = resolve_entry(spec["entry"], kwargs)["compute"]
+        if follower:
+            return self._follow()
         counters0 = dict(metrics.snapshot()["counters"])
         self._counters0 = counters0
         startup = _process_age_s()
@@ -671,10 +703,16 @@ class Worker:
             while True:
                 verdict, shard = self._scan_once()
                 if verdict == "done":
+                    if self.orders is not None:
+                        self.orders.send("stop")
                     break
                 if verdict == "wait":
                     if not self._renew_silenced[0]:
                         self.ledger.touch_worker()
+                    if self.orders is not None:
+                        # the other ranks wait for an order at most
+                        # the group's timeout
+                        self.orders.keepalive(sweep.DIST_TIMEOUT_S / 4)
                     time.sleep(poll_s)
                     continue
                 self._eval_shard(shard)
@@ -804,6 +842,8 @@ class Worker:
         return ("wait", None) if remaining else ("done", None)
 
     def _eval_shard(self, s):
+        from raft_tpu_torch.parallel.sweep import own_entry_mesh
+
         if faults.take("worker_kill", "worker_shard"):
             # simulate a preempted/OOM-killed host: no cleanup, no
             # lease release — recovery is the OTHER workers' job
@@ -830,15 +870,24 @@ class Worker:
         sl = slice(s * self.shard_size,
                    min((s + 1) * self.shard_size, self.n_cases))
         chunk = {k: v[sl] for k, v in self.cases.items()}
+        how = dict(
+            max_retries=int(self.spec.get("max_retries", 3)),
+            backoff_s=float(self.spec.get("backoff_s", 0.5)),
+            quarantine_retry=bool(self.spec.get("quarantine_retry", True)),
+            on_result=lambda out_, _e: resilience.atomic_savez(path, **out_))
+
+        def judge(compute, solo=None):
+            return resilience.evaluate_shard(
+                compute, chunk, s, sl.start, self.mesh, solo_mesh=solo,
+                **how)
+
         try:
-            out, entries, wall = resilience.evaluate_shard(
-                self.compute, chunk, s, sl.start, self.mesh,
-                max_retries=int(self.spec.get("max_retries", 3)),
-                backoff_s=float(self.spec.get("backoff_s", 0.5)),
-                quarantine_retry=bool(self.spec.get("quarantine_retry",
-                                                    True)),
-                on_result=lambda out_, _e: resilience.atomic_savez(
-                    path, **out_))
+            if self.orders is None:
+                out, entries, wall = judge(self.compute)
+            else:
+                out, entries, wall = self.orders.lead(
+                    lambda led: judge(led, own_entry_mesh(self.mesh)),
+                    self.compute)
             self.ledger.write_done(
                 s, wall_s=round(wall, 3), rows=sl.stop - sl.start,
                 attempt=self._lease_attempt(s),

@@ -608,7 +608,12 @@ def resolve_mesh(make_mesh, mesh=None):
         return mesh
     import torch
 
+    # a multi-process mesh: RAFT_TPU_DIST joins the torch.distributed job
+    # BEFORE the mesh is made, so make_mesh() spans every rank's devices
+    from raft_tpu_torch.parallel.sweep import ensure_distributed
     from raft_tpu_torch.utils.devices import probe_backend
+
+    ensure_distributed()
 
     forced = faults.take("unhealthy", "backend_probe")
     if forced:
@@ -700,7 +705,8 @@ def _dump_metrics(out_dir, manifest, counters0):
 
 
 def evaluate_shard(compute, chunk, shard, offset, mesh, max_retries=3,
-                   backoff_s=0.5, quarantine_retry=True, on_result=None):
+                   backoff_s=0.5, quarantine_retry=True, on_result=None,
+                   solo_mesh=None):
     """One shard's full fault-tolerant evaluation — the unit of work of
     the checkpointed runner (and of the fabric workers, so
     a fabric sweep judges and records a shard exactly like the serial
@@ -711,7 +717,9 @@ def evaluate_shard(compute, chunk, shard, offset, mesh, max_retries=3,
     ``on_result(out, entries)`` (the caller persists the shard inside
     the shard span so write time stays on the telemetry tree) ->
     counters + the ``shard_wall_s`` histogram (which feeds the fabric's
-    straggler-steal threshold).  Returns ``(out, entries, wall_s)``."""
+    straggler-steal threshold).  ``solo_mesh`` (default ``mesh``) is the
+    mesh of the quarantine's re-solves: on a mesh that spans processes,
+    the calling rank's own entry.  Returns ``(out, entries, wall_s)``."""
     rows = len(next(iter(chunk.values())))
     with span("shard", shard=shard, rows=rows):
         log_event("shard_start", shard=shard, rows=rows)
@@ -736,7 +744,8 @@ def evaluate_shard(compute, chunk, shard, offset, mesh, max_retries=3,
         entries = []
         if bad.size or flagged.size:
             out, entries = _quarantine_shard(
-                compute, chunk, out, bad, flagged, shard, offset, mesh,
+                compute, chunk, out, bad, flagged, shard, offset,
+                mesh if solo_mesh is None else solo_mesh,
                 retry_solo=quarantine_retry)
         if on_result is not None:
             on_result(out, entries)
@@ -784,7 +793,15 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
     atomic write -> manifest update.  Returns the dict of concatenated
     results; quarantined row indices/params are in
     ``<out_dir>/quarantine.json`` and the rows themselves are left
-    non-finite (aggregate nan-aware, or drop via the quarantine list)."""
+    non-finite (aggregate nan-aware, or drop via the quarantine list).
+
+    On a mesh that spans processes rank 0 alone judges each shard (its
+    retries, OOM halving and quarantine, the re-solves on its own
+    entry) and writes the shards, the manifest, the quarantine file and
+    the metrics; every sweep it runs on the global mesh the other ranks
+    run too, at its order (:class:`RankOrders`), and they receive its
+    resumed or final shard by broadcast: every rank returns the same
+    dict."""
     os.makedirs(out_dir, exist_ok=True)
     cases = {k: np.asarray(v) for k, v in cases.items()}
     lengths = {k: len(v) for k, v in cases.items()}
@@ -825,6 +842,14 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
 
     n = next(iter(lengths.values()))
     n_shards = (n + shard_size - 1) // shard_size
+    from raft_tpu_torch.parallel import sweep as _sweep
+
+    ranked = mesh is not None and mesh.spans_ranks()
+    lead = not ranked or _sweep.dist_rank() == 0
+    group = (_sweep.process_group(set(mesh.ranks.flat), tag="orders")
+             if ranked else None)
+    orders = RankOrders(group, mesh) if ranked else None
+    solo = _sweep.own_entry_mesh(mesh) if ranked else None
 
     fingerprint = compute_fingerprint(cases, out_keys, shard_size, mesh)
     progress = {"out_dir": out_dir, "shards_done": 0, "n_shards": n_shards}
@@ -834,7 +859,9 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
             span("sweep", out_dir=out_dir, n_cases=n, n_shards=n_shards), \
             maybe_heartbeat(devices=list(mesh.devices.flat),
                             progress=progress) as heartbeat:
-        manifest = init_manifest(out_dir, fingerprint, n_shards)
+        manifest = _from_lead(
+            group, lead, lambda: init_manifest(out_dir, fingerprint,
+                                               n_shards))
         log_event("sweep_start", out_dir=out_dir, n_cases=n,
                   n_shards=n_shards, shard_size=shard_size,
                   out_keys=list(out_keys),
@@ -849,38 +876,30 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
             path = os.path.join(out_dir, f"shard_{s:04d}.npz")
             sl = slice(s * shard_size, min((s + 1) * shard_size, n))
             rows = sl.stop - sl.start
-            if os.path.exists(path):
-                try:
-                    out = load_shard(path, out_keys, expect_rows=rows)
-                    results.append(out)
-                    resumed_flagged = len(flagged_rows(out))
-                    # rows still bad in the stored shard (NaN or severe
-                    # bits) ARE this sweep's quarantined rows even when
-                    # the shard resumed from disk — otherwise a resumed
-                    # run reports n_quarantined=0 while the shard data
-                    # and quarantine.json still carry the poison
-                    resumed_bad = len({int(i) for i in nonfinite_rows(out)}
-                                      | {int(i) for i in flagged_rows(out)})
-                    n_flagged += resumed_flagged
-                    n_quarantined += resumed_bad
-                    metrics.counter("shards_resumed").inc()
-                    metrics.counter("rows_flagged").inc(resumed_flagged)
-                    metrics.counter("rows_quarantined").inc(resumed_bad)
-                    log_event("shard_resume", shard=s, rows=rows)
-                    progress["shards_done"] = s + 1
-                    if on_shard is not None:
-                        on_shard(s + 1, n_shards, False)
-                    continue
-                except ShardCorruptError as e:
-                    # re-queue: a truncated/stale shard is recomputed,
-                    # not fatal
-                    metrics.counter("shards_corrupt").inc()
-                    log_event("shard_corrupt", shard=s, error=str(e)[:300])
-                    try:
-                        os.unlink(path)
-                    except OSError:
-                        pass
-            mark_shard(manifest, out_dir, s, "running")
+            out = _from_lead(group, lead, lambda: _resume_shard(
+                path, out_keys, rows, s))
+            if out is not None:
+                results.append(out)
+                resumed_flagged = len(flagged_rows(out))
+                # rows still bad in the stored shard (NaN or severe
+                # bits) ARE this sweep's quarantined rows even when the
+                # shard resumed from disk — otherwise a resumed run
+                # reports n_quarantined=0 while the shard data and
+                # quarantine.json still carry the poison
+                resumed_bad = len({int(i) for i in nonfinite_rows(out)}
+                                  | {int(i) for i in flagged_rows(out)})
+                n_flagged += resumed_flagged
+                n_quarantined += resumed_bad
+                metrics.counter("shards_resumed").inc()
+                metrics.counter("rows_flagged").inc(resumed_flagged)
+                metrics.counter("rows_quarantined").inc(resumed_bad)
+                log_event("shard_resume", shard=s, rows=rows)
+                progress["shards_done"] = s + 1
+                if on_shard is not None:
+                    on_shard(s + 1, n_shards, False)
+                continue
+            if lead:
+                mark_shard(manifest, out_dir, s, "running")
             chunk = {k: v[sl] for k, v in cases.items()}
 
             def persist(out_, entries_, _s=s, _path=path):
@@ -892,10 +911,22 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
                     record_quarantine(out_dir, _s, entries_)
                 atomic_savez(_path, **out_)
 
-            out, entries, wall = evaluate_shard(
-                compute, chunk, s, sl.start, mesh, max_retries=max_retries,
-                backoff_s=backoff_s, quarantine_retry=quarantine_retry,
-                on_result=persist)
+            if not lead:
+                kind, shard_run = orders.follow(compute)
+                if kind == "error":
+                    raise shard_run
+            elif orders is None:
+                shard_run = evaluate_shard(
+                    compute, chunk, s, sl.start, mesh,
+                    max_retries=max_retries, backoff_s=backoff_s,
+                    quarantine_retry=quarantine_retry, on_result=persist)
+            else:
+                shard_run = orders.lead(lambda led: evaluate_shard(
+                    led, chunk, s, sl.start, mesh,
+                    max_retries=max_retries, backoff_s=backoff_s,
+                    quarantine_retry=quarantine_retry, on_result=persist,
+                    solo_mesh=solo), compute)
+            out, entries, wall = shard_run
             # rows still bad after recovery/escalation (resolved
             # escalation entries are audit records, not quarantined rows)
             shard_quarantined = sum(
@@ -903,10 +934,11 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
             n_quarantined += shard_quarantined
             shard_flagged = len(flagged_rows(out))  # severe bits left
             n_flagged += shard_flagged
-            mark_shard(manifest, out_dir, s, "done",
-                       wall_s=round(wall, 3),
-                       quarantined=shard_quarantined,
-                       flagged=shard_flagged)
+            if lead:
+                mark_shard(manifest, out_dir, s, "done",
+                           wall_s=round(wall, 3),
+                           quarantined=shard_quarantined,
+                           flagged=shard_flagged)
             results.append(out)
             progress["shards_done"] = s + 1
             if on_shard is not None:
@@ -916,7 +948,8 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
             # terminal beat BEFORE the snapshot: the end-of-run memory
             # watermark must be inside metrics.json, not after it
             heartbeat.stop()
-        _dump_metrics(out_dir, manifest, counters0)
+        if lead:
+            _dump_metrics(out_dir, manifest, counters0)
         log_event("sweep_done", out_dir=out_dir, n_cases=n,
                   n_quarantined=n_quarantined, n_flagged=n_flagged,
                   wall_s=round(time.perf_counter() - t0, 3))
@@ -925,12 +958,127 @@ def run_checkpointed(compute, cases, out_dir, shard_size, mesh, out_keys,
         # never fatal otherwise) — what `obs runs regress` gates on
         from raft_tpu_torch.obs import runs as obs_runs
 
-        obs_runs.maybe_record(
-            "sweep", label=os.path.basename(os.path.normpath(out_dir)),
-            wall_s=time.perf_counter() - t0,
-            extra={"n_cases": n, "n_shards": n_shards,
-                   "n_quarantined": n_quarantined, "n_flagged": n_flagged})
+        if lead:
+            obs_runs.maybe_record(
+                "sweep", label=os.path.basename(os.path.normpath(out_dir)),
+                wall_s=time.perf_counter() - t0,
+                extra={"n_cases": n, "n_shards": n_shards,
+                       "n_quarantined": n_quarantined,
+                       "n_flagged": n_flagged})
     return {k: np.concatenate([r[k] for r in results]) for k in out_keys}
+
+
+def _resume_shard(path, out_keys, rows, s):
+    """The stored shard ``s`` when it is complete and valid (None when
+    it is absent; a corrupt one is removed, to be recomputed)."""
+    if not os.path.exists(path):
+        return None
+    try:
+        return load_shard(path, out_keys, expect_rows=rows)
+    except ShardCorruptError as e:
+        # re-queue: a truncated/stale shard is recomputed, not fatal
+        metrics.counter("shards_corrupt").inc()
+        log_event("shard_corrupt", shard=s, error=str(e)[:300])
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+        return None
+
+
+class RankOrders:
+    """Rank 0's orders to the other ranks of a mesh that spans
+    processes (the checkpointed drivers' and a distributed fabric
+    worker's).  Rank 0 alone judges a shard: it retries, halves on an
+    OOM and re-solves quarantined rows on its own entry.  Every sweep it
+    runs on the global mesh it first sends to the other ranks, which run
+    the same sweep, so the two sides' collectives pair up one for one
+    (a sweep's error reaches every rank: :func:`~raft_tpu_torch.
+    parallel.sweep._split_run`).  Every order is a broadcast over
+    ``group``, and a rank waits for the next one at most the group's
+    timeout, so rank 0 sends a keep-alive before it works alone (a
+    re-solve on its own entry) and while it waits for a lease
+    (:meth:`keepalive`)."""
+
+    def __init__(self, group, mesh):
+        self.group, self.mesh = group, mesh
+        self._sent = time.monotonic()
+
+    def send(self, kind, payload=None):
+        """Rank 0: send ``(kind, payload)`` to the other ranks."""
+        import torch.distributed as dist
+
+        dist.broadcast_object_list([(kind, payload)], src=0,
+                                   group=self.group)
+        self._sent = time.monotonic()
+
+    def keepalive(self, every_s=None):
+        """Rank 0: an ``alive`` order, when ``every_s`` seconds (None:
+        none) have passed since the last order."""
+        if every_s is None or time.monotonic() - self._sent >= every_s:
+            self.send("alive")
+
+    def lead(self, fn, compute):
+        """Rank 0: ``fn(led)``, where ``led`` is ``compute`` that sends
+        each call on the global mesh to the other ranks first (and a
+        keep-alive before any other call); then ``done`` with the
+        result, or ``error`` with the exception, which is raised."""
+        def led(chunk, mesh):
+            if mesh is self.mesh:
+                self.send("compute", chunk)
+            else:
+                self.keepalive()
+            return compute(chunk, mesh)
+
+        from raft_tpu_torch.parallel.sweep import portable_error
+
+        try:
+            result = fn(led)
+        except Exception as e:
+            self.send("error", portable_error(e))
+            raise
+        self.send("done", result)
+        return result
+
+    def follow(self, compute):
+        """A rank > 0: run each sweep rank 0 orders on the global mesh,
+        until an order of another kind than ``compute`` or ``alive``,
+        which it returns as ``(kind, payload)``.  A sweep's error is
+        rank 0's as well, and rank 0 orders what follows (a retry, the
+        halves, or ``error``)."""
+        import torch.distributed as dist
+
+        while True:
+            box = [None]
+            dist.broadcast_object_list(box, src=0, group=self.group)
+            kind, payload = box[0]
+            if kind == "compute":
+                with contextlib.suppress(Exception):
+                    compute(payload, self.mesh)
+            elif kind != "alive":
+                return kind, payload
+
+
+def _from_lead(group, lead, fn):
+    """``fn()`` run on rank 0 and its result (or its exception) sent to
+    every rank of ``group``, with a barrier (``group`` None: ``fn()`` on
+    the calling process alone)."""
+    if group is None:
+        return fn()
+    import torch.distributed as dist
+
+    box = [None]
+    if lead:
+        try:
+            box[0] = ("ok", fn())
+        except Exception as e:  # raised again on every rank below
+            box[0] = ("error", e)
+    dist.broadcast_object_list(box, src=0, group=group)
+    dist.barrier(group=group)
+    kind, value = box[0]
+    if kind == "error":
+        raise value
+    return value
 
 
 def _quarantine_shard(compute, chunk, out, bad, flagged, shard, offset, mesh,

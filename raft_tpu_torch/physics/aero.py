@@ -888,7 +888,7 @@ def kaimal_rot_psd_traced(w, V_ref, I_ref, hub_height, R_rot,
 
 def calc_aero_traced(rot, rprops, w, speed, heading_rad, TI,
                      yaw_command_rad=None, turbine_heading_rad=None,
-                     turb_static=("NTM", 50.0)):
+                     turb_static=("NTM", 50.0), dw=None):
     """Aero-servo coefficients about the rotor node for R rows of
     (speed, heading_rad, TI, yaw_command_rad), each (R,).
 
@@ -898,11 +898,13 @@ def calc_aero_traced(rot, rprops, w, speed, heading_rad, TI,
     aerodynamic added mass and damping (aeroServoMod 1: the thrust
     slope; 2: with the PI pitch/torque control transfer function), the
     gyroscopic damping and the rotor axis, with the operating point
-    they were taken at."""
+    they were taken at.  ``dw``, the grid's bin width (default ``w[1] -
+    w[0]``), is given where ``w`` is a slice of the grid."""
     rt = _as_tensors(rot, speed)
     nw = w.shape[0]
     R = speed.shape[0]
-    dw = w[1] - w[0]
+    if dw is None:
+        dw = w[1] - w[0]
     zero = torch.zeros_like(speed)
     yaw_cmd = zero if yaw_command_rad is None else yaw_command_rad
     turb_head = zero if turbine_heading_rad is None else turbine_heading_rad

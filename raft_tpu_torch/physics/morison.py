@@ -33,6 +33,7 @@ import torch
 from raft_tpu_torch.ops import scatter
 from raft_tpu_torch.ops import transforms as tf
 from raft_tpu_torch.ops import waves as wv
+from raft_tpu_torch.parallel import freq
 from raft_tpu_torch.utils import ad
 
 
@@ -377,12 +378,14 @@ def hydro_excitation(fs, ss, hc, zeta, beta, w, k, Tn, r_nodes):
     F_strip = Imat @ ud + pDyn a_i q on submerged active strips,
     translated to the nodes and T-reduced.  zeta (R, nw) complex,
     beta (R,), k (R, nw).  Returns dict with F_hydro_iner (R, 6, nw)
-    and the kinematics u, ud (R, S, 3, nw), pDyn (R, S, nw).
+    and the kinematics u, ud (R, S, 3, nw), pDyn (R, S, nw).  On a split
+    frequency axis (:mod:`raft_tpu_torch.parallel.freq`) zeta, w and k
+    are the entry's slice and ``hc["Imat"]`` the whole grid's.
     """
     r, q = hc["r"], hc["q"]
     u, ud, pDyn = wv.wave_kinematics(zeta, beta, w, k, fs.depth, r,
                                      rho=fs.rho_water, g=fs.g)
-    F3 = (torch.einsum("rsijw,rsjw->rsiw", hc["Imat"], ud)
+    F3 = (torch.einsum("rsijw,rsjw->rsiw", freq.take(hc["Imat"]), ud)
           + pDyn[:, :, None, :] * (hc["a_i"][..., None] * q)[..., None])
     F3 = torch.where(hc["active"][:, :, None, None], F3, 0.0)
     r_off = r - gather_nodes(r_nodes, ss.node)
@@ -481,12 +484,14 @@ def drag_lin_iter(pre, Xi):
         # circular strips take vRMS_p_tot: their per-axis sums, which may
         # be exactly 0, never reach the sqrt (a zero there would give
         # the masked branch a NaN derivative)
-        s2 = torch.where(pre["circ"], 1.0, torch.sum(a2(x), dim=-1))
+        s2 = torch.where(pre["circ"], 1.0, freq.wsum(a2(x), dim=-1))
         return torch.sqrt(0.5 * s2)
 
-    vq2 = torch.sum(a2(vq_c), dim=-1)                        # (R, S)
+    # the sums over the frequencies are the fixed point's couplings
+    # across a split frequency axis (raft_tpu_torch.parallel.freq)
+    vq2 = freq.wsum(a2(vq_c), dim=-1)                        # (R, S)
     vRMS_q = torch.sqrt(0.5 * vq2)
-    tot2 = torch.sum(a2(vrel), dim=(-2, -1))
+    tot2 = freq.wsum(a2(vrel), dim=(-2, -1))
     vRMS_p_tot = torch.sqrt(0.5 * torch.clamp(tot2 - vq2, min=0.0))
     vRMS_p1 = torch.where(pre["circ"], vRMS_p_tot, rms(vp1_c))
     vRMS_p2 = torch.where(pre["circ"], vRMS_p_tot, rms(vp2_c))

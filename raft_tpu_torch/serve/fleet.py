@@ -104,6 +104,10 @@ class FleetLedger:
         self.root = root
         self.replica_id = replica_id
         self.token = uuid.uuid4().hex
+        # what this replica's seize installed and the token it displaced
+        # (None: it claimed, or seized no one's)
+        self._seized = None
+        self._displaced = None
         # NO mkdir here: read-side users (fleet --status, the router's
         # prober) must not conjure a ledger tree under a typo'd path —
         # the write path (claim) creates it
@@ -157,10 +161,18 @@ class FleetLedger:
         is the old process drained; the old owner's renew/release no-op
         on the token mismatch.  Outside a rollout, prefer :meth:`claim`
         — seizing a healthy stranger's lease is an operator error this
-        method will happily commit."""
+        method will happily commit.
+
+        A renewal of the displaced owner that read the lease before this
+        rewrite writes its own record back after it (a lost update: the
+        seize would never show).  This replica's :meth:`renew` then
+        takes the lease again, while the displaced owner's next renewal
+        reads this token and stops."""
         fsops.makedirs(_replicas_dir(self.root), exist_ok=True)
         prev, _ = self.read(self.replica_id)
         rec = self._record(port, host, designs, buckets, healthz, out_keys)
+        self._seized = dict(rec)
+        self._displaced = (prev or {}).get("token")
         lease_rewrite(_lease_path(self.root, self.replica_id), rec)
         metrics.counter("fleet_takeovers").inc()
         log_event("replica_takeover", replica=self.replica_id,
@@ -172,8 +184,17 @@ class FleetLedger:
         """Refresh ``renewed_t`` (+ the health snapshot); False when
         the lease is no longer this replica's (evicted or released) —
         the renewer does NOT re-claim: an evicted replica rejoining
-        must go through the explicit join path."""
+        must go through the explicit join path.  After a :meth:`seize`,
+        a lease that holds the displaced owner's token again (its
+        renewal wrote over the seize) is taken again."""
         rec, _ = self.read(self.replica_id)
+        if (rec and self._displaced is not None
+                and rec.get("token") == self._displaced):
+            prev_port = rec.get("port")
+            rec = dict(self._seized)
+            log_event("replica_takeover", replica=self.replica_id,
+                      port=int(rec["port"]), prev_port=prev_port,
+                      root=self.root)
         if not rec or rec.get("token") != self.token:
             return False
         rec["renewed_t"] = time.time()

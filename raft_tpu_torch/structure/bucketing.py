@@ -36,6 +36,7 @@ from raft_tpu_torch.models.dynamics import (fused_response_enabled,
 from raft_tpu_torch.models.statics_solve import (MooringClosure,
                                                  solve_equilibrium_general)
 from raft_tpu_torch.ops import waves as wv
+from raft_tpu_torch.parallel import freq
 from raft_tpu_torch.physics import morison
 from raft_tpu_torch.physics.mooring import MooringSystem
 from raft_tpu_torch.physics.statics import node_T, platform_kinematics
@@ -569,7 +570,12 @@ class BucketEvaluator(nn.Module):
         rdt = _compute_dtype(K_h)
         R = K_h.shape[0]
         dev = K_h.device
-        w = self.w.to(rdt)
+        # on a split frequency axis (raft_tpu_torch.parallel.freq) every
+        # per-frequency term is this entry's slice; the spectrum is
+        # taken whole first, as the second-order forces need it whole
+        w_whole = self.w.to(rdt)
+        w = freq.take(w_whole)
+        nw = w.shape[0]
         nH = Hs.shape[1]
         fsb = site_of(d, self.N)
         ss = strips_of(d)
@@ -586,24 +592,26 @@ class BucketEvaluator(nn.Module):
             hc = hydro(fsb, ss, R_ptfm, r_nodes, Tn)
 
         # ---- sea states + excitation, one per heading
-        S_spec = wv.jonswap(w, Hs, Tp, gamma=gamma)           # (R, nH, nw)
+        S_whole = wv.jonswap(w_whole, Hs, Tp, gamma=gamma)
+        S_spec = freq.take(S_whole)                           # (R, nH, nw)
         zeta = wv.amplitudes(S_spec, self.dw).to(_policy_cdt(K_h))
+        k = freq.take(d["k"])
         exc = [morison.hydro_excitation(fsb, ss, hc, zeta[:, ih],
-                                        beta[:, ih], w, d["k"], Tn, r_nodes)
+                                        beta[:, ih], w, k, Tn, r_nodes)
                for ih in range(nH)]
         mark("excitation")
         qtf = None if lin is None else lin.get("qtf")
         F_2 = None
         if qtf is not None:
-            F_2nd_mean, F_2 = _hydro_force_2nd_rows(qtf, beta, S_spec,
+            F_2nd_mean, F_2 = _hydro_force_2nd_rows(qtf, beta, S_whole,
                                                     self.dw)
-            F_2 = F_2.to(zeta.dtype)
+            F_2 = freq.take(F_2).to(zeta.dtype)
             mark("second_order")
 
         # ---- drag-linearised impedance solve, driven by the first heading
         M_lin = (d["M_struc"] + hc["A_hydro"])[..., None].expand(
-            R, 6, 6, self.nw)
-        B_lin = torch.zeros((R, 6, 6, self.nw), dtype=rdt, device=dev)
+            R, 6, 6, nw)
+        B_lin = torch.zeros((R, 6, 6, nw), dtype=rdt, device=dev)
         C_lin = K_h + C_moor
         F_pot = None
         if lin is not None:
@@ -703,5 +711,6 @@ def get_bucket_evaluator(sig, device=None):
     key = (sig, str(device))
     ev = _EVALUATORS.get(key)
     if ev is None:
-        ev = _EVALUATORS[key] = BucketEvaluator(sig, device)
+        # a sweep's entry threads may miss at once: one evaluator wins
+        ev = _EVALUATORS.setdefault(key, BucketEvaluator(sig, device))
     return ev

@@ -400,6 +400,20 @@ _register(
     Flag("WORKER_ID", "raw", "",
          help="fabric worker id stamped as 'worker' on every "
               "structured-log record"),
+    # -- multi-process meshes (raft_tpu_torch.parallel.sweep.
+    #    ensure_distributed, run by resilience.resolve_mesh and the
+    #    fabric worker)
+    Flag("DIST", "bool", False,
+         help="join a torch.distributed job (init_process_group over "
+              "tcp://DIST_COORDINATOR) before mesh construction: the "
+              "mesh spans every process's devices"),
+    Flag("DIST_COORDINATOR", "str", "localhost:12765",
+         help="torch.distributed rendezvous address host:port (rank 0 "
+              "listens there)"),
+    Flag("DIST_PROCESS_ID", "int", 0,
+         help="this process's rank in the distributed job"),
+    Flag("DIST_NUM_PROCESSES", "int", 1,
+         help="total process count (world size) of the distributed job"),
     Flag("PROFILE", "str", "",
          help="when set, a checkpointed sweep writes a torch.profiler "
               "Chrome trace into this directory; telemetry spans mirror "

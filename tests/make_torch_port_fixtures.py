@@ -196,6 +196,12 @@ in shards of :data:`SWEEP_SHARD` rows:
   of :func:`quarantine_design` (``RAFT_TPU_ESCALATE=retol``) and its
   ``quarantine.json`` entries (about 5 min in all).
 
+With ``--mesh`` (a process of its own: JAX gets 4 CPU devices) it
+writes ``golden_mesh_full_{spar,semi_wind}.npz``: the JAX
+``sweep_cases_full(..., shard_freq=True)`` of each set's full evaluator
+over its 8 golden rows on a (dp, sp) = (2, 2) mesh, the frequency axis
+of PSD and Xi split in two (about 2 min).
+
 With ``--serve`` it writes ``golden_serve_<name>.npz`` for the three
 demos: the JAX serving engine's own ``raft_tpu.serve.engine.dispatch``
 (float64, one CPU device, the design registered from its dict) over
@@ -223,6 +229,7 @@ Run from the repository root::
         --omdao [set ...]
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --sweeps
     JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --serve
+    JAX_PLATFORMS=cpu python tests/make_torch_port_fixtures.py --mesh
 
 It writes ``tests/fixtures/torch_port/*`` (with ``--geometry`` only the
 geometry and gradient goldens, or the named parts of them).
@@ -3494,6 +3501,55 @@ def write_sweep_fixtures():
         print(f"wrote {fname}")
 
 
+#: the frequency-axis goldens: the sets, their out keys and the JAX mesh
+#: (dp, sp) = (2, 2) of 4 CPU devices
+MESH_SETS = ("spar", "semi_wind")
+MESH_OUT_KEYS = ("PSD", "Xi", "X0", "status", "n_iter_drag")
+MESH_DEVICES = 4
+
+
+def build_mesh_goldens():
+    """``{file name: content}`` of the frequency-axis goldens: the JAX
+    ``sweep_cases_full(..., shard_freq=True)`` of the spar's and
+    semi_wind's full evaluator over their 8 golden rows on a (dp, sp) =
+    (2, 2) CPU mesh (the process must not have initialised JAX before:
+    the device count is an XLA flag)."""
+    import numpy as np
+
+    flags = os.environ.get("XLA_FLAGS", "")
+    if "xla_force_host_platform_device_count" not in flags:
+        os.environ["XLA_FLAGS"] = (
+            flags + f" --xla_force_host_platform_device_count="
+            f"{MESH_DEVICES}").strip()
+    _jax()
+    import raft_tpu
+    from raft_tpu.api import make_full_evaluator
+    from raft_tpu.parallel.sweep import make_mesh, sweep_cases_full
+
+    mesh = make_mesh(MESH_DEVICES, axis_names=("dp", "sp"))
+    if dict(mesh.shape) != {"dp": 2, "sp": 2}:
+        raise RuntimeError("the mesh goldens need 4 JAX CPU devices: run "
+                           "--mesh in a process of its own")
+    files = {}
+    for name in MESH_SETS:
+        rows = full_rows(name)
+        ev = make_full_evaluator(raft_tpu.Model(full_design(name)),
+                                 nWaves=FULL_SETS[name])
+        out = sweep_cases_full(ev, rows, mesh=mesh, out_keys=MESH_OUT_KEYS,
+                               shard_freq=True)
+        files[f"golden_mesh_full_{name}.npz"] = dict(
+            rows, **{k: np.asarray(v) for k, v in out.items()})
+    return files
+
+
+def write_mesh_fixtures():
+    import numpy as np
+
+    for fname, content in build_mesh_goldens().items():
+        np.savez_compressed(os.path.join(OUT_DIR, fname), **content)
+        print(f"wrote {fname}")
+
+
 #: the serve goldens: the padded batch sizes (rungs) dispatched, the
 #: requests per rung (each rung padded by repeating its last request),
 #: the seed of their sea states and the case every rung starts with
@@ -3592,6 +3648,9 @@ def main():
     if sys.argv[1:] == ["--serve"]:
         write_serve_fixtures()
         return
+    if sys.argv[1:] == ["--mesh"]:
+        write_mesh_fixtures()
+        return
     for name in DESIGNS:
         pk, gd = build_fixtures(name)
         np.savez_compressed(os.path.join(OUT_DIR, f"packed_{name}.npz"), **pk)
@@ -3619,6 +3678,7 @@ def main():
     write_omdao_fixtures()
     write_sweep_fixtures()
     write_serve_fixtures()
+    write_mesh_fixtures()
 
 
 if __name__ == "__main__":

@@ -10,7 +10,7 @@ in-process, no worker subprocess (those are in
 * ``resolve_entry``'s ``module:callable`` and ``path.py:callable``
   forms; ``init_sweep``'s spec, manifest and case file; a spec with an
   AOT ``warmup`` carried for the workers, a worker under
-  ``RAFT_TPU_DIST`` refused (A15(g));
+  ``RAFT_TPU_DIST`` joining the distributed job first;
 * format parity with the JAX package: a ledger laid out by
   ``raft_tpu.parallel.fabric`` is read by the port's ``Ledger`` with the
   same ``summary()``, and the other way round;
@@ -263,13 +263,17 @@ def test_init_sweep_spec_manifest_and_refusals(tmp_path, log_path,
     with pytest.raises(ValueError, match="device"):
         fabric.init_sweep(str(tmp_path / "d"), f"{HERE}:toy_entry", cases,
                           ("X0",), 4, device="tpu")
-    # a worker under the reference's multi-host variables refuses (A15(g));
-    # a Worker stamps RAFT_TPU_WORKER_ID into the process environment (as
-    # the reference's does), so the variable is set through monkeypatch
+    # a worker under the reference's multi-process variables joins the
+    # torch.distributed job first: ensure_distributed's validation runs
+    # (the two-rank worker itself: tests/test_torch_dist.py); a Worker
+    # stamps RAFT_TPU_WORKER_ID into the process environment (as the
+    # reference's does), so the variable is set through monkeypatch
     # first and its teardown removes it again
     monkeypatch.setenv("RAFT_TPU_WORKER_ID", "x")
     monkeypatch.setenv("RAFT_TPU_DIST", "1")
-    with pytest.raises(NotImplementedError, match=r"A15\(g\)"):
+    monkeypatch.setenv("RAFT_TPU_DIST_PROCESS_ID", "2")
+    monkeypatch.setenv("RAFT_TPU_DIST_NUM_PROCESSES", "2")
+    with pytest.raises(ValueError, match="PROCESS_ID=2 out of range"):
         fabric.Worker(out_dir, worker_id="x")._setup_runtime(spec)
     monkeypatch.delenv("RAFT_TPU_DIST")
     mesh = fabric.Worker(out_dir, worker_id="x")._setup_runtime(spec)

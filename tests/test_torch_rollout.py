@@ -410,6 +410,39 @@ def test_fleet_seize_takes_over_lease(tmp_path):
     assert sorted(FleetLedger(str(tmp_path)).live()) == ["r0"]
 
 
+def test_seize_outlasts_the_displaced_owners_inflight_renewal(tmp_path):
+    """The old owner's renewal reads its lease, the seize lands, then
+    the renewal writes the old record back (a lost update): the seizer's
+    next renewal takes the lease again, and the old owner's next one
+    stops."""
+    from raft_tpu_torch.serve.fleet import FleetLedger
+
+    old = FleetLedger(str(tmp_path), replica_id="r0")
+    assert old.claim(port=1000, designs={"spar": {}})
+    new = FleetLedger(str(tmp_path), replica_id="r0")
+    read = old.read
+
+    def read_then_seize(rid):
+        got = read(rid)
+        assert new.seize(port=2000, designs={"spar": {}})
+        return got
+
+    old.read = read_then_seize
+    assert old.renew()          # wrote over the seize
+    del old.read
+    assert old.read("r0")[0]["token"] == old.token
+    assert new.renew()          # takes the lease again
+    rec = new.read("r0")[0]
+    assert rec["token"] == new.token and rec["port"] == 2000
+    assert not old.renew()
+    assert FleetLedger(str(tmp_path)).live()["r0"]["token"] == new.token
+    # a lease of a third owner is not the displaced one's: no re-seize
+    third = FleetLedger(str(tmp_path), replica_id="r0")
+    assert third.seize(port=3000, designs={"spar": {}})
+    assert not new.renew()
+    assert new.read("r0")[0]["token"] == third.token
+
+
 # ------------------------------------------------- slow: the real drill
 
 

@@ -24,8 +24,8 @@ a 2-device CPU mesh, shards of 3 rows):
   of ``fowt_qtf_slender`` and of ``golden_qtf_slender.npz``;
 * the evaluator twin (built by the same factory for another device or
   dtype policy) gives the bits of a fresh evaluator; the mesh layouts
-  and refusals (an ``sp`` axis, no CUDA, an unstamped evaluator bound
-  elsewhere).
+  (a plain function's sp group runs on its first entry) and refusals
+  (no CUDA, an unstamped evaluator bound elsewhere).
 """
 
 import json
@@ -302,12 +302,20 @@ def test_twin_evaluator_gives_a_fresh_evaluators_bits(monkeypatch):
 def test_mesh_layouts_and_refusals(monkeypatch):
     m = mesh(4)
     assert m.shape == {"dp": 4} and m.devices.size == 4
-    assert [str(d) for d in tsweep._dp_devices(m)] == ["cpu"] * 4
+    assert [str(d) for d in tsweep._grid(m.devices, m)[:, 0]] == ["cpu"] * 4
     m2 = tsweep.make_mesh(4, axis_names=("dp", "sp"), device="cpu")
     assert m2.shape == {"dp": 2, "sp": 2}
-    with pytest.raises(NotImplementedError, match="A15"):
-        tsweep.sweep_cases_full(lambda Hs: {"X0": Hs}, {"Hs": np.ones(2)},
-                                mesh=m2, out_keys=("X0",))
+    # a plain function has no frequency grid: each sp group runs its dp
+    # block on its first entry, shard_freq or not
+    for shard_freq in (False, True):
+        out = tsweep.sweep_cases_full(lambda Hs: {"X0": Hs * 3},
+                                      {"Hs": np.arange(4.0)}, mesh=m2,
+                                      out_keys=("X0",),
+                                      shard_freq=shard_freq)
+        np.testing.assert_array_equal(out["X0"], 3 * np.arange(4.0))
+        assert [(e["dp"], e["sp"], e["rows"], e["freq"])
+                for e in tsweep.last_entries()] == [
+                    (0, 0, (0, 2), None), (1, 0, (2, 4), None)]
     m3 = tsweep.make_mesh(3, axis_names=("dp", "sp"), device="cpu")
     assert m3.shape == {"dp": 3, "sp": 1}
     out = tsweep.sweep_cases_full(lambda Hs: {"X0": Hs * 2},
